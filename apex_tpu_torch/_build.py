@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # launches per kernel, read by InferenceEngine.stats() and chip_smoke.py
-launches = {"paged_read": 0, "dequant_gemm": 0}
+launches = {"paged_read": 0, "dequant_gemm": 0, "layer_norm_bwd": 0,
+            "dropout": 0, "flash_fwd": 0, "flash_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -108,7 +109,7 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 
 _SIGNATURES = {
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, q_positions,
@@ -121,6 +122,19 @@ _SIGNATURES = {
     "dequant_gemm": [_VP] * 5 + [_I] * 4 + [_VP],
     # M, K, N, &k_chunk -> number of K splits
     "dequant_gemm_splits": [_I] * 3 + [ctypes.POINTER(_I)],
+    # g, x, w, dx, dw, db, workspace, rows, H, dtype, eps, rms, stream
+    "layer_norm_bwd": [_VP] * 7 + [_I] * 3 + [_F, _I, _VP],
+    # rows, H -> number of row blocks (sizes the workspace)
+    "layer_norm_bwd_blocks": [_I] * 2,
+    # x, y, n, dtype, seed, threshold, scale, stream
+    "fused_dropout": [_VP, _VP, ctypes.c_longlong, _I, _U, _U, _F, _VP],
+    # q, k, v, key_mask, out, lse, B, S, NH, D, dtype, scale, causal,
+    # dropout, seed, threshold, inv_keep, stream
+    "flash_attn_fwd": [_VP] * 6 + [_I] * 5 + [_F, _I, _I, _U, _U, _F, _VP],
+    # q, k, v, key_mask, dout, lse, delta, dq, dk, dv, B, S, NH, D, dtype,
+    # scale, causal, dropout, seed, threshold, inv_keep, stream
+    "flash_attn_bwd": [_VP] * 10 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
+                                                _VP],
 }
 
 

@@ -1,0 +1,53 @@
+"""The amp handle: scalers, ``scale_loss``, ``update_scale`` and the
+checkpoint surface (counterpart of :mod:`apex_tpu.amp.handle`)."""
+
+from __future__ import annotations
+
+from typing import List
+
+from apex_tpu_torch.amp.scaler import LossScaler, ScalerState
+
+
+class AmpHandle:
+    def __init__(self, properties, scalers: List[LossScaler]):
+        self._properties = properties
+        self.scalers = scalers
+        # the last state of each scaler, for state_dict()
+        self.scaler_states = [s.init() for s in scalers]
+
+    @property
+    def opt_level(self):
+        return self._properties.opt_level
+
+    @property
+    def properties(self):
+        return self._properties
+
+    def init_state(self, loss_id: int = 0) -> ScalerState:
+        return self.scalers[loss_id].init()
+
+    def scaler(self, loss_id: int = 0) -> LossScaler:
+        return self.scalers[loss_id]
+
+    def scale_loss(self, loss, state: ScalerState, loss_id: int = 0):
+        """The scaled loss to call ``backward()`` on; its gradients stay
+        scaled (the optimizer unscales them in its own reads)."""
+        return self.scalers[loss_id].scale(loss, state)
+
+    def update_scale(self, state: ScalerState, found_inf,
+                     loss_id: int = 0) -> ScalerState:
+        new = self.scalers[loss_id].update(state, found_inf)
+        self.scaler_states[loss_id] = new
+        return new
+
+    def state_dict(self):
+        return {f"loss_scaler{i}": st._asdict()
+                for i, st in enumerate(self.scaler_states)}
+
+    def load_state_dict(self, state_dict):
+        for i, scaler in enumerate(self.scalers):
+            entry = state_dict[f"loss_scaler{i}"]
+            self.scaler_states[i] = ScalerState(
+                float(entry["loss_scale"]), int(entry["unskipped"]),
+                int(entry.get("steps_skipped", 0)),
+                int(entry.get("hysteresis", scaler.hysteresis)))

@@ -1,0 +1,125 @@
+// Fused elementwise dropout (kernel B3), CUDA C++ for Hopper (sm_90a).
+//
+// Replaces: apex_tpu/ops/dropout.py::_kernel (wrapper _call), the Pallas
+// TPU dropout behind fused_dropout and the models' hidden-dropout sites.
+//
+// Computes y[i] = bits(seed, i) < threshold ? T(float(x[i]) * scale) : 0
+// for a contiguous fp32 or bf16 tensor, where bits(seed, i) is element i
+// of the Philox4x32-10 stream (csrc/philox.cuh), threshold is
+// keep_threshold(rate) and scale is 1 / (1 - rate) already rounded to T
+// by the caller (the JAX kernel multiplies by the weakly typed Python
+// constant, which JAX rounds to x's dtype first). The backward is this
+// kernel on the gradient with the same seed: the mask is replayed, never
+// stored.
+//
+// What bounds it on the H100: one read and one write of x (bf16 BERT-large
+// site: 16 x 512 x 1024 elements, 33.5 MB, ~10 us at 3.35 TB/s). Philox
+// costs ~40 integer operations per four elements, far below the memory
+// time.
+//
+// Design: a grid-stride loop over groups of four elements; one Philox call
+// gives the four elements' bits. Where the tensor is 16-byte aligned and
+// the group is whole, the four elements move as one vector (8 bytes bf16,
+// 16 bytes fp32).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
+struct Vec4;  // four elements moved as one load/store
+template <>
+struct Vec4<float> {
+  using type = float4;
+};
+template <>
+struct Vec4<__nv_bfloat16> {
+  using type = uint2;
+};
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
+                   unsigned int seed, unsigned int threshold, float scale) {
+  const long long groups = (n + 3) / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long g = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       g < groups; g += stride) {
+    const uint4 r = philox4x32_10(static_cast<unsigned long long>(g), seed);
+    const unsigned int bits[4] = {r.x, r.y, r.z, r.w};
+    const long long base = g * 4;
+    if (VEC && base + 4 <= n) {
+      using V = typename Vec4<T>::type;
+      V raw = *reinterpret_cast<const V*>(x + base);
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        e[j] = from_f32<T>(bits[j] < threshold ? to_f32(e[j]) * scale : 0.f);
+      *reinterpret_cast<V*>(y + base) = raw;
+    } else {
+      for (int j = 0; j < 4 && base + j < n; ++j)
+        y[base + j] = from_f32<T>(
+            bits[j] < threshold ? to_f32(x[base + j]) * scale : 0.f);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, void* y, long long n, unsigned int seed,
+           unsigned int threshold, float scale, cudaStream_t stream) {
+  const long long groups = (n + 3) / 4;
+  int sms = 132;
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long blocks = (groups + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sms) * 8;
+  if (blocks > cap) blocks = cap;
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const T* xs = static_cast<const T*>(x);
+  T* ys = static_cast<T*>(y);
+  if (vec)
+    dropout_kernel<T, true><<<(int)blocks, kThreads, 0, stream>>>(
+        xs, ys, n, seed, threshold, scale);
+  else
+    dropout_kernel<T, false><<<(int)blocks, kThreads, 0, stream>>>(
+        xs, ys, n, seed, threshold, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype codes: 0 float32, 1 bfloat16. x and y contiguous, n elements.
+extern "C" int fused_dropout(const void* x, void* y, long long n, int dtype,
+                             unsigned int seed, unsigned int threshold,
+                             float scale, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(x, y, n, seed, threshold, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, y, n, seed, threshold, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,3 +1,10 @@
+from apex_tpu_torch.models.bert import (
+    BertConfig,
+    BertForPreTraining,
+    BertModel,
+    pretraining_loss,
+)
+from apex_tpu_torch.models.bert import load_jax_params as load_bert_jax_params
 from apex_tpu_torch.models.gpt import (
     WEIGHT_QUANT_MODES,
     GPTConfig,
@@ -12,13 +19,18 @@ from apex_tpu_torch.models.gpt import (
 )
 
 __all__ = [
+    "BertConfig",
+    "BertForPreTraining",
+    "BertModel",
     "GPTConfig",
     "GPTLMHeadModel",
     "GPTModel",
     "QuantLinear",
     "WEIGHT_QUANT_MODES",
     "gpt_param_bytes",
+    "load_bert_jax_params",
     "load_jax_params",
+    "pretraining_loss",
     "quantize_dense_kernel",
     "quantize_gpt_model",
     "quantize_gpt_params",

@@ -1,0 +1,364 @@
+"""BERT pretraining model (counterpart of :mod:`apex_tpu.models.bert`).
+
+The same modules, parameter names and math as the JAX package: three flat
+``(B, S, H)`` projections feeding the transpose-free flash attention
+(kernels B4/B5) at ``S >= flash_min_seq``, fused hidden dropout (kernel
+B3) at 49 sites in BERT-large, FusedLayerNorm with kernel B1 as its
+backward, tanh-approximate GELU, LN eps 1e-12, Dense layers that compute
+in ``cfg.dtype`` from fp32-stored params, per-layer activation
+checkpointing when ``cfg.remat``, and the MLPerf gathered-predictions MLM
+head (``masked_positions``).
+
+Dropout seeds are host ints drawn from the ``torch.Generator`` the caller
+passes, all of them before any checkpointed layer runs (see
+:mod:`apex_tpu_torch.models._dropout`).
+
+Not ported yet: the composed-softmax attention below ``flash_min_seq``
+(kernels B6-B8), the ``"dots"`` remat policy, tensor and sequence
+parallelism, and ``fused_kernels=False``; each raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from apex_tpu_torch.models._dropout import TPDropout, dropout_seeds
+from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.ops.flash_attention import flash_attention_bsh
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 1024          # bert-large
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    layernorm_eps: float = 1e-12
+    dtype: torch.dtype = torch.float32   # compute dtype (bf16 for O2)
+    remat: bool = True                   # activation checkpointing per layer
+    remat_policy: str = "full"
+    fused_kernels: bool = True
+    flash_attention: bool = True
+    flash_min_seq: int = 256
+    use_tensor_parallel: bool = False
+    sequence_parallel: bool = False
+
+    @staticmethod
+    def bert_large(**kw):
+        return BertConfig(**kw)
+
+    @staticmethod
+    def bert_base(**kw):
+        return BertConfig(hidden_size=768, num_layers=12, num_heads=12,
+                          intermediate_size=3072, **kw)
+
+    @staticmethod
+    def tiny(**kw):
+        """Test config."""
+        kw.setdefault("vocab_size", 128)
+        kw.setdefault("hidden_size", 64)
+        kw.setdefault("num_layers", 2)
+        kw.setdefault("num_heads", 4)
+        kw.setdefault("intermediate_size", 128)
+        kw.setdefault("max_position_embeddings", 64)
+        return BertConfig(**kw)
+
+
+def _check_ported(cfg: BertConfig):
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported")
+    if cfg.use_tensor_parallel or cfg.sequence_parallel:
+        raise NotImplementedError("BERT under tensor/sequence parallelism "
+                                  "is not ported yet")
+    if not (cfg.fused_kernels and cfg.flash_attention):
+        raise NotImplementedError("only the fused flash-attention BERT is "
+                                  "ported (fused_kernels=flash_attention="
+                                  "True)")
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=cfg.dtype, param_dtype=float32)``: fp32
+    stored params, the product computed in ``dtype``."""
+
+    def __init__(self, in_features, out_features, dtype):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def gelu(x):
+    # flax nn.gelu is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        # three flat projections, as the JAX module: they feed the
+        # transpose-free flash entry directly
+        self.q = Dense(h, h, cfg.dtype)
+        self.k = Dense(h, h, cfg.dtype)
+        self.v = Dense(h, h, cfg.dtype)
+        self.out = Dense(h, h, cfg.dtype)
+
+    def forward(self, x, key_mask, seed=None, deterministic=True):
+        cfg = self.cfg
+        S = x.shape[1]
+        if S < cfg.flash_min_seq:
+            raise NotImplementedError(
+                f"BERT attention at S = {S} < flash_min_seq = "
+                f"{cfg.flash_min_seq} takes the composed-softmax path, whose "
+                f"kernels B6-B8 are not ported yet")
+        inv_sqrt = 1.0 / ((cfg.hidden_size // cfg.num_heads) ** 0.5)
+        drop = 0.0 if deterministic else cfg.attention_dropout
+        ctx = flash_attention_bsh(self.q(x), self.k(x), self.v(x), key_mask,
+                                  cfg.num_heads, False, inv_sqrt, drop,
+                                  seed if drop > 0.0 else None)
+        return self.out(ctx.to(cfg.dtype)).to(cfg.dtype)
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h, eps = cfg.hidden_size, cfg.layernorm_eps
+        self.attention = BertSelfAttention(cfg)
+        self.attention_ln = FusedLayerNorm(h, eps=eps)
+        self.mlp_in = Dense(h, cfg.intermediate_size, cfg.dtype)
+        self.mlp_out = Dense(cfg.intermediate_size, h, cfg.dtype)
+        self.output_ln = FusedLayerNorm(h, eps=eps)
+        self.dropout = TPDropout(cfg.hidden_dropout)
+
+    def forward(self, x, key_mask, seeds=(None, None, None),
+                deterministic=True):
+        """``seeds``: this layer's (attention, attention-output, MLP-output)
+        dropout seeds, drawn by the caller outside any checkpoint."""
+        attn = self.attention(x, key_mask, seeds[0], deterministic)
+        attn = self.dropout(attn, seeds[1], deterministic)
+        x = self.attention_ln(x + attn)
+        mlp = self.mlp_out(gelu(self.mlp_in(x)))
+        mlp = self.dropout(mlp, seeds[2], deterministic)
+        return self.output_ln(x + mlp)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed`` with fp32 params: the table is ``weight``. The
+    lookup is ``F.embedding``, whose backward sums repeated ids in
+    parallel; indexing (``weight[ids]``) sums them one row after another
+    per id, and the token-type table sees one id B * S times."""
+
+    def __init__(self, num, dim):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, dim))
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.word_embeddings = Embed(cfg.vocab_size, h)
+        self.position_embeddings = nn.Parameter(
+            torch.empty(cfg.max_position_embeddings, h))
+        self.token_type_embeddings = Embed(cfg.type_vocab_size, h)
+        self.ln = FusedLayerNorm(h, eps=cfg.layernorm_eps)
+        self.dropout = TPDropout(cfg.hidden_dropout)
+
+    def forward(self, input_ids, token_type_ids, seed=None,
+                deterministic=True):
+        S = input_ids.shape[-1]
+        x = (self.word_embeddings(input_ids)
+             + self.position_embeddings[:S][None]
+             + self.token_type_embeddings(token_type_ids))
+        x = self.ln(x.to(self.cfg.dtype))
+        return self.dropout(x, seed, deterministic)
+
+
+class BertModel(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.embeddings = BertEmbeddings(cfg)
+        for i in range(cfg.num_layers):
+            # the JAX param names: layer_0 .. layer_{L-1}
+            self.add_module(f"layer_{i}", BertLayer(cfg))
+        self.pooler = Dense(cfg.hidden_size, cfg.hidden_size, cfg.dtype)
+
+    @property
+    def layers(self):
+        return [getattr(self, f"layer_{i}")
+                for i in range(self.cfg.num_layers)]
+
+    def num_dropout_seeds(self) -> int:
+        """One for the embeddings, three per layer."""
+        return 1 + 3 * self.cfg.num_layers
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                deterministic=True, generator=None):
+        cfg = self.cfg
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        seeds = [None] * self.num_dropout_seeds()
+        if not deterministic:
+            if generator is None:
+                raise ValueError("a training forward (deterministic=False) "
+                                 "needs the step's torch.Generator for its "
+                                 "dropout seeds")
+            # every seed of this forward, drawn before any checkpointed
+            # layer runs, so a recompute replays the same masks
+            seeds = dropout_seeds(generator, self.num_dropout_seeds())
+        x = self.embeddings(input_ids, token_type_ids, seeds[0],
+                            deterministic)
+        # (B, S) boolean, True = masked (the reference convention)
+        key_mask = None if attention_mask is None else attention_mask == 0
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            layer_seeds = tuple(seeds[1 + 3 * i: 4 + 3 * i])
+            if remat:
+                # the layer's dropouts draw no global RNG state, so none
+                # needs preserving across the recompute
+                x = checkpoint(layer, x, key_mask, layer_seeds,
+                               deterministic, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, key_mask, layer_seeds, deterministic)
+        pooled = torch.tanh(self.pooler(x[:, 0]))
+        return x, pooled
+
+
+class BertForPreTraining(nn.Module):
+    """MLM + NSP heads. ``masked_positions`` (B, P): when given, the MLM
+    head runs only on the gathered positions (the MLPerf input format);
+    ``mlm_logits`` is then (B, P, V).
+
+    Weights are drawn from ``seed`` on the CPU (normal(0.02) for Dense
+    kernels and embeddings, zero biases, unit norm scales, as the JAX
+    initializers), so every device starts from the same weights. The model
+    lives on ``device``: the CUDA card unless the caller asks for the
+    CPU."""
+
+    def __init__(self, cfg: BertConfig, device=None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.bert = BertModel(cfg)
+        h = cfg.hidden_size
+        self.mlm_transform = Dense(h, h, cfg.dtype)
+        self.mlm_ln = FusedLayerNorm(h, eps=cfg.layernorm_eps)
+        self.mlm_decoder = Dense(h, cfg.vocab_size, cfg.dtype)
+        self.nsp = Dense(h, 2, cfg.dtype)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.endswith(".bias"):
+                    p.zero_()
+                elif name.endswith(".scale"):
+                    p.fill_(1.0)
+                else:
+                    p.normal_(0.0, 0.02, generator=gen)
+        self.to(device)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                deterministic=True, masked_positions=None, generator=None):
+        x, pooled = self.bert(input_ids, token_type_ids, attention_mask,
+                              deterministic, generator)
+        if masked_positions is not None:
+            idx = masked_positions.long()[..., None].expand(
+                -1, -1, x.shape[-1])
+            x = torch.gather(x, 1, idx)
+        h = self.mlm_ln(gelu(self.mlm_transform(x)))
+        return self.mlm_decoder(h), self.nsp(pooled)
+
+
+def pretraining_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels,
+                     mlm_weights=None):
+    """Masked-LM + next-sentence loss in fp32, the MLM term in the
+    logsumexp form (no fp32 (B, S, V) log-prob tensor).
+    ``mlm_labels`` holds -1 (ignore) where ``mlm_weights`` is not given."""
+    labels = mlm_labels.clamp(min=0).long()
+    if mlm_weights is None:
+        mlm_weights = (mlm_labels >= 0).float()
+    xf = mlm_logits.float()
+    lse = torch.logsumexp(xf, dim=-1)
+    picked = torch.gather(xf, -1, labels[..., None])[..., 0]
+    per_token = lse - picked
+    denom = torch.clamp(mlm_weights.sum(), min=1.0)
+    mlm_loss = (per_token * mlm_weights).sum() / denom
+    nsp_logp = torch.log_softmax(nsp_logits.float(), dim=-1)
+    nsp_loss = -torch.gather(nsp_logp, -1,
+                             nsp_labels.long()[:, None]).mean()
+    return mlm_loss + nsp_loss
+
+
+def _jax_leaf(path, arr):
+    """(port parameter name, tensor) of one flax leaf: a Dense ``kernel``
+    is transposed into a ``Linear.weight``, an ``embedding`` table is the
+    embedding's ``weight``."""
+    t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    *mods, leaf = path
+    if leaf == "kernel":
+        return ".".join(mods + ["weight"]), t.t().contiguous()
+    if leaf == "embedding":
+        return ".".join(mods + ["weight"]), t
+    return ".".join(path), t
+
+
+def _walk(tree, path=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _walk(val, path + (key,))
+        else:
+            yield path + (key,), val
+
+
+def load_jax_params(params_np, cfg: BertConfig, device=None,
+                    seed: int = 0) -> BertForPreTraining:
+    """Build the port's model from a JAX ``BertForPreTraining`` param tree
+    as numpy arrays (``bert/embeddings/{word_embeddings,
+    token_type_embeddings}/embedding``, ``bert/embeddings/
+    position_embeddings``, ``.../ln``, ``bert/layer_{i}/attention/
+    {q,k,v,out}``, ``attention_ln``, ``mlp_in``, ``mlp_out``,
+    ``output_ln``, ``bert/pooler``, ``mlm_transform``, ``mlm_ln``,
+    ``mlm_decoder``, ``nsp``). Every port parameter must be covered."""
+    tree = params_np.get("params", params_np)
+    model = BertForPreTraining(cfg, device="cpu", seed=seed)
+    own = dict(model.named_parameters())
+    seen = set()
+    with torch.no_grad():
+        for path, arr in _walk(tree):
+            name, t = _jax_leaf(list(path), arr)
+            if name not in own:
+                raise KeyError(f"load_jax_params: no port parameter for "
+                               f"{'/'.join(path)} ({name})")
+            if own[name].shape != t.shape:
+                raise ValueError(f"load_jax_params: {name} is "
+                                 f"{tuple(own[name].shape)}, the JAX leaf "
+                                 f"{tuple(t.shape)}")
+            own[name].copy_(t)
+            seen.add(name)
+    missing = sorted(set(own) - seen)
+    if missing:
+        raise KeyError(f"load_jax_params: the tree lacks {missing}")
+    return model.to(resolve_device(device))

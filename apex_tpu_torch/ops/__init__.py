@@ -1,12 +1,29 @@
 """Kernels and their plain versions (counterpart of :mod:`apex_tpu.ops`)."""
 
-from apex_tpu_torch.ops._common import FILL, resolve_device, round_up
+from apex_tpu_torch.ops._common import (
+    FILL,
+    keep_threshold,
+    mix_seed,
+    philox_bits,
+    resolve_device,
+    round_up,
+)
 from apex_tpu_torch.ops.dequant_gemm import (
     dequant_gemm,
     dequant_matmul,
     dequant_matmul_plain,
 )
+from apex_tpu_torch.ops.dropout import dropout_plain, fused_dropout
+from apex_tpu_torch.ops.flash_attention import (
+    flash_attention_bsh,
+    flash_keep_mask,
+    mha_reference,
+    mha_with_mask_reference,
+)
 from apex_tpu_torch.ops.layer_norm import (
+    fused_layer_norm_affine,
+    layer_norm_backward,
+    layer_norm_backward_plain,
     layer_norm_reference,
     rms_norm_reference,
 )
@@ -22,11 +39,23 @@ __all__ = [
     "dequant_gemm",
     "dequant_matmul",
     "dequant_matmul_plain",
+    "dropout_plain",
+    "flash_attention_bsh",
+    "flash_keep_mask",
+    "fused_dropout",
+    "fused_layer_norm_affine",
+    "keep_threshold",
+    "layer_norm_backward",
+    "layer_norm_backward_plain",
     "layer_norm_reference",
+    "mha_reference",
+    "mha_with_mask_reference",
+    "mix_seed",
     "paged_decode_attention",
     "paged_prefill_attention",
     "paged_prefill_attention_plain",
     "paged_read_attention",
+    "philox_bits",
     "resolve_device",
     "rms_norm_reference",
     "round_up",

@@ -27,3 +27,66 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return torch.device("cuda")
+
+
+def keep_threshold(dropout_rate: float) -> int:
+    """uint32 threshold shared by every fused-dropout kernel and its plain
+    version: a lane is kept iff its random bits are < this. keep_prob maps
+    onto the full uint32 range (the same compare-against-scaled-keep-prob
+    construction as apex_tpu.ops._common.keep_threshold)."""
+    keep = 1.0 - dropout_rate
+    return min(int(keep * 4294967296.0), 4294967295)
+
+
+def mix_seed(seed: int, n: int) -> int:
+    """Decorrelated non-negative int32 seed from (seed, n): the
+    golden-ratio multiplicative hash in uint32 wraparound arithmetic of
+    apex_tpu.ops._common.mix_seed, on host ints."""
+    mixed = (seed & _MASK32) ^ ((n * 0x9E3779B9) & _MASK32)
+    return mixed & 0x7FFFFFFF
+
+
+# Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+# 3", SC'11; the Random123 constants). The CUDA kernels carry the same
+# generator in csrc/philox.cuh; both key it as counter = (element index
+# // 4, 0, 0), key = (seed, 0), and element i takes word i % 4 of its
+# counter's output, so a kernel and its plain version draw identical bits.
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) 32-bit words of a * m for int64 tensors a in [0, 2^32) and
+    a 32-bit constant m, without int64 overflow: m is split into 16-bit
+    halves so every partial product stays below 2^49."""
+    x = a * (m >> 16)
+    y = a * (m & 0xFFFF)
+    t = ((x & 0xFFFF) << 16) + y
+    return ((x >> 16) + (t >> 32)) & _MASK32, t & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Ten Philox4x32 rounds on int64 tensors holding uint32 words."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W0) & _MASK32
+            k1 = (k1 + _PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: int, offset: int, n: int, device="cpu"):
+    """uint32 random bits (as int64 in [0, 2^32)) of elements ``offset ..
+    offset + n - 1`` of the stream keyed by ``seed``."""
+    g0 = offset >> 2
+    g1 = (offset + n - 1) >> 2
+    g = torch.arange(g0, g1 + 1, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(g)
+    words = philox4x32_10(g & _MASK32, g >> 32, zero, zero,
+                          seed & _MASK32, 0)
+    flat = torch.stack(words, dim=1).reshape(-1)
+    start = offset - 4 * g0
+    return flat[start:start + n]

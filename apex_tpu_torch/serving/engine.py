@@ -286,7 +286,9 @@ class InferenceEngine:
             "queue_depth": len(self.waiting),
             "blocks_used": self.allocator.num_used,
             "weight_bytes": self._weight_bytes,
-            "kernel_launches": dict(_build.launches),
+            # the serving path's kernels (the counters also hold training's)
+            "kernel_launches": {k: _build.launches[k]
+                                for k in ("paged_read", "dequant_gemm")},
         }
 
     # -- scheduling ----------------------------------------------------------

@@ -7,9 +7,9 @@ Phase 0 builds every CUDA kernel of the port from the sources in this
 checkout (``apex_tpu_torch/csrc/*.cu`` -> ``build/``, one ``nvcc`` per
 source, in parallel) and prints the card's name and power limit.
 
-Phase 1 calls each kernel's wrapper on card tensors at the serving
-path's shapes and holds the result against the kernel's plain PyTorch
-version on the same inputs:
+Phase 1 calls each kernel's wrapper on card tensors at the shapes its
+main path gives it and holds the result against the kernel's plain
+PyTorch version on the same inputs:
 
 - ``paged_read`` (B14): H = 12, D = 64, bs = 16, M = 64 table entries, a
   512-block pool; decode (C = 1, B = 8 lanes with ragged contexts from 0
@@ -20,14 +20,19 @@ version on the same inputs:
 - ``dequant_gemm`` (B15): M in {8, 128} x (K, N) in {(768, 768),
   (768, 3072), (3072, 768)}, int8 and float8_e4m3fn weights. Tolerance
   atol = rtol = 1e-4 (fp32 sums in another order than cuBLAS).
+- ``layer_norm_bwd`` (B1), ``dropout`` (B3), ``flash_fwd`` (B4) and
+  ``flash_bwd`` (B5) at the BERT-large training shapes, with the
+  tolerances their functions state.
 
-Each case is timed on the device (50 calls captured in a CUDA graph and
-replayed, CUDA events around the replay) beside its plain version, a library call that computes the same function
-(``F.scaled_dot_product_attention`` on the gathered K/V for B14,
-``torch.matmul`` on the dequantized weight for B15; the port calls
-neither), and the least time the card could take: the larger of the
-bytes moved over 3.35 TB/s and the fp32 operations over 67 TFLOP/s
-(H100 SXM data sheet).
+Each case is timed on the device (calls captured in a CUDA graph and
+replayed, CUDA events around the replay) beside its plain version, a
+library call that computes the same function (``F.scaled_dot_product_attention``
+on the gathered K/V for B14, ``torch.matmul`` on the dequantized weight
+for B15, the backward of ``F.layer_norm`` for B1, ``F.dropout`` for B3,
+SDPA and its backward without dropout for B4/B5; the port calls none of
+them), and the least time the card could take: the larger of the bytes
+moved over 3.35 TB/s and the operations over the peak rate of their type
+(67 TFLOP/s fp32, 989 TFLOP/s bf16 tensor cores; H100 SXM data sheet).
 
 Phase 2 serves traffic through the port's entry points at GPT-2-small
 width (vocab 50257, hidden 768, 12 layers, 12 heads, 1024 positions)
@@ -38,6 +43,14 @@ Every kernel launch counter is set to 0 just before each run and read
 just after: the runs must have gone through both kernels. The card's
 prefill logits are held against the port on the CPU (atol 2e-3), and
 the greedy tokens of one request are compared with the CPU engine's.
+
+Phase 3 trains BERT-large (``BertConfig()``, bf16, remat) with amp O2 and
+FusedLAMB at B 16, S 512, P 76, inputs and weights from ``--seed``: after
+a card-vs-CPU check of one fp32 step at full width (2 layers, B 2), two
+warm-up steps and five timed steps. The launch counters, set to 0 just
+before the timed steps, must show every step going through B1, B3, B4
+and B5 the number of times the model implies; every loss must be
+finite and the first within 1.0 of ln(30522) + ln(2).
 
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
@@ -61,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 
 
 class SmokeFailure(RuntimeError):
@@ -72,22 +86,36 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
+    """The least time for the work: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, iters=50, warmup=3):
+def time_ms(fn, iters=50, warmup=3, graph=True):
     """Device time of one call of ``fn``: ``iters`` calls captured in a
     CUDA graph, replayed once to warm, then timed with CUDA events over
     one replay. The replay issues no host work, so a call's Python
-    overhead is left out (the same inputs every call: L2-warm)."""
+    overhead is left out (the same inputs every call: L2-warm). With
+    ``graph=False`` (autograd calls) the calls are issued in a host loop
+    between the events, which adds their host time where it exceeds the
+    device's."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if not graph:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
@@ -291,6 +319,236 @@ def phase1_dequant(torch, dev, seed):
     return rows
 
 
+# -- phase 1: the training kernels at BERT-large shapes -----------------------
+
+def close_stats(torch, out, ref):
+    err = (out.float() - ref.float()).abs()
+    return err.max().item(), (err / ref.float().abs().clamp(min=1e-3)).max(
+    ).item()
+
+
+def phase1_layer_norm(torch, dev, seed):
+    """B1 at the BERT-large LN shape (B * S = 8192 rows, H = 1024), bf16
+    and fp32 rows, fp32 weight. dx within atol 1e-2 + rtol 1e-2 (bf16:
+    one bf16 ulp is 2^-7 relative) or 1e-5 (fp32); dgamma, dbeta within
+    1e-4 of their largest entry (fp32 sums over 8192 rows in other
+    orders)."""
+    from apex_tpu_torch.ops.layer_norm import (
+        layer_norm_backward_kernel,
+        layer_norm_backward_plain,
+    )
+
+    rows, H, eps = 8192, 1024, 1e-12
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        x = (torch.randn(rows, H, generator=g) * 2 + 0.5).to(dt).to(dev)
+        gr = torch.randn(rows, H, generator=g).to(dt).to(dev)
+        w = (torch.rand(H, generator=g) + 0.5).to(dev)
+        dx, dw, db = layer_norm_backward_kernel(gr, x, w, eps)
+        rdx, rdw, rdb = layer_norm_backward_plain(gr, x, w, eps)
+        torch.cuda.synchronize()
+        max_abs, max_rel = close_stats(torch, dx, rdx)
+        check(torch.allclose(dx.float(), rdx.float(), atol=tol, rtol=tol),
+              f"layer_norm_bwd {dt}: dx max abs err {max_abs}")
+        for a, r, n in ((dw, rdw, "dgamma"), (db, rdb, "dbeta")):
+            e = (a - r).abs().max().item() / r.abs().max().item()
+            check(e <= 1e-4, f"layer_norm_bwd {dt}: {n} rel err {e}")
+        # the library call: the autograd backward of F.layer_norm
+        wl = w.to(dt)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [H], wl, wl, eps)
+        esz = x.element_size()
+        nbytes = 3 * rows * H * esz + 3 * H * 4
+        b_ms, b_by = bound(nbytes, 12 * rows * H)
+        row = dict(
+            case=f"rows {rows} H {H} {dt}", max_abs_err=max_abs,
+            max_rel_err=max_rel, tol=tol,
+            ms=time_ms(lambda: layer_norm_backward_kernel(gr, x, w, eps)),
+            plain_ms=time_ms(lambda: layer_norm_backward_plain(gr, x, w,
+                                                               eps), iters=10),
+            library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                gr, x, [H], mean, rstd, wl, wl, [True, True, True])),
+            bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+        out.append(row)
+        print(f"[B1 layer_norm_bwd] {row['case']}: max_abs_err {max_abs:.3g} "
+              f"(tol {tol}) | ms {row['ms']:.4f} plain_ms "
+              f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
+              f"bound_ms {b_ms:.4f} ({b_by})", flush=True)
+    return out
+
+
+def phase1_dropout(torch, F, dev, seed):
+    """B3 at a BERT-large hidden-dropout site: (16, 512, 1024) bf16, rate
+    0.1. The forward and the backward replay bit-identical to the plain
+    Philox version; the kept fraction within 0.9 +- 0.002."""
+    from apex_tpu_torch.ops.dropout import dropout_kernel, dropout_plain
+
+    rate, s = 0.1, seed + 1234
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(16, 512, 1024, generator=g).to(torch.bfloat16).to(dev)
+    gr = torch.randn(16, 512, 1024, generator=g).to(torch.bfloat16).to(dev)
+    y = dropout_kernel(x, rate, s)
+    dg = dropout_kernel(gr, rate, s)          # the backward's replay
+    torch.cuda.synchronize()
+    check(torch.equal(y, dropout_plain(x, rate, s)),
+          "dropout forward differs from its plain version")
+    check(torch.equal(dg, dropout_plain(gr, rate, s)),
+          "dropout replay differs from its plain version")
+    kept = (y != 0) | (x == 0)
+    check(torch.equal(kept, (dg != 0) | (gr == 0)),
+          "dropout replay applies another mask")
+    frac = kept.float().mean().item()
+    check(abs(frac - (1 - rate)) <= 0.002, f"dropout kept fraction {frac}")
+    nbytes = 2 * x.numel() * x.element_size()
+    b_ms, b_by = bound(nbytes, 4 * x.numel())
+    row = dict(case="(16, 512, 1024) bf16 rate 0.1", max_abs_err=0.0,
+               kept_fraction=frac,
+               ms=time_ms(lambda: dropout_kernel(x, rate, s)),
+               plain_ms=time_ms(lambda: dropout_plain(x, rate, s), iters=10),
+               library_ms=time_ms(lambda: F.dropout(x, rate, training=True)),
+               bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+    print(f"[B3 dropout] {row['case']}: bit-identical, kept {frac:.5f} | ms "
+          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+          f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})",
+          flush=True)
+    return [row]
+
+
+def phase1_flash(torch, F, dev, seed):
+    """B4 and B5 at the BERT-large attention shape: B 16, S 512, NH 16, D
+    64, bf16, a key mask padding the tail of half the rows and fully
+    masking one, dropout 0 and 0.1 (the plain version draws the same
+    Philox mask). Tolerances (bf16 outputs): out, dq, dk, dv each within
+    atol 1e-2 + rtol 1e-2 elementwise and within 1e-2 of its own norm
+    (a bf16 ulp is 2^-8 to 2^-7 relative; p and dS are rounded to bf16 at
+    other points of the sums; the largest elementwise error measured on
+    the H100 is 0.0078, one ulp of a value in [1, 2)); lse within 1e-3.
+    At rate 0.1 the plain versions with the same mask but without the
+    1 / (1 - rate) rescale must fail the check: the check sees a 10%
+    error."""
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_bsh_backward_plain,
+        flash_attention_bsh_plain,
+        flash_bwd_kernel,
+        flash_fwd_kernel,
+        flash_keep_mask,
+    )
+
+    tol = 1e-2
+
+    def close(a, r):
+        a, r = a.float(), r.float()
+        rel = ((a - r).norm() / r.norm()).item()
+        return bool(torch.allclose(a, r, atol=tol, rtol=tol)) and rel <= tol, rel
+
+    B, S, NH, D = 16, 512, 16, 64
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, NH * D, generator=g).to(torch.bfloat16)
+                   .to(dev) for _ in range(4))
+    lens = torch.randint(S // 4, S, (B // 2,), generator=g)
+    mask = torch.zeros(B, S, dtype=torch.bool)
+    for b in range(B // 2):
+        mask[b, int(lens[b]):] = True
+    mask[B - 1] = True                    # a fully masked row
+    mask = mask.to(dev)
+    scale = D ** -0.5
+    fwd_rows, bwd_rows = [], []
+    qh, kh, vh = (t.view(B, S, NH, D).transpose(1, 2) for t in (q, k, v))
+    add_mask = torch.zeros(B, 1, 1, S, dtype=torch.bfloat16, device=dev)
+    add_mask[mask[:, None, None, :]] = -30000.0
+    names = ("out", "dq", "dk", "dv")
+    for rate in (0.0, 0.1):
+        args = (NH, False, scale, rate, seed + 77 if rate else None)
+        out, lse = flash_fwd_kernel(q, k, v, mask, *args)
+        grads = flash_bwd_kernel(q, k, v, mask, out, lse, do, *args)
+        rout, rlse = flash_attention_bsh_plain(q, k, v, mask, *args)
+        rgrads = flash_attention_bsh_backward_plain(q, k, v, mask, rout,
+                                                    rlse, do, *args)
+        torch.cuda.synchronize()
+        lse_err = (lse - rlse).abs().max().item()
+        check(lse_err <= 1e-3, f"flash lse (rate {rate}): err {lse_err}")
+        errs, norm_errs = {}, {}
+        for name, a, r in zip(names, (out, *grads), (rout, *rgrads)):
+            check(torch.isfinite(a.float()).all().item(),
+                  f"flash {name} (rate {rate}): non-finite")
+            errs[name] = close_stats(torch, a, r)[0]
+            ok, norm_errs[name] = close(a, r)
+            check(ok, f"flash {name} (rate {rate}): max abs err "
+                  f"{errs[name]}, norm err {norm_errs[name]}")
+        unscaled = {}
+        if rate:
+            # the same mask without the keep rescale (rate ~ 0 so that
+            # 1 / (1 - rate) == 1.0) must fail the check
+            keep = flash_keep_mask(B, NH, S, rate, args[4], dev)
+            bad = (NH, False, scale, 1e-30, None)
+            mout, mlse = flash_attention_bsh_plain(q, k, v, mask, *bad,
+                                                   keep=keep)
+            mgrads = flash_attention_bsh_backward_plain(
+                q, k, v, mask, mout, mlse, do, *bad, keep=keep)
+            for name, a, r in zip(names, (mout, *mgrads), (rout, *rgrads)):
+                ok, unscaled[name] = close(a, r)
+                check(not ok, f"flash {name}: the check passes a plain "
+                      f"version without the keep rescale")
+            del keep, mout, mlse, mgrads
+        fl = 4 * B * NH * S * S * D
+        nbytes = 4 * q.numel() * 2 + lse.numel() * 4 + B * S
+        b_ms, b_by = bound(nbytes, fl, BF16_FLOP_PER_S)
+        f = dict(case=f"B {B} S {S} NH {NH} D {D} bf16 rate {rate}",
+                 max_abs_err=errs["out"], norm_err=norm_errs["out"],
+                 unscaled_norm_err=unscaled.get("out"), lse_err=lse_err,
+                 tol=tol,
+                 ms=time_ms(lambda: flash_fwd_kernel(q, k, v, mask, *args),
+                            iters=20),
+                 plain_ms=time_ms(lambda: flash_attention_bsh_plain(
+                     q, k, v, mask, *args), iters=3),
+                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, attn_mask=add_mask, scale=scale), iters=20),
+                 flops=fl, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+        fwd_rows.append(f)
+        fl_b = 10 * B * NH * S * S * D
+        nbytes_b = 8 * q.numel() * 2 + lse.numel() * 4 + B * S
+        bb_ms, bb_by = bound(nbytes_b, fl_b, BF16_FLOP_PER_S)
+        lib_b = None
+        if rate == 0.0:
+            qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                          for t in (qh, kh, vh))
+            lo = F.scaled_dot_product_attention(qs, ks, vs,
+                                                attn_mask=add_mask,
+                                                scale=scale)
+            gh = do.view(B, S, NH, D).transpose(1, 2)
+            lib_b = time_ms(lambda: torch.autograd.grad(
+                lo, (qs, ks, vs), gh, retain_graph=True), iters=20,
+                graph=False)
+        bw = dict(case=f["case"],
+                  max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")),
+                  norm_err={n: norm_errs[n] for n in ("dq", "dk", "dv")},
+                  unscaled_norm_err={n: unscaled[n] for n in unscaled
+                                     if n != "out"},
+                  tol=tol,
+                  ms=time_ms(lambda: flash_bwd_kernel(
+                      q, k, v, mask, out, lse, do, *args), iters=20),
+                  plain_ms=time_ms(lambda: flash_attention_bsh_backward_plain(
+                      q, k, v, mask, rout, rlse, do, *args), iters=3),
+                  library_ms=lib_b, flops=fl_b, bytes=nbytes_b,
+                  bound_ms=bb_ms, bound_by=bb_by)
+        bwd_rows.append(bw)
+        for tag, r in (("B4 flash_fwd", f), ("B5 flash_bwd", bw)):
+            lib = ("n/a" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            print(f"[{tag}] {r['case']}: max_abs_err {r['max_abs_err']:.3g} "
+                  f"norm_err {r['norm_err']} without rescale "
+                  f"{r['unscaled_norm_err']} (tol {tol}) | ms "
+                  f"{r['ms']:.4f} plain_ms "
+                  f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+        del out, lse, grads, rout, rlse, rgrads
+        torch.cuda.empty_cache()
+    # the library yardstick has no fused dropout: its rate-0 backward
+    # stands beside both rates
+    bwd_rows[1]["library_ms"] = bwd_rows[0]["library_ms"]
+    return fwd_rows, bwd_rows
+
+
 # -- phase 2: the engine at GPT-2-small width ---------------------------------
 
 def traffic(seed, vocab):
@@ -468,6 +726,154 @@ def phase2(torch, dev, seed, card):
     return runs, checks
 
 
+# -- phase 3: the BERT-large pretraining step ---------------------------------
+
+# launches of one BERT-large step (24 layers, remat): LayerNorm backward at
+# 2 LNs per layer + embeddings + MLM head; hidden dropout at 49 sites run
+# forward, again in the 24 layers' recompute (48) and replayed in the
+# backward; attention forward per layer and again in its recompute; one
+# attention backward per layer
+STEP_LAUNCHES = {"layer_norm_bwd": 50, "dropout": 49 + 48 + 49,
+                 "flash_fwd": 24 + 24, "flash_bwd": 24}
+
+
+def card_vs_cpu(torch, dev, seed):
+    """One O0 fp32 step at full width, 2 layers, B 2, S 512, dropout 0, on
+    the card and on the port's CPU path from the same weights, held to
+    three checks (fp32 sums run in other orders: kernels B1, B4, B5 and
+    cuBLAS against the CPU's plain versions):
+
+    - the loss within 1e-4 relative;
+    - each parameter's gradient, before the optimizer, within 1e-3 of
+      its own norm. Left out are only the gradients that are 0 up to
+      rounding on the CPU, norm under 1e-6 of the global norm: the key
+      biases', which softmax ignores (a per-row constant);
+    - the updated parameters: the norm of (card - CPU) over every
+      parameter within 1e-2 of the norm of the CPU step (new - old). At
+      LAMB's first step the direction is nearly sign(g), so a gradient
+      that is 0 up to rounding steps either way, by lr * 1e-5 at most."""
+    from apex_tpu_torch.models import BertConfig
+    from apex_tpu_torch.train import build_pretraining, make_pretraining_batch
+
+    cfg = BertConfig(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0)
+    res = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        step = build_pretraining(cfg, "O0", lr=1e-4, weight_decay=0.01,
+                                 seed=seed, device=d)
+        before = {n: p.detach().float().cpu().clone()
+                  for n, p in step.model.named_parameters()}
+        batch = make_pretraining_batch(cfg, 2, 512, seed=seed, device=d)
+        scale = step.scaler_state.loss_scale
+        loss, found = step(batch)
+        check(not found, f"card-vs-CPU step ({where}) overflowed")
+        # the optimizer reads the gradients without changing them
+        grads = {n: p.grad.detach().float().cpu() / scale
+                 for n, p in step.model.named_parameters()}
+        res[where] = (loss.item(), before, grads,
+                      {n: p.detach().float().cpu()
+                       for n, p in step.model.named_parameters()})
+        del step
+    lc, bc, gc, pc = res["cuda"]
+    lh, _, gh, ph = res["cpu"]
+    loss_rel = abs(lc - lh) / abs(lh)
+    global_norm = sum(g.norm().item() ** 2 for g in gh.values()) ** 0.5
+    grad_rel, rounding_zero = {}, {}
+    for n, g in gh.items():
+        gn = g.norm().item()
+        if gn <= 1e-6 * global_norm:
+            rounding_zero[n] = gn / global_norm
+        else:
+            grad_rel[n] = (gc[n] - g).norm().item() / gn
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    err_sq = step_sq = 0.0
+    for n in pc:
+        err_sq += (pc[n] - ph[n]).norm().item() ** 2
+        step_sq += (ph[n] - bc[n]).norm().item() ** 2
+    rel = (err_sq / step_sq) ** 0.5
+    print(f"[check] card vs CPU, one O0 fp32 step (2 layers, B 2, S 512): "
+          f"loss {lc:.6f} vs {lh:.6f} (rel {loss_rel:.3g}, tol 1e-4); "
+          f"gradients of {len(grad_rel)} tensors, worst {worst_grad} at "
+          f"{grad_rel[worst_grad]:.3g} of its norm (tol 1e-3), left out as "
+          f"0 to rounding (norm over the global norm) "
+          f"{ {n: float(f'{r:.3g}') for n, r in rounding_zero.items()} }; "
+          f"parameter steps differ "
+          f"by {rel:.3g} of their norm (tol 1e-2)", flush=True)
+    check(loss_rel <= 1e-4, f"card vs CPU loss rel diff {loss_rel}")
+    check(grad_rel[worst_grad] <= 1e-3,
+          f"card vs CPU gradient of {worst_grad} differs by "
+          f"{grad_rel[worst_grad]} of its norm")
+    check(rel <= 1e-2, f"card vs CPU parameter steps differ by {rel}")
+    return dict(loss_card=lc, loss_cpu=lh, loss_rel_diff=loss_rel,
+                grad_rel_diff=grad_rel, grads_rounding_zero=rounding_zero,
+                step_rel_diff=rel)
+
+
+def phase3(torch, dev, seed, card, steps=5, warmup=2):
+    """BERT-large (BertConfig(): 24 layers, hidden 1024, 16 heads, vocab
+    30522, dropouts 0.1) in bf16 with remat, amp O2, FusedLAMB(lr 1e-4,
+    weight decay 0.01), B 16, S 512, P 76, weights and inputs from
+    ``seed``."""
+    import math
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import BertConfig
+    from apex_tpu_torch.train import build_pretraining, make_pretraining_batch
+
+    cfg = BertConfig(dtype=torch.bfloat16, remat=True)
+    B, S = 16, 512
+    t0 = time.perf_counter()
+    step = build_pretraining(cfg, "O2", lr=1e-4, weight_decay=0.01,
+                             seed=seed, device=dev)
+    batch = make_pretraining_batch(cfg, B, S, seed=seed, device=dev)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in step.model.parameters())
+    losses = []
+    for _ in range(warmup):
+        loss, _ = step(batch)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        loss, _ = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    sst = step.scaler_state
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite training loss: {losses}")
+    expect = math.log(cfg.vocab_size) + math.log(2)
+    check(abs(losses[0] - expect) <= 1.0,
+          f"first loss {losses[0]} not within 1.0 of {expect:.3f}")
+    for k, per_step in STEP_LAUNCHES.items():
+        check(launches[k] == per_step * steps,
+              f"{k}: {launches[k]} launches in {steps} steps, expected "
+              f"{per_step} per step")
+    ms = sorted(t * 1e3 for t in times)
+    rec = dict(card=card, n_params=n_params, batch=B, seq=S,
+               masked_positions=int(batch["masked_positions"].shape[1]),
+               setup_s=setup_s, step_ms=ms, step_ms_median=ms[len(ms) // 2],
+               samples_per_s=B * 1e3 / ms[len(ms) // 2],
+               peak_memory_bytes=peak, losses=losses,
+               loss_scale=sst.loss_scale, steps_skipped=sst.steps_skipped,
+               launches=launches, launches_per_step=STEP_LAUNCHES)
+    print(f"[train bert-large O2] {card}: {n_params} params, B {B} S {S} | "
+          f"step ms {', '.join(f'{x:.1f}' for x in ms)} (median "
+          f"{rec['step_ms_median']:.1f}) | {rec['samples_per_s']:.2f} "
+          f"samples/s | peak memory {peak / 2**30:.2f} GiB | losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} | loss scale "
+          f"{sst.loss_scale} | skipped {sst.steps_skipped} | launches "
+          f"{launches}", flush=True)
+    del step, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -506,10 +912,16 @@ def main(argv=None):
 
     paged_rows = phase1_paged(torch, F, dev, args.seed)
     dq_rows = phase1_dequant(torch, dev, args.seed)
+    ln_rows = phase1_layer_norm(torch, dev, args.seed)
+    drop_rows = phase1_dropout(torch, F, dev, args.seed)
+    fwd_rows, bwd_rows = phase1_flash(torch, F, dev, args.seed)
     runs, checks = phase2(torch, dev, args.seed, card)
+    checks["card_vs_cpu_train_step"] = card_vs_cpu(torch, dev, args.seed)
+    train = phase3(torch, dev, args.seed, card)
 
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in ("paged_read", "dequant_gemm")}
+    launches.update({k: train["launches"][k] for k in STEP_LAUNCHES})
     kernels = [
         kernel_entry("paged_read", "apex_tpu_torch/csrc/paged_read.cu",
                      "apex_tpu/ops/paged_attention_pallas.py:106",
@@ -519,13 +931,26 @@ def main(argv=None):
                      next(r for r in dq_rows if r["mode"] == "int8"
                           and (r["M"], r["K"], r["N"]) == (8, 768, 3072)),
                      launches["dequant_gemm"]),
+        kernel_entry("layer_norm_bwd", "apex_tpu_torch/csrc/layer_norm_bwd.cu",
+                     "apex_tpu/ops/layer_norm.py:108", ln_rows, ln_rows[0],
+                     launches["layer_norm_bwd"]),
+        kernel_entry("dropout", "apex_tpu_torch/csrc/dropout.cu",
+                     "apex_tpu/ops/dropout.py:46", drop_rows, drop_rows[0],
+                     launches["dropout"]),
+        kernel_entry("flash_fwd", "apex_tpu_torch/csrc/flash_attn.cu",
+                     "apex_tpu/ops/flash_attention.py:968", fwd_rows,
+                     fwd_rows[1], launches["flash_fwd"]),
+        kernel_entry("flash_bwd", "apex_tpu_torch/csrc/flash_attn.cu",
+                     "apex_tpu/ops/flash_attention.py:1013", bwd_rows,
+                     bwd_rows[1], launches["flash_bwd"]),
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, seed=args.seed, paged_read=paged_rows,
-        dequant_gemm=dq_rows, engine=runs, checks=checks,
-        kernels=kernels), indent=1))
+        dequant_gemm=dq_rows, layer_norm_bwd=ln_rows, dropout=drop_rows,
+        flash_fwd=fwd_rows, flash_bwd=bwd_rows, engine=runs, train=train,
+        checks=checks, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps({"kernels": kernels}), flush=True)

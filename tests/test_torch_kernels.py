@@ -148,3 +148,172 @@ def test_dequant_gemm_kernel_matches_plain(cuda_device, mode, Mr, K, Nc):
     torch.cuda.synchronize()
     assert _build.launches["dequant_gemm"] == before + 1
     assert_close(out, dequant_matmul_plain(x, q, s), atol=1e-4, rtol=1e-4)
+
+
+# -- the training slice: B1, B3, B4, B5 ----------------------------------------
+
+from apex_tpu_torch.ops.dropout import dropout_kernel, dropout_plain  # noqa: E402
+from apex_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_bsh,
+    flash_attention_bsh_backward_plain,
+    flash_attention_bsh_plain,
+    flash_bwd_kernel,
+    flash_fwd_kernel,
+)
+from apex_tpu_torch.ops.layer_norm import (  # noqa: E402
+    layer_norm_backward,
+    layer_norm_backward_kernel,
+    layer_norm_backward_plain,
+)
+
+
+def test_training_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.randn(4, 64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dropout_kernel(x.double(), 0.1, 1)
+    with pytest.raises(ValueError, match="share"):
+        layer_norm_backward_kernel(x.bfloat16(), x, torch.ones(64))
+    with pytest.raises(ValueError, match="weight"):
+        layer_norm_backward_kernel(x, x, torch.ones(63))
+    q = torch.randn(1, 8, 2 * 48)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fwd_kernel(q, q, q, None, 2)
+    with pytest.raises(ValueError, match="share"):
+        flash_fwd_kernel(q.half(), q.half(), q.half(), None, 2)
+
+
+def _ln_case(rows, H, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, H, generator=gen) * 2 + 0.5
+    g = torch.randn(rows, H, generator=gen)
+    w = torch.rand(H, generator=gen) + 0.5
+    return x.to(dtype).to(device), g.to(dtype).to(device), w.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,H", [(1, 64), (37, 200), (300, 1024),
+                                    (8192, 1024)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda_device, rows, H, dtype):
+    """Kernel B1 against its plain version: dx within 1e-5 (fp32) or one
+    bf16 ulp of |dx| up to ~8 (0.0625, bf16 output); dgamma, dbeta
+    within 1e-4 of their largest entry (fp32 sums in another order).
+    H = 200 takes the unvectorized path. Deterministic: two launches
+    agree bit for bit."""
+    x, g, w = _ln_case(rows, H, dtype, cuda_device)
+    before = _build.launches["layer_norm_bwd"]
+    dx, dw, db = layer_norm_backward(g, x, w, 1e-12)
+    again = layer_norm_backward_kernel(g, x, w, 1e-12)
+    torch.cuda.synchronize()
+    assert _build.launches["layer_norm_bwd"] == before + 2
+    rdx, rdw, rdb = layer_norm_backward_plain(g, x, w, 1e-12)
+    assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
+    assert_close(dx, rdx, atol=1e-5 if dtype == torch.float32 else 0.0625,
+                 rtol=1e-5 if dtype == torch.float32 else 1e-2)
+    for a, r in ((dw, rdw), (db, rdb)):
+        assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=1e-4)
+    for a, b in zip((dx, dw, db), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1,), (3, 517), (16, 64, 128)])
+def test_dropout_kernel_matches_plain_bit_for_bit(cuda_device, shape, dtype):
+    """Kernel B3 draws the plain version's Philox bits: bit-identical
+    output (odd sizes take the scalar tail)."""
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(1))
+    x = x.to(dtype).to(cuda_device)
+    before = _build.launches["dropout"]
+    y = dropout_kernel(x, 0.1, 1234)
+    torch.cuda.synchronize()
+    assert _build.launches["dropout"] == before + 1
+    assert torch.equal(y, dropout_plain(x, 0.1, 1234))
+
+
+def _attn_case(B, S, NH, D, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = (torch.randn(B, S, NH * D, generator=gen).to(dtype)
+                  .to(device) for _ in range(4))
+    mask = torch.zeros(B, S, dtype=torch.bool)
+    mask[0, S // 2:] = True
+    if B > 1:
+        mask[1] = True                 # a fully masked row
+    return q, k, v, g, mask.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("S,D,causal,rate", [
+    (128, 64, False, 0.0), (200, 64, True, 0.1), (512, 64, False, 0.1),
+    (96, 32, False, 0.1), (130, 128, True, 0.0)])
+def test_flash_kernels_match_plain(cuda_device, S, D, causal, rate, dtype,
+                                   tol):
+    """Kernels B4 and B5 against their plain versions, which draw the same
+    Philox mask: fp32 within 1e-4 (online vs full softmax and other sum
+    orders); bf16 outputs within 3e-2 (a bf16 ulp at |values| up to ~4,
+    plus p and dS rounded at other points of their sums)."""
+    B, NH = 2, 2
+    q, k, v, g, mask = _attn_case(B, S, NH, D, dtype, cuda_device, seed=S)
+    args = (NH, causal, D ** -0.5, rate, 77 if rate else None)
+    before = dict(_build.launches)
+    out, lse = flash_fwd_kernel(q, k, v, mask, *args)
+    grads = flash_bwd_kernel(q, k, v, mask, out, lse, g, *args)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert _build.launches["flash_bwd"] == before["flash_bwd"] + 1
+    rout, rlse = flash_attention_bsh_plain(q, k, v, mask, *args)
+    rgrads = flash_attention_bsh_backward_plain(q, k, v, mask, rout, rlse, g,
+                                                *args)
+    assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+    for a, r in zip((out, *grads), (rout, *rgrads)):
+        assert a.dtype == dtype and a.shape == r.shape
+        assert torch.isfinite(a.float()).all()
+        assert_close(a, r, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_entry_on_the_card(cuda_device):
+    """The autograd entry launches B4 then B5 and refuses what the
+    kernels do not cover: S beyond the single tile, explicit masks."""
+    q, k, v, g, mask = _attn_case(1, 256, 2, 64, torch.bfloat16,
+                                  cuda_device)
+    qr = q.clone().requires_grad_(True)
+    before = dict(_build.launches)
+    flash_attention_bsh(qr, k, v, mask, 2, False, 0.125, 0.1, 5).backward(g)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert _build.launches["flash_bwd"] == before["flash_bwd"] + 1
+    long = torch.zeros(1, 640, 128, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="B9-B12"):
+        flash_attention_bsh(long, long, long, None, 2)
+    with pytest.raises(ValueError, match="keep mask"):
+        flash_attention_bsh(q, k, v, None, 2, dropout_rate=0.1,
+                            keep=torch.ones(1, 2, 256, 256, dtype=torch.bool))
+
+
+@pytest.mark.gpu
+def test_flash_kernels_take_unaligned_inputs(cuda_device):
+    """Inputs that start off a 16-byte boundary take the kernels' element
+    loads instead of their vector loads, with the same results."""
+    B, S, NH, D = 2, 128, 2, 64
+    q, k, v, g, mask = _attn_case(B, S, NH, D, torch.bfloat16, cuda_device)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    qs, ks, vs, gs = (shifted(t) for t in (q, k, v, g))
+    assert qs.data_ptr() % 16 != 0
+    args = (NH, False, D ** -0.5, 0.1, 9)
+    out, lse = flash_fwd_kernel(qs, ks, vs, mask, *args)
+    grads = flash_bwd_kernel(qs, ks, vs, mask, out, lse, gs, *args)
+    rout, rlse = flash_attention_bsh_plain(q, k, v, mask, *args)
+    rgrads = flash_attention_bsh_backward_plain(q, k, v, mask, rout, rlse, g,
+                                                *args)
+    assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+    for a, r in zip((out, *grads), (rout, *rgrads)):
+        assert_close(a, r, atol=3e-2, rtol=3e-2)
