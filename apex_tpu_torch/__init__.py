@@ -4,9 +4,12 @@ Hopper (H100).
 The package mirrors ``apex_tpu``'s layout and public names for the parts
 ported so far: the GPT serving path (paged attention, the dequant-GEMM,
 the GPT serving forward, the paged KV cache, sampling and the
-continuous-batching engine) and the BERT pretraining step (the fused
+continuous-batching engine), the BERT pretraining step (the fused
 LayerNorm backward, fused dropout, bsh flash attention, BERT, amp
-O0/O2/O3 with the dynamic loss scaler, FusedLAMB). Plain tensor code is
+O0/O2/O3 with the dynamic loss scaler, FusedLAMB), and BERT training
+below ``flash_min_seq`` through ``build_train_step`` and ``TrainLoop``
+(the fused scale-mask softmax, FusedScaleMaskSoftmax, gradient
+accumulation on one device). Plain tensor code is
 PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel under
 ``csrc/``, built with ``nvcc`` at first use
 (:mod:`apex_tpu_torch._build`). Entry points run on the CUDA card unless

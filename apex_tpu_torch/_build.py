@@ -33,7 +33,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # launches per kernel, read by InferenceEngine.stats() and chip_smoke.py
 launches = {"paged_read": 0, "dequant_gemm": 0, "layer_norm_bwd": 0,
-            "dropout": 0, "flash_fwd": 0, "flash_bwd": 0}
+            "dropout": 0, "flash_fwd": 0, "flash_bwd": 0, "softmax_fwd": 0,
+            "softmax_fwd4": 0, "softmax_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -110,6 +111,7 @@ def build(verbose: bool = False) -> Path:
 
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_LL = ctypes.c_longlong
 
 _SIGNATURES = {
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, q_positions,
@@ -127,7 +129,7 @@ _SIGNATURES = {
     # rows, H -> number of row blocks (sizes the workspace)
     "layer_norm_bwd_blocks": [_I] * 2,
     # x, y, n, dtype, seed, threshold, scale, stream
-    "fused_dropout": [_VP, _VP, ctypes.c_longlong, _I, _U, _U, _F, _VP],
+    "fused_dropout": [_VP, _VP, _LL, _I, _U, _U, _F, _VP],
     # q, k, v, key_mask, out, lse, B, S, NH, D, dtype, scale, causal,
     # dropout, seed, threshold, inv_keep, stream
     "flash_attn_fwd": [_VP] * 6 + [_I] * 5 + [_F, _I, _I, _U, _U, _F, _VP],
@@ -135,6 +137,12 @@ _SIGNATURES = {
     # scale, causal, dropout, seed, threshold, inv_keep, stream
     "flash_attn_bwd": [_VP] * 10 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
                                                 _VP],
+    # x, mask, y, rows, Sk, H, Sq, sb, sh, sq, dtype, scale, mask_mode,
+    # causal, stream
+    "softmax_fwd": [_VP] * 3 + [_LL, _I, _I, _I, _LL, _LL, _LL, _I, _F, _I,
+                                _I, _VP],
+    # g, y, dx, rows, Sk, g_dtype, y_dtype, scale, stream
+    "softmax_bwd": [_VP] * 3 + [_LL, _I, _I, _I, _F, _VP],
 }
 
 

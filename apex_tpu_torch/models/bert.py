@@ -1,11 +1,14 @@
 """BERT pretraining model (counterpart of :mod:`apex_tpu.models.bert`).
 
 The same modules, parameter names and math as the JAX package: three flat
-``(B, S, H)`` projections feeding the transpose-free flash attention
-(kernels B4/B5) at ``S >= flash_min_seq``, fused hidden dropout (kernel
-B3) at 49 sites in BERT-large, FusedLayerNorm with kernel B1 as its
-backward, tanh-approximate GELU, LN eps 1e-12, Dense layers that compute
-in ``cfg.dtype`` from fp32-stored params, per-layer activation
+``(B, S, H)`` projections feeding either the transpose-free flash
+attention (kernels B4/B5) at ``S >= flash_min_seq`` or, below it or with
+``flash_attention=False``, the composed attention (``q k^T`` times
+``1 / sqrt(D)``, FusedScaleMaskSoftmax with kernels B6/B8, fused dropout
+B3 on the probabilities, the product with ``v``); fused hidden dropout
+(kernel B3) at 49 sites in BERT-large, FusedLayerNorm with kernel B1 as
+its backward, tanh-approximate GELU, LN eps 1e-12, Dense layers that
+compute in ``cfg.dtype`` from fp32-stored params, per-layer activation
 checkpointing when ``cfg.remat``, and the MLPerf gathered-predictions MLM
 head (``masked_positions``).
 
@@ -13,8 +16,7 @@ Dropout seeds are host ints drawn from the ``torch.Generator`` the caller
 passes, all of them before any checkpointed layer runs (see
 :mod:`apex_tpu_torch.models._dropout`).
 
-Not ported yet: the composed-softmax attention below ``flash_min_seq``
-(kernels B6-B8), the ``"dots"`` remat policy, tensor and sequence
+Not ported yet: the ``"dots"`` remat policy, tensor and sequence
 parallelism, and ``fused_kernels=False``; each raises.
 """
 
@@ -32,6 +34,10 @@ from apex_tpu_torch.models._dropout import TPDropout, dropout_seeds
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.flash_attention import flash_attention_bsh
+from apex_tpu_torch.transformer.functional import (
+    AttnMaskType,
+    FusedScaleMaskSoftmax,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,10 +89,10 @@ def _check_ported(cfg: BertConfig):
     if cfg.use_tensor_parallel or cfg.sequence_parallel:
         raise NotImplementedError("BERT under tensor/sequence parallelism "
                                   "is not ported yet")
-    if not (cfg.fused_kernels and cfg.flash_attention):
-        raise NotImplementedError("only the fused flash-attention BERT is "
-                                  "ported (fused_kernels=flash_attention="
-                                  "True)")
+    if not cfg.fused_kernels:
+        raise NotImplementedError("fused_kernels=False (stock LayerNorm and "
+                                  "softmax) is not ported; the port's BERT "
+                                  "runs the fused kernels")
 
 
 class Dense(nn.Linear):
@@ -107,6 +113,13 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def _attn_softmax(scores, mask):
+    """The attention softmax of the JAX model's fused path: padding mask
+    type, scale 1 (the scores already carry 1 / sqrt(D))."""
+    return FusedScaleMaskSoftmax(attn_mask_type=AttnMaskType.padding,
+                                 scale=1.0)(scores, mask)
+
+
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -118,21 +131,39 @@ class BertSelfAttention(nn.Module):
         self.k = Dense(h, h, cfg.dtype)
         self.v = Dense(h, h, cfg.dtype)
         self.out = Dense(h, h, cfg.dtype)
+        self.dropout = TPDropout(cfg.attention_dropout)
 
     def forward(self, x, key_mask, seed=None, deterministic=True):
+        """``key_mask``: (B, S) boolean, True = masked, or None. ``seed``:
+        the attention-probability dropout seed (fused into B4 on the flash
+        path, B3 on the composed path)."""
         cfg = self.cfg
-        S = x.shape[1]
-        if S < cfg.flash_min_seq:
-            raise NotImplementedError(
-                f"BERT attention at S = {S} < flash_min_seq = "
-                f"{cfg.flash_min_seq} takes the composed-softmax path, whose "
-                f"kernels B6-B8 are not ported yet")
-        inv_sqrt = 1.0 / ((cfg.hidden_size // cfg.num_heads) ** 0.5)
-        drop = 0.0 if deterministic else cfg.attention_dropout
-        ctx = flash_attention_bsh(self.q(x), self.k(x), self.v(x), key_mask,
-                                  cfg.num_heads, False, inv_sqrt, drop,
-                                  seed if drop > 0.0 else None)
-        return self.out(ctx.to(cfg.dtype)).to(cfg.dtype)
+        B, S, h = x.shape
+        nh = cfg.num_heads
+        hd = h // nh
+        inv_sqrt = 1.0 / (hd ** 0.5)
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        if cfg.flash_attention and S >= cfg.flash_min_seq:
+            drop = 0.0 if deterministic else cfg.attention_dropout
+            ctx = flash_attention_bsh(q, k, v, key_mask, nh, False, inv_sqrt,
+                                      drop, seed if drop > 0.0 else None)
+            return self.out(ctx.to(cfg.dtype)).to(cfg.dtype)
+
+        def heads(t):
+            return t.view(B, S, nh, hd).transpose(1, 2)
+
+        # JAX takes q k^T with fp32 accumulation, scales in fp32 and rounds
+        # to cfg.dtype once; the product here rounds to cfg.dtype (q, k are
+        # in it) and is then scaled, the same single rounding where
+        # 1 / sqrt(D) is a power of two (D = 16, 64, 256: BERT-base and
+        # -large have D 64)
+        scores = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * inv_sqrt
+        mask4d = None if key_mask is None else key_mask[:, None, None, :]
+        probs = self.dropout(_attn_softmax(scores, mask4d), seed,
+                             deterministic)
+        ctx = torch.matmul(probs, heads(v))
+        ctx = ctx.transpose(1, 2).reshape(B, S, h)
+        return self.out(ctx).to(cfg.dtype)
 
 
 class BertLayer(nn.Module):

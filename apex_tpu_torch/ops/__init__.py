@@ -33,6 +33,14 @@ from apex_tpu_torch.ops.paged_attention import (
     paged_prefill_attention_plain,
     paged_read_attention,
 )
+from apex_tpu_torch.ops.softmax import (
+    scaled_masked_softmax,
+    scaled_softmax,
+    scaled_upper_triang_masked_softmax,
+    softmax_bwd_plain,
+    softmax_fwd_plain,
+    softmax_reference,
+)
 
 __all__ = [
     "FILL",
@@ -59,4 +67,10 @@ __all__ = [
     "resolve_device",
     "rms_norm_reference",
     "round_up",
+    "scaled_masked_softmax",
+    "scaled_softmax",
+    "scaled_upper_triang_masked_softmax",
+    "softmax_bwd_plain",
+    "softmax_fwd_plain",
+    "softmax_reference",
 ]

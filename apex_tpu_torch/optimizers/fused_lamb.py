@@ -11,6 +11,8 @@ as ``torch._foreach_*`` passes over all tensors at once:
 - stage 2: each tensor's trust ratio ``||p|| / ||u||`` (1 where either is
   0; applied only with weight decay or ``use_nvlamb``) and the step.
 
+``step(grads=...)`` takes the gradients as a list instead of reading
+``p.grad`` (``build_train_step`` hands in its fp32 averages).
 ``step(grad_scale=s)`` takes gradients scaled by ``s``: it unscales them
 inside its own reads (the norm and the stage-1 clip factor) and reads the
 overflow flag off the global norm, which is non-finite iff some gradient
@@ -55,33 +57,47 @@ class FusedLAMB(FusedOptimizer):
         super().__init__(params, defaults, master_weights, set_grad_none)
 
     @torch.no_grad()
-    def step(self, closure=None, *, grad_scale=None, lr=None):
-        """One LAMB step over every param with a gradient. Returns the
-        overflow flag when ``grad_scale`` is given, else the closure's
-        loss (or None)."""
+    def step(self, closure=None, *, grad_scale=None, lr=None, grads=None):
+        """One LAMB step over every param with a gradient. ``grads``, when
+        given, replaces the params' ``.grad``: one tensor (or None) per
+        param of ``param_groups`` in order, in any floating dtype (an fp32
+        accumulator is read as it is, never rounded into a bf16
+        ``.grad``). Returns the overflow flag when ``grad_scale`` is given,
+        else the closure's loss (or None)."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        params = [p for g in self.param_groups for p in g["params"]
-                  if p.grad is not None]
-        if not params:
+        all_params = [p for g in self.param_groups for p in g["params"]]
+        if grads is None:
+            grads = [p.grad for p in all_params]
+        elif len(grads) != len(all_params):
+            raise ValueError(f"FusedLAMB.step: {len(grads)} gradients for "
+                             f"{len(all_params)} params")
+        live = [g for g in grads if g is not None]
+        if not live:
             return False if grad_scale is not None else loss
-        global_norm = self.global_grad_norm([p.grad for p in params])
+        global_norm = self.global_grad_norm(live)
         pre_scale = 1.0
         if grad_scale is not None:
             if not bool(torch.isfinite(global_norm)):
                 return True
             pre_scale = 1.0 / float(grad_scale)
             global_norm = global_norm * pre_scale
+        start = 0
         for group in self.param_groups:
-            self._group_step(group, global_norm, pre_scale, lr)
+            n = len(group["params"])
+            pairs = [(p, g) for p, g in zip(group["params"],
+                                            grads[start:start + n])
+                     if g is not None]
+            start += n
+            self._group_step(group, pairs, global_norm, pre_scale, lr)
         return False if grad_scale is not None else loss
 
-    def _group_step(self, group, global_norm, pre_scale, lr):
-        params = [p for p in group["params"] if p.grad is not None]
-        if not params:
+    def _group_step(self, group, pairs, global_norm, pre_scale, lr):
+        if not pairs:
             return
+        params = [p for p, _ in pairs]
         lr = group["lr"] if lr is None else lr
         b1, b2 = group["betas"]
         wd, eps = group["weight_decay"], group["eps"]
@@ -109,7 +125,7 @@ class FusedLAMB(FusedOptimizer):
             p32.append(self._param_fp32(p, st))
 
         # stage 1: clip (with the unscale folded in), moments, directions
-        g32 = torch._foreach_mul([p.grad.float() for p in params], clip)
+        g32 = torch._foreach_mul([g.float() for _, g in pairs], clip)
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, g32, alpha=beta3)
         torch._foreach_mul_(v, b2)

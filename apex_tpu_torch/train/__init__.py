@@ -1,10 +1,20 @@
-"""Training steps (counterpart of :mod:`apex_tpu.train`): the BERT
-pretraining step so far; ``build_train_step`` is not ported yet."""
+"""Training (counterpart of :mod:`apex_tpu.train`): ``build_train_step``
+with gradient accumulation and the deferred-metrics ``TrainLoop`` on one
+device, and the BERT pretraining step of ``bench.py``."""
 
+from apex_tpu_torch.train.loop import TrainLoop
 from apex_tpu_torch.train.pretraining import (
     PretrainingStep,
     build_pretraining,
     make_pretraining_batch,
+    pretraining_loss_fn,
+)
+from apex_tpu_torch.train.step import (
+    TrainState,
+    TrainStep,
+    build_train_step,
 )
 
-__all__ = ["PretrainingStep", "build_pretraining", "make_pretraining_batch"]
+__all__ = ["PretrainingStep", "TrainLoop", "TrainState", "TrainStep",
+           "build_pretraining", "build_train_step", "make_pretraining_batch",
+           "pretraining_loss_fn"]

@@ -1,12 +1,17 @@
 """The BERT pretraining step of ``bench.py:build_step`` (amp + FusedLAMB),
-on the port.
+on the port, and the pieces ``build_train_step`` needs to train BERT.
 
-One step is, as the JAX bench runs it: the forward with dropout, the
-loss scaled by the current loss scale and its backward (the gradients stay
-scaled), ``FusedLAMB.step(grad_scale=loss_scale)``, which unscales inside
-its own reads, returns the overflow flag and skips the step on overflow,
-then the scaler update. The step owns the ``torch.Generator`` the model
-draws its dropout seeds from.
+One ``PretrainingStep`` is, as the JAX bench runs it: the forward with
+dropout, the loss scaled by the current loss scale and its backward (the
+gradients stay scaled), ``FusedLAMB.step(grad_scale=loss_scale)``, which
+unscales inside its own reads, returns the overflow flag and skips the
+step on overflow, then the scaler update. The step owns the
+``torch.Generator`` the model draws its dropout seeds from.
+
+``pretraining_loss_fn(model)`` is the ``loss_fn(microbatch, generator)``
+of :func:`apex_tpu_torch.train.build_train_step`, and
+``make_pretraining_batch(..., accum_steps=N)`` gives its
+``[N, B, ...]`` batches.
 """
 
 from __future__ import annotations
@@ -25,12 +30,20 @@ from apex_tpu_torch.optimizers import FusedLAMB
 
 
 def make_pretraining_batch(cfg: BertConfig, batch: int, seq: int,
-                           seed: int = 0, device=None) -> dict:
+                           seed: int = 0, device=None,
+                           accum_steps=None) -> dict:
     """Inputs in the MLPerf gathered-predictions format, drawn from
     ``seed`` exactly as ``bench.py:89-116`` draws them: random ids, one
     segment, no padding, P = 76 masked positions per row at S = 512 (15%
-    of S otherwise), each row using between P/2 and P of them."""
+    of S otherwise), each row using between P/2 and P of them. With
+    ``accum_steps = N`` it draws ``N * batch`` rows and shapes every
+    leaf ``[N, batch, ...]``, microbatch by microbatch."""
     device = resolve_device(device)
+    if accum_steps is not None:
+        full = make_pretraining_batch(cfg, accum_steps * batch, seq, seed,
+                                      device)
+        return {k: v.reshape(accum_steps, batch, *v.shape[1:])
+                for k, v in full.items()}
     rng = np.random.RandomState(seed)
     ids = rng.randint(0, cfg.vocab_size, (batch, seq))
     n_pred = max(int(seq * 0.15), 2)
@@ -58,6 +71,22 @@ def make_pretraining_batch(cfg: BertConfig, batch: int, seq: int,
             "nsp_labels": t(nsp)}
 
 
+def pretraining_loss_fn(model, deterministic: bool = False):
+    """``loss_fn(microbatch, generator)`` for ``build_train_step``: the
+    model's pretraining loss on one microbatch, its dropout seeds drawn
+    from ``generator``."""
+
+    def loss_fn(mb, generator):
+        mlm, nsp = model(mb["input_ids"], mb["token_type_ids"],
+                         mb["attention_mask"], deterministic=deterministic,
+                         masked_positions=mb["masked_positions"],
+                         generator=generator)
+        return pretraining_loss(mlm, nsp, mb["mlm_labels"],
+                                mb["nsp_labels"], mb["mlm_weights"])
+
+    return loss_fn
+
+
 class PretrainingStep:
     """Callable one-step trainer: ``step(batch) -> (loss, found_inf)``
     with ``loss`` the unscaled loss (a device scalar) and ``found_inf``
@@ -74,13 +103,8 @@ class PretrainingStep:
         self.generator = torch.Generator().manual_seed(seed)
 
     def loss(self, batch):
-        mlm, nsp = self.model(
-            batch["input_ids"], batch["token_type_ids"],
-            batch["attention_mask"], deterministic=self.deterministic,
-            masked_positions=batch["masked_positions"],
-            generator=self.generator)
-        return pretraining_loss(mlm, nsp, batch["mlm_labels"],
-                                batch["nsp_labels"], batch["mlm_weights"])
+        return pretraining_loss_fn(self.model, self.deterministic)(
+            batch, self.generator)
 
     def __call__(self, batch):
         sst = self.scaler_state

@@ -1,0 +1,4 @@
+from apex_tpu_torch.transformer.functional.fused_softmax import (  # noqa: F401
+    AttnMaskType,
+    FusedScaleMaskSoftmax,
+)

@@ -23,16 +23,21 @@ PyTorch version on the same inputs:
 - ``layer_norm_bwd`` (B1), ``dropout`` (B3), ``flash_fwd`` (B4) and
   ``flash_bwd`` (B5) at the BERT-large training shapes, with the
   tolerances their functions state.
+- ``softmax_fwd`` (B6), ``softmax_fwd4`` (B7) and ``softmax_bwd`` (B8) at
+  BERT-large's S 128 score shape (64, 16, 128, 128), bf16 and fp32, and
+  at an unaligned Sk of 77; a plain version that scales after the mask
+  must fail the check at a negative scale.
 
 Each case is timed on the device (calls captured in a CUDA graph and
 replayed, CUDA events around the replay) beside its plain version, a
 library call that computes the same function (``F.scaled_dot_product_attention``
 on the gathered K/V for B14, ``torch.matmul`` on the dequantized weight
 for B15, the backward of ``F.layer_norm`` for B1, ``F.dropout`` for B3,
-SDPA and its backward without dropout for B4/B5; the port calls none of
-them), and the least time the card could take: the larger of the bytes
-moved over 3.35 TB/s and the operations over the peak rate of their type
-(67 TFLOP/s fp32, 989 TFLOP/s bf16 tensor cores; H100 SXM data sheet).
+SDPA and its backward without dropout for B4/B5, ``torch.softmax`` and
+its backward for B6/B8; the port calls none of them), and the least time
+the card could take: the larger of the bytes moved over 3.35 TB/s and
+the operations over the peak rate of their type (67 TFLOP/s fp32, 989
+TFLOP/s bf16 tensor cores; H100 SXM data sheet).
 
 Phase 2 serves traffic through the port's entry points at GPT-2-small
 width (vocab 50257, hidden 768, 12 layers, 12 heads, 1024 positions)
@@ -51,6 +56,14 @@ warm-up steps and five timed steps. The launch counters, set to 0 just
 before the timed steps, must show every step going through B1, B3, B4
 and B5 the number of times the model implies; every loss must be
 finite and the first within 1.0 of ln(30522) + ln(2).
+
+Phase 4 trains BERT-large phase 1 (S 128, the composed attention below
+``flash_min_seq``) through the library's training entry point,
+``build_train_step(...).loop(state)``: amp O2, FusedLAMB, microbatch B 64,
+``accum_steps`` 4, P 19. A card-vs-CPU check of one fp32 global step (2
+layers, B 2, accum 2, one row padded) comes first; then two warm-up and
+five timed global steps, whose launch counters must show 50 B1, 218 B3,
+48 B6, 24 B8 and no B4, B5 or B7 per microbatch.
 
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
@@ -549,6 +562,140 @@ def phase1_flash(torch, F, dev, seed):
     return fwd_rows, bwd_rows
 
 
+def phase1_softmax(torch, dev, seed):
+    """B6, B7 and B8 at BERT-large's S 128 attention shape, (64, 16, 128,
+    128) (B 64 microbatch, 16 heads): B6 with no mask, with the pre-folded
+    boolean key mask (the training path's input, x = FILL where masked)
+    and causal at scale 1/8; B7 with an additive fp32 (64, 1, 1, 128)
+    mask; B8 at the same shape; an fp32 case of each; and Sk 77 (the
+    unaligned path) with a (64, 1, 1, 77) fill mask at scale -0.5, through
+    B7 and B8. Each is held against its plain version at atol = rtol =
+    1e-2 elementwise and 1e-3 of the tensor's norm for bf16 outputs (one
+    bf16 ulp of a value below 1 is at most 2^-8; kernel and plain version
+    both round once from fp32 sums in other orders), 1e-5 and 1e-5 for
+    fp32. A plain version that applies the scale after the mask must fail
+    that check at scale -0.5."""
+    from apex_tpu_torch.ops._common import FILL
+    from apex_tpu_torch.ops.softmax import (
+        softmax_bwd_kernel,
+        softmax_bwd_plain,
+        softmax_fwd_kernel,
+        softmax_fwd_plain,
+    )
+
+    B, NH, S = 64, 16, 128
+    g = torch.Generator().manual_seed(seed)
+
+    def close(a, r, dtype):
+        tol, ntol = (1e-2, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+        a, r = a.float(), r.float()
+        rel = ((a - r).norm() / r.norm()).item()
+        return bool(torch.allclose(a, r, atol=tol, rtol=tol)) and \
+            rel <= ntol, rel, tol
+
+    def rand(shape, dtype, std=3.0):
+        return (torch.randn(*shape, generator=g) * std).to(dtype).to(dev)
+
+    keys = torch.zeros(B, 1, 1, S, dtype=torch.bool)
+    for b in range(B // 2):
+        keys[b, ..., int(torch.randint(S // 4, S, (1,), generator=g)):] = True
+    keys[B - 1] = True                    # a fully masked row
+    keys = keys.to(dev)
+    add = torch.where(keys, -1e4, 0.0).float()
+    fwd_cases = []   # (name, counter, x, mask, mode, scale, causal, library)
+    for dt in (torch.bfloat16, torch.float32):
+        x = rand((B, NH, S, S), dt)
+        folded = torch.where(keys, FILL, x)
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        fwd_cases += [
+            (f"no mask {tag}", "softmax_fwd", x, None, None, 1.0, False,
+             lambda x=x: torch.softmax(x, -1)),
+            (f"pre-folded key mask {tag}", "softmax_fwd", folded, None, None,
+             1.0, False, lambda x=folded: torch.softmax(x, -1)),
+            (f"causal scale 1/8 {tag}", "softmax_fwd", x, None, None, 0.125,
+             True, None),
+            (f"additive (B, 1, 1, Sk) mask {tag}", "softmax_fwd4", x, add,
+             "add", 1.0, False, None)]
+    x77 = rand((B, NH, 77, 77), torch.bfloat16)
+    fill77 = (torch.rand(B, 1, 1, 77, generator=g) < 0.3).float().to(dev)
+    fwd_cases.append(("Sk 77 fill mask scale -0.5 bf16", "softmax_fwd4", x77,
+                      fill77, "fill", -0.5, False, None))
+
+    def bwd_row(name, gr, y, scale):
+        dx = softmax_bwd_kernel(gr, y, scale)
+        rdx = softmax_bwd_plain(gr, y, scale)
+        torch.cuda.synchronize()
+        ok, norm_err, tol = close(dx, rdx, gr.dtype)
+        max_abs = close_stats(torch, dx, rdx)[0]
+        check(ok, f"softmax backward {name}: max abs err {max_abs}, norm "
+              f"err {norm_err}")
+        nbytes = gr.numel() * (2 * gr.element_size() + y.element_size())
+        b_ms, b_by = bound(nbytes, 5 * gr.numel())
+        return dict(
+            case=f"{tuple(gr.shape)} {name}", max_abs_err=max_abs,
+            norm_err=norm_err, tol=tol,
+            ms=time_ms(lambda: softmax_bwd_kernel(gr, y, scale)),
+            plain_ms=time_ms(lambda: softmax_bwd_plain(gr, y, scale),
+                             iters=10),
+            library_ms=time_ms(lambda: torch._softmax_backward_data(
+                gr, y, -1, gr.dtype) * scale),
+            bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+
+    rows = {"softmax_fwd": [], "softmax_fwd4": [], "softmax_bwd": []}
+    for name, counter, x, m, mode, scale, causal, lib in fwd_cases:
+        y = softmax_fwd_kernel(x, m, scale, causal, mode)
+        ref = softmax_fwd_plain(x, m, scale, causal, mode)
+        torch.cuda.synchronize()
+        check(torch.isfinite(y.float()).all().item(),
+              f"softmax {name}: non-finite output")
+        ok, norm_err, tol = close(y, ref, x.dtype)
+        max_abs = close_stats(torch, y, ref)[0]
+        check(ok, f"softmax {name}: max abs err {max_abs}, norm err "
+              f"{norm_err}")
+        wrong = None
+        if scale <= 0:
+            # the scale applied after the mask: masked keys win instead
+            v = torch.where(m > 0, FILL, x.float()) * scale
+            bad_ok, wrong, _ = close(torch.softmax(v, -1).to(x.dtype), ref,
+                                     x.dtype)
+            check(not bad_ok, f"softmax {name}: the check passes a plain "
+                  f"version that scales after the mask")
+        nbytes = 2 * x.numel() * x.element_size() + (
+            0 if m is None else m.numel() * 4)
+        b_ms, b_by = bound(nbytes, 10 * x.numel())
+        rows[counter].append(dict(
+            case=f"{tuple(x.shape)} {name}", max_abs_err=max_abs,
+            norm_err=norm_err, wrong_scale_norm_err=wrong, tol=tol,
+            ms=time_ms(lambda: softmax_fwd_kernel(x, m, scale, causal,
+                                                  mode)),
+            plain_ms=time_ms(lambda: softmax_fwd_plain(x, m, scale, causal,
+                                                       mode), iters=10),
+            library_ms=None if lib is None else time_ms(lib),
+            bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
+        if x.dtype == torch.bfloat16:
+            # B8 on the same rows: g random, y the forward's output; an
+            # fp32 case beside the unmasked one
+            gr = rand(x.shape, x.dtype, 1.0)
+            rows["softmax_bwd"].append(bwd_row(name, gr, y, scale))
+            if mode is None and not causal and scale == 1.0 and \
+                    "pre-folded" not in name:
+                rows["softmax_bwd"].append(bwd_row(
+                    "no mask fp32", gr.float(), y.float(), scale))
+            del gr
+    for counter, tag in (("softmax_fwd", "B6"), ("softmax_fwd4", "B7"),
+                         ("softmax_bwd", "B8")):
+        for r in rows[counter]:
+            lib = ("n/a" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            print(f"[{tag} {counter}] {r['case']}: max_abs_err "
+                  f"{r['max_abs_err']:.3g} norm_err {r['norm_err']:.3g} "
+                  f"(tol {r['tol']}) | ms {r['ms']:.4f} plain_ms "
+                  f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 2: the engine at GPT-2-small width ---------------------------------
 
 def traffic(seed, vocab):
@@ -737,11 +884,10 @@ STEP_LAUNCHES = {"layer_norm_bwd": 50, "dropout": 49 + 48 + 49,
                  "flash_fwd": 24 + 24, "flash_bwd": 24}
 
 
-def card_vs_cpu(torch, dev, seed):
-    """One O0 fp32 step at full width, 2 layers, B 2, S 512, dropout 0, on
-    the card and on the port's CPU path from the same weights, held to
-    three checks (fp32 sums run in other orders: kernels B1, B4, B5 and
-    cuBLAS against the CPU's plain versions):
+def compare_card_cpu(res, label):
+    """Hold the card's step against the CPU's, from the same weights (fp32
+    sums run in other orders: the kernels and cuBLAS against the CPU's
+    plain versions):
 
     - the loss within 1e-4 relative;
     - each parameter's gradient, before the optimizer, within 1e-3 of
@@ -751,7 +897,50 @@ def card_vs_cpu(torch, dev, seed):
     - the updated parameters: the norm of (card - CPU) over every
       parameter within 1e-2 of the norm of the CPU step (new - old). At
       LAMB's first step the direction is nearly sign(g), so a gradient
-      that is 0 up to rounding steps either way, by lr * 1e-5 at most."""
+      that is 0 up to rounding steps either way, by lr * 1e-5 at most.
+
+    ``res[where] = (loss, params before, gradients, params after)``."""
+    lc, bc, gc, pc = res["cuda"]
+    lh, _, gh, ph = res["cpu"]
+    loss_rel = abs(lc - lh) / abs(lh)
+    global_norm = sum(g.norm().item() ** 2 for g in gh.values()) ** 0.5
+    grad_rel, rounding_zero = {}, {}
+    for n, g in gh.items():
+        gn = g.norm().item()
+        if gn <= 1e-6 * global_norm:
+            rounding_zero[n] = gn / global_norm
+        else:
+            grad_rel[n] = (gc[n] - g).norm().item() / gn
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    err_sq = step_sq = 0.0
+    for n in pc:
+        err_sq += (pc[n] - ph[n]).norm().item() ** 2
+        step_sq += (ph[n] - bc[n]).norm().item() ** 2
+    rel = (err_sq / step_sq) ** 0.5
+    print(f"[check] card vs CPU, {label}: "
+          f"loss {lc:.6f} vs {lh:.6f} (rel {loss_rel:.3g}, tol 1e-4); "
+          f"gradients of {len(grad_rel)} tensors, worst {worst_grad} at "
+          f"{grad_rel[worst_grad]:.3g} of its norm (tol 1e-3), left out as "
+          f"0 to rounding (norm over the global norm) "
+          f"{ {n: float(f'{r:.3g}') for n, r in rounding_zero.items()} }; "
+          f"parameter steps differ "
+          f"by {rel:.3g} of their norm (tol 1e-2)", flush=True)
+    check(loss_rel <= 1e-4,
+          f"card vs CPU ({label}) loss rel diff {loss_rel}")
+    check(grad_rel[worst_grad] <= 1e-3,
+          f"card vs CPU ({label}) gradient of {worst_grad} differs by "
+          f"{grad_rel[worst_grad]} of its norm")
+    check(rel <= 1e-2, f"card vs CPU ({label}) parameter steps differ by "
+          f"{rel}")
+    return dict(loss_card=lc, loss_cpu=lh, loss_rel_diff=loss_rel,
+                grad_rel_diff=grad_rel, grads_rounding_zero=rounding_zero,
+                step_rel_diff=rel)
+
+
+def card_vs_cpu(torch, dev, seed):
+    """One O0 fp32 step at full width, 2 layers, B 2, S 512, dropout 0
+    (the flash path: B1, B4, B5), on the card and on the port's CPU path,
+    held as :func:`compare_card_cpu` says."""
     from apex_tpu_torch.models import BertConfig
     from apex_tpu_torch.train import build_pretraining, make_pretraining_batch
 
@@ -774,39 +963,7 @@ def card_vs_cpu(torch, dev, seed):
                       {n: p.detach().float().cpu()
                        for n, p in step.model.named_parameters()})
         del step
-    lc, bc, gc, pc = res["cuda"]
-    lh, _, gh, ph = res["cpu"]
-    loss_rel = abs(lc - lh) / abs(lh)
-    global_norm = sum(g.norm().item() ** 2 for g in gh.values()) ** 0.5
-    grad_rel, rounding_zero = {}, {}
-    for n, g in gh.items():
-        gn = g.norm().item()
-        if gn <= 1e-6 * global_norm:
-            rounding_zero[n] = gn / global_norm
-        else:
-            grad_rel[n] = (gc[n] - g).norm().item() / gn
-    worst_grad = max(grad_rel, key=grad_rel.get)
-    err_sq = step_sq = 0.0
-    for n in pc:
-        err_sq += (pc[n] - ph[n]).norm().item() ** 2
-        step_sq += (ph[n] - bc[n]).norm().item() ** 2
-    rel = (err_sq / step_sq) ** 0.5
-    print(f"[check] card vs CPU, one O0 fp32 step (2 layers, B 2, S 512): "
-          f"loss {lc:.6f} vs {lh:.6f} (rel {loss_rel:.3g}, tol 1e-4); "
-          f"gradients of {len(grad_rel)} tensors, worst {worst_grad} at "
-          f"{grad_rel[worst_grad]:.3g} of its norm (tol 1e-3), left out as "
-          f"0 to rounding (norm over the global norm) "
-          f"{ {n: float(f'{r:.3g}') for n, r in rounding_zero.items()} }; "
-          f"parameter steps differ "
-          f"by {rel:.3g} of their norm (tol 1e-2)", flush=True)
-    check(loss_rel <= 1e-4, f"card vs CPU loss rel diff {loss_rel}")
-    check(grad_rel[worst_grad] <= 1e-3,
-          f"card vs CPU gradient of {worst_grad} differs by "
-          f"{grad_rel[worst_grad]} of its norm")
-    check(rel <= 1e-2, f"card vs CPU parameter steps differ by {rel}")
-    return dict(loss_card=lc, loss_cpu=lh, loss_rel_diff=loss_rel,
-                grad_rel_diff=grad_rel, grads_rounding_zero=rounding_zero,
-                step_rel_diff=rel)
+    return compare_card_cpu(res, "one O0 fp32 step (2 layers, B 2, S 512)")
 
 
 def phase3(torch, dev, seed, card, steps=5, warmup=2):
@@ -874,6 +1031,155 @@ def phase3(torch, dev, seed, card, steps=5, warmup=2):
     return rec
 
 
+# -- phase 4: BERT-large phase-1 pretraining, S 128, build_train_step --------
+
+# launches of one S 128 microbatch (24 layers, remat, the composed attention
+# below flash_min_seq): LayerNorm backward as at S 512; dropout at the 49
+# hidden sites plus the 24 attention-probability sites, run forward, again
+# in the recompute (72) and replayed in the backward; the softmax forward
+# per layer and again in its recompute, its backward per layer; no flash
+# kernel and no 4-D-mask softmax (the boolean key mask is pre-folded)
+MICROBATCH_LAUNCHES = {"layer_norm_bwd": 50, "dropout": 73 + 72 + 73,
+                       "softmax_fwd": 24 + 24, "softmax_bwd": 24,
+                       "softmax_fwd4": 0, "flash_fwd": 0, "flash_bwd": 0}
+
+
+def bert_train_step(torch, cfg, opt_level, accum, seed, dev,
+                    deterministic=False):
+    """The library's training entry point on BERT: the model (weights from
+    ``seed``), FusedLAMB(lr 1e-4, weight decay 0.01), ``amp.initialize``
+    and ``build_train_step`` over ``pretraining_loss_fn``."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import BertForPreTraining
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.train import build_train_step, pretraining_loss_fn
+
+    model = BertForPreTraining(cfg, device=dev, seed=seed)
+    opt = FusedLAMB(model.parameters(), lr=1e-4, weight_decay=0.01)
+    model, opt, handle = amp.initialize(model, opt, opt_level=opt_level,
+                                        verbosity=0, device=dev)
+    ts = build_train_step(pretraining_loss_fn(model, deterministic), opt,
+                          amp=handle, accum_steps=accum, seed=seed)
+    return model, opt, ts
+
+
+def card_vs_cpu_s128(torch, dev, seed):
+    """One O0 fp32 global step through ``build_train_step`` at full width,
+    2 layers, B 2, S 128, accum_steps 2, dropout 0 (the composed
+    attention: B1, B6, B8 and cuBLAS on the card), the second row of each
+    microbatch padded from S / 2 on, on the card and on the port's CPU
+    path, held as :func:`compare_card_cpu` says. The gradients are the
+    averaged fp32 accumulators the step hands the optimizer."""
+    from apex_tpu_torch.models import BertConfig
+    from apex_tpu_torch.train import make_pretraining_batch
+
+    cfg = BertConfig(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0)
+    res = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        model, opt, ts = bert_train_step(torch, cfg, "O0", 2, seed, d)
+        names = [n for n, _ in model.named_parameters()]
+        before = {n: p.detach().float().cpu().clone()
+                  for n, p in model.named_parameters()}
+        batch = make_pretraining_batch(cfg, 2, 128, seed=seed, device=d,
+                                       accum_steps=2)
+        batch["attention_mask"][:, 1, 64:] = 0
+        seen = {}
+        step = opt.step
+
+        def capture(*a, grads=None, **kw):
+            seen.update({n: g.detach().float().cpu().clone()
+                         for n, g in zip(names, grads)})
+            return step(*a, grads=grads, **kw)
+
+        opt.step = capture
+        _, metrics = ts(ts.init(), batch)
+        check(not metrics["skipped"], f"card-vs-CPU S 128 step ({where}) "
+              f"overflowed")
+        res[where] = (metrics["loss"].item(), before, seen,
+                      {n: p.detach().float().cpu()
+                       for n, p in model.named_parameters()})
+        del model, opt, ts
+    return compare_card_cpu(
+        res, "one O0 fp32 build_train_step global step (2 layers, B 2, "
+        "S 128, accum 2)")
+
+
+def phase4(torch, dev, seed, card, steps=5, warmup=2):
+    """BERT-large (``BertConfig()``) in bf16 with remat, amp O2,
+    FusedLAMB(lr 1e-4, weight decay 0.01), S 128, microbatch B 64,
+    accum_steps 4 (256 sequences a global step), P 19, weights and inputs
+    from ``seed``, through ``build_train_step(...).loop(state)``."""
+    import math
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import BertConfig
+    from apex_tpu_torch.train import make_pretraining_batch
+
+    cfg = BertConfig(dtype=torch.bfloat16, remat=True)
+    B, S, accum = 64, 128, 4
+    t0 = time.perf_counter()
+    model, opt, ts = bert_train_step(torch, cfg, "O2", accum, seed, dev)
+    batch = make_pretraining_batch(cfg, B, S, seed=seed, device=dev,
+                                   accum_steps=accum)
+    loop = ts.loop(ts.init())
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    metrics = []
+    for _ in range(warmup):
+        m = loop.step(batch)
+        metrics += [m] if m is not None else []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        m = loop.step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics += [m] if m is not None else []
+    metrics.append(loop.drain())
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    check(len(metrics) == warmup + steps,
+          f"TrainLoop returned {len(metrics)} metrics for "
+          f"{warmup + steps} steps")
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite training loss: {losses}")
+    expect = math.log(cfg.vocab_size) + math.log(2)
+    check(abs(losses[0] - expect) <= 1.0,
+          f"first loss {losses[0]} not within 1.0 of {expect:.3f}")
+    for k, per_mb in MICROBATCH_LAUNCHES.items():
+        check(launches[k] == per_mb * accum * steps,
+              f"{k}: {launches[k]} launches in {steps} global steps of "
+              f"{accum} microbatches, expected {per_mb} per microbatch")
+    ms = sorted(t * 1e3 for t in times)
+    med = ms[len(ms) // 2]
+    rec = dict(card=card, n_params=n_params, microbatch=B, seq=S,
+               accum_steps=accum, samples_per_step=B * accum,
+               masked_positions=int(batch["masked_positions"].shape[-1]),
+               setup_s=setup_s, step_ms=ms, step_ms_median=med,
+               samples_per_s=B * accum * 1e3 / med, peak_memory_bytes=peak,
+               losses=losses, metrics_keys=sorted(metrics[-1]),
+               last_metrics=metrics[-1], launches=launches,
+               launches_per_microbatch=MICROBATCH_LAUNCHES)
+    print(f"[train bert-large S 128 build_train_step] {card}: {n_params} "
+          f"params, B {B} x accum {accum}, S {S}, P "
+          f"{rec['masked_positions']} | global step ms "
+          f"{', '.join(f'{x:.1f}' for x in ms)} (median {med:.1f}) | "
+          f"{rec['samples_per_s']:.2f} samples/s | peak memory "
+          f"{peak / 2**30:.2f} GiB | losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} | TrainLoop metrics "
+          f"{metrics[-1]} | launches per global step "
+          f"{ {k: v / steps for k, v in launches.items() if v} }",
+          flush=True)
+    del model, opt, ts, loop, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -915,13 +1221,22 @@ def main(argv=None):
     ln_rows = phase1_layer_norm(torch, dev, args.seed)
     drop_rows = phase1_dropout(torch, F, dev, args.seed)
     fwd_rows, bwd_rows = phase1_flash(torch, F, dev, args.seed)
+    sm_rows = phase1_softmax(torch, dev, args.seed)
     runs, checks = phase2(torch, dev, args.seed, card)
     checks["card_vs_cpu_train_step"] = card_vs_cpu(torch, dev, args.seed)
     train = phase3(torch, dev, args.seed, card)
+    checks["card_vs_cpu_s128_global_step"] = card_vs_cpu_s128(torch, dev,
+                                                             args.seed)
+    train128 = phase4(torch, dev, args.seed, card)
 
+    # each kernel's launches on the main paths that run it (B1 and B3 run
+    # in both training phases)
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in ("paged_read", "dequant_gemm")}
-    launches.update({k: train["launches"][k] for k in STEP_LAUNCHES})
+    launches.update({k: train["launches"][k] + train128["launches"][k]
+                     for k in ("layer_norm_bwd", "dropout", "flash_fwd",
+                               "flash_bwd", "softmax_fwd", "softmax_fwd4",
+                               "softmax_bwd")})
     kernels = [
         kernel_entry("paged_read", "apex_tpu_torch/csrc/paged_read.cu",
                      "apex_tpu/ops/paged_attention_pallas.py:106",
@@ -943,14 +1258,24 @@ def main(argv=None):
         kernel_entry("flash_bwd", "apex_tpu_torch/csrc/flash_attn.cu",
                      "apex_tpu/ops/flash_attention.py:1013", bwd_rows,
                      bwd_rows[1], launches["flash_bwd"]),
+        kernel_entry("softmax_fwd", "apex_tpu_torch/csrc/softmax.cu",
+                     "apex_tpu/ops/softmax.py:49", sm_rows["softmax_fwd"],
+                     sm_rows["softmax_fwd"][1], launches["softmax_fwd"]),
+        kernel_entry("softmax_fwd4", "apex_tpu_torch/csrc/softmax.cu",
+                     "apex_tpu/ops/softmax.py:126", sm_rows["softmax_fwd4"],
+                     sm_rows["softmax_fwd4"][0], launches["softmax_fwd4"]),
+        kernel_entry("softmax_bwd", "apex_tpu_torch/csrc/softmax.cu",
+                     "apex_tpu/ops/softmax.py:82", sm_rows["softmax_bwd"],
+                     sm_rows["softmax_bwd"][0], launches["softmax_bwd"]),
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, seed=args.seed, paged_read=paged_rows,
         dequant_gemm=dq_rows, layer_norm_bwd=ln_rows, dropout=drop_rows,
-        flash_fwd=fwd_rows, flash_bwd=bwd_rows, engine=runs, train=train,
-        checks=checks, kernels=kernels), indent=1))
+        flash_fwd=fwd_rows, flash_bwd=bwd_rows, softmax=sm_rows,
+        engine=runs, train=train, train_s128=train128, checks=checks,
+        kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
 """Port parity for the slice as a whole: BertForPreTraining's loss and
-gradients, and one amp O2 + FusedLAMB step shaped like
+gradients on the flash path and, below ``flash_min_seq``, on the composed
+path (FusedScaleMaskSoftmax), and one amp O2 + FusedLAMB step shaped like
 ``bench.py:build_step``, against apex_tpu on the same weights (loaded
 through ``load_jax_params``) and the same numpy inputs. The JAX side runs
-its Pallas kernels (flash attention, LayerNorm backward) in interpret
-mode."""
+its Pallas kernels (flash attention, softmax, LayerNorm backward) in
+interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +26,12 @@ from apex_tpu_torch.models.bert import (
     load_jax_params,
 )
 from apex_tpu_torch.optimizers import FusedLAMB
-from apex_tpu_torch.train import PretrainingStep, make_pretraining_batch
+from apex_tpu_torch.train import (
+    PretrainingStep,
+    build_train_step,
+    make_pretraining_batch,
+    pretraining_loss_fn,
+)
 
 _KW = dict(hidden_size=128, num_heads=2, intermediate_size=256,
            max_position_embeddings=128, flash_min_seq=128)
@@ -87,6 +93,38 @@ def test_loss_and_gradients_match_jax(fp32_case):
     own = dict(model.named_parameters())
     assert set(theirs) == set(own)
     for name, g in theirs.items():
+        scale = max(np.abs(g).max(), 1e-6)
+        np.testing.assert_allclose(own[name].grad.numpy(), g,
+                                   atol=1e-4 * scale, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("S", [64, 128])
+def test_composed_attention_path_matches_jax(S):
+    """Below the default flash_min_seq = 256 both packages take the
+    composed attention (q k^T, FusedScaleMaskSoftmax, dropout, p v); the
+    second row is padded from S / 2 on, so the boolean key mask is folded
+    into the scores. fp32, dropout off: the loss within 1e-5 relative,
+    every gradient within 1e-4 of its tensor's largest entry."""
+    kw = dict(max_position_embeddings=128)
+    cfg = BertConfig.tiny(**kw)
+    assert cfg.flash_min_seq == 256
+    b = make_pretraining_batch(cfg, 2, S, seed=5, device="cpu")
+    b["attention_mask"][1, S // 2:] = 0
+    jb = {k: jnp.asarray(v.numpy()) for k, v in b.items()}
+    jmodel = JaxBert(JaxBertConfig.tiny(**kw))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(1), jb["input_ids"],
+                                  jb["token_type_ids"],
+                                  jb["attention_mask"])["params"]
+    jloss, jgrads = jax.jit(jax.value_and_grad(_jax_loss_fn(jmodel, jb)))(
+        params)
+
+    model = load_jax_params(jax.tree.map(np.asarray, params), cfg,
+                            device="cpu")
+    loss = pretraining_loss_fn(model, deterministic=True)(b, None)
+    loss.backward()
+    assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
+    own = dict(model.named_parameters())
+    for name, g in _by_port_name(jgrads).items():
         scale = max(np.abs(g).max(), 1e-6)
         np.testing.assert_allclose(own[name].grad.numpy(), g,
                                    atol=1e-4 * scale, rtol=0, err_msg=name)
@@ -191,9 +229,58 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="parallel"):
         BertForPreTraining(BertConfig.tiny(use_tensor_parallel=True, **_KW),
                            device="cpu")
+    with pytest.raises(NotImplementedError, match="fused_kernels"):
+        BertForPreTraining(BertConfig.tiny(fused_kernels=False, **_KW),
+                           device="cpu")
     model = BertForPreTraining(BertConfig.tiny(**_KW), device="cpu")
-    ids = torch.zeros((1, 64), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="B6-B8"):
-        model(ids)
+    # S 64 < flash_min_seq: the composed path, ported now
+    mlm, nsp = model(torch.zeros((1, 64), dtype=torch.long))
+    assert mlm.shape == (1, 64, model.cfg.vocab_size) and nsp.shape == (1, 2)
+    assert torch.isfinite(mlm).all() and torch.isfinite(nsp).all()
     with pytest.raises(ValueError, match="Generator"):
         model(torch.zeros((1, 128), dtype=torch.long), deterministic=False)
+
+
+def test_launch_counts_of_one_composed_global_step(monkeypatch):
+    """The kernels a ``build_train_step`` global step reaches below
+    flash_min_seq, counted through their CPU plain versions: L layers with
+    remat, ``accum_steps`` microbatches. Per microbatch B6 runs 2L times
+    (forward and recompute), B8 L times, B3 1 + 3L + 3L + (1 + 3L) (the
+    attention probabilities are a dropout site now), B1 2L + 2, and no
+    flash kernel. BERT-large (L = 24) gives 48, 24, 218 and 50."""
+    import apex_tpu_torch.ops.dropout as dmod
+    import apex_tpu_torch.ops.flash_attention as fmod
+    import apex_tpu_torch.ops.layer_norm as lmod
+    import apex_tpu_torch.ops.softmax as smod
+
+    counts = dict.fromkeys(("B1", "B3", "B4", "B5", "B6", "B8"), 0)
+
+    def counting(mod, name, key):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    counting(lmod, "layer_norm_backward_plain", "B1")
+    counting(dmod, "dropout_plain", "B3")
+    counting(fmod, "flash_attention_bsh_plain", "B4")
+    counting(fmod, "flash_attention_bsh_backward_plain", "B5")
+    counting(smod, "softmax_fwd_plain", "B6")
+    counting(smod, "softmax_bwd_plain", "B8")
+    L, accum = 3, 2
+    cfg = BertConfig.tiny(num_layers=L)
+    model = BertForPreTraining(cfg, device="cpu", seed=1)
+    opt = FusedLAMB(model.parameters(), lr=LR)
+    model, opt, h = amp.initialize(model, opt, opt_level="O0", verbosity=0,
+                                   device="cpu")
+    ts = build_train_step(pretraining_loss_fn(model), opt, amp=h,
+                          accum_steps=accum, seed=2)
+    batch = make_pretraining_batch(cfg, 2, 64, seed=4, device="cpu",
+                                   accum_steps=accum)
+    _, metrics = ts(ts.init(), batch)
+    assert np.isfinite(metrics["loss"].item()) and not metrics["skipped"]
+    assert counts == {"B1": accum * (2 * L + 2), "B3": accum * (9 * L + 2),
+                      "B4": 0, "B5": 0, "B6": accum * 2 * L,
+                      "B8": accum * L}

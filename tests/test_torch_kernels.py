@@ -317,3 +317,114 @@ def test_flash_kernels_take_unaligned_inputs(cuda_device):
     assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
     for a, r in zip((out, *grads), (rout, *rgrads)):
         assert_close(a, r, atol=3e-2, rtol=3e-2)
+
+
+# -- the composed-softmax slice: B6, B7, B8 ------------------------------------
+
+from apex_tpu_torch.ops.softmax import (  # noqa: E402
+    scaled_masked_softmax,
+    softmax_bwd_kernel,
+    softmax_bwd_plain,
+    softmax_fwd_kernel,
+    softmax_fwd_plain,
+)
+
+
+def test_softmax_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.randn(2, 8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        softmax_fwd_kernel(x.half())
+    with pytest.raises(ValueError, match="mask_mode"):
+        softmax_fwd_kernel(x, torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="mask_mode"):
+        softmax_fwd_kernel(x, None, mask_mode="add")
+    with pytest.raises(ValueError, match="differ"):
+        softmax_bwd_kernel(x, x[:1])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        softmax_bwd_kernel(x.double(), x)
+
+
+# (x shape, mask shape or None, mask mode, scale, causal, counter): B7
+# where the mask is 4-D broadcast-compatible, B6 otherwise; Sk 77 and 33
+# take the unaligned path, 1030 the looping path, 600 the looping path
+# with a per-head mask
+SOFTMAX_CASES = [
+    ((4, 16, 128, 128), None, None, 1.0, False, "softmax_fwd"),
+    ((4, 16, 128, 128), None, None, 0.125, True, "softmax_fwd"),
+    ((4, 16, 128, 128), (4, 1, 1, 128), "add", 1.0, False, "softmax_fwd4"),
+    ((2, 3, 77, 77), (2, 1, 77, 77), "fill", -0.5, True, "softmax_fwd4"),
+    ((2, 3, 8, 600), (1, 3, 8, 600), "add", 0.7, False, "softmax_fwd4"),
+    ((5, 300), (300,), "add", 2.0, False, "softmax_fwd"),
+    ((6, 33), (6, 33), "fill", 0.0, False, "softmax_fwd"),
+    ((3, 7, 1030), None, None, 0.3, False, "softmax_fwd"),
+    ((2, 2, 200, 200), (2, 2, 1, 200), "fill", 1.0, True, "softmax_fwd4"),
+]
+
+
+def _softmax_case(shape, mshape, mode, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(*shape, generator=gen) * 3).to(dtype).to(device)
+    m = None
+    if mode == "add":
+        m = torch.where(torch.rand(*mshape, generator=gen) < 0.3, -1e4,
+                        torch.randn(*mshape, generator=gen)).to(device)
+    elif mode == "fill":
+        m = (torch.rand(*mshape, generator=gen) < 0.3).float()
+        m.view(-1, mshape[-1])[0] = 1.0          # a fully masked row
+        m = m.to(device)
+    return x, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape,mshape,mode,scale,causal,counter",
+                         SOFTMAX_CASES)
+def test_softmax_kernels_match_plain(cuda_device, shape, mshape, mode,
+                                     scale, causal, counter, dtype, tol):
+    """Kernels B6/B7 and B8 against their plain versions: fp32 within 1e-5
+    (expf and the row sums in another order); bf16 outputs within one bf16
+    ulp of values up to 1 (1e-2). A fully masked row is uniform."""
+    x, m = _softmax_case(shape, mshape, mode, dtype, cuda_device)
+    before = dict(_build.launches)
+    y = softmax_fwd_kernel(x, m, scale, causal, mode)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(
+        dtype).to(cuda_device)
+    dx = softmax_bwd_kernel(g, y, scale)
+    dx32 = softmax_bwd_kernel(g.float(), y, scale)   # g and y in two dtypes
+    torch.cuda.synchronize()
+    assert _build.launches[counter] == before[counter] + 1
+    assert _build.launches["softmax_bwd"] == before["softmax_bwd"] + 2
+    ref = softmax_fwd_plain(x, m, scale, causal, mode)
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    assert_close(y, ref, atol=tol, rtol=tol)
+    assert_close(dx, softmax_bwd_plain(g, y, scale), atol=tol, rtol=tol)
+    assert dx32.dtype == torch.float32
+    assert_close(dx32, softmax_bwd_plain(g.float(), y, scale), atol=1e-5,
+                 rtol=1e-5)
+    if mode == "fill" and not causal:
+        row = y.reshape(-1, shape[-1])[0].float()
+        assert_close(row, torch.full_like(row, 1.0 / shape[-1]), atol=tol,
+                     rtol=0)
+
+
+@pytest.mark.gpu
+def test_softmax_entry_on_the_card(cuda_device):
+    """The autograd entry: a boolean mask is pre-folded (B6, no mask
+    tensor), a float (B, 1, 1, Sk) mask takes B7 and gets its cotangent,
+    and the backward launches B8."""
+    x, _ = _softmax_case((2, 4, 64, 64), None, None, torch.bfloat16,
+                         cuda_device)
+    mask = torch.zeros(2, 1, 1, 64, dtype=torch.bool, device=cuda_device)
+    mask[1, ..., 40:] = True
+    before = dict(_build.launches)
+    xr = x.clone().requires_grad_(True)
+    scaled_masked_softmax(xr, mask, 0.125).sum().backward()
+    add = torch.zeros(2, 1, 1, 64, device=cuda_device, requires_grad=True)
+    y = scaled_masked_softmax(xr, add, 1.0)
+    (y.float() * torch.arange(64, device=cuda_device)).sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launches["softmax_fwd"] == before["softmax_fwd"] + 1
+    assert _build.launches["softmax_fwd4"] == before["softmax_fwd4"] + 1
+    assert _build.launches["softmax_bwd"] == before["softmax_bwd"] + 2
+    assert add.grad.shape == add.shape and torch.isfinite(add.grad).all()
