@@ -9,7 +9,10 @@ LayerNorm backward, fused dropout, bsh flash attention, BERT, amp
 O0/O2/O3 with the dynamic loss scaler, FusedLAMB), and BERT training
 below ``flash_min_seq`` through ``build_train_step`` and ``TrainLoop``
 (the fused scale-mask softmax, FusedScaleMaskSoftmax, gradient
-accumulation on one device). Plain tensor code is
+accumulation on one device), GPT training at S 1024 through the same
+entry point (``flash_attention`` / ``flash_attention_with_lse`` and the
+tiled flash kernels, the GPT training forward and ``lm_loss``, FusedAdam)
+and the contrib ``multihead_attn`` modules. Plain tensor code is
 PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel under
 ``csrc/``, built with ``nvcc`` at first use
 (:mod:`apex_tpu_torch._build`). Entry points run on the CUDA card unless

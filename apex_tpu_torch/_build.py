@@ -34,7 +34,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # launches per kernel, read by InferenceEngine.stats() and chip_smoke.py
 launches = {"paged_read": 0, "dequant_gemm": 0, "layer_norm_bwd": 0,
             "dropout": 0, "flash_fwd": 0, "flash_bwd": 0, "softmax_fwd": 0,
-            "softmax_fwd4": 0, "softmax_bwd": 0}
+            "softmax_fwd4": 0, "softmax_bwd": 0, "flash_fwd_tiled": 0,
+            "flash_bwd_dq_tiled": 0, "flash_bwd_dkv_tiled": 0,
+            "flash_fwd_single": 0, "flash_bwd_single": 0, "keep_mask": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -112,6 +114,7 @@ def build(verbose: bool = False) -> Path:
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LL = ctypes.c_longlong
+_PLL = ctypes.POINTER(_LL)
 
 _SIGNATURES = {
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, q_positions,
@@ -130,13 +133,17 @@ _SIGNATURES = {
     "layer_norm_bwd_blocks": [_I] * 2,
     # x, y, n, dtype, seed, threshold, scale, stream
     "fused_dropout": [_VP, _VP, _LL, _I, _U, _U, _F, _VP],
-    # q, k, v, key_mask, out, lse, B, S, NH, D, dtype, scale, causal,
-    # dropout, seed, threshold, inv_keep, stream
-    "flash_attn_fwd": [_VP] * 6 + [_I] * 5 + [_F, _I, _I, _U, _U, _F, _VP],
-    # q, k, v, key_mask, dout, lse, delta, dq, dk, dv, B, S, NH, D, dtype,
+    # q, k, v, key_mask, out, lse, strides[12], B, Sq, Sk, NH, D, dtype,
     # scale, causal, dropout, seed, threshold, inv_keep, stream
-    "flash_attn_bwd": [_VP] * 10 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
-                                                _VP],
+    "flash_attn_fwd": [_VP] * 6 + [_PLL] + [_I] * 6 + [_F, _I, _I, _U, _U,
+                                                      _F, _VP],
+    # q, k, v, key_mask, dout, lse, delta, dq, dk, dv, strides[21], B, Sq,
+    # Sk, NH, D, dtype, scale, causal, dropout, seed, threshold, inv_keep,
+    # parts, stream
+    "flash_attn_bwd": [_VP] * 10 + [_PLL] + [_I] * 6 + [_F, _I, _I, _U, _U,
+                                                       _F, _I, _VP],
+    # out, n, seed, threshold, stream
+    "flash_keep_mask": [_VP, _LL, _U, _U, _VP],
     # x, mask, y, rows, Sk, H, Sq, sb, sh, sq, dtype, scale, mask_mode,
     # causal, stream
     "softmax_fwd": [_VP] * 3 + [_LL, _I, _I, _I, _LL, _LL, _LL, _I, _F, _I,

@@ -1,7 +1,11 @@
-// Fused elementwise dropout (kernel B3), CUDA C++ for Hopper (sm_90a).
+// Fused elementwise dropout (kernel B3) and the flash attention keep mask
+// (kernel B13), CUDA C++ for Hopper (sm_90a).
 //
 // Replaces: apex_tpu/ops/dropout.py::_kernel (wrapper _call), the Pallas
-// TPU dropout behind fused_dropout and the models' hidden-dropout sites.
+// TPU dropout behind fused_dropout and the models' hidden-dropout sites;
+// and apex_tpu/ops/flash_attention.py::flash_dropout_keep_mask's
+// mask_kernel, which writes the exact (B, H, Sq, Sk) keep mask the flash
+// kernels apply, so that a composed reference can use it.
 //
 // Computes y[i] = bits(seed, i) < threshold ? T(float(x[i]) * scale) : 0
 // for a contiguous fp32 or bf16 tensor, where bits(seed, i) is element i
@@ -110,7 +114,58 @@ int launch(const void* x, void* y, long long n, unsigned int seed,
   return (int)cudaGetLastError();
 }
 
+// Kernel B13: out[i] = bits(seed, i) < threshold as a bool byte, i over
+// the (B, H, Sq, Sk) mask in row-major order: element ((b * H + h) * Sq +
+// q) * Sk + k is the bit the flash kernels (csrc/flash_attn.cu) draw for
+// that score. The one byte written per element bounds it (GPT-2 small's
+// B 8 x 12 heads x 1024 x 1024: 100.7 MB, 0.030 ms at 3.35 TB/s); four
+// elements share one Philox call and one 4-byte store.
+__global__ void __launch_bounds__(kThreads)
+    keep_mask_kernel(uint8_t* __restrict__ out, long long n,
+                     unsigned int seed, unsigned int threshold) {
+  const long long groups = (n + 3) / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long g = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       g < groups; g += stride) {
+    const uint4 r = philox4x32_10(static_cast<unsigned long long>(g), seed);
+    const unsigned int bits[4] = {r.x, r.y, r.z, r.w};
+    const long long base = g * 4;
+    if (base + 4 <= n) {
+      unsigned int word = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        word |= (bits[j] < threshold ? 1u : 0u) << (8 * j);
+      *reinterpret_cast<unsigned int*>(out + base) = word;
+    } else {
+      for (int j = 0; base + j < n; ++j)
+        out[base + j] = bits[j] < threshold ? 1 : 0;
+    }
+  }
+}
+
+int grid_blocks(long long groups) {
+  int sms = 132;
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long blocks = (groups + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sms) * 8;
+  return static_cast<int>(blocks > cap ? cap : blocks);
+}
+
 }  // namespace
+
+// out: n bool bytes, 4-byte aligned (a fresh torch.bool tensor).
+extern "C" int flash_keep_mask(void* out, long long n, unsigned int seed,
+                               unsigned int threshold, void* stream) {
+  if (n < 1 || reinterpret_cast<uintptr_t>(out) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  keep_mask_kernel<<<grid_blocks((n + 3) / 4), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(out), n, seed, threshold);
+  return (int)cudaGetLastError();
+}
 
 // dtype codes: 0 float32, 1 bfloat16. x and y contiguous, n elements.
 extern "C" int fused_dropout(const void* x, void* y, long long n, int dtype,

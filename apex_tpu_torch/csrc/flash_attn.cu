@@ -1,44 +1,63 @@
-// Flash attention on flat (B, S, NH * D) activations, forward (kernel B4)
-// and backward (kernel B5), CUDA C++ for Hopper (sm_90a).
+// Flash attention, forward and backward, on (B, NH, S, D) operands read by
+// stride, CUDA C++ for Hopper (sm_90a).
 //
-// Replaces: apex_tpu/ops/flash_attention.py::_fwd_single_kernel_bsh
-// (wrapper _flash_fwd_call_bsh) and ::_bwd_fused_kernel_bsh (wrapper
-// _flash_bwd_call_bsh), the Pallas TPU kernels behind
-// flash_attention_bsh, BERT's attention at S >= flash_min_seq.
+// Replaces the Pallas TPU kernels of apex_tpu/ops/flash_attention.py:
+//   _fwd_single_kernel_bsh (B4) and _bwd_fused_kernel_bsh (B5), behind
+//     flash_attention_bsh in its single-tile regime (S <= 512);
+//   _fwd_kernel (B9, tiled online softmax), _bwd_dq_kernel (B11a) and
+//     _bwd_dkv_kernel (B11b), behind flash_attention beyond one tile and
+//     flash_attention_bsh's fallback (GPT-2 at S 1024);
+//   _fwd_single_kernel (B10) and _bwd_fused_kernel (B12), flash_attention
+//     in its single-tile regime (contrib multihead_attn).
+// The TPU needs five kernels because its blocks must tile 128 lanes and its
+// grid carries sums from step to step; here one forward and one two-kernel
+// backward take any Sq, Sk and strides, so the five share one source of
+// truth for the mask, the Philox numbering and the rounding. The wrappers
+// count each call under the name of the TPU kernel it stands in for.
 //
-// Semantics (per batch row b and head h, head h owning columns
-// [h * D, (h + 1) * D) of each token row):
+// Semantics (per batch row b and head h; q rows 0 .. Sq - 1, keys 0 .. Sk-1):
 //   s[q, k] = (q_q . k_k) * scale, or FILL = -30000 where key k is masked
-//             (key_mask[b, k] != 0) or, when causal, k > q; a masked key
-//             still counts in the softmax, so a fully masked row is the
-//             uniform average over its S keys;
+//             (key_mask[b, k] != 0) or, when causal, k > q (absolute
+//             indices, Sq != Sk allowed); a masked key still counts in the
+//             softmax, so a fully masked row is the uniform average over
+//             its Sk keys;
 //   p = exp(s - max) / l, l = sum of exp(s - max), lse = max + log(l);
-//   dropout: keep[q, k] = bits(seed, ((b * NH + h) * S + q) * S + k) <
+//   dropout: keep[q, k] = bits(seed, ((b * NH + h) * Sq + q) * Sk + k) <
 //             threshold (csrc/philox.cuh), applied to p before the product
 //             with V (scaled by 1 / (1 - rate)); l and lse stay pre-dropout;
 //   out = (keep * p / (1 - rate)) V, rounded to the input type, and p is
 //             rounded to the input type before that product, as the TPU
-//             kernel casts p to V's type;
+//             kernels cast p to V's type;
 //   backward: dp = dO V^T (masked by keep and scaled), delta = rowsum(dO *
-//             O) per head (computed by the caller), ds = p * (dp - delta) *
-//             scale, dV = (keep * p / (1 - rate))^T dO, dQ = ds K, dK = ds^T
-//             Q, with p and ds rounded to the input type before their
-//             products.
+//             O) - dlse per head (computed by the caller), ds = p * (dp -
+//             delta) * scale, dV = (keep * p / (1 - rate))^T dO, dQ = ds K,
+//             dK = ds^T Q, with p and ds rounded to the input type before
+//             their products.
 // All arithmetic is fp32; inputs and outputs are fp32 or bf16.
 //
-// What bounds it on the H100: operations. At the BERT-large shape (B 16,
-// S 512, NH 16, D 64) the forward does 17.2 GFLOP of products on 25 MB of
-// inputs (bf16 tensor cores could do that in 17 us).
+// Causal skip: with causal on and no key mask, a key tile wholly above the
+// diagonal contributes exp(FILL - m) = 0 in fp32 to every row (each row
+// keeps key 0 live, so its max is far above FILL), and the forward and dQ
+// kernels stop before it; the dK/dV kernel starts at the first query tile
+// that reaches its keys. With a key mask a row may have every live key
+// masked, its max is then FILL and JAX averages over all Sk keys, causal
+// ones included, so nothing is skipped.
 //
-// Design. The TPU kernels hold one whole (S x S) score tile per head pair
-// in VMEM and read two heads per 128-lane block; neither constraint exists
-// here. Every kernel reads its rows of q, k, v straight out of the flat
-// layout with a row stride of NH * D, so no transpose or head split is
-// ever written, and works on 64 x 64 score tiles. The backward is two
-// kernels, so that no sum needs atomics (deterministic): dK/dV with one
-// block per 64-key tile looping over the query tiles, and dQ with one
-// block per 64-query tile looping over the key tiles; each recomputes s
-// and p from q, k and lse and replays the same mask.
+// What bounds it on the H100: operations. At GPT-2 small's shape (B 8,
+// S 1024, NH 12, D 64, causal) the forward needs 12.9 GFLOP of products
+// (25.8 without the causal half) on 38 MB of inputs.
+//
+// Design. The TPU kernels hold (512 x 512) score tiles in VMEM and read
+// head pairs per 128-lane block; neither constraint exists here. Every
+// kernel reads its rows of q, k, v through (batch, head, row) element
+// strides with the head dim contiguous, so the flat (B, S, NH * D)
+// activations of the bsh entry, the (B, NH, S, D) tensors of
+// flash_attention and the sequence-first (T, B, NH, D) views of the contrib
+// modules are all read in place, and works on 64 x 64 score tiles. The
+// backward is two kernels, so that no sum needs atomics (deterministic):
+// dK/dV with one block per 64-key tile looping over the query tiles, and dQ
+// with one block per 64-query tile looping over the key tiles; each
+// recomputes s and p from q, k and lse and replays the same mask.
 //
 // bf16 inputs (the training path) run on the tensor cores through WMMA
 // bf16 fragments with fp32 accumulation. A block is four warps and each
@@ -49,15 +68,16 @@
 // tile, accumulating in fragments. Only the tile loads need the whole
 // block. The forward makes two passes over the keys: the first finds each
 // row's max and sum, the second forms p = exp(s - max) with the final max
-// (so the output accumulator is never rescaled, as in the JAX kernel's
-// single tile) and accumulates p V.
+// (so the output accumulator is never rescaled) and accumulates p V. JAX's
+// tiled forward rounds p against the running max instead, so bf16 results
+// differ from it by rounding, not by value.
 //
 // fp32 inputs run the products as fp32 FMAs on the CUDA cores (67 TFLOP/s
 // peak), from shared memory: 256 threads, thread (ty, tx) computing rows
 // 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of a score tile in
 // registers from tiles padded to D + 1 floats a row; the forward keeps an
 // online softmax (running max and sum per row, the output accumulator
-// rescaled per key tile).
+// rescaled per key tile), as JAX's tiled kernel does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,55 +97,91 @@ constexpr int TJ = 4;        // score columns per thread
 constexpr int LP = BK + 1;   // padded row of a score tile
 constexpr float FILL = -30000.f;
 
+// Element strides of a (B, NH, rows, D) operand; the D columns of a row are
+// contiguous.
+struct Layout {
+  long long b, h, r;
+};
+
 struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const uint8_t* key_mask;  // (B, S), nonzero = masked; may be null
+  const uint8_t* key_mask;  // (B, Sk), nonzero = masked; may be null
   const void* dout;         // (backward only)
-  const float* lse;         // (B, NH, S)
-  const float* delta;       // (B, NH, S) (backward only)
-  void* out;                // forward: out; dK/dV kernels: dk; dQ: dq
+  const float* lse;         // (B, NH, Sq)
+  const float* delta;       // (B, NH, Sq) (backward only)
+  void* out;                // forward: out; dK/dV kernel: dk; dQ: dq
   void* out2;               // dK/dV kernel: dv
   float* lse_out;           // forward only
-  int B, S, NH;
+  Layout lq, lk, lv, ldo, lo, lo2;
+  int B, Sq, Sk, NH;
   float scale;
   int causal;
+  int skip;                 // causal and no key mask: skip dead tiles
   int dropout;
   unsigned int seed;
   unsigned int threshold;
   float inv_keep;
 };
 
-// Load rows [r0, r0 + 64) of head h of batch row b (zeros past S) into a
+template <typename T>
+__device__ __forceinline__ const T* head_base(const void* ptr,
+                                              const Layout& L, int b, int h) {
+  return static_cast<const T*>(ptr) + b * L.b + h * L.h;
+}
+
+template <typename T>
+__device__ __forceinline__ T* head_base_out(void* ptr, const Layout& L, int b,
+                                            int h) {
+  return static_cast<T*>(ptr) + b * L.b + h * L.h;
+}
+
+// One past the last key a query tile starting at q0 must visit.
+__device__ __forceinline__ int key_end(const Params& p, int q0) {
+  return p.skip ? min(p.Sk, q0 + BQ) : p.Sk;
+}
+
+// The first query tile that reaches a key tile starting at k0.
+__device__ __forceinline__ int query_start(const Params& p, int k0) {
+  return p.skip ? (k0 / BQ) * BQ : 0;
+}
+
+// Load rows [r0, r0 + 64) (zeros at rows >= n) of a head into a
 // (64 x (D + 1)) fp32 tile.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int b, int h, int r0, int S,
-                                          int NH) {
+__device__ __forceinline__ void load_tile(float* dst, const float* base,
+                                          long long rs, int r0, int n) {
   constexpr int LD = D + 1;
-  const long long hs = static_cast<long long>(NH) * D;
-  const float* base = src + static_cast<long long>(b) * S * hs +
-                      static_cast<long long>(h) * D;
   for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
     const int r = e / D, c = e % D;
-    dst[r * LD + c] =
-        r0 + r < S ? base[static_cast<long long>(r0 + r) * hs + c]
-                   : 0.f;
+    dst[r * LD + c] = r0 + r < n ? base[(r0 + r) * rs + c] : 0.f;
   }
 }
 
-// Per-key code of a key tile: 0 live, 1 masked (scores FILL), 2 past S
+// Per-key code of a key tile: 0 live, 1 masked (scores FILL), 2 past Sk
 // (excluded from the softmax).
 __device__ __forceinline__ void load_codes(int* codes, const Params& p,
-                                           int b, int k0) {
-  for (int j = threadIdx.x; j < BK; j += kThreads) {
+                                           int b, int k0, int nthreads) {
+  for (int j = threadIdx.x; j < BK; j += nthreads) {
     const int kk = k0 + j;
-    codes[j] = kk >= p.S ? 2
-               : (p.key_mask && p.key_mask[static_cast<long long>(b) * p.S +
-                                           kk])
+    codes[j] = kk >= p.Sk ? 2
+               : (p.key_mask &&
+                  p.key_mask[static_cast<long long>(b) * p.Sk + kk])
                    ? 1
                    : 0;
+  }
+}
+
+// Per-row lse and delta of a query tile (zeros past Sq).
+__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
+                                               const Params& p,
+                                               long long row_base, int q0,
+                                               int nthreads) {
+  for (int r = threadIdx.x; r < BQ; r += nthreads) {
+    const bool in = q0 + r < p.Sq;
+    lse_s[r] = in ? __ldg(p.lse + row_base + q0 + r) : 0.f;
+    delta_s[r] = in ? __ldg(p.delta + row_base + q0 + r) : 0.f;
   }
 }
 
@@ -186,8 +242,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   int* codes = reinterpret_cast<int*>(Ps + BQ * LP);
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int S = p.S, NH = p.NH;
-  load_tile<D>(Qs, static_cast<const float*>(p.q), b, h, q0, S, NH);
+  const int Sq = p.Sq, Sk = p.Sk;
+  const float* qb = head_base<float>(p.q, p.lq, b, h);
+  const float* kb = head_base<float>(p.k, p.lk, b, h);
+  const float* vb = head_base<float>(p.v, p.lv, b, h);
+  load_tile<D>(Qs, qb, p.lq.r, q0, Sq);
   float m[TI], l[TI], o[TI][DJ];
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
@@ -197,13 +256,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     for (int jj = 0; jj < DJ; ++jj) o[i][jj] = 0.f;
   }
   PhiloxCursor rng(p.seed);
-  const unsigned long long head_base =
-      static_cast<unsigned long long>(b * NH + h) * S;
-  for (int k0 = 0; k0 < S; k0 += BK) {
+  const unsigned long long head_rows =
+      static_cast<unsigned long long>(b * p.NH + h) * Sq;
+  const int kend = key_end(p, q0);
+  for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile's K, V, P are consumed
-    load_tile<D>(Ks, static_cast<const float*>(p.k), b, h, k0, S, NH);
-    load_tile<D>(Vs, static_cast<const float*>(p.v), b, h, k0, S, NH);
-    load_codes(codes, p, b, k0);
+    load_tile<D>(Ks, kb, p.lk.r, k0, Sk);
+    load_tile<D>(Vs, vb, p.lv.r, k0, Sk);
+    load_codes(codes, p, b, k0, kThreads);
     __syncthreads();
     float s[TI][TJ];
     tile_dots<D>(Qs, Ks, s, ty, tx);
@@ -228,8 +288,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
         if (p.dropout) {
           const int kk = k0 + tx * TJ + j;
           const bool keep =
-              qq < S && kk < S &&
-              rng.bits((head_base + qq) * S + kk) < p.threshold;
+              qq < Sq && kk < Sk &&
+              rng.bits((head_rows + qq) * Sk + kk) < p.threshold;
           pav = keep ? e * p.inv_keep : 0.f;
         }
         Ps[(ty * TI + i) * LP + tx * TJ + j] = pav;
@@ -242,32 +302,28 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
-      float a[TI], vb[DJ];
+      float a[TI], vr[DJ];
 #pragma unroll
       for (int i = 0; i < TI; ++i) a[i] = Ps[(ty * TI + i) * LP + kk];
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) vb[jj] = Vs[kk * LD + tx * DJ + jj];
+      for (int jj = 0; jj < DJ; ++jj) vr[jj] = Vs[kk * LD + tx * DJ + jj];
 #pragma unroll
       for (int i = 0; i < TI; ++i)
 #pragma unroll
         for (int jj = 0; jj < DJ; ++jj)
-          o[i][jj] = fmaf(a[i], vb[jj], o[i][jj]);
+          o[i][jj] = fmaf(a[i], vr[jj], o[i][jj]);
     }
   }
-  const long long hs = static_cast<long long>(NH) * D;
-  float* out = static_cast<float*>(p.out);
+  float* ob = head_base_out<float>(p.out, p.lo, b, h);
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
     const int qq = q0 + ty * TI + i;
-    if (qq >= S) continue;
+    if (qq >= Sq) continue;
     const float safe_l = l[i] > 0.f ? l[i] : 1.f;
-    float* row = out + (static_cast<long long>(b) * S + qq) * hs +
-             static_cast<long long>(h) * D + tx * DJ;
+    float* row = ob + qq * p.lo.r + tx * DJ;
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) row[jj] = o[i][jj] / safe_l;
-    if (tx == 0)
-      p.lse_out[(static_cast<long long>(b) * NH + h) * S + qq] =
-          m[i] + logf(safe_l);
+    if (tx == 0) p.lse_out[head_rows + qq] = m[i] + logf(safe_l);
   }
 }
 
@@ -282,9 +338,9 @@ __device__ __forceinline__ BwdElem bwd_elem(float dot, float dpv, int code,
                                             int qq, int kk, float lse_q,
                                             float delta_q, const Params& p,
                                             PhiloxCursor& rng,
-                                            unsigned long long head_base) {
+                                            unsigned long long head_rows) {
   BwdElem r;
-  if (qq >= p.S || code == 2) {
+  if (qq >= p.Sq || code == 2) {
     r.pav = 0.f;
     r.ds = 0.f;
     return r;
@@ -293,7 +349,8 @@ __device__ __forceinline__ BwdElem bwd_elem(float dot, float dpv, int code,
   const float pr = expf(s - lse_q);
   float pav = pr, dp = dpv;
   if (p.dropout) {
-    const bool keep = rng.bits((head_base + qq) * p.S + kk) < p.threshold;
+    const bool keep =
+        rng.bits((head_rows + qq) * p.Sk + kk) < p.threshold;
     pav = keep ? pr * p.inv_keep : 0.f;
     dp = keep ? dpv * p.inv_keep : 0.f;
   }
@@ -318,27 +375,26 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Params p) {
   int* codes = reinterpret_cast<int*>(delta_s + BQ);
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int S = p.S, NH = p.NH;
-  load_tile<D>(Ks, static_cast<const float*>(p.k), b, h, k0, S, NH);
-  load_tile<D>(Vs, static_cast<const float*>(p.v), b, h, k0, S, NH);
-  load_codes(codes, p, b, k0);
+  const int Sq = p.Sq, Sk = p.Sk;
+  const float* qb = head_base<float>(p.q, p.lq, b, h);
+  const float* dob = head_base<float>(p.dout, p.ldo, b, h);
+  load_tile<D>(Ks, head_base<float>(p.k, p.lk, b, h), p.lk.r, k0, Sk);
+  load_tile<D>(Vs, head_base<float>(p.v, p.lv, b, h), p.lv.r, k0, Sk);
+  load_codes(codes, p, b, k0, kThreads);
   float dk[TI][DJ], dv[TI][DJ];  // key rows 4 ty + i, columns tx * DJ + jj
 #pragma unroll
   for (int i = 0; i < TI; ++i)
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
   PhiloxCursor rng(p.seed);
-  const long long row_base = (static_cast<long long>(b) * NH + h) * S;
-  const unsigned long long head_base = static_cast<unsigned long long>(row_base);
-  for (int q0 = 0; q0 < S; q0 += BQ) {
+  const long long row_base = (static_cast<long long>(b) * p.NH + h) * Sq;
+  const unsigned long long head_rows =
+      static_cast<unsigned long long>(row_base);
+  for (int q0 = query_start(p, k0); q0 < Sq; q0 += BQ) {
     __syncthreads();
-    load_tile<D>(Qs, static_cast<const float*>(p.q), b, h, q0, S, NH);
-    load_tile<D>(dOs, static_cast<const float*>(p.dout), b, h, q0, S, NH);
-    for (int r = threadIdx.x; r < BQ; r += kThreads) {
-      const bool in = q0 + r < S;
-      lse_s[r] = in ? p.lse[row_base + q0 + r] : 0.f;
-      delta_s[r] = in ? p.delta[row_base + q0 + r] : 0.f;
-    }
+    load_tile<D>(Qs, qb, p.lq.r, q0, Sq);
+    load_tile<D>(dOs, dob, p.ldo.r, q0, Sq);
+    load_row_stats(lse_s, delta_s, p, row_base, q0, kThreads);
     __syncthreads();
     float s[TI][TJ], dpv[TI][TJ];
     tile_dots<D>(Qs, Ks, s, ty, tx);
@@ -351,7 +407,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Params p) {
         const int kj = tx * TJ + j;
         const BwdElem e =
             bwd_elem(s[i][j], dpv[i][j], codes[kj], q0 + qr, k0 + kj,
-                     lse_s[qr], delta_s[qr], p, rng, head_base);
+                     lse_s[qr], delta_s[qr], p, rng, head_rows);
         Ps[qr * LP + kj] = e.pav;
         dSs[qr * LP + kj] = e.ds;
       }
@@ -359,7 +415,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Params p) {
     __syncthreads();
 #pragma unroll 4
     for (int qq = 0; qq < BQ; ++qq) {
-      float pa[TI], da[TI], ob[DJ], qb[DJ];
+      float pa[TI], da[TI], ob[DJ], qr[DJ];
 #pragma unroll
       for (int i = 0; i < TI; ++i) {
         pa[i] = Ps[qq * LP + ty * TI + i];
@@ -368,30 +424,27 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Params p) {
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj) {
         ob[jj] = dOs[qq * LD + tx * DJ + jj];
-        qb[jj] = Qs[qq * LD + tx * DJ + jj];
+        qr[jj] = Qs[qq * LD + tx * DJ + jj];
       }
 #pragma unroll
       for (int i = 0; i < TI; ++i)
 #pragma unroll
         for (int jj = 0; jj < DJ; ++jj) {
           dv[i][jj] = fmaf(pa[i], ob[jj], dv[i][jj]);
-          dk[i][jj] = fmaf(da[i], qb[jj], dk[i][jj]);
+          dk[i][jj] = fmaf(da[i], qr[jj], dk[i][jj]);
         }
     }
   }
-  const long long hs = static_cast<long long>(NH) * D;
-  float* dk_out = static_cast<float*>(p.out);
-  float* dv_out = static_cast<float*>(p.out2);
+  float* dkb = head_base_out<float>(p.out, p.lo, b, h);
+  float* dvb = head_base_out<float>(p.out2, p.lo2, b, h);
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
     const int kk = k0 + ty * TI + i;
-    if (kk >= S) continue;
-    const long long off = (static_cast<long long>(b) * S + kk) * hs +
-                          static_cast<long long>(h) * D + tx * DJ;
+    if (kk >= Sk) continue;
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) {
-      dk_out[off + jj] = dk[i][jj];
-      dv_out[off + jj] = dv[i][jj];
+      dkb[kk * p.lo.r + tx * DJ + jj] = dk[i][jj];
+      dvb[kk * p.lo2.r + tx * DJ + jj] = dv[i][jj];
     }
   }
 }
@@ -411,27 +464,27 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   int* codes = reinterpret_cast<int*>(delta_s + BQ);
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int S = p.S, NH = p.NH;
-  const long long row_base = (static_cast<long long>(b) * NH + h) * S;
-  const unsigned long long head_base = static_cast<unsigned long long>(row_base);
-  load_tile<D>(Qs, static_cast<const float*>(p.q), b, h, q0, S, NH);
-  load_tile<D>(dOs, static_cast<const float*>(p.dout), b, h, q0, S, NH);
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    const bool in = q0 + r < S;
-    lse_s[r] = in ? p.lse[row_base + q0 + r] : 0.f;
-    delta_s[r] = in ? p.delta[row_base + q0 + r] : 0.f;
-  }
+  const int Sq = p.Sq, Sk = p.Sk;
+  const long long row_base = (static_cast<long long>(b) * p.NH + h) * Sq;
+  const unsigned long long head_rows =
+      static_cast<unsigned long long>(row_base);
+  const float* kb = head_base<float>(p.k, p.lk, b, h);
+  const float* vb = head_base<float>(p.v, p.lv, b, h);
+  load_tile<D>(Qs, head_base<float>(p.q, p.lq, b, h), p.lq.r, q0, Sq);
+  load_tile<D>(dOs, head_base<float>(p.dout, p.ldo, b, h), p.ldo.r, q0, Sq);
+  load_row_stats(lse_s, delta_s, p, row_base, q0, kThreads);
   float dq[TI][DJ];  // query rows 4 ty + i, columns tx * DJ + jj
 #pragma unroll
   for (int i = 0; i < TI; ++i)
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) dq[i][jj] = 0.f;
   PhiloxCursor rng(p.seed);
-  for (int k0 = 0; k0 < S; k0 += BK) {
+  const int kend = key_end(p, q0);
+  for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tile<D>(Ks, static_cast<const float*>(p.k), b, h, k0, S, NH);
-    load_tile<D>(Vs, static_cast<const float*>(p.v), b, h, k0, S, NH);
-    load_codes(codes, p, b, k0);
+    load_tile<D>(Ks, kb, p.lk.r, k0, Sk);
+    load_tile<D>(Vs, vb, p.lv.r, k0, Sk);
+    load_codes(codes, p, b, k0, kThreads);
     __syncthreads();
     float s[TI][TJ], dpv[TI][TJ];
     tile_dots<D>(Qs, Ks, s, ty, tx);
@@ -444,35 +497,33 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
         const int kj = tx * TJ + j;
         const BwdElem e =
             bwd_elem(s[i][j], dpv[i][j], codes[kj], q0 + qr, k0 + kj,
-                     lse_s[qr], delta_s[qr], p, rng, head_base);
+                     lse_s[qr], delta_s[qr], p, rng, head_rows);
         dSs[qr * LP + kj] = e.ds;
       }
     }
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
-      float da[TI], kb[DJ];
+      float da[TI], kr[DJ];
 #pragma unroll
       for (int i = 0; i < TI; ++i) da[i] = dSs[(ty * TI + i) * LP + kk];
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) kb[jj] = Ks[kk * LD + tx * DJ + jj];
+      for (int jj = 0; jj < DJ; ++jj) kr[jj] = Ks[kk * LD + tx * DJ + jj];
 #pragma unroll
       for (int i = 0; i < TI; ++i)
 #pragma unroll
         for (int jj = 0; jj < DJ; ++jj)
-          dq[i][jj] = fmaf(da[i], kb[jj], dq[i][jj]);
+          dq[i][jj] = fmaf(da[i], kr[jj], dq[i][jj]);
     }
   }
-  const long long hs = static_cast<long long>(NH) * D;
-  float* dq_out = static_cast<float*>(p.out);
+  float* dqb = head_base_out<float>(p.out, p.lo, b, h);
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
     const int qq = q0 + ty * TI + i;
-    if (qq >= S) continue;
-    const long long off = (static_cast<long long>(b) * S + qq) * hs +
-                          static_cast<long long>(h) * D + tx * DJ;
+    if (qq >= Sq) continue;
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) dq_out[off + jj] = dq[i][jj];
+    for (int jj = 0; jj < DJ; ++jj)
+      dqb[qq * p.lo.r + tx * DJ + jj] = dq[i][jj];
   }
 }
 
@@ -492,34 +543,93 @@ struct Tc {
 
 using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Rows [r0, r0 + 64) of head h of batch row b (zeros past S) into a bf16
-// tile with row stride D + 8; 16-byte copies where the source is aligned.
+// Rows [r0, r0 + 64) of a head (zeros at rows >= n), a bf16 tile with row
+// stride D + 8 once stored. Where the source rows are 16-byte aligned a
+// thread fetches its chunks into registers (read-only loads, __ldg) and
+// stores them after; callers fetch two tiles before storing either, so all
+// of a thread's loads are in flight together (a load through a plain
+// pointer may not move above an earlier shared store, which serialised
+// them).
 template <int D>
-__device__ __forceinline__ void load_tile_tc(bf16* dst, const bf16* src,
-                                             int b, int h, int r0, int S,
-                                             int NH, bool vec) {
-  constexpr int LDH = Tc<D>::LDH;
-  const long long hs = static_cast<long long>(NH) * D;
-  const bf16* base = src + static_cast<long long>(b) * S * hs +
-                     static_cast<long long>(h) * D;
+struct TileRegs {
+  static constexpr int CH = D / 8;                  // 16-byte chunks a row
+  static constexpr int PER = 64 * CH / kTcThreads;  // chunks a thread
+  static_assert(64 * CH % kTcThreads == 0, "whole chunks per thread");
+  uint4 v[PER];
+};
+
+template <int D>
+__device__ __forceinline__ void fetch_tile_tc(TileRegs<D>& t, const bf16* base,
+                                              long long rs, int r0, int n) {
+  constexpr int CH = TileRegs<D>::CH;
+#pragma unroll
+  for (int i = 0; i < TileRegs<D>::PER; ++i) {
+    const int e = threadIdx.x + i * kTcThreads;
+    const int r = e / CH, c = (e % CH) * 8;
+    t.v[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n)
+      t.v[i] = __ldg(reinterpret_cast<const uint4*>(base + (r0 + r) * rs + c));
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_tile_tc(bf16* dst,
+                                              const TileRegs<D>& t) {
+  constexpr int CH = TileRegs<D>::CH;
+#pragma unroll
+  for (int i = 0; i < TileRegs<D>::PER; ++i) {
+    const int e = threadIdx.x + i * kTcThreads;
+    *reinterpret_cast<uint4*>(dst + (e / CH) * Tc<D>::LDH + (e % CH) * 8) =
+        t.v[i];
+  }
+}
+
+// The element-wise path, for sources that are not 16-byte aligned.
+template <int D>
+__device__ __forceinline__ void load_tile_tc_scalar(bf16* dst,
+                                                    const bf16* base,
+                                                    long long rs, int r0,
+                                                    int n) {
+  for (int e = threadIdx.x; e < 64 * D; e += kTcThreads) {
+    const int r = e / D, c = e % D;
+    dst[r * Tc<D>::LDH + c] = r0 + r < n ? base[(r0 + r) * rs + c]
+                                         : __float2bfloat16_rn(0.f);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void load_tile_tc(bf16* dst, const bf16* base,
+                                             long long rs, int r0, int n,
+                                             bool vec) {
   if (vec) {
-    constexpr int CH = D / 8;
-    for (int e = threadIdx.x; e < 64 * CH; e += kTcThreads) {
-      const int r = e / CH, c = (e % CH) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < S)
-        val = *reinterpret_cast<const uint4*>(
-            base + static_cast<long long>(r0 + r) * hs + c);
-      *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-    }
+    TileRegs<D> t;
+    fetch_tile_tc<D>(t, base, rs, r0, n);
+    store_tile_tc<D>(dst, t);
   } else {
-    for (int e = threadIdx.x; e < 64 * D; e += kTcThreads) {
-      const int r = e / D, c = e % D;
-      dst[r * LDH + c] = r0 + r < S
-                             ? base[static_cast<long long>(r0 + r) * hs + c]
-                             : __float2bfloat16_rn(0.f);
+    load_tile_tc_scalar<D>(dst, base, rs, r0, n);
+  }
+}
+
+// Two tiles of the same rows (K and V, or Q and dO), both fetched before
+// either is stored; at D = 128 one after the other, to spare registers.
+template <int D>
+__device__ __forceinline__ void load_tiles_tc(bf16* dst0, const bf16* base0,
+                                              long long rs0, bf16* dst1,
+                                              const bf16* base1,
+                                              long long rs1, int r0, int n,
+                                              bool vec) {
+  if constexpr (D <= 64) {
+    if (vec) {
+      TileRegs<D> t0, t1;
+      fetch_tile_tc<D>(t0, base0, rs0, r0, n);
+      fetch_tile_tc<D>(t1, base1, rs1, r0, n);
+      store_tile_tc<D>(dst0, t0);
+      store_tile_tc<D>(dst1, t1);
+      return;
     }
   }
+  load_tile_tc<D>(dst0, base0, rs0, r0, n, vec);
+  load_tile_tc<D>(dst1, base1, rs1, r0, n, vec);
 }
 
 // out (16 x 64, fp32, row stride LDS) = A (16 x D rows of a bf16 tile) times
@@ -566,24 +676,22 @@ __device__ __forceinline__ void warp_accumulate(AccFrag* acc, const bf16* A,
   }
 }
 
-// Write a warp's 16 x D accumulator rows to rows [r0, r0 + 16) of head h
-// (rows past S skipped), through its fp32 scratch rows.
+// Write a warp's 16 x D accumulator rows to rows [r0, r0 + 16) of a head
+// (rows >= n skipped), through its fp32 scratch rows.
 template <int D>
 __device__ __forceinline__ void warp_store_rows(AccFrag* acc, float* scratch,
-                                                bf16* dst, int b, int h,
-                                                int r0, int S, int NH) {
+                                                bf16* dst, long long rs,
+                                                int r0, int n) {
 #pragma unroll
   for (int j = 0; j < Tc<D>::NJ; ++j)
     wmma::store_matrix_sync(scratch + j * 16, acc[j], Tc<D>::LDS,
                             wmma::mem_row_major);
   __syncwarp();
   const int lane = threadIdx.x & 31;
-  const long long hs = static_cast<long long>(NH) * D;
   for (int e = lane; e < 16 * D; e += 32) {
     const int r = e / D, c = e % D;
-    if (r0 + r < S)
-      dst[(static_cast<long long>(b) * S + r0 + r) * hs +
-          static_cast<long long>(h) * D + c] =
+    if (r0 + r < n)
+      dst[(r0 + r) * rs + c] =
           __float2bfloat16_rn(scratch[r * Tc<D>::LDS + c]);
   }
   __syncwarp();
@@ -602,7 +710,7 @@ __global__ void __launch_bounds__(kTcThreads)
   int* codes = reinterpret_cast<int*>(Ps + BQ * L::LDP);
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int S = p.S, NH = p.NH;
+  const int Sq = p.Sq, Sk = p.Sk;
   // lane owns row rr of its warp's 16 and the 32 keys [32 half, + 32) of
   // each key tile
   const int rr = lane >> 1, half = lane & 1;
@@ -610,14 +718,17 @@ __global__ void __launch_bounds__(kTcThreads)
   float* Sw = Ss + 16 * w * L::LDS;
   bf16* Pw = Ps + 16 * w * L::LDP;
   const bf16* Qw = Qs + 16 * w * L::LDH;
-  load_tile_tc<D>(Qs, static_cast<const bf16*>(p.q), b, h, q0, S, NH, vec);
+  const bf16* kb = head_base<bf16>(p.k, p.lk, b, h);
+  const bf16* vb = head_base<bf16>(p.v, p.lv, b, h);
+  load_tile_tc<D>(Qs, head_base<bf16>(p.q, p.lq, b, h), p.lq.r, q0, Sq, vec);
+  const int kend = key_end(p, q0);
 
   // pass 1: each row's max and sum over all keys
   float m = -INFINITY, l = 0.f;
-  for (int k0 = 0; k0 < S; k0 += BK) {
+  for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tile_tc<D>(Ks, static_cast<const bf16*>(p.k), b, h, k0, S, NH, vec);
-    load_codes(codes, p, b, k0);
+    load_tile_tc<D>(Ks, kb, p.lk.r, k0, Sk, vec);
+    load_codes(codes, p, b, k0, kTcThreads);
     __syncthreads();
     warp_dots<D>(Qw, Ks, Sw);
     __syncwarp();
@@ -645,13 +756,16 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
   for (int j = 0; j < L::NJ; ++j) wmma::fill_fragment(o[j], 0.f);
   PhiloxCursor rng(p.seed);
-  const unsigned long long row_index =
-      (static_cast<unsigned long long>(b * NH + h) * S + qq) * S;
-  for (int k0 = 0; k0 < S; k0 += BK) {
+  const unsigned long long head_rows =
+      static_cast<unsigned long long>(b * p.NH + h) * Sq;
+  const unsigned long long row_index = (head_rows + qq) * Sk;
+  for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tile_tc<D>(Ks, static_cast<const bf16*>(p.k), b, h, k0, S, NH, vec);
-    load_tile_tc<D>(Vs, static_cast<const bf16*>(p.v), b, h, k0, S, NH, vec);
-    load_codes(codes, p, b, k0);
+    // one tile after the other: fetching both at once costs the forward
+    // registers it needs for its blocks to share an SM
+    load_tile_tc<D>(Ks, kb, p.lk.r, k0, Sk, vec);
+    load_tile_tc<D>(Vs, vb, p.lv.r, k0, Sk, vec);
+    load_codes(codes, p, b, k0, kTcThreads);
     __syncthreads();
     warp_dots<D>(Qw, Ks, Sw);
     __syncwarp();
@@ -662,7 +776,7 @@ __global__ void __launch_bounds__(kTcThreads)
           expf(masked_score(Sw[rr * L::LDS + c], codes[c], qq, kk, p) - m);
       float pav = e;
       if (p.dropout) {
-        const bool keep = qq < S && kk < S &&
+        const bool keep = qq < Sq && kk < Sk &&
                           rng.bits(row_index + kk) < p.threshold;
         pav = keep ? e * p.inv_keep : 0.f;
       }
@@ -677,17 +791,14 @@ __global__ void __launch_bounds__(kTcThreads)
   for (int j = 0; j < L::NJ; ++j)
     wmma::store_matrix_sync(Sw + j * 16, o[j], L::LDS, wmma::mem_row_major);
   __syncwarp();
-  if (qq < S) {
-    const long long hs = static_cast<long long>(NH) * D;
-    bf16* row = static_cast<bf16*>(p.out) +
-                (static_cast<long long>(b) * S + qq) * hs +
-                static_cast<long long>(h) * D + half * (D / 2);
+  if (qq < Sq) {
+    bf16* row = head_base_out<bf16>(p.out, p.lo, b, h) + qq * p.lo.r +
+                half * (D / 2);
     const float* src = Sw + rr * L::LDS + half * (D / 2);
 #pragma unroll 8
-    for (int c = 0; c < D / 2; ++c) row[c] = __float2bfloat16_rn(src[c] / safe_l);
-    if (half == 0)
-      p.lse_out[(static_cast<long long>(b) * NH + h) * S + qq] =
-          m + logf(safe_l);
+    for (int c = 0; c < D / 2; ++c)
+      row[c] = __float2bfloat16_rn(src[c] / safe_l);
+    if (half == 0) p.lse_out[head_rows + qq] = m + logf(safe_l);
   }
 }
 
@@ -709,14 +820,16 @@ __global__ void __launch_bounds__(kTcThreads)
   int* codes = reinterpret_cast<int*>(delta_s + BQ);
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int S = p.S, NH = p.NH;
+  const int Sq = p.Sq, Sk = p.Sk;
   float* Stw = St + 16 * w * L::LDS;
   float* dPtw = dPt + 16 * w * L::LDS;
   bf16* Ptw = Pt + 16 * w * L::LDP;
   bf16* dStw = dSt + 16 * w * L::LDP;
-  load_tile_tc<D>(Ks, static_cast<const bf16*>(p.k), b, h, k0, S, NH, vec);
-  load_tile_tc<D>(Vs, static_cast<const bf16*>(p.v), b, h, k0, S, NH, vec);
-  load_codes(codes, p, b, k0);
+  const bf16* qb = head_base<bf16>(p.q, p.lq, b, h);
+  const bf16* dob = head_base<bf16>(p.dout, p.ldo, b, h);
+  load_tiles_tc<D>(Ks, head_base<bf16>(p.k, p.lk, b, h), p.lk.r, Vs,
+                   head_base<bf16>(p.v, p.lv, b, h), p.lv.r, k0, Sk, vec);
+  load_codes(codes, p, b, k0, kTcThreads);
   AccFrag dk[L::NJ], dv[L::NJ];
 #pragma unroll
   for (int j = 0; j < L::NJ; ++j) {
@@ -724,19 +837,13 @@ __global__ void __launch_bounds__(kTcThreads)
     wmma::fill_fragment(dv[j], 0.f);
   }
   PhiloxCursor rng(p.seed);
-  const long long row_base = (static_cast<long long>(b) * NH + h) * S;
-  const unsigned long long head_base =
+  const long long row_base = (static_cast<long long>(b) * p.NH + h) * Sq;
+  const unsigned long long head_rows =
       static_cast<unsigned long long>(row_base);
-  for (int q0 = 0; q0 < S; q0 += BQ) {
+  for (int q0 = query_start(p, k0); q0 < Sq; q0 += BQ) {
     __syncthreads();
-    load_tile_tc<D>(Qs, static_cast<const bf16*>(p.q), b, h, q0, S, NH, vec);
-    load_tile_tc<D>(dOs, static_cast<const bf16*>(p.dout), b, h, q0, S, NH,
-                    vec);
-    for (int r = threadIdx.x; r < BQ; r += kTcThreads) {
-      const bool in = q0 + r < S;
-      lse_s[r] = in ? p.lse[row_base + q0 + r] : 0.f;
-      delta_s[r] = in ? p.delta[row_base + q0 + r] : 0.f;
-    }
+    load_tiles_tc<D>(Qs, qb, p.lq.r, dOs, dob, p.ldo.r, q0, Sq, vec);
+    load_row_stats(lse_s, delta_s, p, row_base, q0, kTcThreads);
     __syncthreads();
     // this warp's 16 keys against the tile's 64 queries, transposed
     warp_dots<D>(Ks + 16 * w * L::LDH, Qs, Stw);
@@ -753,7 +860,7 @@ __global__ void __launch_bounds__(kTcThreads)
         const BwdElem e = bwd_elem(Stw[kr * L::LDS + qc],
                                    dPtw[kr * L::LDS + qc], codes[16 * w + kr],
                                    q0 + qc, k0 + 16 * w + kr, lse_q, delta_q,
-                                   p, rng, head_base);
+                                   p, rng, head_rows);
         Ptw[kr * L::LDP + qc] = __float2bfloat16_rn(e.pav);
         dStw[kr * L::LDP + qc] = __float2bfloat16_rn(e.ds);
       }
@@ -762,10 +869,10 @@ __global__ void __launch_bounds__(kTcThreads)
     warp_accumulate<D>(dv, Ptw, dOs);
     warp_accumulate<D>(dk, dStw, Qs);
   }
-  warp_store_rows<D>(dk, Stw, static_cast<bf16*>(p.out), b, h,
-                     k0 + 16 * w, S, NH);
-  warp_store_rows<D>(dv, Stw, static_cast<bf16*>(p.out2), b, h,
-                     k0 + 16 * w, S, NH);
+  warp_store_rows<D>(dk, Stw, head_base_out<bf16>(p.out, p.lo, b, h),
+                     p.lo.r, k0 + 16 * w, Sk);
+  warp_store_rows<D>(dv, Stw, head_base_out<bf16>(p.out2, p.lo2, b, h),
+                     p.lo2.r, k0 + 16 * w, Sk);
 }
 
 template <int D>
@@ -785,32 +892,30 @@ __global__ void __launch_bounds__(kTcThreads)
   int* codes = reinterpret_cast<int*>(delta_s + BQ);
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int S = p.S, NH = p.NH;
+  const int Sq = p.Sq, Sk = p.Sk;
   const int rr = lane >> 1, half = lane & 1;
   const int qr = 16 * w + rr, qq = q0 + qr;
   float* Sw = Ss + 16 * w * L::LDS;
   float* dPw = dPs + 16 * w * L::LDS;
   bf16* dSw = dSs + 16 * w * L::LDP;
-  const long long row_base = (static_cast<long long>(b) * NH + h) * S;
-  const unsigned long long head_base =
+  const long long row_base = (static_cast<long long>(b) * p.NH + h) * Sq;
+  const unsigned long long head_rows =
       static_cast<unsigned long long>(row_base);
-  load_tile_tc<D>(Qs, static_cast<const bf16*>(p.q), b, h, q0, S, NH, vec);
-  load_tile_tc<D>(dOs, static_cast<const bf16*>(p.dout), b, h, q0, S, NH,
-                  vec);
-  for (int r = threadIdx.x; r < BQ; r += kTcThreads) {
-    const bool in = q0 + r < S;
-    lse_s[r] = in ? p.lse[row_base + q0 + r] : 0.f;
-    delta_s[r] = in ? p.delta[row_base + q0 + r] : 0.f;
-  }
+  const bf16* kb = head_base<bf16>(p.k, p.lk, b, h);
+  const bf16* vb = head_base<bf16>(p.v, p.lv, b, h);
+  load_tiles_tc<D>(Qs, head_base<bf16>(p.q, p.lq, b, h), p.lq.r, dOs,
+                   head_base<bf16>(p.dout, p.ldo, b, h), p.ldo.r, q0, Sq,
+                   vec);
+  load_row_stats(lse_s, delta_s, p, row_base, q0, kTcThreads);
   AccFrag dq[L::NJ];
 #pragma unroll
   for (int j = 0; j < L::NJ; ++j) wmma::fill_fragment(dq[j], 0.f);
   PhiloxCursor rng(p.seed);
-  for (int k0 = 0; k0 < S; k0 += BK) {
+  const int kend = key_end(p, q0);
+  for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tile_tc<D>(Ks, static_cast<const bf16*>(p.k), b, h, k0, S, NH, vec);
-    load_tile_tc<D>(Vs, static_cast<const bf16*>(p.v), b, h, k0, S, NH, vec);
-    load_codes(codes, p, b, k0);
+    load_tiles_tc<D>(Ks, kb, p.lk.r, Vs, vb, p.lv.r, k0, Sk, vec);
+    load_codes(codes, p, b, k0, kTcThreads);
     __syncthreads();
     warp_dots<D>(Qs + 16 * w * L::LDH, Ks, Sw);
     warp_dots<D>(dOs + 16 * w * L::LDH, Vs, dPw);
@@ -821,14 +926,14 @@ __global__ void __launch_bounds__(kTcThreads)
       const int c = 32 * half + j;
       const BwdElem e =
           bwd_elem(Sw[rr * L::LDS + c], dPw[rr * L::LDS + c], codes[c], qq,
-                   k0 + c, lse_q, delta_q, p, rng, head_base);
+                   k0 + c, lse_q, delta_q, p, rng, head_rows);
       dSw[rr * L::LDP + c] = __float2bfloat16_rn(e.ds);
     }
     __syncwarp();
     warp_accumulate<D>(dq, dSw, Ks);
   }
-  warp_store_rows<D>(dq, Sw, static_cast<bf16*>(p.out), b, h, q0 + 16 * w, S,
-                     NH);
+  warp_store_rows<D>(dq, Sw, head_base_out<bf16>(p.out, p.lo, b, h), p.lo.r,
+                     q0 + 16 * w, Sq);
 }
 
 template <int D>
@@ -881,7 +986,7 @@ int launch_kernel(K kernel, size_t smem, dim3 grid, int threads,
 // fp32: the CUDA-core kernels; bf16: the tensor-core kernels
 template <int D>
 int fwd(const Params& p, bool bf16_in, bool vec, cudaStream_t s) {
-  dim3 grid((p.S + BQ - 1) / BQ, p.NH, p.B);
+  dim3 grid((p.Sq + BQ - 1) / BQ, p.NH, p.B);
   if (bf16_in)
     return launch_kernel(flash_fwd_tc_kernel<D>, fwd_tc_smem<D>(), grid,
                          kTcThreads, s, p, vec);
@@ -889,25 +994,28 @@ int fwd(const Params& p, bool bf16_in, bool vec, cudaStream_t s) {
                        kThreads, s, p);
 }
 
+// parts: 1 the dK/dV kernel (p.out = dk, p.out2 = dv), 2 the dQ kernel
+// (pq.out = dq)
 template <int D>
-int bwd(const Params& p, void* dq, bool bf16_in, bool vec, cudaStream_t s) {
-  dim3 grid_k((p.S + BK - 1) / BK, p.NH, p.B);
-  Params pq = p;
-  pq.out = dq;
-  pq.out2 = nullptr;
-  dim3 grid_q((p.S + BQ - 1) / BQ, p.NH, p.B);
-  if (bf16_in) {
-    int err = launch_kernel(flash_bwd_dkdv_tc_kernel<D>, dkdv_tc_smem<D>(),
-                            grid_k, kTcThreads, s, p, vec);
+int bwd(const Params& p, const Params& pq, int parts, bool bf16_in, bool vec,
+        cudaStream_t s) {
+  dim3 grid_k((p.Sk + BK - 1) / BK, p.NH, p.B);
+  dim3 grid_q((p.Sq + BQ - 1) / BQ, p.NH, p.B);
+  int err = 0;
+  if (parts & 1) {
+    err = bf16_in ? launch_kernel(flash_bwd_dkdv_tc_kernel<D>,
+                                  dkdv_tc_smem<D>(), grid_k, kTcThreads, s,
+                                  p, vec)
+                  : launch_kernel(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>(),
+                                  grid_k, kThreads, s, p);
     if (err != 0) return err;
-    return launch_kernel(flash_bwd_dq_tc_kernel<D>, dq_tc_smem<D>(), grid_q,
-                         kTcThreads, s, pq, vec);
   }
-  int err = launch_kernel(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>(),
-                          grid_k, kThreads, s, p);
-  if (err != 0) return err;
-  return launch_kernel(flash_bwd_dq_kernel<D>, dq_smem<D>(), grid_q,
-                       kThreads, s, pq);
+  if (parts & 2)
+    err = bf16_in ? launch_kernel(flash_bwd_dq_tc_kernel<D>, dq_tc_smem<D>(),
+                                  grid_q, kTcThreads, s, pq, vec)
+                  : launch_kernel(flash_bwd_dq_kernel<D>, dq_smem<D>(),
+                                  grid_q, kThreads, s, pq);
+  return err;
 }
 
 int dispatch_fwd(int D, const Params& p, bool bf16_in, bool vec,
@@ -920,23 +1028,30 @@ int dispatch_fwd(int D, const Params& p, bool bf16_in, bool vec,
   return (int)cudaErrorInvalidValue;
 }
 
-int dispatch_bwd(int D, const Params& p, void* dq, bool bf16_in, bool vec,
-                 cudaStream_t s) {
+int dispatch_bwd(int D, const Params& p, const Params& pq, int parts,
+                 bool bf16_in, bool vec, cudaStream_t s) {
   switch (D) {
-    case 32: return bwd<32>(p, dq, bf16_in, vec, s);
-    case 64: return bwd<64>(p, dq, bf16_in, vec, s);
-    case 128: return bwd<128>(p, dq, bf16_in, vec, s);
+    case 32: return bwd<32>(p, pq, parts, bf16_in, vec, s);
+    case 64: return bwd<64>(p, pq, parts, bf16_in, vec, s);
+    case 128: return bwd<128>(p, pq, parts, bf16_in, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-bool aligned16(const void* a) {
-  return reinterpret_cast<uintptr_t>(a) % 16 == 0;
+Layout layout_at(const long long* strides, int i) {
+  return Layout{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+// 16-byte row loads need an aligned base and strides of whole 8-element
+// (bf16) chunks.
+bool vec_ok(const void* ptr, const Layout& L) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && L.b % 8 == 0 &&
+         L.h % 8 == 0 && L.r % 8 == 0;
 }
 
 Params make_params(const void* q, const void* k, const void* v,
-                   const void* key_mask, int B, int S, int NH, float scale,
-                   int causal, int dropout, unsigned int seed,
+                   const void* key_mask, int B, int Sq, int Sk, int NH,
+                   float scale, int causal, int dropout, unsigned int seed,
                    unsigned int threshold, float inv_keep) {
   Params p = {};
   p.q = q;
@@ -944,10 +1059,12 @@ Params make_params(const void* q, const void* k, const void* v,
   p.v = v;
   p.key_mask = static_cast<const uint8_t*>(key_mask);
   p.B = B;
-  p.S = S;
+  p.Sq = Sq;
+  p.Sk = Sk;
   p.NH = NH;
   p.scale = scale;
   p.causal = causal;
+  p.skip = causal && key_mask == nullptr;
   p.dropout = dropout;
   p.seed = seed;
   p.threshold = threshold;
@@ -957,47 +1074,67 @@ Params make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16 (q, k, v, out). q, k, v, out are
-// contiguous (B, S, NH * D); key_mask (B, S) uint8 or null; lse (B, NH, S)
-// fp32. D in {32, 64, 128}.
+// dtype codes: 0 float32, 1 bfloat16 (q, k, v, out). strides: 12 element
+// strides, (batch, head, row) of q, k, v and out, each a (B, NH, rows, D)
+// operand whose D columns are contiguous. key_mask (B, Sk) uint8 or null;
+// lse (B, NH, Sq) fp32. D in {32, 64, 128}.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const void* key_mask, void* out, void* lse,
-                              int B, int S, int NH, int D, int dtype,
-                              float scale, int causal, int dropout,
-                              unsigned int seed, unsigned int threshold,
-                              float inv_keep, void* stream) {
-  if (B < 1 || S < 1 || NH < 1) return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, key_mask, B, S, NH, scale, causal, dropout,
-                         seed, threshold, inv_keep);
+                              const long long* strides, int B, int Sq, int Sk,
+                              int NH, int D, int dtype, float scale,
+                              int causal, int dropout, unsigned int seed,
+                              unsigned int threshold, float inv_keep,
+                              void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || NH < 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  Params p = make_params(q, k, v, key_mask, B, Sq, Sk, NH, scale, causal,
+                         dropout, seed, threshold, inv_keep);
+  p.lq = layout_at(strides, 0);
+  p.lk = layout_at(strides, 1);
+  p.lv = layout_at(strides, 2);
+  p.lo = layout_at(strides, 3);
   p.out = out;
   p.lse_out = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool vec = aligned16(q) && aligned16(k) && aligned16(v);
-  return dispatch_fwd(D, p, dtype == 1, vec, s);
+  const bool vec = vec_ok(q, p.lq) && vec_ok(k, p.lk) && vec_ok(v, p.lv);
+  return dispatch_fwd(D, p, dtype == 1, vec,
+                      static_cast<cudaStream_t>(stream));
 }
 
-// The backward: dq, dk, dv (B, S, NH * D) in the input dtype, from q, k,
-// v, dout, the forward's lse and delta = rowsum(dout * out) per head
-// (B, NH, S) fp32.
+// The backward: dq (B, NH, Sq, D), dk, dv (B, NH, Sk, D) in the input
+// dtype, from q, k, v, dout, the forward's lse and delta = rowsum(dout *
+// out) - dlse per head (B, NH, Sq) fp32. strides: 21 element strides,
+// (batch, head, row) of q, k, v, dout, dq, dk and dv. parts: 1 the dK/dV
+// kernel, 2 the dQ kernel, 3 both.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* key_mask, const void* dout,
                               const void* lse, const void* delta, void* dq,
-                              void* dk, void* dv, int B, int S, int NH, int D,
-                              int dtype, float scale, int causal, int dropout,
+                              void* dk, void* dv, const long long* strides,
+                              int B, int Sq, int Sk, int NH, int D, int dtype,
+                              float scale, int causal, int dropout,
                               unsigned int seed, unsigned int threshold,
-                              float inv_keep, void* stream) {
-  if (B < 1 || S < 1 || NH < 1) return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, key_mask, B, S, NH, scale, causal, dropout,
-                         seed, threshold, inv_keep);
+                              float inv_keep, int parts, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || NH < 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (parts < 1 || parts > 3) return (int)cudaErrorInvalidValue;
+  Params p = make_params(q, k, v, key_mask, B, Sq, Sk, NH, scale, causal,
+                         dropout, seed, threshold, inv_keep);
+  p.lq = layout_at(strides, 0);
+  p.lk = layout_at(strides, 1);
+  p.lv = layout_at(strides, 2);
+  p.ldo = layout_at(strides, 3);
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.out = dk;
+  p.lo = layout_at(strides, 5);
   p.out2 = dv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool vec =
-      aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
-  return dispatch_bwd(D, p, dq, dtype == 1, vec, s);
+  p.lo2 = layout_at(strides, 6);
+  Params pq = p;
+  pq.out = dq;
+  pq.lo = layout_at(strides, 4);
+  pq.out2 = nullptr;
+  const bool vec = vec_ok(q, p.lq) && vec_ok(k, p.lk) && vec_ok(v, p.lv) &&
+                   vec_ok(dout, p.ldo);
+  return dispatch_bwd(D, p, pq, parts, dtype == 1, vec,
+                      static_cast<cudaStream_t>(stream));
 }

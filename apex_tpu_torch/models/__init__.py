@@ -12,6 +12,7 @@ from apex_tpu_torch.models.gpt import (
     GPTModel,
     QuantLinear,
     gpt_param_bytes,
+    lm_loss,
     load_jax_params,
     quantize_dense_kernel,
     quantize_gpt_model,
@@ -29,6 +30,7 @@ __all__ = [
     "WEIGHT_QUANT_MODES",
     "gpt_param_bytes",
     "load_bert_jax_params",
+    "lm_loss",
     "load_jax_params",
     "pretraining_loss",
     "quantize_dense_kernel",

@@ -1,5 +1,17 @@
-"""GPT causal LM, serving forward (counterpart of
+"""GPT causal LM, training and serving forwards (counterpart of
 :mod:`apex_tpu.models.gpt`).
+
+``GPTLMHeadModel(cfg, trainable=True)(input_ids, deterministic=False,
+generator=g)`` is the training forward (the JAX call without
+``kv_cache``): token embeddings plus the position table sliced at
+``position_offset``, embedding dropout, pre-LN blocks on
+``FusedLayerNorm`` (kernel B1 backward), causal ``flash_attention_bsh``
+with fused attention dropout (B4/B5 up to one tile; GPT-2's S 1024 runs
+the tiled B9, B11a and B11b), the two hidden dropouts (B3), tanh GELU,
+remat per block (``torch.utils.checkpoint``), the final norm and the
+weight-tied head in fp32. Every dropout seed of a forward (1 + 3 L) is
+drawn from ``generator`` before any checkpointed block runs. ``lm_loss``
+is the shifted next-token loss.
 
 ``GPTLMHeadModel(cfg)(input_ids, kv_cache=..., block_tables=...,
 cache_positions=..., seq_lens=..., write_start=...)`` is the paged-KV
@@ -12,8 +24,10 @@ context), both on kernel B14 on the card. With
 The other products (the fp dense layers, the tied LM head) are plain
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
-The training forward (flash attention, dropout, remat, MoE, ring and
-Ulysses context parallelism) is not ported yet. Parameter names follow
+Not ported yet, each raising in the training forward: MoE blocks
+(``num_experts > 0``), ring and Ulysses context parallelism,
+``fused_kernels=False`` and training over quantized weights. Parameter
+names follow
 the flax tree (``wte``, ``wpe``, ``h_{i}.ln_1``/``attn_q``/..., ``ln_f``);
 dense weights use torch's ``(out, in)`` layout, quantized kernels keep
 the JAX ``(in, out)`` layout the dequant-GEMM reads.
@@ -29,10 +43,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from apex_tpu_torch.models._dropout import TPDropout, dropout_seeds
+from apex_tpu_torch.models.bert import Dense
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.dequant_gemm import dequant_matmul
+from apex_tpu_torch.ops.flash_attention import flash_attention_bsh
 from apex_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_prefill_attention,
@@ -55,8 +73,13 @@ class GPTConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_position_embeddings: int = 1024
+    dropout: float = 0.1
     layernorm_eps: float = 1e-5
     dtype: torch.dtype = torch.float32
+    remat: bool = True
+    fused_kernels: bool = True
+    attention_backend: str = "flash"   # flash | ring | ulysses
+    num_experts: int = 0
     # None | "int8" | "fp8": the six _QUANT_DENSE matmuls read quantized
     # weights through QuantLinear (set by quantize_gpt_model)
     weight_quantization: Optional[str] = None
@@ -174,21 +197,67 @@ def _cached_attention(cfg, q, k, v, kv_cache, layer, block_tables,
     return ctx.reshape(B, S, h)
 
 
+def _check_trainable(cfg: GPTConfig):
+    """The training forward's unported options, each raising."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError("GPT MoE blocks (num_experts > 0) are not "
+                                  "ported yet (ROADMAP A.4 item 20, moe)")
+    if cfg.attention_backend != "flash":
+        raise NotImplementedError(
+            f"attention_backend={cfg.attention_backend!r}: ring and Ulysses "
+            f"context parallelism are not ported yet (ROADMAP A.4 item 20)")
+    if not cfg.fused_kernels:
+        raise NotImplementedError("fused_kernels=False (stock LayerNorm and "
+                                  "composed attention) is not ported; the "
+                                  "port's GPT runs the fused kernels "
+                                  "(ROADMAP A.3, GPT training note)")
+    if cfg.weight_quantization is not None:
+        raise NotImplementedError(
+            "training over quantized weights is not ported (ROADMAP A.3, "
+            "GPT training note); quantized weights are a serving option")
+
+
 class GPTBlock(nn.Module):
-    """Pre-LN block: attention over the paged cache, then the GELU MLP."""
+    """Pre-LN block: attention (the flash kernels in training, the paged
+    cache in serving), then the GELU MLP."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         h = cfg.hidden_size
         self.cfg = cfg
         self.ln_1 = FusedLayerNorm(h, eps=cfg.layernorm_eps)
-        self.attn_q = nn.Linear(h, h)
-        self.attn_k = nn.Linear(h, h)
-        self.attn_v = nn.Linear(h, h)
-        self.attn_out = nn.Linear(h, h)
+        # flax nn.Dense(dtype=cfg.dtype): fp32-stored params, the product
+        # in cfg.dtype
+        self.attn_q = Dense(h, h, cfg.dtype)
+        self.attn_k = Dense(h, h, cfg.dtype)
+        self.attn_v = Dense(h, h, cfg.dtype)
+        self.attn_out = Dense(h, h, cfg.dtype)
         self.ln_2 = FusedLayerNorm(h, eps=cfg.layernorm_eps)
-        self.mlp_in = nn.Linear(h, 4 * h)
-        self.mlp_out = nn.Linear(4 * h, h)
+        self.mlp_in = Dense(h, 4 * h, cfg.dtype)
+        self.mlp_out = Dense(4 * h, h, cfg.dtype)
+        self.dropout = TPDropout(cfg.dropout)
+
+    def forward_train(self, x, seeds=(None, None, None),
+                      deterministic: bool = True):
+        """The training block on ``(B, S, h)``. ``seeds``: this block's
+        (attention, attention-output, MLP-output) dropout seeds, drawn by
+        the caller outside any checkpoint."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        nh = cfg.num_heads
+        hd = cfg.hidden_size // nh
+        y = self.ln_1(x)
+        q = self.attn_q(y).to(dt)
+        k = self.attn_k(y).to(dt)
+        v = self.attn_v(y).to(dt)
+        drop = 0.0 if deterministic else cfg.dropout
+        ctx = flash_attention_bsh(q, k, v, None, nh, True, 1.0 / (hd ** 0.5),
+                                  drop, seeds[0] if drop > 0.0 else None)
+        attn = self.attn_out(ctx.to(dt)).to(dt)
+        x = x + self.dropout(attn, seeds[1], deterministic)
+        y = F.gelu(self.mlp_in(self.ln_2(x)).to(dt), approximate="tanh")
+        y = self.mlp_out(y).to(dt)
+        return x + self.dropout(y, seeds[2], deterministic)
 
     def forward(self, x, kv_cache, layer, block_tables, cache_positions,
                 seq_lens, coords):
@@ -219,9 +288,62 @@ class GPTModel(nn.Module):
                                             cfg.hidden_size))
         self.h = nn.ModuleList(GPTBlock(cfg) for _ in range(cfg.num_layers))
         self.ln_f = FusedLayerNorm(cfg.hidden_size, eps=cfg.layernorm_eps)
+        self.dropout = TPDropout(cfg.dropout)
 
-    def forward(self, input_ids, kv_cache, block_tables, cache_positions,
-                seq_lens, write_start=None):
+    def num_dropout_seeds(self) -> int:
+        """One for the embeddings, three per block."""
+        return 1 + 3 * self.cfg.num_layers
+
+    def forward(self, input_ids, kv_cache=None, block_tables=None,
+                cache_positions=None, seq_lens=None, write_start=None, *,
+                deterministic: bool = True, position_offset: int = 0,
+                generator=None):
+        """Hidden states ``(B, S, h)``: the training forward without
+        ``kv_cache``, else the serving forward over the paged cache."""
+        if kv_cache is None:
+            return self._train_forward(input_ids, deterministic,
+                                       position_offset, generator)
+        return self._serve_forward(input_ids, kv_cache, block_tables,
+                                   cache_positions, seq_lens, write_start)
+
+    def _train_forward(self, input_ids, deterministic, position_offset,
+                       generator):
+        cfg = self.cfg
+        _check_trainable(cfg)
+        S = input_ids.shape[1]
+        if position_offset + S > cfg.max_position_embeddings:
+            raise ValueError(
+                f"sequence [{position_offset}, {position_offset + S}) "
+                f"exceeds max_position_embeddings "
+                f"({cfg.max_position_embeddings})")
+        seeds = [None] * self.num_dropout_seeds()
+        if not deterministic and cfg.dropout > 0.0:
+            if generator is None:
+                raise ValueError("a training forward (deterministic=False) "
+                                 "needs the step's torch.Generator for its "
+                                 "dropout seeds")
+            # every seed of this forward, drawn before any checkpointed
+            # block runs, so a recompute replays the same masks
+            seeds = dropout_seeds(generator, self.num_dropout_seeds())
+        pos = self.wpe[position_offset:position_offset + S]
+        x = (F.embedding(input_ids.long(), self.wte) + pos[None]).to(
+            cfg.dtype)
+        x = self.dropout(x, seeds[0], deterministic)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, block in enumerate(self.h):
+            block_seeds = tuple(seeds[1 + 3 * i: 4 + 3 * i])
+            if remat:
+                # the block's dropouts draw no global RNG state, so none
+                # needs preserving across the recompute
+                x = checkpoint(block.forward_train, x, block_seeds,
+                               deterministic, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block.forward_train(x, block_seeds, deterministic)
+        return self.ln_f(x)
+
+    def _serve_forward(self, input_ids, kv_cache, block_tables,
+                       cache_positions, seq_lens, write_start):
         from apex_tpu_torch.serving.kv_cache import write_coords
 
         cfg = self.cfg
@@ -247,9 +369,11 @@ class GPTLMHeadModel(nn.Module):
     and embeddings, zero biases, unit norm scales) from a CPU
     ``torch.Generator`` seeded by ``seed``, then moved to ``device``
     (the CUDA card unless the caller asks for another), so one seed gives
-    the same weights on every device."""
+    the same weights on every device. ``trainable=True`` leaves them
+    trainable; the default freezes them, as the serving engine wants."""
 
-    def __init__(self, cfg: GPTConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: GPTConfig, *, device=None, seed: int = 0,
+                 trainable: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -264,7 +388,7 @@ class GPTLMHeadModel(nn.Module):
                     p.zero_()
                 else:
                     p.normal_(0.0, _INIT_STD, generator=gen)
-        self.requires_grad_(False)
+        self.requires_grad_(trainable)
         self.to(device)
         if cfg.weight_quantization is not None:
             _quantize_blocks(self, cfg.weight_quantization)
@@ -273,15 +397,40 @@ class GPTLMHeadModel(nn.Module):
     def device(self) -> torch.device:
         return self.transformer.wte.device
 
-    def forward(self, input_ids, kv_cache, block_tables, cache_positions,
-                seq_lens, write_start=None):
-        """Serving forward over the paged cache (updated in place).
-        Returns ``(logits [B, S, V] fp32, kv_cache)``."""
+    def forward(self, input_ids, kv_cache=None, block_tables=None,
+                cache_positions=None, seq_lens=None, write_start=None, *,
+                deterministic: bool = True, position_offset: int = 0,
+                generator=None):
+        """Without ``kv_cache``: the training forward, logits ``[B, S, V]``
+        fp32 (``generator`` gives the dropout seeds when
+        ``deterministic=False``). With it: the serving forward over the
+        paged cache (updated in place), ``(logits, kv_cache)``."""
         x = self.transformer(input_ids, kv_cache, block_tables,
-                             cache_positions, seq_lens, write_start)
+                             cache_positions, seq_lens, write_start,
+                             deterministic=deterministic,
+                             position_offset=position_offset,
+                             generator=generator)
         wte = self.transformer.wte
-        logits = torch.matmul(x.float(), wte.float().t())
+        # the tied head: x @ wte^T with wte in x's dtype, accumulated and
+        # returned in fp32 (the JAX einsum's preferred_element_type)
+        logits = torch.matmul(x.float(), wte.to(x.dtype).float().t())
+        if kv_cache is None:
+            return logits
         return logits, kv_cache
+
+
+def lm_loss(logits, labels, ignore_index: int = -1):
+    """Shifted next-token cross-entropy in fp32 via the logsumexp identity
+    (no fp32 log-prob tensor); targets equal to ``ignore_index`` carry no
+    weight."""
+    lg = logits[:, :-1].float()
+    tgt = labels[:, 1:]
+    weights = (tgt != ignore_index).float()
+    safe = tgt.clamp(min=0).long()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, safe[..., None])[..., 0]
+    per_token = (lse - picked) * weights
+    return per_token.sum() / torch.clamp(weights.sum(), min=1.0)
 
 
 def _quantize_blocks(model: GPTLMHeadModel, mode) -> None:
@@ -335,15 +484,16 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def load_jax_params(params_np, cfg: GPTConfig, device=None
-                    ) -> GPTLMHeadModel:
+def load_jax_params(params_np, cfg: GPTConfig, device=None,
+                    trainable: bool = False) -> GPTLMHeadModel:
     """Build the port's model from a JAX ``GPTLMHeadModel`` param tree as
     numpy arrays (``params["params"]["transformer"]``: ``wte``, ``wpe``,
     ``h_{i}/{ln_1,ln_2}/{scale,bias}``, ``h_{i}/{attn_q,...}/{kernel,
     bias[,scale]}``, ``ln_f``). A tree whose dense modules carry a
     ``scale`` leaf is a quantized tree: the model then reads it through
     :class:`QuantLinear` with ``cfg.weight_quantization`` set from the
-    kernel dtype."""
+    kernel dtype. ``trainable=True`` leaves the parameters trainable
+    (the training forward); a quantized tree is serving-only."""
     tree = params_np.get("params", params_np)
     tree = tree.get("transformer", tree)
     quant = "scale" in tree["h_0"]["attn_q"]
@@ -352,7 +502,7 @@ def load_jax_params(params_np, cfg: GPTConfig, device=None
         mode = "int8" if dt == np.int8 else "fp8"
         cfg = dataclasses.replace(cfg, weight_quantization=mode)
     model = GPTLMHeadModel(dataclasses.replace(cfg, weight_quantization=None),
-                           device="cpu")
+                           device="cpu", trainable=trainable)
     t = model.transformer
     with torch.no_grad():
         t.wte.copy_(_to_tensor(tree["wte"]))

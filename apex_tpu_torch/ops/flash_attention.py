@@ -1,36 +1,48 @@
-"""Flash attention on flat ``(B, S, NH * D)`` activations (counterpart of
-the bsh entry of :mod:`apex_tpu.ops.flash_attention`).
+"""Flash attention (counterpart of :mod:`apex_tpu.ops.flash_attention`'s
+training entries).
 
-``flash_attention_bsh`` computes multi-head attention with a per-key
-padding mask, optional causal masking and fused attention dropout, reading
-head ``h`` from columns ``[h * D, (h + 1) * D)``: no head split or merge
-is ever written. It returns the context in the same flat layout and keeps
-the per-row logsumexp for the backward, which recomputes the scores.
+Three entries, with the JAX signatures and return shapes:
 
-Semantics kept from the JAX kernels (``_fwd_single_kernel_bsh``,
-``_bwd_fused_kernel_bsh``):
+- ``flash_attention(q, k, v, key_mask, causal, scale, dropout_rate,
+  dropout_seed)`` on ``(B, H, S, D)``; Sq != Sk allowed;
+- ``flash_attention_with_lse(...)``, which also returns the per-row
+  logsumexp ``(B, H, 1, Sq)`` and takes its cotangent (folded into the
+  backward's delta, ``delta = rowsum(dO * O) - dlse``);
+- ``flash_attention_bsh(q, k, v, key_mask, num_heads, ...)`` on flat
+  ``(B, S, NH * D)`` activations, head ``h`` in columns ``[h * D, (h + 1)
+  * D)``: no head split or merge is ever written.
+
+Each keeps the per-row logsumexp for its backward, which recomputes the
+scores. Semantics kept from the JAX kernels:
 
 - a masked key scores ``FILL = -30000`` and still counts in the
-  denominator, so a fully masked row is the uniform average over its S
+  denominator, so a fully masked row is the uniform average over its Sk
   keys (the JAX wrapper's block padding, excluded as mask code 2, does not
   exist here: no key is excluded);
+- causal masks ``k > q`` on absolute indices;
 - dropout multiplies p before the product with V and dP in the backward;
-  lse stays pre-dropout; delta = rowsum(dO * O) per head;
+  m, l and lse stay pre-dropout;
 - p and dS are rounded to the input dtype before their products.
 
-On CUDA tensors the forward is kernel B4 and the backward kernel B5
-(``csrc/flash_attn.cu``), whose dropout mask is element
-``((b * NH + h) * S + q) * S + k`` of the Philox stream keyed by the seed.
-On CPU tensors both run their plain versions, which draw the same mask
-(:func:`flash_keep_mask`). ``keep=`` takes an explicit ``(B, NH, S, S)``
-keep mask instead, for parity with the JAX package's interpret path (its
-``flash_dropout_keep_mask``); CPU only. The kernels cover the JAX
-package's single-tile regime only: beyond it the JAX package runs the
-tiled kernels B9–B12, which are not ported, so a longer sequence raises on
-the card.
+On CUDA tensors every entry runs the hand-written kernels of
+``csrc/flash_attn.cu``, which read q, k, v and write their results by
+(batch, head, row) strides, and count the call under the JAX kernel it
+stands in for, by the JAX package's own regime rule (``_block_sizes``):
+the bsh entry where the JAX bsh kernels apply is B4 (forward) and B5
+(backward); elsewhere one tile for both Sq and Sk is B10 and B12, more is
+the tiled B9, B11a (dQ) and B11b (dK, dV) (GPT-2 at S 1024). The dropout
+mask is element ``((b * H + h) * Sq + q) * Sk + k`` of the Philox stream
+keyed by the seed; ``flash_dropout_keep_mask`` materializes it (kernel
+B13, ``csrc/dropout.cu``). On CPU tensors every entry runs its plain
+version, which draws the same mask (:func:`flash_keep_mask`). ``keep=``
+takes an explicit ``(B, H, Sq, Sk)`` keep mask instead, for parity with
+the JAX package's interpret path (its ``flash_dropout_keep_mask``); CPU
+only.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -39,14 +51,58 @@ from apex_tpu_torch.ops._common import (
     FILL,
     keep_threshold,
     philox_bits,
+    resolve_device,
+    round_up,
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
-# The longest S the JAX package runs on its bsh single-tile kernels (its
-# largest block); beyond it, the tiled kernels B9-B12.
-MAX_SINGLE_TILE_S = 512
+
+# -- the JAX package's regime rule --------------------------------------------
+
+# a copy of apex_tpu.ops.flash_attention._BLOCK_COST: the relative per-FLOP
+# cost of a TPU block size, which decides the JAX tiling and so which of
+# its kernels a shape runs
+_BLOCK_COST = {512: 1.0, 384: 1.08, 256: 1.25, 128: 2.1}
+_LANE = 128
+
+
+def _block_dim(S: int) -> int:
+    best, best_cost = _LANE, None
+    for b, c in _BLOCK_COST.items():
+        cost = (round_up(S, b) / max(S, 1)) * c
+        if best_cost is None or cost < best_cost:
+            best, best_cost = b, cost
+    return best
+
+
+def _block_sizes(Sq: int, Sk: int):
+    """The JAX package's ``(bq, bk)`` for these lengths."""
+    return _block_dim(Sq), _block_dim(Sk)
+
+
+def single_tile(Sq: int, Sk: int) -> bool:
+    """True where the JAX package runs one tile for both Sq and Sk (its
+    kernels B10/B12), False where it tiles (B9/B11)."""
+    bq, bk = _block_sizes(Sq, Sk)
+    return round_up(Sq, bq) == bq and round_up(Sk, bk) == bk
+
+
+def _bsh_hpb(NH: int, D: int) -> int:
+    """Heads per 128-lane block of the JAX bsh kernels (0: none fits)."""
+    for h in (4, 2, 1):
+        if NH % h == 0 and (h * D) % _LANE == 0:
+            return h
+    return 0
+
+
+def bsh_kernel_ok(S: int, H: int, num_heads: int) -> bool:
+    """The JAX bsh gate (``_bsh_kernel_ok``): where it holds the JAX package
+    runs B4/B5, else it splits heads and runs ``flash_attention``."""
+    if H % num_heads or _bsh_hpb(num_heads, H // num_heads) == 0:
+        return False
+    return single_tile(S, S)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -58,7 +114,8 @@ def _heads(t, num_heads):
 
 
 def _merge(t):
-    """(B, NH, S, D) -> (B, S, NH * D)."""
+    """(B, NH, S, D) -> (B, S, NH * D) (a view where ``t`` is laid out as
+    (B, S, NH, D))."""
     B, NH, S, D = t.shape
     return t.transpose(1, 2).reshape(B, S, NH * D)
 
@@ -77,25 +134,26 @@ def _scores(q4, k4, key_mask, causal, scale):
     return s
 
 
-def flash_keep_mask(B, NH, S, dropout_rate, seed, device="cpu"):
-    """The ``(B, NH, S, S)`` boolean keep mask kernels B4/B5 apply for this
-    shape, rate and seed (counterpart of ``flash_dropout_keep_mask``)."""
-    bits = philox_bits(seed, 0, B * NH * S * S, device)
-    return (bits < keep_threshold(dropout_rate)).view(B, NH, S, S)
+def flash_keep_mask(B, NH, Sq, dropout_rate, seed, device="cpu", Sk=None):
+    """The ``(B, NH, Sq, Sk)`` boolean keep mask the kernels apply for this
+    shape, rate and seed (``Sk`` defaults to ``Sq``): the plain version of
+    kernel B13."""
+    Sk = Sq if Sk is None else Sk
+    bits = philox_bits(seed, 0, B * NH * Sq * Sk, device)
+    return (bits < keep_threshold(dropout_rate)).view(B, NH, Sq, Sk)
 
 
 def mha_reference(q, k, v, key_mask=None, causal=False, scale=1.0,
                   dropout_rate=0.0, dropout_seed=None):
     """Composed attention on ``(B, H, S, D)``: materializes the scores.
     With dropout the mask is :func:`flash_keep_mask` of the seed."""
-    keep = None
     if dropout_rate > 0.0:
         if dropout_seed is None:
             raise ValueError(
                 "mha_reference with dropout_rate > 0 requires dropout_seed")
-        B, H, S, _ = q.shape
-        keep = flash_keep_mask(B, H, S, dropout_rate, dropout_seed,
-                               q.device)
+        B, H, Sq, _ = q.shape
+        keep = flash_keep_mask(B, H, Sq, dropout_rate, dropout_seed,
+                               q.device, Sk=k.shape[2])
     else:
         keep = torch.ones((), dtype=torch.bool, device=q.device)
     return mha_with_mask_reference(q, k, v, keep, key_mask, causal, scale,
@@ -111,12 +169,87 @@ def mha_with_mask_reference(q, k, v, keep, key_mask=None, causal=False,
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def _plain_keep(B, NH, S, rate, seed, keep, device):
+def _with_lse_reference(q, k, v, key_mask, causal, scale, dropout_rate=0.0,
+                        dropout_seed=None):
+    """Composed, differentiable ``(out, lse)`` with lse ``(B, H, 1, Sq)``:
+    the keep mask (:func:`flash_keep_mask` of the seed) applies to the
+    normalized probabilities while lse stays pre-dropout."""
+    s = _scores(q, k, key_mask, causal, scale)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    if dropout_rate > 0.0:
+        B, H, Sq, _ = q.shape
+        keep = flash_keep_mask(B, H, Sq, dropout_rate, dropout_seed,
+                               q.device, Sk=k.shape[2])
+        p = torch.where(keep, p, torch.zeros((), device=p.device)) * (
+            1.0 / (1.0 - dropout_rate))
+    out = torch.matmul(p, v.float()).to(q.dtype)
+    return out, lse[:, :, None, :]
+
+
+def _plain_keep(q, k, rate, seed, keep):
     if rate == 0.0:
         return None
     if keep is not None:
-        return keep.to(device=device, dtype=torch.bool)
-    return flash_keep_mask(B, NH, S, rate, seed, device)
+        return keep.to(device=q.device, dtype=torch.bool)
+    B, H, Sq, _ = q.shape
+    return flash_keep_mask(B, H, Sq, rate, seed, q.device, Sk=k.shape[2])
+
+
+def flash_fwd_plain(q, k, v, key_mask=None, causal=False, scale=1.0,
+                    dropout_rate=0.0, dropout_seed=None, keep=None):
+    """The plain version of the forward kernels (B4, B9, B10) on ``(B, H,
+    S, D)``: ``(out, lse)`` with lse ``(B, H, Sq)`` fp32."""
+    s = _scores(q, k, key_mask, causal, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    keep = _plain_keep(q, k, dropout_rate, dropout_seed, keep)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros((), device=p.device)) * (
+            1.0 / (1.0 - dropout_rate))
+    pv = torch.matmul(p.to(v.dtype).float(), v.float())
+    safe_l = torch.where(l > 0, l, torch.ones((), device=l.device))
+    return (pv / safe_l).to(q.dtype), (m + torch.log(safe_l))[..., 0]
+
+
+def flash_bwd_plain(q, k, v, key_mask, lse, delta, g, causal=False,
+                    scale=1.0, dropout_rate=0.0, dropout_seed=None,
+                    keep=None):
+    """The plain version of the backward kernels (B5, B11a/B11b, B12) on
+    ``(B, H, S, D)``: ``(dq, dk, dv)``, p recomputed from q, k and lse;
+    ``delta`` is :func:`attention_delta4`."""
+    dt = q.dtype
+    s = _scores(q, k, key_mask, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    keep = _plain_keep(q, k, dropout_rate, dropout_seed, keep)
+    p_av = p
+    if keep is not None:
+        inv_keep = 1.0 / (1.0 - dropout_rate)
+        zero = torch.zeros((), device=p.device)
+        p_av = torch.where(keep, p, zero) * inv_keep
+        dp = torch.where(keep, dp, zero) * inv_keep
+    dv = torch.matmul(p_av.to(dt).float().transpose(-1, -2), g.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def attention_delta4(g, out, g_lse=None):
+    """delta = rowsum(dO * O) - dlse on ``(B, H, Sq, D)``: ``(B, H, Sq)``
+    fp32 (``g_lse`` is the lse cotangent, ``(B, H, Sq)``, or None)."""
+    delta = (g.float() * out.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def attention_delta(g, out, num_heads):
+    """delta = rowsum(dO * O) per head of flat ``(B, S, NH * D)``: ``(B,
+    NH, S)`` fp32."""
+    return attention_delta4(_heads(g, num_heads), _heads(out, num_heads))
 
 
 def flash_attention_bsh_plain(q, k, v, key_mask, num_heads, causal=False,
@@ -124,21 +257,10 @@ def flash_attention_bsh_plain(q, k, v, key_mask, num_heads, causal=False,
                               dropout_seed=None, keep=None):
     """The plain version of kernel B4: ``(out, lse)`` with ``out`` in the
     flat layout and ``lse`` ``(B, NH, S)`` fp32."""
-    B, S, _ = q.shape
-    q4, k4, v4 = (_heads(t, num_heads) for t in (q, k, v))
-    s = _scores(q4, k4, key_mask, causal, scale)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True)
-    keep = _plain_keep(B, num_heads, S, dropout_rate, dropout_seed, keep,
-                       q.device)
-    if keep is not None:
-        p = torch.where(keep, p, torch.zeros((), device=p.device)) * (
-            1.0 / (1.0 - dropout_rate))
-    pv = torch.matmul(p.to(v.dtype).float(), v4.float())
-    safe_l = torch.where(l > 0, l, torch.ones((), device=l.device))
-    out = _merge((pv / safe_l).to(q.dtype))
-    return out, (m + torch.log(safe_l))[..., 0]
+    out, lse = flash_fwd_plain(*(_heads(t, num_heads) for t in (q, k, v)),
+                               key_mask, causal, scale, dropout_rate,
+                               dropout_seed, keep)
+    return _merge(out), lse
 
 
 def flash_attention_bsh_backward_plain(q, k, v, key_mask, out, lse, g,
@@ -147,60 +269,57 @@ def flash_attention_bsh_backward_plain(q, k, v, key_mask, out, lse, g,
                                        keep=None):
     """The plain version of kernel B5: ``(dq, dk, dv)`` in the flat
     layout, p recomputed from q, k and lse."""
-    B, S, _ = q.shape
-    q4, k4, v4, g4 = (_heads(t, num_heads) for t in (q, k, v, g))
-    dt = q.dtype
-    s = _scores(q4, k4, key_mask, causal, scale)
-    p = torch.exp(s - lse[..., None])
-    dp = torch.matmul(g4.float(), v4.float().transpose(-1, -2))
-    keep = _plain_keep(B, num_heads, S, dropout_rate, dropout_seed, keep,
-                       q.device)
-    p_av = p
-    if keep is not None:
-        inv_keep = 1.0 / (1.0 - dropout_rate)
-        zero = torch.zeros((), device=p.device)
-        p_av = torch.where(keep, p, zero) * inv_keep
-        dp = torch.where(keep, dp, zero) * inv_keep
-    dv = torch.matmul(p_av.to(dt).float().transpose(-1, -2), g4.float())
-    delta = attention_delta(g, out, num_heads)
-    ds = p * (dp - delta[..., None]) * scale
-    ds = ds.to(dt).float()
-    dq = torch.matmul(ds, k4.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q4.float())
-    return tuple(_merge(t.to(dt)) for t in (dq, dk, dv))
+    grads = flash_bwd_plain(*(_heads(t, num_heads) for t in (q, k, v)),
+                            key_mask, lse, attention_delta(g, out, num_heads),
+                            _heads(g, num_heads), causal, scale,
+                            dropout_rate, dropout_seed, keep)
+    return tuple(_merge(t) for t in grads)
 
 
-def attention_delta(g, out, num_heads):
-    """delta = rowsum(dO * O) per head: ``(B, NH, S)`` fp32."""
-    B, S, H = g.shape
-    return (g.float() * out.float()).view(B, S, num_heads,
-                                          H // num_heads).sum(-1).transpose(
-                                              1, 2).contiguous()
+# -- the kernels (csrc/flash_attn.cu, csrc/dropout.cu) ------------------------
 
-
-# -- kernels B4 / B5 ----------------------------------------------------------
-
-def _check_kernel_args(q, k, v, key_mask, num_heads):
+def _check4(q, k, v, key_mask):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention_bsh: q, k, v must share one of "
+        raise ValueError(f"flash attention: q, k, v must share one of "
                          f"float32 / bfloat16, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if q.shape != k.shape or q.shape != v.shape or q.dim() != 3:
-        raise ValueError(f"flash_attention_bsh: q, k, v must be one (B, S, "
-                         f"NH * D) shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, H = q.shape
-    if H % num_heads or H // num_heads not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_bsh: head dim {H / num_heads} "
-                         f"is not one of {_HEAD_DIMS}")
-    if key_mask is not None and tuple(key_mask.shape) != (B, S):
-        raise ValueError(f"flash_attention_bsh: key_mask must be ({B}, "
-                         f"{S}), got {tuple(key_mask.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"flash attention: q (B, H, Sq, D), k and v (B, H, "
+                         f"Sk, D), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, _, _, D = q.shape
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash attention: head dim {D} is not one of "
+                         f"{_HEAD_DIMS}")
+    if key_mask is not None and tuple(key_mask.shape) != (B, k.shape[2]):
+        raise ValueError(f"flash attention: key_mask must be ({B}, "
+                         f"{k.shape[2]}), got {tuple(key_mask.shape)}")
     for t in (k, v, key_mask):
         if t is not None and t.device != q.device:
-            raise ValueError("flash_attention_bsh: every input must be on "
+            raise ValueError("flash attention: every input must be on "
                              f"{q.device}, got one on {t.device}")
+
+
+def _rows(t):
+    """``t`` with its last dim contiguous (the kernels' one layout rule)."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _empty_as(t):
+    """An empty tensor of ``t``'s shape whose (B, H, S) dims nest in the
+    order ``t``'s do, its last dim contiguous: a result written this way
+    merges back into the caller's layout as a view."""
+    order = sorted(range(3), key=lambda d: (-t.stride(d), d)) + [3]
+    buf = torch.empty([t.shape[d] for d in order], dtype=t.dtype,
+                      device=t.device)
+    return buf.permute([order.index(d) for d in range(4)])
+
+
+def _strides(*ts):
+    vals = [s for t in ts for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _dropout_args(rate, seed):
@@ -216,76 +335,283 @@ def _mask_arg(key_mask):
     return m, m.data_ptr()
 
 
-def flash_fwd_kernel(q, k, v, key_mask, num_heads, causal=False, scale=1.0,
-                     dropout_rate=0.0, dropout_seed=None):
-    """Launch kernel B4 on CUDA tensors: ``(out, lse)``."""
-    _check_kernel_args(q, k, v, key_mask, num_heads)
-    B, S, H = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+def _launch_fwd(q, k, v, key_mask, causal, scale, dropout_rate,
+                dropout_seed, out=None):
+    """One forward launch on ``(B, H, S, D)`` views: ``(out, lse)``."""
+    _check4(q, k, v, key_mask)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
     mask, mask_ptr = _mask_arg(key_mask)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, num_heads, S), dtype=torch.float32,
-                      device=q.device)
+    out = _empty_as(q) if out is None else out
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     drop, seed, thr, inv_keep = _dropout_args(dropout_rate, dropout_seed)
     code = _build.lib().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        lse.data_ptr(), B, S, num_heads, H // num_heads,
+        lse.data_ptr(), _strides(q, k, v, out), B, Sq, Sk, H, D,
         _DTYPE_CODES[q.dtype], float(scale), int(causal), drop, seed, thr,
         inv_keep, _build.stream_ptr(q.device))
     _build.check(code, "flash_attn_fwd")
+    return out, lse
+
+
+def _launch_bwd(q, k, v, key_mask, lse, delta, g, causal, scale,
+                dropout_rate, dropout_seed, parts, dq=None, dk=None, dv=None):
+    """One backward launch (``parts``: 1 dK/dV, 2 dQ, 3 both) on ``(B, H,
+    S, D)`` views: ``(dq, dk, dv)``, None for a part not computed."""
+    _check4(q, k, v, key_mask)
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    g = _rows(g.to(q.dtype))
+    if g.shape != q.shape:
+        raise ValueError(f"flash attention backward: dout {tuple(g.shape)} "
+                         f"is not q's {tuple(q.shape)}")
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    mask, mask_ptr = _mask_arg(key_mask)
+    if parts & 2:
+        dq = _empty_as(q) if dq is None else dq
+    if parts & 1:
+        dk = _empty_as(k) if dk is None else dk
+        dv = _empty_as(v) if dv is None else dv
+    # a part not computed passes its input as a placeholder layout
+    lay = [dq if dq is not None else q, dk if dk is not None else k,
+           dv if dv is not None else v]
+    drop, seed, thr, inv_keep = _dropout_args(dropout_rate, dropout_seed)
+    code = _build.lib().flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        None if dq is None else dq.data_ptr(),
+        None if dk is None else dk.data_ptr(),
+        None if dv is None else dv.data_ptr(),
+        _strides(q, k, v, g, *lay), B, Sq, Sk, H, D, _DTYPE_CODES[q.dtype],
+        float(scale), int(causal), drop, seed, thr, inv_keep, parts,
+        _build.stream_ptr(q.device))
+    _build.check(code, "flash_attn_bwd")
+    return dq, dk, dv
+
+
+def flash_fwd_tiled_kernel(q, k, v, key_mask=None, causal=False, scale=1.0,
+                           dropout_rate=0.0, dropout_seed=None):
+    """Launch the forward as kernel B9 (the tiled regime) on CUDA ``(B, H,
+    S, D)`` tensors: ``(out, lse (B, H, Sq))``."""
+    res = _launch_fwd(q, k, v, key_mask, causal, scale, dropout_rate,
+                      dropout_seed)
+    _build.launches["flash_fwd_tiled"] += 1
+    return res
+
+
+def flash_fwd_single_kernel(q, k, v, key_mask=None, causal=False, scale=1.0,
+                            dropout_rate=0.0, dropout_seed=None):
+    """Launch the forward as kernel B10 (one tile): ``(out, lse)``."""
+    res = _launch_fwd(q, k, v, key_mask, causal, scale, dropout_rate,
+                      dropout_seed)
+    _build.launches["flash_fwd_single"] += 1
+    return res
+
+
+def flash_bwd_dq_tiled_kernel(q, k, v, key_mask, lse, delta, g,
+                              causal=False, scale=1.0, dropout_rate=0.0,
+                              dropout_seed=None):
+    """Launch kernel B11a (dQ, summed over key tiles): ``dq``."""
+    dq, _, _ = _launch_bwd(q, k, v, key_mask, lse, delta, g, causal, scale,
+                           dropout_rate, dropout_seed, 2)
+    _build.launches["flash_bwd_dq_tiled"] += 1
+    return dq
+
+
+def flash_bwd_dkv_tiled_kernel(q, k, v, key_mask, lse, delta, g,
+                               causal=False, scale=1.0, dropout_rate=0.0,
+                               dropout_seed=None):
+    """Launch kernel B11b (dK and dV, summed over query tiles):
+    ``(dk, dv)``."""
+    _, dk, dv = _launch_bwd(q, k, v, key_mask, lse, delta, g, causal, scale,
+                            dropout_rate, dropout_seed, 1)
+    _build.launches["flash_bwd_dkv_tiled"] += 1
+    return dk, dv
+
+
+def flash_bwd_single_kernel(q, k, v, key_mask, lse, delta, g, causal=False,
+                            scale=1.0, dropout_rate=0.0, dropout_seed=None):
+    """Launch the backward as kernel B12 (one tile; its two CUDA kernels):
+    ``(dq, dk, dv)``."""
+    res = _launch_bwd(q, k, v, key_mask, lse, delta, g, causal, scale,
+                      dropout_rate, dropout_seed, 3)
+    _build.launches["flash_bwd_single"] += 1
+    return res
+
+
+def _check_bsh(q, k, v, num_heads):
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash_attention_bsh: q, k, v must be one (B, S, "
+                         f"NH * D) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[2] % num_heads:
+        raise ValueError(f"flash_attention_bsh: {num_heads} heads do not "
+                         f"divide the width {q.shape[2]}")
+
+
+def flash_fwd_kernel(q, k, v, key_mask, num_heads, causal=False, scale=1.0,
+                     dropout_rate=0.0, dropout_seed=None):
+    """Launch kernel B4 on flat CUDA tensors: ``(out, lse)``."""
+    _check_bsh(q, k, v, num_heads)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    _, lse = _launch_fwd(*(_heads(t, num_heads) for t in (q, k, v)),
+                         key_mask, causal, scale, dropout_rate, dropout_seed,
+                         out=_heads(out, num_heads))
     _build.launches["flash_fwd"] += 1
     return out, lse
 
 
 def flash_bwd_kernel(q, k, v, key_mask, out, lse, g, num_heads, causal=False,
                      scale=1.0, dropout_rate=0.0, dropout_seed=None):
-    """Launch kernel B5 on CUDA tensors: ``(dq, dk, dv)``."""
-    _check_kernel_args(q, k, v, key_mask, num_heads)
-    B, S, H = q.shape
+    """Launch kernel B5 on flat CUDA tensors: ``(dq, dk, dv)``."""
+    _check_bsh(q, k, v, num_heads)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     g = g.to(q.dtype).contiguous()
-    lse = lse.float().contiguous()
-    delta = attention_delta(g, out, num_heads)
-    mask, mask_ptr = _mask_arg(key_mask)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    drop, seed, thr, inv_keep = _dropout_args(dropout_rate, dropout_seed)
-    code = _build.lib().flash_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, S, num_heads, H // num_heads,
-        _DTYPE_CODES[q.dtype], float(scale), int(causal), drop, seed, thr,
-        inv_keep, _build.stream_ptr(q.device))
-    _build.check(code, "flash_attn_bwd")
+    grads = [torch.empty_like(q) for _ in range(3)]
+    _launch_bwd(*(_heads(t, num_heads) for t in (q, k, v)), key_mask, lse,
+                attention_delta(g, out, num_heads), _heads(g, num_heads),
+                causal, scale, dropout_rate, dropout_seed, 3,
+                *(_heads(t, num_heads) for t in grads))
     _build.launches["flash_bwd"] += 1
-    return dq, dk, dv
+    return tuple(grads)
 
 
-# -- the differentiable entry ---------------------------------------------------
+def keep_mask_kernel(B, H, Sq, Sk, dropout_rate, seed, device):
+    """Launch kernel B13 on a CUDA device: the ``(B, H, Sq, Sk)`` keep
+    mask, bit for bit :func:`flash_keep_mask`'s."""
+    n = B * H * Sq * Sk
+    keep = torch.empty((B, H, Sq, Sk), dtype=torch.bool, device=device)
+    code = _build.lib().flash_keep_mask(
+        keep.data_ptr(), n, int(seed) & 0xFFFFFFFF,
+        keep_threshold(dropout_rate), _build.stream_ptr(keep.device))
+    _build.check(code, "flash_keep_mask")
+    _build.launches["keep_mask"] += 1
+    return keep
 
-class _FlashBSH(torch.autograd.Function):
+
+def flash_dropout_keep_mask(B, H, Sq, Sk, dropout_rate, seed, device=None):
+    """The exact ``(B, H, Sq, Sk)`` boolean keep mask the flash kernels
+    apply for this shape, rate and seed: kernel B13 on the card, its plain
+    version on the CPU (the device defaults to the card)."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return flash_keep_mask(B, H, Sq, dropout_rate, seed, device, Sk=Sk)
+    return keep_mask_kernel(B, H, Sq, Sk, dropout_rate, seed, device)
+
+
+# -- the differentiable entries -----------------------------------------------
+
+class _Flash(torch.autograd.Function):
+    """``(out, lse)`` on ``(B, H, S, D)``. ``bsh_heads`` is NH for a call of
+    the bsh entry, None otherwise; ``bsh_ok`` marks a bsh call that the JAX
+    package runs on its bsh kernels. Such a call keeps B4/B5 on the card,
+    and every bsh call keeps the bsh plain versions on the CPU."""
+
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, num_heads, causal, scale,
-                dropout_rate, dropout_seed, keep):
-        args = (num_heads, causal, scale, dropout_rate, dropout_seed)
-        if q.device.type == "cpu":
-            out, lse = flash_attention_bsh_plain(q, k, v, key_mask, *args,
-                                                 keep=keep)
+    def forward(ctx, q, k, v, key_mask, causal, scale, dropout_rate,
+                dropout_seed, keep, bsh_heads, bsh_ok):
+        ctx.set_materialize_grads(False)
+        args = (causal, scale, dropout_rate, dropout_seed)
+        cpu = q.device.type == "cpu"
+        nh = bsh_heads if bsh_heads is not None and (cpu or bsh_ok) else None
+        if nh is not None:
+            flat = [_merge(t) for t in (q, k, v)]
+            if cpu:
+                out, lse = flash_attention_bsh_plain(*flat, key_mask, nh,
+                                                     *args, keep=keep)
+            else:
+                out, lse = flash_fwd_kernel(*flat, key_mask, nh, *args)
+            out = _heads(out, nh)
+        elif cpu:
+            out, lse = flash_fwd_plain(q, k, v, key_mask, *args, keep=keep)
+        elif single_tile(q.shape[2], k.shape[2]):
+            out, lse = flash_fwd_single_kernel(q, k, v, key_mask, *args)
         else:
-            out, lse = flash_fwd_kernel(q, k, v, key_mask, *args)
-        ctx.args = args
+            out, lse = flash_fwd_tiled_kernel(q, k, v, key_mask, *args)
+        ctx.args, ctx.nh = args, nh
         ctx.save_for_backward(q, k, v, key_mask, out, lse, keep)
-        return out
+        return out, lse
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_lse):
         q, k, v, key_mask, out, lse, keep = ctx.saved_tensors
-        if q.device.type == "cpu":
-            grads = flash_attention_bsh_backward_plain(
-                q, k, v, key_mask, out, lse, g, *ctx.args, keep=keep)
+        if g is None:
+            g = torch.zeros_like(out)
+        args, nh = ctx.args, ctx.nh
+        if nh is not None:
+            flat = [_merge(t) for t in (q, k, v)]
+            o, gf = _merge(out), _merge(g)
+            if q.device.type == "cpu":
+                grads = flash_attention_bsh_backward_plain(
+                    *flat, key_mask, o, lse, gf, nh, *args, keep=keep)
+            else:
+                grads = flash_bwd_kernel(*flat, key_mask, o, lse, gf, nh,
+                                         *args)
+            grads = tuple(_heads(t, nh) for t in grads)
         else:
-            grads = flash_bwd_kernel(q, k, v, key_mask, out, lse, g,
-                                     *ctx.args)
-        return (*grads, None, None, None, None, None, None, None)
+            delta = attention_delta4(g, out, g_lse)
+            if q.device.type == "cpu":
+                grads = flash_bwd_plain(q, k, v, key_mask, lse, delta, g,
+                                        *args, keep=keep)
+            elif single_tile(q.shape[2], k.shape[2]):
+                grads = flash_bwd_single_kernel(q, k, v, key_mask, lse,
+                                                delta, g, *args)
+            else:
+                dk, dv = flash_bwd_dkv_tiled_kernel(q, k, v, key_mask, lse,
+                                                    delta, g, *args)
+                dq = flash_bwd_dq_tiled_kernel(q, k, v, key_mask, lse,
+                                               delta, g, *args)
+                grads = (dq, dk, dv)
+        return (*grads,) + (None,) * 8
+
+
+def _check_call(name, q, dropout_rate, dropout_seed, keep):
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"{name}: dropout_rate must be in [0, 1), got "
+                         f"{dropout_rate}")
+    if dropout_rate > 0.0 and dropout_seed is None and keep is None:
+        raise ValueError(f"{name} with dropout_rate > 0 requires "
+                         f"dropout_seed")
+    if q.device.type != "cpu" and keep is not None:
+        raise ValueError(f"{name}: an explicit keep mask is a CPU parity "
+                         f"input; the kernels draw their own from the seed")
+
+
+def flash_attention(q, k, v, key_mask=None, causal: bool = False,
+                    scale: float = 1.0, dropout_rate: float = 0.0,
+                    dropout_seed=None, keep=None):
+    """Multi-head attention on ``(B, H, S, D)`` q and ``(B, H, Sk, D)`` k,
+    v without materializing the scores; returns ``(B, H, Sq, D)``.
+
+    Args:
+      key_mask: optional ``(B, Sk)`` boolean, True = key position masked.
+      causal: mask keys after the query (absolute indices).
+      scale: softmax temperature, typically ``1 / sqrt(D)``.
+      dropout_rate, dropout_seed: fused attention dropout; the int seed is
+        required when the rate is > 0.
+      keep: explicit ``(B, H, Sq, Sk)`` keep mask (CPU parity input).
+    """
+    _check_call("flash_attention", q, dropout_rate, dropout_seed, keep)
+    out, _ = _Flash.apply(q, k, v, key_mask, causal, scale, dropout_rate,
+                          dropout_seed, keep, None, False)
+    return out
+
+
+def flash_attention_with_lse(q, k, v, key_mask=None, causal: bool = False,
+                             scale: float = 1.0, dropout_rate: float = 0.0,
+                             dropout_seed=None, keep=None):
+    """:func:`flash_attention` that also returns the per-row logsumexp of
+    the pre-dropout scores, ``(B, H, 1, Sq)`` fp32; differentiable in both
+    outputs (the lse cotangent folds into the backward's delta)."""
+    _check_call("flash_attention_with_lse", q, dropout_rate, dropout_seed,
+                keep)
+    out, lse = _Flash.apply(q, k, v, key_mask, causal, scale, dropout_rate,
+                            dropout_seed, keep, None, False)
+    return out, lse[:, :, None, :]
 
 
 def flash_attention_bsh(q, k, v, key_mask=None, num_heads=None,
@@ -293,7 +619,10 @@ def flash_attention_bsh(q, k, v, key_mask=None, num_heads=None,
                         dropout_rate: float = 0.0, dropout_seed=None,
                         keep=None):
     """Multi-head attention on flat ``(B, S, NH * D)`` q, k, v; returns
-    the context in the same layout.
+    the context in the same layout. Where the JAX package's bsh kernels
+    apply (:func:`bsh_kernel_ok`) this is B4/B5; elsewhere it computes
+    JAX's head-split fallback, ``flash_attention`` on the heads, with the
+    heads read and written in the flat layout by stride.
 
     Args:
       key_mask: optional ``(B, S)`` boolean, True = key position masked.
@@ -305,19 +634,10 @@ def flash_attention_bsh(q, k, v, key_mask=None, num_heads=None,
     """
     if num_heads is None:
         raise ValueError("flash_attention_bsh requires num_heads")
-    if dropout_rate > 0.0 and dropout_seed is None and keep is None:
-        raise ValueError("flash_attention_bsh with dropout_rate > 0 "
-                         "requires dropout_seed")
-    if q.device.type != "cpu":
-        if keep is not None:
-            raise ValueError("flash_attention_bsh: an explicit keep mask is "
-                             "a CPU parity input; the kernels draw their "
-                             "own from the seed")
-        S = q.shape[1]
-        if S > MAX_SINGLE_TILE_S:
-            raise NotImplementedError(
-                f"flash_attention_bsh: S = {S} is beyond the single-tile "
-                f"regime of kernels B4/B5; the JAX package runs the tiled "
-                f"flash kernels B9-B12 there, which are not ported yet")
-    return _FlashBSH.apply(q, k, v, key_mask, num_heads, causal, scale,
-                           dropout_rate, dropout_seed, keep)
+    _check_call("flash_attention_bsh", q, dropout_rate, dropout_seed, keep)
+    _check_bsh(q, k, v, num_heads)
+    B, S, H = q.shape
+    out, _ = _Flash.apply(*(_heads(t, num_heads) for t in (q, k, v)),
+                          key_mask, causal, scale, dropout_rate, dropout_seed,
+                          keep, num_heads, bsh_kernel_ok(S, H, num_heads))
+    return _merge(out)

@@ -1,7 +1,9 @@
 """Training (counterpart of :mod:`apex_tpu.train`): ``build_train_step``
 with gradient accumulation and the deferred-metrics ``TrainLoop`` on one
-device, and the BERT pretraining step of ``bench.py``."""
+device, the BERT pretraining step of ``bench.py``, and the GPT LM's loss
+function and batches."""
 
+from apex_tpu_torch.train.lm import lm_loss_fn, make_lm_batch
 from apex_tpu_torch.train.loop import TrainLoop
 from apex_tpu_torch.train.pretraining import (
     PretrainingStep,
@@ -16,5 +18,5 @@ from apex_tpu_torch.train.step import (
 )
 
 __all__ = ["PretrainingStep", "TrainLoop", "TrainState", "TrainStep",
-           "build_pretraining", "build_train_step", "make_pretraining_batch",
-           "pretraining_loss_fn"]
+           "build_pretraining", "build_train_step", "lm_loss_fn",
+           "make_lm_batch", "make_pretraining_batch", "pretraining_loss_fn"]

@@ -40,6 +40,7 @@ the accumulation issue no host sync. Not ported: ``ddp``, ``mesh``,
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -124,7 +125,8 @@ class TrainStep:
     def init(self, scaler_state: Optional[ScalerState] = None) -> TrainState:
         """Step 0 with the scaler at its initial scale, or a checkpointed
         ``scaler_state``. The optimizer's state (moments, fp32 masters)
-        starts at its first step, as ``FusedLAMB``'s does."""
+        starts at its first step, as ``FusedAdam``'s and ``FusedLAMB``'s
+        do."""
         return TrainState(0, (self.scaler.init() if scaler_state is None
                               else scaler_state))
 
@@ -210,6 +212,15 @@ class TrainStep:
         return TrainLoop(self, state, **kwargs)
 
 
+def _takes_explicit_grads(optimizer) -> bool:
+    """A port ``Fused*`` optimizer whose ``step`` takes ``grads=``,
+    ``grad_scale=`` and ``lr=`` (the step hands it the fp32 averages)."""
+    if not isinstance(optimizer, FusedOptimizer):
+        return False
+    params = inspect.signature(type(optimizer).step).parameters
+    return all(k in params for k in ("grads", "grad_scale", "lr"))
+
+
 def _unported(name: str, item: str):
     raise NotImplementedError(f"build_train_step({name}=...) is not ported "
                               f"yet (ROADMAP {item})")
@@ -241,8 +252,8 @@ def build_train_step(
         the batch's leading accumulation axis, ``generator`` the step's
         ``torch.Generator`` for dropout seeds.
       optimizer: a port ``Fused*`` optimizer whose ``step`` takes
-        ``grads=`` (``FusedLAMB``); the step differentiates its
-        parameters.
+        ``grads=``, ``grad_scale=`` and ``lr=`` (``FusedAdam``,
+        ``FusedLAMB``); the step differentiates its parameters.
       amp: an ``AmpHandle`` from ``amp.initialize``, a bare
         ``LossScaler``, or None (unity static scale).
       accum_steps: microbatches per optimizer step; batch leaves must be
@@ -258,10 +269,11 @@ def build_train_step(
                       ("num_heads", num_heads)):
         if val is not None:
             _unported(name, "A.4 item 20")
-    if not isinstance(optimizer, FusedOptimizer):
+    if not _takes_explicit_grads(optimizer):
         raise NotImplementedError(
-            f"build_train_step takes the port's Fused* optimizers "
-            f"(FusedLAMB); got {type(optimizer).__name__} (the flat "
+            f"build_train_step takes the port's Fused* optimizers, whose "
+            f"step accepts grads=, grad_scale= and lr= (FusedAdam, "
+            f"FusedLAMB); got {type(optimizer).__name__} (the flat "
             f"DistributedFused* optimizers wait for ROADMAP A.4 item 20)")
     return TrainStep(loss_fn, optimizer, _resolve_scaler(amp, loss_id),
                      accum_steps, has_aux, lr_schedule, with_grad_norm, seed)

@@ -65,6 +65,35 @@ layers, B 2, accum 2, one row padded) comes first; then two warm-up and
 five timed global steps, whose launch counters must show 50 B1, 218 B3,
 48 B6, 24 B8 and no B4, B5 or B7 per microbatch.
 
+Phase 1 also holds the tiled flash kernels B9 (forward), B11a (dQ) and
+B11b (dK, dV) at GPT-2 small's attention shape (B 8, S 1024, 12 heads, D
+64, bf16, causal, dropout 0 and 0.1) against their plain versions, with
+fp32 checks at an unaligned S (1000) with a fully masked row and at Sq
+256 x Sk 1024 through ``flash_attention_with_lse`` with an lse cotangent;
+the single-tile B10/B12 at contrib multihead_attn's shape (T 512, B 8, 16
+heads, sequence-first views, a key mask) in bf16 and in fp32 (phase 6's
+dtype, which the kernels line reports); and B13, the keep mask, bit for
+bit against the plain Philox mask, then B9's fp32 dropout against the
+composed reference with B13's mask. Library yardsticks: SDPA without
+dropout (``is_causal=True``) and its backward.
+
+Phase 5 trains GPT-2 small (``GPTConfig()``, full width and depth, bf16,
+remat, dropout 0.1) with amp O2 and FusedAdam (the GPT-3 paper's 125M
+optimizer: lr 6e-4, betas (0.9, 0.95), eps 1e-8, weight decay 0.1) at S
+1024 through ``build_train_step(...).loop(state)``: microbatch B 8,
+``accum_steps`` 4 (32,768 tokens a global step; the recipe's 0.5M-token
+batch is cut to fit this run), random token ids from ``--seed``. A
+card-vs-CPU check of one fp32 global step (2 layers at full width, B 2,
+S 1024, accum 2) comes first; then two warm-up and five timed global
+steps, whose launch counters must show 24 B9, 12 B11a, 12 B11b, 25 B1 and
+62 B3 and no B4/B5 per microbatch; the first loss must be within 1.0 of
+ln(50257).
+
+Phase 6 runs contrib ``SelfMultiheadAttn`` and ``EncdecMultiheadAttn`` at
+the Transformer-big width (embed 1024, 16 heads; T 512, B 8, memory 384;
+fp32, attention dropout 0.1 fused into the kernels), forward and backward
+on the card through B10/B12 against the CPU.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -696,6 +725,305 @@ def phase1_softmax(torch, dev, seed):
     return rows
 
 
+# -- phase 1: the tiled and single-tile flash kernels, B9-B13 ------------------
+
+def flash_close(torch, a, r, tol):
+    """Elementwise within atol = rtol = ``tol`` and within ``tol`` of the
+    reference's norm; returns (ok, max abs err, norm err)."""
+    a, r = a.float(), r.float()
+    rel = ((a - r).norm() / r.norm()).item()
+    ok = bool(torch.allclose(a, r, atol=tol, rtol=tol)) and rel <= tol
+    return ok, (a - r).abs().max().item(), rel
+
+
+def phase1_flash_tiled(torch, F, dev, seed):
+    """B9, B11a and B11b at GPT-2 small's attention shape (B 8, S 1024, NH
+    12, D 64, bf16, causal, heads read by stride out of the flat (B, S,
+    NH * D) activations, as the bsh entry's tiled fallback gives them), at
+    dropout 0 and 0.1 (the plain versions draw the same Philox mask):
+    out, dq, dk, dv within atol = rtol = 1e-2 and 1e-2 of their norm (bf16
+    outputs, p and dS rounded at other points of the sums), lse within
+    1e-3. Then checks at fp32 (1e-4): S 1000 (unaligned) causal with a key
+    mask that pads one row and fully masks another (the kernels' tile skip
+    is off there), rate 0.1; and Sq 256 x Sk 1024 through
+    ``flash_attention_with_lse`` with an lse cotangent against the
+    composed ``_with_lse_reference`` on the card. B10 and B12 follow
+    through their wrappers at contrib multihead_attn's shape (T 512, B 8,
+    16 heads, D 64, sequence-first views, non-causal, a key mask) in bf16
+    (1e-2) and in fp32 (1e-4, bound at the fp32 rate: phase 6's path), then
+    B13 against ``flash_keep_mask`` bit for bit and B9's dropout at
+    fp32 against ``mha_with_mask_reference`` with B13's mask (1e-4)."""
+    from apex_tpu_torch.ops.flash_attention import (
+        _with_lse_reference,
+        attention_delta4,
+        flash_attention_with_lse,
+        flash_bwd_dkv_tiled_kernel,
+        flash_bwd_dq_tiled_kernel,
+        flash_bwd_plain,
+        flash_bwd_single_kernel,
+        flash_fwd_plain,
+        flash_fwd_single_kernel,
+        flash_fwd_tiled_kernel,
+        flash_keep_mask,
+        keep_mask_kernel,
+        mha_with_mask_reference,
+    )
+
+    bf16, tol = torch.bfloat16, 1e-2
+    rows = {k: [] for k in ("fwd_tiled", "dq_tiled", "dkv_tiled",
+                            "fwd_single", "bwd_single", "keep_mask")}
+    g = torch.Generator().manual_seed(seed + 9)
+
+    def heads(flat, NH):
+        B, S, H = flat.shape
+        return flat.view(B, S, NH, H // NH).transpose(1, 2)
+
+    def report(tag, r):
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        print(f"[{tag}] {r['case']}: max_abs_err {r['max_abs_err']:.3g} "
+              f"norm_err {r.get('norm_err')} (tol {r.get('tol')}) | ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+              f"{lib} bound_ms {r['bound_ms']:.4f} ({r['bound_by']})",
+              flush=True)
+
+    # B9 / B11a / B11b at GPT-2 small
+    B, S, NH, D = 8, 1024, 12, 64
+    flat = [torch.randn(B, S, NH * D, generator=g).to(bf16).to(dev)
+            for _ in range(4)]
+    q, k, v, do = (heads(t, NH) for t in flat)
+    scale = D ** -0.5
+    pairs = B * NH * S * (S + 1) // 2           # causal
+    n = q.numel()
+    stats = 4 * B * NH * S
+    sdpa_b = None
+    for rate in (0.0, 0.1):
+        args = (True, scale, rate, seed + 99 if rate else None)
+        out, lse = flash_fwd_tiled_kernel(q, k, v, None, *args)
+        delta = attention_delta4(do, out)
+        dq = flash_bwd_dq_tiled_kernel(q, k, v, None, lse, delta, do, *args)
+        dk, dv = flash_bwd_dkv_tiled_kernel(q, k, v, None, lse, delta, do,
+                                            *args)
+        rout, rlse = flash_fwd_plain(q, k, v, None, *args)
+        rdelta = attention_delta4(do, rout)
+        rgrads = flash_bwd_plain(q, k, v, None, rlse, rdelta, do, *args)
+        torch.cuda.synchronize()
+        lse_err = (lse - rlse).abs().max().item()
+        check(lse_err <= 1e-3, f"tiled flash lse (rate {rate}): {lse_err}")
+        res = {}
+        for name, a, r in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv),
+                              (rout, *rgrads)):
+            check(torch.isfinite(a.float()).all().item(),
+                  f"tiled flash {name} (rate {rate}): non-finite")
+            ok, mx, rel = flash_close(torch, a, r, tol)
+            check(ok, f"tiled flash {name} (rate {rate}): max abs err {mx}, "
+                  f"norm err {rel}")
+            res[name] = (mx, rel)
+        case = f"B {B} S {S} NH {NH} D {D} bf16 causal rate {rate}"
+        if sdpa_b is None:
+            qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                scale=scale)
+            sdpa_b = time_ms(lambda: torch.autograd.grad(
+                lo, (qs, ks, vs), do, retain_graph=True), iters=10,
+                graph=False)
+            del qs, ks, vs, lo
+        plain_b = time_ms(lambda: flash_bwd_plain(
+            q, k, v, None, rlse, rdelta, do, *args), iters=2)
+        for key, kind, fn, flops, nbytes, names in (
+                ("fwd_tiled", "B9 flash_fwd_tiled",
+                 lambda: flash_fwd_tiled_kernel(q, k, v, None, *args),
+                 4 * D * pairs, 4 * n * 2 + stats, ("out",)),
+                ("dq_tiled", "B11a flash_bwd_dq_tiled",
+                 lambda: flash_bwd_dq_tiled_kernel(q, k, v, None, lse,
+                                                   delta, do, *args),
+                 6 * D * pairs, 5 * n * 2 + 2 * stats, ("dq",)),
+                ("dkv_tiled", "B11b flash_bwd_dkv_tiled",
+                 lambda: flash_bwd_dkv_tiled_kernel(q, k, v, None, lse,
+                                                    delta, do, *args),
+                 8 * D * pairs, 6 * n * 2 + 2 * stats, ("dk", "dv"))):
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            if key == "fwd_tiled":
+                plain = time_ms(lambda: flash_fwd_plain(q, k, v, None,
+                                                        *args), iters=2)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=scale), iters=20)
+            else:
+                # one plain backward and one library backward compute dq,
+                # dk and dv together: each backward row carries its time
+                plain, lib = plain_b, sdpa_b
+            r = dict(case=case, max_abs_err=max(res[m][0] for m in names),
+                     norm_err=max(res[m][1] for m in names), lse_err=lse_err,
+                     tol=tol, ms=time_ms(fn, iters=20), plain_ms=plain,
+                     library_ms=lib, flops=flops, bytes=nbytes,
+                     bound_ms=b_ms, bound_by=b_by)
+            rows[key].append(r)
+            report(kind, r)
+        del out, lse, delta, dq, dk, dv, rout, rlse, rdelta, rgrads
+        torch.cuda.empty_cache()
+    del q, k, v, do, flat
+
+    # fp32, unaligned S, key mask with a fully masked row
+    B2, S2 = 2, 1000
+    q, k, v, do = (torch.randn(B2, NH, S2, D, generator=g).to(dev)
+                   for _ in range(4))
+    mask = torch.zeros(B2, S2, dtype=torch.bool)
+    mask[0, 700:] = True
+    mask[1] = True
+    mask = mask.to(dev)
+    args = (True, scale, 0.1, seed + 5)
+    out, lse = flash_fwd_tiled_kernel(q, k, v, mask, *args)
+    delta = attention_delta4(do, out)
+    got = (out, flash_bwd_dq_tiled_kernel(q, k, v, mask, lse, delta, do,
+                                          *args),
+           *flash_bwd_dkv_tiled_kernel(q, k, v, mask, lse, delta, do, *args))
+    rout, rlse = flash_fwd_plain(q, k, v, mask, *args)
+    ref = (rout, *flash_bwd_plain(q, k, v, mask, rlse,
+                                  attention_delta4(do, rout), do, *args))
+    fp32_err = max(flash_close(torch, a, r, 1e-4)[1] for a, r in
+                   zip(got, ref))
+    for name, a, r in zip(("out", "dq", "dk", "dv"), got, ref):
+        ok, mx, rel = flash_close(torch, a, r, 1e-4)
+        check(ok, f"tiled flash fp32 S {S2} {name}: max abs err {mx}, norm "
+              f"err {rel}")
+    print(f"[check] B9/B11 fp32 S {S2} causal, key mask with a fully masked "
+          f"row, rate 0.1: max abs err {fp32_err:.3g} (tol 1e-4)",
+          flush=True)
+
+    # Sq != Sk through flash_attention_with_lse, with the lse cotangent
+    Sq, Sk = 256, 1024
+    qq = torch.randn(B2, NH, Sq, D, generator=g).to(dev)
+    kk, vv = (torch.randn(B2, NH, Sk, D, generator=g).to(dev)
+              for _ in range(2))
+    gq = torch.randn(B2, NH, Sq, D, generator=g).to(dev)
+    gl = (0.1 * torch.randn(B2, NH, 1, Sq, generator=g)).to(dev)
+    kmask = torch.zeros(B2, Sk, dtype=torch.bool, device=dev)
+    kmask[0, 600:] = True
+    res = []
+    for fn in (flash_attention_with_lse, _with_lse_reference):
+        ts = [t.clone().requires_grad_(True) for t in (qq, kk, vv)]
+        o, lz = fn(*ts, kmask, False, scale)
+        torch.autograd.backward((o, lz), (gq, gl))
+        res.append([o.detach(), lz.detach()] + [t.grad for t in ts])
+    lse_case_err = 0.0
+    for name, a, r in zip(("out", "lse", "dq", "dk", "dv"), *res):
+        ok, mx, rel = flash_close(torch, a, r, 1e-4)
+        lse_case_err = max(lse_case_err, mx)
+        check(ok, f"flash_attention_with_lse Sq {Sq} Sk {Sk} {name}: max "
+              f"abs err {mx}, norm err {rel}")
+    print(f"[check] flash_attention_with_lse fp32 Sq {Sq} x Sk {Sk}, key "
+          f"mask, lse cotangent, card vs composed reference: max abs err "
+          f"{lse_case_err:.3g} (tol 1e-4)", flush=True)
+    del q, k, v, do, out, lse, delta, got, rout, rlse, ref, res
+    torch.cuda.empty_cache()
+
+    # B10 / B12 at contrib multihead_attn's shape, sequence-first views:
+    # bf16 (the tensor-core kernels), then fp32 (the CUDA-core kernels,
+    # which phase 6's fp32 modules run; the kernels line takes this row)
+    T, B3, NH3 = 512, 8, 16
+    mask = torch.zeros(B3, T, dtype=torch.bool)
+    for b in range(B3 // 2):
+        mask[b, T // 2 + 32 * b:] = True
+    mask = mask.to(dev)
+    args = (False, scale, 0.0, None)
+    pairs = B3 * NH3 * T * T
+    for dt, dt_tol, rate_ops in ((bf16, tol, BF16_FLOP_PER_S),
+                                 (torch.float32, 1e-4, FP32_FLOP_PER_S)):
+        size = torch.finfo(dt).bits // 8
+        qkv = torch.randn(T, B3, 3, NH3, D, generator=g).to(dt).to(dev)
+        q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3) for i in range(3))
+        do = torch.randn(B3, NH3, T, D, generator=g).to(dt).to(dev)
+        add_mask = torch.zeros(B3, 1, 1, T, dtype=dt, device=dev)
+        add_mask[mask[:, None, None, :]] = -30000.0
+        out, lse = flash_fwd_single_kernel(q, k, v, mask, *args)
+        delta = attention_delta4(do, out)
+        grads = flash_bwd_single_kernel(q, k, v, mask, lse, delta, do, *args)
+        rout, rlse = flash_fwd_plain(q, k, v, mask, *args)
+        rdelta = attention_delta4(do, rout)
+        rgrads = flash_bwd_plain(q, k, v, mask, rlse, rdelta, do, *args)
+        torch.cuda.synchronize()
+        check(out.permute(2, 0, 1, 3).is_contiguous(),
+              "B10 did not write the context in the caller's layout")
+        res = {}
+        for name, a, r in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                              (rout, *rgrads)):
+            ok, mx, rel = flash_close(torch, a, r, dt_tol)
+            check(ok, f"single-tile flash {dt} {name}: max abs err {mx}, "
+                  f"norm err {rel}")
+            res[name] = (mx, rel)
+        n = q.numel()
+        case = (f"T {T} B {B3} NH {NH3} D {D} {str(dt)[6:]} key mask, "
+                f"sequence-first")
+        qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add_mask,
+                                            scale=scale)
+        b_ms, b_by = bound(4 * n * size + 4 * B3 * NH3 * T + B3 * T,
+                           4 * D * pairs, rate_ops)
+        rows["fwd_single"].append(dict(
+            case=case, max_abs_err=res["out"][0], norm_err=res["out"][1],
+            tol=dt_tol, ms=time_ms(lambda: flash_fwd_single_kernel(
+                q, k, v, mask, *args), iters=20),
+            plain_ms=time_ms(lambda: flash_fwd_plain(q, k, v, mask, *args),
+                             iters=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=add_mask, scale=scale), iters=20),
+            flops=4 * D * pairs, bound_ms=b_ms, bound_by=b_by))
+        report("B10 flash_fwd_single", rows["fwd_single"][-1])
+        b_ms, b_by = bound(8 * n * size + 8 * B3 * NH3 * T + B3 * T,
+                           10 * D * pairs, rate_ops)
+        rows["bwd_single"].append(dict(
+            case=case, max_abs_err=max(res[m][0] for m in ("dq", "dk", "dv")),
+            norm_err=max(res[m][1] for m in ("dq", "dk", "dv")), tol=dt_tol,
+            ms=time_ms(lambda: flash_bwd_single_kernel(
+                q, k, v, mask, lse, delta, do, *args), iters=20),
+            plain_ms=time_ms(lambda: flash_bwd_plain(
+                q, k, v, mask, rlse, rdelta, do, *args), iters=3),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                lo, (qs, ks, vs), do, retain_graph=True), iters=10,
+                graph=False),
+            flops=10 * D * pairs, bound_ms=b_ms, bound_by=b_by))
+        report("B12 flash_bwd_single", rows["bwd_single"][-1])
+        del qkv, q, k, v, do, out, lse, delta, grads, rout, rlse, rdelta
+        del rgrads, qs, ks, vs, lo, add_mask
+        torch.cuda.empty_cache()
+
+    # B13 bit for bit at GPT-2 small's mask shape; B9's dropout at fp32
+    shape = (8, 12, 1024, 1024)
+    keep = keep_mask_kernel(*shape, 0.1, seed + 13, dev)
+    ref = flash_keep_mask(shape[0], shape[1], shape[2], 0.1, seed + 13, dev,
+                          Sk=shape[3])
+    torch.cuda.synchronize()
+    check(torch.equal(keep, ref), "keep_mask differs from the plain Philox "
+          "mask")
+    frac = keep.float().mean().item()
+    check(abs(frac - 0.9) <= 0.001, f"keep_mask kept fraction {frac}")
+    b_ms, b_by = bound(keep.numel(), 0)
+    rows["keep_mask"].append(dict(
+        case=f"{shape} rate 0.1", max_abs_err=0.0, kept_fraction=frac,
+        ms=time_ms(lambda: keep_mask_kernel(*shape, 0.1, seed + 13, dev)),
+        plain_ms=time_ms(lambda: flash_keep_mask(
+            shape[0], shape[1], shape[2], 0.1, seed + 13, dev, Sk=shape[3]),
+            iters=3),
+        library_ms=None, bytes=keep.numel(), bound_ms=b_ms, bound_by=b_by))
+    report("B13 keep_mask", rows["keep_mask"][-1])
+    del keep, ref
+    q, k, v = (torch.randn(2, 4, 1024, D, generator=g).to(dev)
+               for _ in range(3))
+    keep = keep_mask_kernel(2, 4, 1024, 1024, 0.1, seed + 14, dev)
+    out, _ = flash_fwd_tiled_kernel(q, k, v, None, True, scale, 0.1,
+                                    seed + 14)
+    ref = mha_with_mask_reference(q, k, v, keep, None, True, scale, 0.1)
+    ok, mx, rel = flash_close(torch, out, ref, 1e-4)
+    check(ok, f"B9 dropout vs the composed reference with B13's mask: max "
+          f"abs err {mx}, norm err {rel}")
+    print(f"[check] B9 fp32 dropout 0.1 against mha_with_mask_reference "
+          f"with B13's mask: max abs err {mx:.3g} (tol 1e-4)", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 2: the engine at GPT-2-small width ---------------------------------
 
 def traffic(seed, vocab):
@@ -1180,6 +1508,250 @@ def phase4(torch, dev, seed, card, steps=5, warmup=2):
     return rec
 
 
+# -- phase 5: GPT-2 small training at S 1024, build_train_step + FusedAdam ----
+
+# launches of one GPT-2 small microbatch (12 blocks, remat, dropout 0.1 at
+# every site): the tiled attention forward per block and again in its
+# recompute, its two backward kernels per block; LayerNorm backward at 2
+# LNs per block + ln_f; hidden dropout at the embedding and 2 sites per
+# block, run forward and replayed in the backward, and in the recompute
+# once per block: PyTorch's checkpoint stops a block's recompute once the
+# tensors its backward needs are rebuilt, and the block's last dropout
+# (MLP output) saves none; nothing of the single-tile, bsh or softmax
+# kernels
+GPT_MICROBATCH_LAUNCHES = {
+    "flash_fwd_tiled": 12 + 12, "flash_bwd_dq_tiled": 12,
+    "flash_bwd_dkv_tiled": 12, "layer_norm_bwd": 25,
+    "dropout": 25 + 12 + 25, "flash_fwd": 0, "flash_bwd": 0,
+    "flash_fwd_single": 0, "flash_bwd_single": 0, "keep_mask": 0,
+    "softmax_fwd": 0, "softmax_fwd4": 0, "softmax_bwd": 0}
+
+# the GPT-3 paper's optimizer for its 125M model (Brown et al. 2020, Table
+# 2.1 and Appendix B): Adam, betas (0.9, 0.95), eps 1e-8, decoupled weight
+# decay 0.1, peak learning rate 6e-4
+GPT_ADAM = dict(lr=6e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                adam_w_mode=True)
+
+
+def gpt_train_step(torch, cfg, opt_level, accum, seed, dev,
+                   deterministic=False):
+    """The library's training entry point on GPT: the model (weights from
+    ``seed``), FusedAdam (``GPT_ADAM``), ``amp.initialize`` and
+    ``build_train_step`` over ``lm_loss_fn``."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTLMHeadModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.train import build_train_step, lm_loss_fn
+
+    model = GPTLMHeadModel(cfg, device=dev, seed=seed, trainable=True)
+    opt = FusedAdam(model.parameters(), **GPT_ADAM)
+    model, opt, handle = amp.initialize(model, opt, opt_level=opt_level,
+                                        verbosity=0, device=dev)
+    ts = build_train_step(lm_loss_fn(model, deterministic), opt,
+                          amp=handle, accum_steps=accum, seed=seed)
+    return model, opt, ts
+
+
+def card_vs_cpu_gpt(torch, dev, seed):
+    """One O0 fp32 global step through ``build_train_step`` at GPT-2
+    small's full width (hidden 768, 12 heads, vocab 50257), 2 layers, B 2,
+    S 1024, accum_steps 2, dropout 0 (the tiled attention B9/B11a/B11b,
+    B1 and cuBLAS on the card), on the card and on the port's CPU path,
+    held as :func:`compare_card_cpu` says (Adam's first step is nearly
+    lr * sign(g) as LAMB's is, so the gradients are compared before it)."""
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.train import make_lm_batch
+
+    cfg = GPTConfig(num_layers=2, dropout=0.0)
+    res = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        model, opt, ts = gpt_train_step(torch, cfg, "O0", 2, seed, d)
+        names = [n for n, _ in model.named_parameters()]
+        before = {n: p.detach().float().cpu().clone()
+                  for n, p in model.named_parameters()}
+        batch = make_lm_batch(cfg, 2, 1024, seed=seed, device=d,
+                              accum_steps=2)
+        seen = {}
+        step = opt.step
+
+        def capture(*a, grads=None, **kw):
+            seen.update({n: g.detach().float().cpu().clone()
+                         for n, g in zip(names, grads)})
+            return step(*a, grads=grads, **kw)
+
+        opt.step = capture
+        _, metrics = ts(ts.init(), batch)
+        check(not metrics["skipped"], f"card-vs-CPU GPT step ({where}) "
+              f"overflowed")
+        res[where] = (metrics["loss"].item(), before, seen,
+                      {n: p.detach().float().cpu()
+                       for n, p in model.named_parameters()})
+        del model, opt, ts
+    torch.cuda.empty_cache()
+    return compare_card_cpu(
+        res, "one O0 fp32 GPT build_train_step global step (2 layers, "
+        "width 768, B 2, S 1024, accum 2)")
+
+
+def phase5(torch, dev, seed, card, steps=5, warmup=2):
+    """GPT-2 small (``GPTConfig()``: 12 layers, hidden 768, 12 heads, vocab
+    50257, 1024 positions, dropout 0.1) in bf16 with remat, amp O2,
+    FusedAdam (``GPT_ADAM``), S 1024, microbatch B 8, accum_steps 4 (32,768
+    tokens a global step: the GPT-3 recipe's 0.5M-token batch is cut to
+    fit this run), random token ids from ``seed``, through
+    ``build_train_step(...).loop(state)``."""
+    import math
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.train import make_lm_batch
+
+    cfg = GPTConfig(dtype=torch.bfloat16, remat=True)
+    B, S, accum = 8, 1024, 4
+    t0 = time.perf_counter()
+    model, opt, ts = gpt_train_step(torch, cfg, "O2", accum, seed, dev)
+    batch = make_lm_batch(cfg, B, S, seed=seed, device=dev,
+                          accum_steps=accum)
+    loop = ts.loop(ts.init())
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    metrics = []
+    for _ in range(warmup):
+        m = loop.step(batch)
+        metrics += [m] if m is not None else []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        m = loop.step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics += [m] if m is not None else []
+    metrics.append(loop.drain())
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    check(len(metrics) == warmup + steps,
+          f"TrainLoop returned {len(metrics)} metrics for "
+          f"{warmup + steps} steps")
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite training loss: {losses}")
+    expect = math.log(cfg.vocab_size)
+    check(abs(losses[0] - expect) <= 1.0,
+          f"first loss {losses[0]} not within 1.0 of {expect:.3f}")
+    check(not any(m["skipped"] for m in metrics[1:]),
+          f"GPT steps skipped after the first: {metrics}")
+    for k, per_mb in GPT_MICROBATCH_LAUNCHES.items():
+        check(launches[k] == per_mb * accum * steps,
+              f"{k}: {launches[k]} launches in {steps} global steps of "
+              f"{accum} microbatches, expected {per_mb} per microbatch")
+    ms = sorted(t * 1e3 for t in times)
+    med = ms[len(ms) // 2]
+    tokens = B * S * accum
+    rec = dict(card=card, n_params=n_params, microbatch=B, seq=S,
+               accum_steps=accum, samples_per_step=B * accum,
+               tokens_per_step=tokens, optimizer=GPT_ADAM, setup_s=setup_s,
+               step_ms=ms, step_ms_median=med,
+               samples_per_s=B * accum * 1e3 / med,
+               tokens_per_s=tokens * 1e3 / med, peak_memory_bytes=peak,
+               losses=losses, last_metrics=metrics[-1], launches=launches,
+               launches_per_microbatch={k: launches[k] / (accum * steps)
+                                        for k in launches},
+               expected_launches_per_microbatch=GPT_MICROBATCH_LAUNCHES)
+    print(f"[train gpt2-small S 1024 build_train_step] {card}: {n_params} "
+          f"params, B {B} x accum {accum}, S {S} | global step ms "
+          f"{', '.join(f'{x:.1f}' for x in ms)} (median {med:.1f}) | "
+          f"{rec['samples_per_s']:.2f} samples/s, {rec['tokens_per_s']:.0f} "
+          f"tokens/s | peak memory {peak / 2**30:.2f} GiB | first loss "
+          f"{losses[0]:.4f} (ln 50257 = {expect:.4f}) | losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} | TrainLoop metrics "
+          f"{metrics[-1]}", flush=True)
+    print(f"[train gpt2-small] launches per microbatch "
+          f"{ {k: v for k, v in rec['launches_per_microbatch'].items() if v} }"
+          f" (expected {GPT_MICROBATCH_LAUNCHES})", flush=True)
+    del model, opt, ts, loop, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 6: contrib multihead_attn at Transformer-big width -----------------
+
+def phase6(torch, dev, seed, card):
+    """``SelfMultiheadAttn`` and ``EncdecMultiheadAttn`` at the
+    Transformer "big" width (Vaswani et al. 2017: embed 1024, 16 heads),
+    T 512 x B 8 (the encoder-decoder memory 384 long), a key padding mask,
+    ``include_norm_add``, fp32, attention dropout 0.1 (fused into the
+    kernels; its seed drawn from a generator seeded alike on both sides):
+    forward and backward on the card (B10 and B12, the single-tile
+    kernels, must launch) against the same modules on the CPU. Outputs and
+    the input and parameter gradients within atol 1e-4 of the reference's
+    largest entry and rtol 1e-3 (fp32 sums in other orders; the card's
+    attention is the CUDA-core kernels, the CPU's the plain version, both
+    applying the seed's Philox keep mask)."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.contrib.multihead_attn import (
+        EncdecMultiheadAttn,
+        SelfMultiheadAttn,
+    )
+
+    E, NH, T, B, TK = 1024, 16, 512, 8, 384
+    g = torch.Generator().manual_seed(seed + 6)
+    q = torch.randn(T, B, E, generator=g)
+    mem = torch.randn(TK, B, E, generator=g)
+    gout = torch.randn(T, B, E, generator=g)
+    recs = {}
+    for name, cls, inputs, Tk in (("self", SelfMultiheadAttn, [q], T),
+                                  ("encdec", EncdecMultiheadAttn, [q, mem],
+                                   TK)):
+        mask = torch.zeros(B, Tk, dtype=torch.bool)
+        for b in range(B // 2):
+            mask[b, Tk // 2 + 16 * b:] = True
+        res = {}
+        for where in ("cuda", "cpu"):
+            d = dev if where == "cuda" else torch.device("cpu")
+            mod = cls(E, NH, dropout=0.1, include_norm_add=True, bias=True,
+                      device=d, seed=seed)
+            xs = [x.to(d).detach().requires_grad_(True) for x in inputs]
+            if where == "cuda":
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+            t = time.perf_counter()
+            out = mod(*xs, key_padding_mask=mask.to(d), is_training=True,
+                      generator=torch.Generator().manual_seed(seed + 61))
+            (out * gout.to(d)).sum().backward()
+            if where == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(_build.launches)
+            res[where] = ([out.detach().cpu()] + [x.grad.cpu() for x in xs]
+                          + [p.grad.cpu() for p in mod.parameters()],
+                          time.perf_counter() - t)
+            del mod, xs, out
+        worst = 0.0
+        for a, r in zip(res["cuda"][0], res["cpu"][0]):
+            tol = 1e-4 * r.abs().max().item()
+            ok = bool(torch.allclose(a, r, atol=tol, rtol=1e-3))
+            worst = max(worst, ((a - r).abs().max() / r.abs().max()).item())
+            check(ok, f"contrib {name} multihead_attn: card vs CPU differ "
+                  f"by {(a - r).abs().max().item()} (tol {tol})")
+        check(launches["flash_fwd_single"] == 1
+              and launches["flash_bwd_single"] == 1,
+              f"contrib {name} multihead_attn: B10/B12 launches {launches}")
+        recs[name] = dict(card=card, T=T, B=B, Tk=Tk, embed=E, heads=NH,
+                          worst_rel_err=worst, launches={
+                              k: v for k, v in launches.items() if v},
+                          card_s=res["cuda"][1], cpu_s=res["cpu"][1])
+        print(f"[contrib {name} multihead_attn] {card}: T {T} B {B} Tk "
+              f"{Tk} embed {E} heads {NH} fp32 dropout 0.1 | card vs CPU "
+              f"worst error {worst:.3g} of the largest entry (tol 1e-4) | "
+              f"launches "
+              f"{recs[name]['launches']}", flush=True)
+    torch.cuda.empty_cache()
+    return recs
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1216,27 +1788,48 @@ def main(argv=None):
     print(f"[phase 0] built {so.name} in {build_s:.1f} s", flush=True)
     print(card, flush=True)
 
-    paged_rows = phase1_paged(torch, F, dev, args.seed)
-    dq_rows = phase1_dequant(torch, dev, args.seed)
-    ln_rows = phase1_layer_norm(torch, dev, args.seed)
-    drop_rows = phase1_dropout(torch, F, dev, args.seed)
-    fwd_rows, bwd_rows = phase1_flash(torch, F, dev, args.seed)
-    sm_rows = phase1_softmax(torch, dev, args.seed)
-    runs, checks = phase2(torch, dev, args.seed, card)
-    checks["card_vs_cpu_train_step"] = card_vs_cpu(torch, dev, args.seed)
-    train = phase3(torch, dev, args.seed, card)
-    checks["card_vs_cpu_s128_global_step"] = card_vs_cpu_s128(torch, dev,
-                                                             args.seed)
-    train128 = phase4(torch, dev, args.seed, card)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        print(f"[time] {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
+    seed = args.seed
+    paged_rows = timed("phase 1 B14", phase1_paged, torch, F, dev, seed)
+    dq_rows = timed("phase 1 B15", phase1_dequant, torch, dev, seed)
+    ln_rows = timed("phase 1 B1", phase1_layer_norm, torch, dev, seed)
+    drop_rows = timed("phase 1 B3", phase1_dropout, torch, F, dev, seed)
+    fwd_rows, bwd_rows = timed("phase 1 B4/B5", phase1_flash, torch, F, dev,
+                               seed)
+    sm_rows = timed("phase 1 B6-B8", phase1_softmax, torch, dev, seed)
+    tiled = timed("phase 1 B9-B13", phase1_flash_tiled, torch, F, dev, seed)
+    runs, checks = timed("phase 2", phase2, torch, dev, seed, card)
+    checks["card_vs_cpu_train_step"] = timed("phase 3 card vs CPU",
+                                             card_vs_cpu, torch, dev, seed)
+    train = timed("phase 3", phase3, torch, dev, seed, card)
+    checks["card_vs_cpu_s128_global_step"] = timed(
+        "phase 4 card vs CPU", card_vs_cpu_s128, torch, dev, seed)
+    train128 = timed("phase 4", phase4, torch, dev, seed, card)
+    checks["card_vs_cpu_gpt_global_step"] = timed(
+        "phase 5 card vs CPU", card_vs_cpu_gpt, torch, dev, seed)
+    gpt = timed("phase 5", phase5, torch, dev, seed, card)
+    mha = timed("phase 6", phase6, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
-    # in both training phases)
+    # in the three training phases; B10/B12 on the contrib modules' path)
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in ("paged_read", "dequant_gemm")}
-    launches.update({k: train["launches"][k] + train128["launches"][k]
+    launches.update({k: sum(t["launches"][k] for t in (train, train128, gpt))
                      for k in ("layer_norm_bwd", "dropout", "flash_fwd",
                                "flash_bwd", "softmax_fwd", "softmax_fwd4",
-                               "softmax_bwd")})
+                               "softmax_bwd", "flash_fwd_tiled",
+                               "flash_bwd_dq_tiled", "flash_bwd_dkv_tiled",
+                               "keep_mask")})
+    for k in ("flash_fwd_single", "flash_bwd_single"):
+        launches[k] = sum(r["launches"].get(k, 0) for r in mha.values())
     kernels = [
         kernel_entry("paged_read", "apex_tpu_torch/csrc/paged_read.cu",
                      "apex_tpu/ops/paged_attention_pallas.py:106",
@@ -1268,13 +1861,27 @@ def main(argv=None):
                      "apex_tpu/ops/softmax.py:82", sm_rows["softmax_bwd"],
                      sm_rows["softmax_bwd"][0], launches["softmax_bwd"]),
     ]
+    flash_src = "apex_tpu_torch/csrc/flash_attn.cu"
+    for name, key, replaces, src in (
+            ("flash_fwd_tiled", "fwd_tiled", ":120", flash_src),
+            ("flash_bwd_dq_tiled", "dq_tiled", ":226", flash_src),
+            ("flash_bwd_dkv_tiled", "dkv_tiled", ":324", flash_src),
+            ("flash_fwd_single", "fwd_single", ":183", flash_src),
+            ("flash_bwd_single", "bwd_single", ":275", flash_src),
+            ("keep_mask", "keep_mask", ":649",
+             "apex_tpu_torch/csrc/dropout.cu")):
+        rows = tiled[key]
+        kernels.append(kernel_entry(
+            name, src, "apex_tpu/ops/flash_attention.py" + replaces, rows,
+            rows[-1], launches[name]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, seed=args.seed, paged_read=paged_rows,
         dequant_gemm=dq_rows, layer_norm_bwd=ln_rows, dropout=drop_rows,
         flash_fwd=fwd_rows, flash_bwd=bwd_rows, softmax=sm_rows,
-        engine=runs, train=train, train_s128=train128, checks=checks,
+        flash_tiled=tiled, engine=runs, train=train, train_s128=train128,
+        train_gpt=gpt, contrib_mha=mha, checks=checks, phase_s=phase_s,
         kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

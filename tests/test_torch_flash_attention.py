@@ -14,7 +14,7 @@ import torch
 
 from apex_tpu_torch import _build
 from apex_tpu_torch.ops.flash_attention import (
-    MAX_SINGLE_TILE_S,
+    bsh_kernel_ok,
     flash_attention_bsh,
     flash_attention_bsh_plain,
     flash_keep_mask,
@@ -131,14 +131,12 @@ def test_mha_reference_matches_jax():
 
 @pytest.mark.parametrize("S_", [512, 513])
 def test_single_tile_boundary_matches_jax(S_):
-    """The port's kernels cover exactly the JAX bsh single-tile regime,
-    and off the CPU a longer S raises, naming the unported kernels."""
+    """The port routes the bsh entry as the JAX package does: its bsh
+    kernels (B4/B5) up to the single-tile boundary, the head-split
+    fallback (the tiled B9/B11 beyond it) past it."""
     want = jfa._round_up(S_, jfa._block_dim(S_)) == jfa._block_dim(S_)
-    assert (S_ <= MAX_SINGLE_TILE_S) == want
-    if not want:
-        q = torch.empty((1, S_, NH * D), device="meta")
-        with pytest.raises(NotImplementedError, match="B9-B12"):
-            flash_attention_bsh(q, q, q, None, NH)
+    assert bsh_kernel_ok(S_, NH * D, NH) == want
+    assert jfa._bsh_kernel_ok(S_, NH * D, NH) == want
 
 
 def test_lse_and_counters_on_the_cpu():

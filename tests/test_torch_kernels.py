@@ -275,8 +275,9 @@ def test_flash_kernels_match_plain(cuda_device, S, D, causal, rate, dtype,
 
 @pytest.mark.gpu
 def test_flash_entry_on_the_card(cuda_device):
-    """The autograd entry launches B4 then B5 and refuses what the
-    kernels do not cover: S beyond the single tile, explicit masks."""
+    """The autograd entry launches B4 then B5 in the single-tile regime,
+    the tiled B9, B11b and B11a beyond it (GPT-2's S 1024), and refuses
+    explicit keep masks."""
     q, k, v, g, mask = _attn_case(1, 256, 2, 64, torch.bfloat16,
                                   cuda_device)
     qr = q.clone().requires_grad_(True)
@@ -285,9 +286,14 @@ def test_flash_entry_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert _build.launches["flash_fwd"] == before["flash_fwd"] + 1
     assert _build.launches["flash_bwd"] == before["flash_bwd"] + 1
-    long = torch.zeros(1, 640, 128, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="B9-B12"):
-        flash_attention_bsh(long, long, long, None, 2)
+    long = torch.zeros(1, 1024, 128, device=cuda_device, requires_grad=True)
+    before = dict(_build.launches)
+    flash_attention_bsh(long, long, long, None, 2).sum().backward()
+    torch.cuda.synchronize()
+    assert {key: _build.launches[key] - before[key] for key in before
+            if _build.launches[key] != before[key]} == {
+        "flash_fwd_tiled": 1, "flash_bwd_dq_tiled": 1,
+        "flash_bwd_dkv_tiled": 1}
     with pytest.raises(ValueError, match="keep mask"):
         flash_attention_bsh(q, k, v, None, 2, dropout_rate=0.1,
                             keep=torch.ones(1, 2, 256, 256, dtype=torch.bool))
@@ -428,3 +434,179 @@ def test_softmax_entry_on_the_card(cuda_device):
     assert _build.launches["softmax_fwd4"] == before["softmax_fwd4"] + 1
     assert _build.launches["softmax_bwd"] == before["softmax_bwd"] + 2
     assert add.grad.shape == add.shape and torch.isfinite(add.grad).all()
+
+
+# -- the tiled slice: B9, B10, B11a, B11b, B12, B13 ---------------------------
+
+from apex_tpu_torch.ops.flash_attention import (  # noqa: E402
+    attention_delta4,
+    flash_attention,
+    flash_attention_with_lse,
+    flash_bwd_dkv_tiled_kernel,
+    flash_bwd_dq_tiled_kernel,
+    flash_bwd_plain,
+    flash_dropout_keep_mask,
+    flash_fwd_plain,
+    flash_fwd_tiled_kernel,
+    flash_keep_mask,
+    keep_mask_kernel,
+    mha_with_mask_reference,
+)
+
+
+def _case4(B, H, Sq, Sk, D, dtype, device, seed=0, masked=True):
+    """(B, H, S, D) q, k, v, dout, an lse cotangent and a key mask whose
+    second row is fully masked (None unless ``masked``)."""
+    gen = torch.Generator().manual_seed(seed)
+    q, g = (torch.randn(B, H, Sq, D, generator=gen) for _ in range(2))
+    k, v = (torch.randn(B, H, Sk, D, generator=gen) for _ in range(2))
+    g_lse = 0.1 * torch.randn(B, H, Sq, generator=gen)
+    mask = None
+    if masked:
+        mask = torch.zeros(B, Sk, dtype=torch.bool)
+        mask[0, Sk // 2:] = True
+        mask[1] = True
+        mask = mask.to(device)
+    q, k, v, g = (t.to(dtype).to(device) for t in (q, k, v, g))
+    return q, k, v, g, g_lse.to(device), mask
+
+
+def test_tiled_wrappers_refuse_what_the_kernels_do_not_take():
+    q = torch.randn(1, 2, 8, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fwd_tiled_kernel(q, q, q)
+    q = torch.randn(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="share"):
+        flash_fwd_tiled_kernel(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="Sk, D"):
+        flash_fwd_tiled_kernel(q, q[..., :32], q)
+    with pytest.raises(ValueError, match="key_mask"):
+        flash_fwd_tiled_kernel(q, q, q, torch.zeros(1, 9, dtype=torch.bool))
+    with pytest.raises(ValueError, match="keep mask"):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"),
+                        dropout_rate=0.1, keep=torch.ones(1, 2, 8, 8,
+                                                          dtype=torch.bool))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("Sq,Sk,D,causal,masked,rate", [
+    (512, 512, 64, False, True, 0.1),
+    (1000, 1000, 64, True, True, 0.1),
+    (1024, 1024, 64, True, False, 0.1),
+    (1024, 1024, 128, True, False, 0.0),
+    (256, 1024, 64, True, False, 0.1),
+    (1000, 384, 128, False, True, 0.0)])
+def test_tiled_kernels_match_plain(cuda_device, Sq, Sk, D, causal, masked,
+                                   rate, dtype, tol):
+    """B9, B11b and B11a against their plain versions, which draw the same
+    Philox mask, with an lse cotangent folded into delta: fp32 within 1e-4
+    (online vs full softmax, other sum orders); bf16 within 3e-2 (a bf16
+    ulp at |values| up to ~4, p and dS rounded at other points). Causal
+    without a key mask takes the kernels' tile skip; the fully masked row
+    (masked cases) averages over all Sk keys, causal ones included."""
+    B, H = 2, 2
+    q, k, v, g, g_lse, mask = _case4(B, H, Sq, Sk, D, dtype, cuda_device,
+                                     seed=Sq + Sk, masked=masked)
+    args = (causal, D ** -0.5, rate, 31 if rate else None)
+    before = dict(_build.launches)
+    out, lse = flash_fwd_tiled_kernel(q, k, v, mask, *args)
+    delta = attention_delta4(g, out, g_lse)
+    dk, dv = flash_bwd_dkv_tiled_kernel(q, k, v, mask, lse, delta, g, *args)
+    dq = flash_bwd_dq_tiled_kernel(q, k, v, mask, lse, delta, g, *args)
+    torch.cuda.synchronize()
+    for key in ("flash_fwd_tiled", "flash_bwd_dkv_tiled",
+                "flash_bwd_dq_tiled"):
+        assert _build.launches[key] == before[key] + 1
+    rout, rlse = flash_fwd_plain(q, k, v, mask, *args)
+    rgrads = flash_bwd_plain(q, k, v, mask, rlse,
+                             attention_delta4(g, rout, g_lse), g, *args)
+    assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+    for a, r in zip((out, dq, dk, dv), (rout, *rgrads)):
+        assert a.dtype == dtype and a.shape == r.shape
+        assert torch.isfinite(a.float()).all()
+        assert_close(a, r, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_entries_read_and_write_strided_layouts(cuda_device, dtype):
+    """flash_attention on sequence-first (T, B, H, D) views (the contrib
+    modules' layout) runs B10/B12 at T 512 and B9/B11 at T 640 without a
+    copy: the context comes back laid out as the caller's q, and the
+    results equal the plain version's on contiguous copies."""
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for T, counters in ((512, ("flash_fwd_single", "flash_bwd_single")),
+                        (640, ("flash_fwd_tiled", "flash_bwd_dq_tiled",
+                               "flash_bwd_dkv_tiled"))):
+        gen = torch.Generator().manual_seed(T)
+        qkv = torch.randn(T, 2, 3, 4, 64, generator=gen).to(dtype)
+        qkv = qkv.to(cuda_device).requires_grad_(True)
+        q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3) for i in range(3))
+        mask = torch.zeros(2, T, dtype=torch.bool, device=cuda_device)
+        mask[1, T // 3:] = True
+        before = dict(_build.launches)
+        out = flash_attention(q, k, v, mask, False, 0.125, 0.1, 17)
+        assert out.permute(2, 0, 1, 3).is_contiguous()
+        g = torch.randn(out.shape, generator=gen).to(dtype).to(cuda_device)
+        out.backward(g)
+        torch.cuda.synchronize()
+        for key in counters:
+            assert _build.launches[key] == before[key] + 1
+        ref = [t.detach().contiguous().requires_grad_(True)
+               for t in (q, k, v)]
+        rout, rlse = flash_fwd_plain(*ref, mask, False, 0.125, 0.1, 17)
+        rgrads = flash_bwd_plain(*(t.detach() for t in ref), mask, rlse,
+                                 attention_delta4(g, rout), g, False, 0.125,
+                                 0.1, 17)
+        assert_close(out, rout, atol=tol, rtol=tol)
+        grads = [qkv.grad[:, :, i].permute(1, 2, 0, 3) for i in range(3)]
+        for a, r in zip(grads, rgrads):
+            assert_close(a, r, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_with_lse_on_the_card_matches_the_cpu(cuda_device):
+    """flash_attention_with_lse at Sq 256 x Sk 1024, causal, fp32, with an
+    lse cotangent: the card (tiled kernels) against the port on the CPU,
+    outputs and gradients within 1e-4."""
+    q, k, v, g, g_lse, _ = _case4(1, 2, 256, 1024, 64, torch.float32, "cpu",
+                                  seed=5, masked=False)
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ts = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out, lse = flash_attention_with_lse(*ts, None, True, 0.125)
+        assert lse.shape == (1, 2, 1, 256)
+        torch.autograd.backward((out, lse), (g.to(dev),
+                                             g_lse.to(dev)[:, :, None]))
+        res.append([t.detach().cpu() for t in (out, lse)]
+                   + [t.grad.cpu() for t in ts])
+    for a, r in zip(*res):
+        assert_close(a, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (2, 3, 5, 7),
+                                   (8, 12, 1024, 1024), (2, 4, 256, 1000)])
+def test_keep_mask_kernel_matches_plain_bit_for_bit(cuda_device, shape):
+    """Kernel B13 writes the Philox keep mask of the plain version bit for
+    bit (odd sizes take the scalar tail), and the forward's dropout at fp32
+    equals the composed reference with that mask."""
+    before = _build.launches["keep_mask"]
+    keep = keep_mask_kernel(*shape, 0.1, 4321, cuda_device)
+    torch.cuda.synchronize()
+    assert _build.launches["keep_mask"] == before + 1
+    assert keep.dtype == torch.bool and keep.shape == shape
+    assert torch.equal(keep, flash_keep_mask(shape[0], shape[1], shape[2],
+                                             0.1, 4321, cuda_device,
+                                             Sk=shape[3]))
+    assert torch.equal(keep, flash_dropout_keep_mask(*shape, 0.1, 4321,
+                                                     cuda_device))
+    if shape == (2, 4, 256, 1000):
+        q, k, v, _, _, mask = _case4(2, 4, 256, 1000, 64, torch.float32,
+                                     cuda_device)
+        out, _ = flash_fwd_tiled_kernel(q, k, v, mask, True, 0.125, 0.1,
+                                        4321)
+        ref = mha_with_mask_reference(q, k, v, keep, mask, True, 0.125, 0.1)
+        assert_close(out, ref, atol=1e-4, rtol=1e-4)
