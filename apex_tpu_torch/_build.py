@@ -32,11 +32,12 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # launches per kernel, read by InferenceEngine.stats() and chip_smoke.py
-launches = {"paged_read": 0, "dequant_gemm": 0, "layer_norm_bwd": 0,
-            "dropout": 0, "flash_fwd": 0, "flash_bwd": 0, "softmax_fwd": 0,
-            "softmax_fwd4": 0, "softmax_bwd": 0, "flash_fwd_tiled": 0,
-            "flash_bwd_dq_tiled": 0, "flash_bwd_dkv_tiled": 0,
-            "flash_fwd_single": 0, "flash_bwd_single": 0, "keep_mask": 0}
+launches = {"paged_read": 0, "dequant_gemm": 0, "layer_norm_fwd": 0,
+            "layer_norm_bwd": 0, "dropout": 0, "flash_fwd": 0,
+            "flash_bwd": 0, "softmax_fwd": 0, "softmax_fwd4": 0,
+            "softmax_bwd": 0, "flash_fwd_tiled": 0, "flash_bwd_dq_tiled": 0,
+            "flash_bwd_dkv_tiled": 0, "flash_fwd_single": 0,
+            "flash_bwd_single": 0, "keep_mask": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -127,6 +128,8 @@ _SIGNATURES = {
     "dequant_gemm": [_VP] * 5 + [_I] * 4 + [_VP],
     # M, K, N, &k_chunk -> number of K splits
     "dequant_gemm_splits": [_I] * 3 + [ctypes.POINTER(_I)],
+    # x, w, b (or null), y, rows, H, dtype, eps, rms, stream
+    "layer_norm_fwd": [_VP] * 4 + [_I] * 3 + [_F, _I, _VP],
     # g, x, w, dx, dw, db, workspace, rows, H, dtype, eps, rms, stream
     "layer_norm_bwd": [_VP] * 7 + [_I] * 3 + [_F, _I, _VP],
     # rows, H -> number of row blocks (sizes the workspace)

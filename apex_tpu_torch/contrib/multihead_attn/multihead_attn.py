@@ -110,7 +110,7 @@ class SelfMultiheadAttn(_MHABase):
         super().__init__(embed_dim, num_heads, dropout, include_norm_add)
         H = embed_dim
         if include_norm_add:
-            self.lyr_nrm = FusedLayerNorm(H)
+            self.lyr_nrm = FusedLayerNorm(H, device="cpu")
         self.qkv_proj = _Dense(H, 3 * H, bias=bias)
         self.out_proj = _Dense(H, H, bias=bias)
         self._init(params_dtype, device, seed)
@@ -139,7 +139,7 @@ class EncdecMultiheadAttn(_MHABase):
         super().__init__(embed_dim, num_heads, dropout, include_norm_add)
         H = embed_dim
         if include_norm_add:
-            self.lyr_nrm = FusedLayerNorm(H)
+            self.lyr_nrm = FusedLayerNorm(H, device="cpu")
         self.q_proj = _Dense(H, H, bias=bias)
         self.kv_proj = _Dense(H, 2 * H, bias=bias)
         self.out_proj = _Dense(H, H, bias=bias)

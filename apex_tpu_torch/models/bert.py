@@ -172,10 +172,10 @@ class BertLayer(nn.Module):
         self.cfg = cfg
         h, eps = cfg.hidden_size, cfg.layernorm_eps
         self.attention = BertSelfAttention(cfg)
-        self.attention_ln = FusedLayerNorm(h, eps=eps)
+        self.attention_ln = FusedLayerNorm(h, eps=eps, device="cpu")
         self.mlp_in = Dense(h, cfg.intermediate_size, cfg.dtype)
         self.mlp_out = Dense(cfg.intermediate_size, h, cfg.dtype)
-        self.output_ln = FusedLayerNorm(h, eps=eps)
+        self.output_ln = FusedLayerNorm(h, eps=eps, device="cpu")
         self.dropout = TPDropout(cfg.hidden_dropout)
 
     def forward(self, x, key_mask, seeds=(None, None, None),
@@ -213,7 +213,7 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = nn.Parameter(
             torch.empty(cfg.max_position_embeddings, h))
         self.token_type_embeddings = Embed(cfg.type_vocab_size, h)
-        self.ln = FusedLayerNorm(h, eps=cfg.layernorm_eps)
+        self.ln = FusedLayerNorm(h, eps=cfg.layernorm_eps, device="cpu")
         self.dropout = TPDropout(cfg.hidden_dropout)
 
     def forward(self, input_ids, token_type_ids, seed=None,
@@ -297,7 +297,7 @@ class BertForPreTraining(nn.Module):
         self.bert = BertModel(cfg)
         h = cfg.hidden_size
         self.mlm_transform = Dense(h, h, cfg.dtype)
-        self.mlm_ln = FusedLayerNorm(h, eps=cfg.layernorm_eps)
+        self.mlm_ln = FusedLayerNorm(h, eps=cfg.layernorm_eps, device="cpu")
         self.mlm_decoder = Dense(h, cfg.vocab_size, cfg.dtype)
         self.nsp = Dense(h, 2, cfg.dtype)
         gen = torch.Generator().manual_seed(seed)

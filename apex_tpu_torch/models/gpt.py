@@ -225,14 +225,14 @@ class GPTBlock(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.cfg = cfg
-        self.ln_1 = FusedLayerNorm(h, eps=cfg.layernorm_eps)
+        self.ln_1 = FusedLayerNorm(h, eps=cfg.layernorm_eps, device="cpu")
         # flax nn.Dense(dtype=cfg.dtype): fp32-stored params, the product
         # in cfg.dtype
         self.attn_q = Dense(h, h, cfg.dtype)
         self.attn_k = Dense(h, h, cfg.dtype)
         self.attn_v = Dense(h, h, cfg.dtype)
         self.attn_out = Dense(h, h, cfg.dtype)
-        self.ln_2 = FusedLayerNorm(h, eps=cfg.layernorm_eps)
+        self.ln_2 = FusedLayerNorm(h, eps=cfg.layernorm_eps, device="cpu")
         self.mlp_in = Dense(h, 4 * h, cfg.dtype)
         self.mlp_out = Dense(4 * h, h, cfg.dtype)
         self.dropout = TPDropout(cfg.dropout)
@@ -287,7 +287,8 @@ class GPTModel(nn.Module):
         self.wpe = nn.Parameter(torch.empty(cfg.max_position_embeddings,
                                             cfg.hidden_size))
         self.h = nn.ModuleList(GPTBlock(cfg) for _ in range(cfg.num_layers))
-        self.ln_f = FusedLayerNorm(cfg.hidden_size, eps=cfg.layernorm_eps)
+        self.ln_f = FusedLayerNorm(cfg.hidden_size, eps=cfg.layernorm_eps,
+                                   device="cpu")
         self.dropout = TPDropout(cfg.dropout)
 
     def num_dropout_seeds(self) -> int:

@@ -21,9 +21,14 @@ from apex_tpu_torch.ops.flash_attention import (
     mha_with_mask_reference,
 )
 from apex_tpu_torch.ops.layer_norm import (
+    fused_layer_norm,
     fused_layer_norm_affine,
+    fused_rms_norm,
+    fused_rms_norm_affine,
     layer_norm_backward,
     layer_norm_backward_plain,
+    layer_norm_forward,
+    layer_norm_forward_plain,
     layer_norm_reference,
     rms_norm_reference,
 )
@@ -51,10 +56,15 @@ __all__ = [
     "flash_attention_bsh",
     "flash_keep_mask",
     "fused_dropout",
+    "fused_layer_norm",
     "fused_layer_norm_affine",
+    "fused_rms_norm",
+    "fused_rms_norm_affine",
     "keep_threshold",
     "layer_norm_backward",
     "layer_norm_backward_plain",
+    "layer_norm_forward",
+    "layer_norm_forward_plain",
     "layer_norm_reference",
     "mha_reference",
     "mha_with_mask_reference",

@@ -29,6 +29,19 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def bf16_ulps(out, ref, floor=2.0 ** -8) -> float:
+    """Largest ``|out - ref|`` in bf16 ulps (2^-7 of the binade) of the
+    larger magnitude of the two, taken no smaller than at ``floor``: near
+    0 two fp32 results differ by ~1e-6 of the terms they summed, not by a
+    share of the result. The tolerance the port holds a bf16 kernel to
+    against its plain version."""
+    out, ref = out.detach().float(), ref.detach().float()
+    mag = torch.maximum(out.abs(), ref.abs()).clamp(min=floor)
+    _, e = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+    return ((out - ref).abs() / ulp).max().item()
+
+
 def keep_threshold(dropout_rate: float) -> int:
     """uint32 threshold shared by every fused-dropout kernel and its plain
     version: a lane is kept iff its random bits are < this. keep_prob maps

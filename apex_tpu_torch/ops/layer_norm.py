@@ -1,11 +1,21 @@
 """LayerNorm / RMSNorm (counterpart of :mod:`apex_tpu.ops.layer_norm`).
 
-The forward is plain PyTorch, as the JAX package's training path computes
-it: ``fused_layer_norm_affine``'s forward is the jnp formula unless
-``APEX_TPU_LN_FWD=pallas`` (the Pallas forward B2 is not ported). The
-backward is the hand-written kernel B1 (``csrc/layer_norm_bwd.cu``) on
-CUDA tensors and :func:`layer_norm_backward_plain` on CPU tensors; it
-recomputes the statistics from ``x`` instead of saving them.
+Two hand-written kernels carry the training path: B2
+(``csrc/layer_norm_fwd.cu``), the forward, and B1
+(``csrc/layer_norm_bwd.cu``), the backward, which recomputes the
+statistics from ``x`` instead of saving them. On CPU tensors each wrapper
+runs its plain version (:func:`layer_norm_forward_plain`,
+:func:`layer_norm_backward_plain`), the same fp32 arithmetic in PyTorch.
+
+As in the JAX package, the forward a call runs depends on whether it is
+differentiated. ``fused_layer_norm_affine`` / ``fused_rms_norm_affine``
+not being differentiated compute the reference formula in fp32 (the
+JAX primal). Differentiated, their forward is B2 and their backward B1.
+The JAX package defaults its differentiated forward to the jnp formula
+(``APEX_TPU_LN_FWD=xla``), a TPU choice: there the jnp forward fuses into
+the product that consumes it. Eager PyTorch has no such fusion, and on
+the H100 B2 beat the plain forward on every path measured (``PERF.md``
+§6), so the port has one forward and no such setting.
 """
 
 from __future__ import annotations
@@ -16,7 +26,7 @@ import torch.nn.functional as F
 from apex_tpu_torch import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_H = 8 * 1024     # eight columns per thread, at most 1024 threads
+_MAX_H = 8 * 1024     # B1: eight columns per thread, at most 1024 threads
 
 
 def layer_norm_reference(x, weight, bias, eps=1e-5):
@@ -34,6 +44,64 @@ def rms_norm_reference(x, weight, eps=1e-5):
     ms = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(ms + eps) * weight.float()
     return y.to(x.dtype)
+
+
+def layer_norm_forward_plain(x, weight, bias=None, eps=1e-5, rms=False):
+    """The plain version of kernel B2 (``_fwd_kernel`` of the JAX
+    package): in fp32, ``mean = sum(x) / H`` (0 for RMSNorm), ``c = x -
+    mean``, ``var = sum(c * c) / H``, ``y = c * rsqrt(var + eps) * w``
+    (``+ b``); ``y`` in ``x.dtype``."""
+    xf = x.float()
+    h = x.shape[-1]
+    mean = 0.0 if rms else xf.sum(-1, keepdim=True) / h
+    centered = xf - mean
+    var = (centered * centered).sum(-1, keepdim=True) / h
+    y = centered * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def layer_norm_forward_kernel(x, weight, bias=None, eps=1e-5, rms=False):
+    """Launch kernel B2 on a CUDA tensor ``x`` (fp32 or bf16, any leading
+    shape, normalized over the last dim, any width): ``weight`` and
+    ``bias`` (or None) ``(H,)``, read as fp32. Returns ``y`` in
+    ``x.dtype``. Raises on what the kernel does not take or a failed
+    launch."""
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"layer_norm_forward: x must be float32 or "
+                         f"bfloat16, got {x.dtype}")
+    H = x.shape[-1] if x.dim() else 0
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t is not None and (tuple(t.shape) != (H,)
+                              or t.device != x.device):
+            raise ValueError(f"layer_norm_forward: {name} must be ({H},) on "
+                             f"{x.device}, got {tuple(t.shape)} on "
+                             f"{t.device}")
+    if H < 1:
+        raise ValueError(f"layer_norm_forward: x {tuple(x.shape)} has no "
+                         f"columns to normalize")
+    x2 = x.reshape(-1, H).contiguous()
+    y = torch.empty_like(x2)
+    if x2.shape[0] == 0:
+        return y.reshape(x.shape)
+    w = weight.float().contiguous()
+    b = None if bias is None else bias.float().contiguous()
+    code = _build.lib().layer_norm_fwd(
+        x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+        y.data_ptr(), x2.shape[0], H, _DTYPE_CODES[x.dtype], float(eps),
+        int(rms), _build.stream_ptr(x.device))
+    _build.check(code, "layer_norm_fwd")
+    _build.launches["layer_norm_fwd"] += 1
+    return y.reshape(x.shape)
+
+
+def layer_norm_forward(x, weight, bias=None, eps=1e-5, rms=False):
+    """``y``: kernel B2 on CUDA tensors, the plain version on CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return layer_norm_forward_plain(x, weight, bias, eps, rms)
+    return layer_norm_forward_kernel(x, weight, bias, eps, rms)
 
 
 def layer_norm_backward_plain(g, x, weight, eps=1e-5, rms=False):
@@ -101,25 +169,82 @@ def layer_norm_backward(g, x, weight, eps=1e-5, rms=False):
     return layer_norm_backward_kernel(g, x, weight, eps, rms)
 
 
+def _plain_forward(x, weight, bias, eps, rms):
+    """The reference formula with fp32 moments and affine (the JAX primal),
+    output in x's dtype: under amp O2 x is bf16 while the norm's params
+    stay fp32."""
+    if rms:
+        return rms_norm_reference(x, weight, eps)
+    return F.layer_norm(x.float(), (x.shape[-1],), weight.float(),
+                        bias.float(), eps).to(x.dtype)
+
+
 class _LayerNormAffine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         ctx.eps = eps
-        ctx.save_for_backward(x, weight, bias)
-        # fp32 moments and affine (the JAX primal), output in x's dtype:
-        # under amp O2 x is bf16 while the norm's params stay fp32
-        return F.layer_norm(x.float(), (x.shape[-1],), weight.float(),
-                            bias.float(), eps).to(x.dtype)
+        ctx.bias_dtype = bias.dtype
+        ctx.save_for_backward(x, weight)
+        return layer_norm_forward(x, weight, bias, eps, False)
 
     @staticmethod
     def backward(ctx, g):
-        x, weight, bias = ctx.saved_tensors
+        x, weight = ctx.saved_tensors
         dx, dw, db = layer_norm_backward(g, x, weight, ctx.eps)
-        return dx, dw.to(weight.dtype), db.to(bias.dtype), None
+        return dx, dw.to(weight.dtype), db.to(ctx.bias_dtype), None
 
 
-def fused_layer_norm_affine(x, weight, bias, eps=1e-5):
-    """LayerNorm over the last dim with an affine transform: the plain
-    forward, kernel B1 as the backward. Any floating ``x`` with fp32 (or
-    matching) ``weight``/``bias``; the output dtype follows ``x``."""
-    return _LayerNormAffine.apply(x, weight, bias, eps)
+class _RMSNormAffine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight)
+        return layer_norm_forward(x, weight, None, eps, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw, _ = layer_norm_backward(g, x, weight, ctx.eps, rms=True)
+        return dx, dw.to(weight.dtype), None
+
+
+def _differentiated(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def fused_layer_norm_affine(x, weight, bias, eps=1e-5,
+                            memory_efficient=True):
+    """LayerNorm over the last dim with an affine transform. Any floating
+    ``x`` with fp32 (or matching) ``weight``/``bias``; the output dtype
+    follows ``x``. Differentiated: kernel B2 forward, kernel B1
+    backward; otherwise the reference formula in fp32.
+    ``memory_efficient`` is accepted for parity and has no effect (the
+    backward always recomputes the statistics), as in the JAX package."""
+    if _differentiated(x, weight, bias):
+        return _LayerNormAffine.apply(x, weight, bias, eps)
+    return _plain_forward(x, weight, bias, eps, False)
+
+
+def fused_rms_norm_affine(x, weight, eps=1e-5, memory_efficient=True):
+    """RMSNorm over the last dim with an affine weight: as
+    :func:`fused_layer_norm_affine`, without the mean and the bias."""
+    if _differentiated(x, weight):
+        return _RMSNormAffine.apply(x, weight, eps)
+    return _plain_forward(x, weight, None, eps, True)
+
+
+def fused_layer_norm(x, normalized_shape=None, eps=1e-5):
+    """Affine-free LayerNorm over the last dim: fp32 ones and zeros as
+    the affine, as the JAX package passes them (``normalized_shape`` is
+    accepted for the reference signature and not read there either)."""
+    h = x.shape[-1]
+    return fused_layer_norm_affine(
+        x, torch.ones(h, device=x.device), torch.zeros(h, device=x.device),
+        eps)
+
+
+def fused_rms_norm(x, normalized_shape=None, eps=1e-5):
+    """Affine-free RMSNorm over the last dim (fp32 ones as the weight)."""
+    return fused_rms_norm_affine(x, torch.ones(x.shape[-1], device=x.device),
+                                 eps)

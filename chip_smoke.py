@@ -23,6 +23,12 @@ PyTorch version on the same inputs:
 - ``layer_norm_bwd`` (B1), ``dropout`` (B3), ``flash_fwd`` (B4) and
   ``flash_bwd`` (B5) at the BERT-large training shapes, with the
   tolerances their functions state.
+- ``layer_norm_fwd`` (B2) at (8192, 1024) bf16 x with fp32 params
+  (BERT-large), (8192, 768) bf16 (GPT-2 small), (8192, 1024) fp32, RMSNorm
+  (8192, 1024) bf16 without bias, the OpenFold pair (65536, 128) and MSA
+  (32768, 256) shapes in bf16, an odd H (1000) and a wide one (12288): bf16
+  within one bf16 ulp of the plain version's rounding, fp32 within rtol =
+  atol = 1e-5.
 - ``softmax_fwd`` (B6), ``softmax_fwd4`` (B7) and ``softmax_bwd`` (B8) at
   BERT-large's S 128 score shape (64, 16, 128, 128), bf16 and fp32, and
   at an unaligned Sk of 77; a plain version that scales after the mask
@@ -32,7 +38,8 @@ Each case is timed on the device (calls captured in a CUDA graph and
 replayed, CUDA events around the replay) beside its plain version, a
 library call that computes the same function (``F.scaled_dot_product_attention``
 on the gathered K/V for B14, ``torch.matmul`` on the dequantized weight
-for B15, the backward of ``F.layer_norm`` for B1, ``F.dropout`` for B3,
+for B15, the backward of ``F.layer_norm`` for B1, ``F.layer_norm`` /
+``F.rms_norm`` for B2, ``F.dropout`` for B3,
 SDPA and its backward without dropout for B4/B5, ``torch.softmax`` and
 its backward for B6/B8; the port calls none of them), and the least time
 the card could take: the larger of the bytes moved over 3.35 TB/s and
@@ -53,7 +60,7 @@ Phase 3 trains BERT-large (``BertConfig()``, bf16, remat) with amp O2 and
 FusedLAMB at B 16, S 512, P 76, inputs and weights from ``--seed``: after
 a card-vs-CPU check of one fp32 step at full width (2 layers, B 2), two
 warm-up steps and five timed steps. The launch counters, set to 0 just
-before the timed steps, must show every step going through B1, B3, B4
+before the timed steps, must show every step going through B2, B1, B3, B4
 and B5 the number of times the model implies; every loss must be
 finite and the first within 1.0 of ln(30522) + ln(2).
 
@@ -62,7 +69,7 @@ Phase 4 trains BERT-large phase 1 (S 128, the composed attention below
 ``build_train_step(...).loop(state)``: amp O2, FusedLAMB, microbatch B 64,
 ``accum_steps`` 4, P 19. A card-vs-CPU check of one fp32 global step (2
 layers, B 2, accum 2, one row padded) comes first; then two warm-up and
-five timed global steps, whose launch counters must show 50 B1, 218 B3,
+five timed global steps, whose launch counters must show 98 B2, 50 B1, 218 B3,
 48 B6, 24 B8 and no B4, B5 or B7 per microbatch.
 
 Phase 1 also holds the tiled flash kernels B9 (forward), B11a (dQ) and
@@ -85,14 +92,28 @@ optimizer: lr 6e-4, betas (0.9, 0.95), eps 1e-8, weight decay 0.1) at S
 batch is cut to fit this run), random token ids from ``--seed``. A
 card-vs-CPU check of one fp32 global step (2 layers at full width, B 2,
 S 1024, accum 2) comes first; then two warm-up and five timed global
-steps, whose launch counters must show 24 B9, 12 B11a, 12 B11b, 25 B1 and
-62 B3 and no B4/B5 per microbatch; the first loss must be within 1.0 of
+steps, whose launch counters must show 24 B9, 12 B11a, 12 B11b, 49 B2, 25
+B1 and 62 B3 and no B4/B5 per microbatch; the first loss must be within 1.0 of
 ln(50257).
 
 Phase 6 runs contrib ``SelfMultiheadAttn`` and ``EncdecMultiheadAttn`` at
 the Transformer-big width (embed 1024, 16 heads; T 512, B 8, memory 384;
 fp32, attention dropout 0.1 fused into the kernels), forward and backward
-on the card through B10/B12 against the CPU.
+on the card through B10/B12 (and B2/B1 for its LayerNorm) against the
+CPU.
+
+Phase 7 runs BASELINE ``configs[1]``, the normalization microbench at
+the shape of ``bench.py:504-580`` ((8192, 1024) bf16 through 16
+applications of norm -> W1 -> GELU -> W2 + residual, forward and
+backward, gradients to x, the norm params and W1/W2), with
+``FusedLayerNorm`` and ``FusedRMSNorm`` (B2 + B1) against stock arms on
+``F.layer_norm`` / the plain RMS formula under autograd; then the
+OpenFold tier at AlphaFold2's initial-training Evoformer shapes (crop 256,
+128 MSA clusters, c_m 256, c_z 128, MSA row attention with pair bias, 8
+heads of 32): LayerNorm of the MSA and pair representations,
+``gated_attention`` with the pair bias and an MSA mask (B6/B8), and
+``FusedAdamSWA`` steps, in bf16, after a card-vs-CPU check of the tier in
+fp32 at 64 residues and 16 clusters.
 
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
@@ -171,6 +192,25 @@ def time_ms(fn, iters=50, warmup=3, graph=True):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters=3):
+    """Device time of one call of ``fn`` and its kernel launches:
+    ``torch.profiler`` tracing the device over ``iters`` calls after one
+    warm-up, the kernels' device time summed (host time left out: for
+    calls whose host loop is slower than the device)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / iters,
+            sum(e.count for e in events) / iters)
 
 
 def card_line():
@@ -416,6 +456,102 @@ def phase1_layer_norm(torch, dev, seed):
               f"(tol {tol}) | ms {row['ms']:.4f} plain_ms "
               f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
               f"bound_ms {b_ms:.4f} ({b_by})", flush=True)
+    return out
+
+
+# (label, rows, H, dtype name, rms, bias): B2's main-path shapes. BERT-large
+# and GPT-2 small activations (B * S = 8192 rows), the Evoformer pair (c_z
+# 128) and MSA (c_m 256) representations at AlphaFold2's initial-training
+# crop (256 residues, 128 clusters), an H not a multiple of 256 and a width
+# past what registers hold
+B2_CASES = (
+    ("BERT-large", 8192, 1024, "bfloat16", False, True),
+    ("GPT-2 small", 8192, 768, "bfloat16", False, True),
+    ("BERT-large fp32", 8192, 1024, "float32", False, True),
+    ("RMSNorm", 8192, 1024, "bfloat16", True, False),
+    ("OpenFold pair", 65536, 128, "bfloat16", False, True),
+    ("OpenFold MSA", 32768, 256, "bfloat16", False, True),
+    ("odd H", 8192, 1000, "bfloat16", False, True),
+    ("wide H", 8192, 12288, "bfloat16", False, True),
+)
+
+
+def phase1_layer_norm_fwd(torch, F, dev, seed):
+    """B2 at ``B2_CASES``, fp32 weight and bias, against its plain version:
+    bf16 within one bf16 ulp of the plain version's rounding, fp32 within
+    rtol = atol = 1e-5 (the moments summed in another order; atol for
+    outputs near 0). The library call is ``F.layer_norm`` (params cast to
+    x's dtype where the mixed call is refused) / ``F.rms_norm`` (params in
+    x's dtype)."""
+    from apex_tpu_torch.ops._common import bf16_ulps
+    from apex_tpu_torch.ops.layer_norm import (
+        layer_norm_forward_kernel,
+        layer_norm_forward_plain,
+    )
+
+    eps = 1e-5
+    g = torch.Generator().manual_seed(seed + 2)
+    out = []
+    for label, rows, H, dname, rms, with_bias in B2_CASES:
+        dt = getattr(torch, dname)
+        x = (torch.randn(rows, H, generator=g) * 2 + 0.5).to(dt).to(dev)
+        w = (torch.rand(H, generator=g) + 0.5).to(dev)
+        b = torch.randn(H, generator=g).to(dev) if with_bias else None
+        y = layer_norm_forward_kernel(x, w, b, eps, rms)
+        ref = layer_norm_forward_plain(x, w, b, eps, rms)
+        torch.cuda.synchronize()
+        max_abs, max_rel = close_stats(torch, y, ref)
+        if dt == torch.bfloat16:
+            ulps = bf16_ulps(y, ref)
+            check(ulps <= 1.0, f"layer_norm_fwd {label}: {ulps} bf16 ulps "
+                  f"from the plain version")
+            tol = "1 bf16 ulp"
+        else:
+            ulps = None
+            check(torch.allclose(y, ref, atol=1e-5, rtol=1e-5),
+                  f"layer_norm_fwd {label}: max abs err {max_abs}")
+            tol = "rtol = atol = 1e-5"
+
+        # F.rms_norm takes mixed dtypes only through its composite path
+        # (several kernels): its params go in x's dtype
+        wl, bl, library = w, b, "mixed params"
+        if rms:
+            wl, library = w.to(dt), "params in x's dtype"
+        else:
+            try:
+                F.layer_norm(x, (H,), w, b, eps)
+            except RuntimeError:
+                wl, bl, library = w.to(dt), b.to(dt), "params in x's dtype"
+
+        def lib_call():
+            if rms:
+                return F.rms_norm(x, (H,), wl, eps)
+            return F.layer_norm(x, (H,), wl, bl, eps)
+
+        esz = x.element_size()
+        nbytes = 2 * rows * H * esz + H * 4 * (2 if with_bias else 1)
+        flops = rows * H * (4 + (0 if rms else 2) + (1 if with_bias else 0))
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(
+            case=f"{label}: rows {rows} H {H} {dname}"
+                 f"{' RMS' if rms else ''}{'' if with_bias else ' no bias'}",
+            max_abs_err=max_abs, max_rel_err=max_rel, bf16_ulps=ulps,
+            tol=tol,
+            ms=time_ms(lambda: layer_norm_forward_kernel(x, w, b, eps, rms)),
+            plain_ms=time_ms(lambda: layer_norm_forward_plain(x, w, b, eps,
+                                                              rms), iters=10),
+            library_ms=time_ms(lib_call),
+            library=f"{'F.rms_norm' if rms else 'F.layer_norm'}, {library}",
+            bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+        out.append(row)
+        print(f"[B2 layer_norm_fwd] {row['case']}: max_abs_err "
+              f"{max_abs:.3g}{'' if ulps is None else f' ({ulps:.2f} ulp)'}"
+              f" (tol {tol}) | ms {row['ms']:.4f} plain_ms "
+              f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
+              f"({row['library']}) bound_ms {b_ms:.4f} ({b_by})",
+              flush=True)
+        del x, y, ref
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1204,12 +1340,14 @@ def phase2(torch, dev, seed, card):
 # -- phase 3: the BERT-large pretraining step ---------------------------------
 
 # launches of one BERT-large step (24 layers, remat): LayerNorm backward at
-# 2 LNs per layer + embeddings + MLM head; hidden dropout at 49 sites run
-# forward, again in the 24 layers' recompute (48) and replayed in the
-# backward; attention forward per layer and again in its recompute; one
-# attention backward per layer
-STEP_LAUNCHES = {"layer_norm_bwd": 50, "dropout": 49 + 48 + 49,
-                 "flash_fwd": 24 + 24, "flash_bwd": 24}
+# 2 LNs per layer + embeddings + MLM head; its forward (B2) at the same 50
+# and again in the 24 layers' recompute (48); hidden dropout at 49 sites
+# run forward, again in the recompute (48) and replayed in the backward;
+# attention forward per layer and again in its recompute; one attention
+# backward per layer
+STEP_LAUNCHES = {"layer_norm_fwd": 50 + 48, "layer_norm_bwd": 50,
+                 "dropout": 49 + 48 + 49, "flash_fwd": 24 + 24,
+                 "flash_bwd": 24}
 
 
 def compare_card_cpu(res, label):
@@ -1362,13 +1500,15 @@ def phase3(torch, dev, seed, card, steps=5, warmup=2):
 # -- phase 4: BERT-large phase-1 pretraining, S 128, build_train_step --------
 
 # launches of one S 128 microbatch (24 layers, remat, the composed attention
-# below flash_min_seq): LayerNorm backward as at S 512; dropout at the 49
-# hidden sites plus the 24 attention-probability sites, run forward, again
-# in the recompute (72) and replayed in the backward; the softmax forward
-# per layer and again in its recompute, its backward per layer; no flash
-# kernel and no 4-D-mask softmax (the boolean key mask is pre-folded)
-MICROBATCH_LAUNCHES = {"layer_norm_bwd": 50, "dropout": 73 + 72 + 73,
-                       "softmax_fwd": 24 + 24, "softmax_bwd": 24,
+# below flash_min_seq): LayerNorm forward and backward as at S 512; dropout
+# at the 49 hidden sites plus the 24 attention-probability sites, run
+# forward, again in the recompute (72) and replayed in the backward; the
+# softmax forward per layer and again in its recompute, its backward per
+# layer; no flash kernel and no 4-D-mask softmax (the boolean key mask is
+# pre-folded)
+MICROBATCH_LAUNCHES = {"layer_norm_fwd": 50 + 48, "layer_norm_bwd": 50,
+                       "dropout": 73 + 72 + 73, "softmax_fwd": 24 + 24,
+                       "softmax_bwd": 24,
                        "softmax_fwd4": 0, "flash_fwd": 0, "flash_bwd": 0}
 
 
@@ -1513,18 +1653,19 @@ def phase4(torch, dev, seed, card, steps=5, warmup=2):
 # launches of one GPT-2 small microbatch (12 blocks, remat, dropout 0.1 at
 # every site): the tiled attention forward per block and again in its
 # recompute, its two backward kernels per block; LayerNorm backward at 2
-# LNs per block + ln_f; hidden dropout at the embedding and 2 sites per
-# block, run forward and replayed in the backward, and in the recompute
-# once per block: PyTorch's checkpoint stops a block's recompute once the
-# tensors its backward needs are rebuilt, and the block's last dropout
-# (MLP output) saves none; nothing of the single-tile, bsh or softmax
-# kernels
+# LNs per block + ln_f, its forward (B2) there and again at the blocks' 2
+# in the recompute (both precede tensors the backward saved); hidden
+# dropout at the embedding and 2 sites per block, run forward and replayed
+# in the backward, and in the recompute once per block: PyTorch's
+# checkpoint stops a block's recompute once the tensors its backward needs
+# are rebuilt, and the block's last dropout (MLP output) saves none;
+# nothing of the single-tile, bsh or softmax kernels
 GPT_MICROBATCH_LAUNCHES = {
     "flash_fwd_tiled": 12 + 12, "flash_bwd_dq_tiled": 12,
-    "flash_bwd_dkv_tiled": 12, "layer_norm_bwd": 25,
-    "dropout": 25 + 12 + 25, "flash_fwd": 0, "flash_bwd": 0,
-    "flash_fwd_single": 0, "flash_bwd_single": 0, "keep_mask": 0,
-    "softmax_fwd": 0, "softmax_fwd4": 0, "softmax_bwd": 0}
+    "flash_bwd_dkv_tiled": 12, "layer_norm_fwd": 25 + 24,
+    "layer_norm_bwd": 25, "dropout": 25 + 12 + 25, "flash_fwd": 0,
+    "flash_bwd": 0, "flash_fwd_single": 0, "flash_bwd_single": 0,
+    "keep_mask": 0, "softmax_fwd": 0, "softmax_fwd4": 0, "softmax_bwd": 0}
 
 # the GPT-3 paper's optimizer for its 125M model (Brown et al. 2020, Table
 # 2.1 and Appendix B): Adam, betas (0.9, 0.95), eps 1e-8, decoupled weight
@@ -1737,8 +1878,11 @@ def phase6(torch, dev, seed, card):
             check(ok, f"contrib {name} multihead_attn: card vs CPU differ "
                   f"by {(a - r).abs().max().item()} (tol {tol})")
         check(launches["flash_fwd_single"] == 1
-              and launches["flash_bwd_single"] == 1,
-              f"contrib {name} multihead_attn: B10/B12 launches {launches}")
+              and launches["flash_bwd_single"] == 1
+              and launches["layer_norm_fwd"] == 1
+              and launches["layer_norm_bwd"] == 1,
+              f"contrib {name} multihead_attn: B10/B12, B2/B1 launches "
+              f"{launches}")
         recs[name] = dict(card=card, T=T, B=B, Tk=Tk, embed=E, heads=NH,
                           worst_rel_err=worst, launches={
                               k: v for k, v in launches.items() if v},
@@ -1750,6 +1894,308 @@ def phase6(torch, dev, seed, card):
               f"{recs[name]['launches']}", flush=True)
     torch.cuda.empty_cache()
     return recs
+
+
+# -- phase 7: the normalization microbench and the OpenFold tier -------------
+
+def norm_microbench(torch, F, dev, seed, card, n_apps=16, iters=10, N=8192,
+                    H=1024):
+    """BASELINE ``configs[1]`` at the shape of ``bench.py:504-580``: x
+    (8192, 1024), cast to bf16, through ``n_apps`` applications of norm ->
+    ``W1`` -> tanh GELU -> ``W2`` + residual (W1, W2 (1024, 1024) fp32 cast
+    to bf16, norm params fp32, shared by every application), the loss
+    sum(x^2) / N, forward and backward, with gradients to x, the norm
+    params and W1/W2. Four arms: ``FusedLayerNorm`` and ``FusedRMSNorm``
+    (B2 forward, B1 backward) and the stock arms, ``F.layer_norm`` in fp32
+    and the plain RMS formula under autograd. Each arm is timed twice, in
+    the order a b c d d c b a: wall time (host loop of ``iters`` calls
+    between CUDA events; eager PyTorch issues 270-620 launches a call,
+    so this is bounded by the host) and device time (the profiler's kernel
+    time, launches counted). Each fused arm's gradients must agree with its
+    stock arm's
+    within 2e-2 of each gradient's norm (bf16 activations through 16
+    applications; a wrong kernel is off by O(1))."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+    from apex_tpu_torch.ops.layer_norm import rms_norm_reference
+
+    eps = 1e-5
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(seed + 7)
+    x0 = torch.randn(N, H, generator=g).to(dev)
+    W1 = (torch.randn(H, H, generator=g) * 0.03).to(dev).requires_grad_(True)
+    W2 = (torch.randn(H, H, generator=g) * 0.03).to(dev).requires_grad_(True)
+    ln = FusedLayerNorm(H, eps=eps, device=dev)
+    rms = FusedRMSNorm(H, eps=eps, device=dev)
+    with torch.no_grad():
+        ln.scale.copy_(torch.rand(H, generator=g) + 0.5)
+        ln.bias.copy_(torch.randn(H, generator=g) * 0.1)
+        rms.scale.copy_(ln.scale)
+    arms = {
+        "stock LayerNorm": (lambda xb: F.layer_norm(
+            xb.float(), (H,), ln.scale, ln.bias, eps).to(xb.dtype),
+            [ln.scale, ln.bias]),
+        "FusedLayerNorm": (ln, [ln.scale, ln.bias]),
+        "stock RMSNorm": (lambda xb: rms_norm_reference(xb, rms.scale, eps),
+                          [rms.scale]),
+        "FusedRMSNorm": (rms, [rms.scale]),
+    }
+
+    def run(arm):
+        norm, params = arms[arm]
+        x = x0.detach().requires_grad_(True)
+        xb, W1b, W2b = x.to(bf16), W1.to(bf16), W2.to(bf16)
+        for _ in range(n_apps):
+            h = norm(xb) @ W1b
+            xb = F.gelu(h, approximate="tanh") @ W2b + xb
+        loss = (xb.float() ** 2).sum() / N
+        return torch.autograd.grad(loss, [x, *params, W1, W2])
+
+    grads, launches = {}, {}
+    for arm in arms:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        grads[arm] = run(arm)
+        torch.cuda.synchronize()
+        launches[arm] = {k: v for k, v in _build.launches.items() if v}
+    for fused, stock in (("FusedLayerNorm", "stock LayerNorm"),
+                         ("FusedRMSNorm", "stock RMSNorm")):
+        check(launches[fused] == {"layer_norm_fwd": n_apps,
+                                  "layer_norm_bwd": n_apps},
+              f"{fused} microbench launches {launches[fused]}")
+        check(not launches[stock], f"{stock} launched {launches[stock]}")
+    rel = {}
+    for fused, stock in (("FusedLayerNorm", "stock LayerNorm"),
+                         ("FusedRMSNorm", "stock RMSNorm")):
+        names = ["x", "scale", "bias", "W1", "W2"] if "Layer" in fused \
+            else ["x", "scale", "W1", "W2"]
+        for n, a, r in zip(names, grads[fused], grads[stock]):
+            check(bool(torch.isfinite(a).all()), f"{fused} d{n} not finite")
+            rel[f"{fused} d{n}"] = ((a.float() - r.float()).norm()
+                                    / r.float().norm()).item()
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= 2e-2, f"norm microbench: {worst} differs from the "
+          f"stock arm by {rel[worst]} of its norm")
+    del grads
+    order = list(arms) + list(reversed(arms))
+    ms = {arm: [] for arm in arms}
+    dev_ms = {arm: [] for arm in arms}
+    kernels = {}
+    for arm in order:
+        ms[arm].append(time_ms(lambda: run(arm), iters=iters, warmup=1,
+                               graph=False))
+        t, kernels[arm] = device_ms(lambda: run(arm))
+        dev_ms[arm].append(t)
+
+    def mean(v):
+        return sum(v) / len(v)
+
+    rec = dict(card=card, rows=N, hidden=H, applications=n_apps,
+               ms_per_call=ms, device_ms_per_call=dev_ms,
+               kernel_launches_per_call=kernels, grad_rel_diff=rel,
+               launches=launches)
+    for fused, stock in (("FusedLayerNorm", "stock LayerNorm"),
+                         ("FusedRMSNorm", "stock RMSNorm")):
+        rec[f"{fused} speedup"] = mean(ms[stock]) / mean(ms[fused])
+        rec[f"{fused} device speedup"] = (mean(dev_ms[stock])
+                                          / mean(dev_ms[fused]))
+    print(f"[norm microbench] {card}: ({N}, {H}) bf16 x {n_apps} x (norm "
+          f"-> W1 -> GELU -> W2 + residual), fwd + bwd | wall ms per call "
+          f"{ {a: [round(t, 3) for t in v] for a, v in ms.items()} } | "
+          f"device ms per call "
+          f"{ {a: [round(t, 3) for t in v] for a, v in dev_ms.items()} } | "
+          f"kernel launches per call {kernels} | speedup over stock (wall, "
+          f"device): LayerNorm {rec['FusedLayerNorm speedup']:.3f}x, "
+          f"{rec['FusedLayerNorm device speedup']:.3f}x; RMSNorm "
+          f"{rec['FusedRMSNorm speedup']:.3f}x, "
+          f"{rec['FusedRMSNorm device speedup']:.3f}x | gradients vs stock, "
+          f"worst {worst} at {rel[worst]:.3g} of its norm (tol 2e-2) | "
+          f"counted launches {launches['FusedLayerNorm']}", flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+# AlphaFold2's initial training (Jumper et al. 2021, Supplementary
+# Information 1.11 and Algorithm 7): crop 256 residues, 128 MSA clusters,
+# c_m 256, c_z 128, MSA row-wise gated self-attention with pair bias, 8
+# heads of 32
+EVOFORMER = dict(n_res=256, n_seq=128, c_m=256, c_z=128, heads=8, dh=32)
+# one tier step (forward, backward, FusedAdamSWA) on the card: the MSA and
+# pair LayerNorms (B2 forward, B1 backward), the masked pair-bias softmax
+# (pre-folded boolean mask: B6, and B8 backward; no B7)
+OPENFOLD_STEP_LAUNCHES = {"layer_norm_fwd": 2, "layer_norm_bwd": 2,
+                          "softmax_fwd": 1, "softmax_bwd": 1}
+
+
+def openfold_params(torch, c_m, c_z, heads, dh, dtype, dev, seed):
+    """The row attention's params from ``seed``: fp32 LayerNorm params
+    (the amp-O2 mixed layout), the projections in ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+    hd = heads * dh
+
+    def lin(i, o):
+        return (torch.randn(i, o, generator=g) * i ** -0.5).to(dtype)
+
+    p = dict(ln_m_w=torch.rand(c_m, generator=g) + 0.5,
+             ln_m_b=torch.randn(c_m, generator=g) * 0.1,
+             ln_z_w=torch.rand(c_z, generator=g) + 0.5,
+             ln_z_b=torch.randn(c_z, generator=g) * 0.1,
+             w_q=lin(c_m, hd), w_k=lin(c_m, hd), w_v=lin(c_m, hd),
+             w_g=lin(c_m, hd), b_g=torch.ones(hd).to(dtype),
+             w_b=lin(c_z, heads), w_o=lin(hd, c_m),
+             b_o=torch.zeros(c_m).to(dtype))
+    return {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+
+
+def openfold_block(torch, p, m, z, mask, heads, dh):
+    """MSA row-wise gated self-attention with pair bias (AlphaFold2
+    Algorithm 7) on the port's OpenFold tier: LayerNorm of the MSA and the
+    pair representations, q/k/v/gate projections, the pair bias from the
+    normalized pair, ``gated_attention`` with the MSA mask, the output
+    projection."""
+    from apex_tpu_torch.contrib.openfold import gated_attention, layer_norm
+
+    B, s, N, _ = m.shape
+    mn = layer_norm(m, p["ln_m_w"], p["ln_m_b"])
+    zn = layer_norm(z, p["ln_z_w"], p["ln_z_b"])
+
+    def split(t):
+        return t.view(B, s, N, heads, dh).permute(0, 1, 3, 2, 4)
+
+    q, k, v = split(mn @ p["w_q"]), split(mn @ p["w_k"]), split(mn @ p["w_v"])
+    gate = split(mn @ p["w_g"] + p["b_g"])
+    bias = (zn @ p["w_b"]).permute(0, 3, 1, 2).unsqueeze(1)
+    o = gated_attention(q, k, v, gate, bias=bias, mask=mask,
+                        scale=dh ** -0.5)
+    o = o.permute(0, 1, 3, 2, 4).reshape(B, s, N, heads * dh)
+    return o @ p["w_o"] + p["b_o"]
+
+
+def openfold_inputs(torch, n_res, n_seq, c_m, c_z, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    m = torch.randn(1, n_seq, n_res, c_m, generator=g).to(dtype).to(dev)
+    z = torch.randn(1, n_res, n_res, c_z, generator=g).to(dtype).to(dev)
+    # padding: the last eighth of the residues of every other cluster
+    mask = torch.zeros(1, n_seq, 1, 1, n_res, dtype=torch.bool)
+    mask[:, 1::2, ..., n_res - n_res // 8:] = True
+    gout = torch.randn(1, n_seq, n_res, c_m, generator=g).to(dev)
+    return m, z, mask.to(dev), gout
+
+
+def openfold_step(torch, opt, p, m, z, mask, gout, heads, dh):
+    """One tier step: forward, backward, FusedAdamSWA. Returns the loss
+    and the gradients (before the step) by param name."""
+    opt.zero_grad()
+    out = openfold_block(torch, p, m, z, mask, heads, dh)
+    loss = (out.float() * gout).sum()
+    loss.backward()
+    grads = {n: t.grad.detach().float().clone() for n, t in p.items()}
+    opt.step()
+    return loss.detach(), grads
+
+
+def openfold_card_vs_cpu(torch, dev, seed):
+    """The tier at the Evoformer widths and a cut size (64 residues, 16
+    clusters), fp32, two FusedAdamSWA steps on the card and on the port's
+    CPU path, held as :func:`compare_card_cpu` says; the SWA average is
+    held with the params (after two steps it has blended once). A param
+    whose gradient is 0 to rounding (the pair LayerNorm's bias: through
+    ``w_b`` it adds one constant per head to all of a row's scores, which
+    softmax ignores) is left out of the steps as of the gradients: Adam
+    moves it by lr either way on the sign of the rounding noise."""
+    from apex_tpu_torch.contrib.openfold import FusedAdamSWA
+
+    e = dict(EVOFORMER, n_res=64, n_seq=16)
+    res = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        p = openfold_params(torch, e["c_m"], e["c_z"], e["heads"], e["dh"],
+                            torch.float32, d, seed + 70)
+        m, z, mask, gout = openfold_inputs(torch, e["n_res"], e["n_seq"],
+                                           e["c_m"], e["c_z"], torch.float32,
+                                           d, seed + 71)
+        opt = FusedAdamSWA(list(p.values()), lr=1e-3, swa_decay_rate=0.9)
+        before = {n: t.detach().cpu().clone() for n, t in p.items()}
+        loss, grads = openfold_step(torch, opt, p, m, z, mask, gout,
+                                    e["heads"], e["dh"])
+        openfold_step(torch, opt, p, m, z, mask, gout, e["heads"], e["dh"])
+        after = {n: t.detach().cpu() for n, t in p.items()}
+        for n, s in zip(p, opt.swa_params()):
+            after[f"swa {n}"] = s.cpu()
+            before[f"swa {n}"] = before[n]
+        res[where] = (loss.item(), before,
+                      {n: t.cpu() for n, t in grads.items()}, after)
+    gh = res["cpu"][2]
+    global_norm = sum(g.norm().item() ** 2 for g in gh.values()) ** 0.5
+    for n, g in gh.items():
+        if g.norm().item() <= 1e-6 * global_norm:
+            for _, before, _, after in res.values():
+                for key in (n, f"swa {n}"):
+                    del before[key], after[key]
+    return compare_card_cpu(res, "OpenFold tier, fp32, 64 residues, 16 "
+                            "clusters, 2 FusedAdamSWA steps")
+
+
+def openfold_tier(torch, dev, seed, card, steps=3, e=EVOFORMER):
+    """The tier at ``EVOFORMER`` in bf16 (fp32 LayerNorm params, fp32
+    FusedAdamSWA masters): a first step, whose average must equal the
+    masters (the first-step copy), then ``steps`` counted steps, each
+    launching ``OPENFOLD_STEP_LAUNCHES``; loss, gradients and the average
+    finite. Host clock per step, the device synchronized after each."""
+    import math
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.contrib.openfold import FusedAdamSWA
+
+    p = openfold_params(torch, e["c_m"], e["c_z"], e["heads"], e["dh"],
+                        torch.bfloat16, dev, seed + 72)
+    m, z, mask, gout = openfold_inputs(torch, e["n_res"], e["n_seq"],
+                                       e["c_m"], e["c_z"], torch.bfloat16,
+                                       dev, seed + 73)
+    opt = FusedAdamSWA(list(p.values()), lr=1e-3, master_weights=True,
+                       swa_decay_rate=0.9)
+    openfold_step(torch, opt, p, m, z, mask, gout, e["heads"], e["dh"])
+    st = opt.swa_state()
+    check(all(torch.equal(a, b) for a, b in zip(st.swa, st.master)),
+          "FusedAdamSWA: the first step's average is not the masters")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        loss, grads = openfold_step(torch, opt, p, m, z, mask, gout,
+                                    e["heads"], e["dh"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    launches = {k: v for k, v in _build.launches.items() if v}
+    check(launches == {k: v * steps
+                       for k, v in OPENFOLD_STEP_LAUNCHES.items()},
+          f"OpenFold tier launches {launches} in {steps} steps, expected "
+          f"{OPENFOLD_STEP_LAUNCHES} per step")
+    check(all(math.isfinite(x) for x in losses), f"OpenFold losses {losses}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "OpenFold tier: a gradient is not finite")
+    check(all(bool(torch.isfinite(s).all()) for s in opt.swa_params()),
+          "OpenFold tier: the SWA average is not finite")
+    ms = sorted(t * 1e3 for t in times)
+    peak = torch.cuda.max_memory_allocated()
+    busy, kernels = device_ms(lambda: openfold_step(
+        torch, opt, p, m, z, mask, gout, e["heads"], e["dh"]))
+    rec = dict(card=card, shapes=e, msa=[1, e["n_seq"], e["n_res"], e["c_m"]],
+               pair=[1, e["n_res"], e["n_res"], e["c_z"]],
+               step_ms=ms, step_ms_median=ms[len(ms) // 2],
+               device_ms_per_step=busy, kernel_launches_per_step=kernels,
+               losses=losses, peak_memory_bytes=peak, launches=launches)
+    print(f"[OpenFold tier] {card}: MSA {rec['msa']} pair {rec['pair']} "
+          f"bf16, {e['heads']} heads of {e['dh']}, pair bias + MSA mask, "
+          f"FusedAdamSWA | step ms {', '.join(f'{x:.2f}' for x in ms)} | "
+          f"device ms per step {busy:.3f} ({kernels:.0f} kernels) | peak "
+          f"memory {peak / 2**30:.2f} GiB | launches {launches}", flush=True)
+    del p, opt, m, z, gout
+    torch.cuda.empty_cache()
+    return rec
 
 
 def kernel_entry(name, source, replaces, rows, main, launches):
@@ -1801,6 +2247,8 @@ def main(argv=None):
     paged_rows = timed("phase 1 B14", phase1_paged, torch, F, dev, seed)
     dq_rows = timed("phase 1 B15", phase1_dequant, torch, dev, seed)
     ln_rows = timed("phase 1 B1", phase1_layer_norm, torch, dev, seed)
+    ln_fwd_rows = timed("phase 1 B2", phase1_layer_norm_fwd, torch, F, dev,
+                        seed)
     drop_rows = timed("phase 1 B3", phase1_dropout, torch, F, dev, seed)
     fwd_rows, bwd_rows = timed("phase 1 B4/B5", phase1_flash, torch, F, dev,
                                seed)
@@ -1817,19 +2265,35 @@ def main(argv=None):
         "phase 5 card vs CPU", card_vs_cpu_gpt, torch, dev, seed)
     gpt = timed("phase 5", phase5, torch, dev, seed, card)
     mha = timed("phase 6", phase6, torch, dev, seed, card)
+    norm_bench = timed("phase 7 norm microbench", norm_microbench, torch, F,
+                       dev, seed, card)
+    checks["card_vs_cpu_openfold"] = timed(
+        "phase 7 OpenFold card vs CPU", openfold_card_vs_cpu, torch, dev,
+        seed)
+    openfold = timed("phase 7 OpenFold tier", openfold_tier, torch, dev,
+                     seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
-    # in the three training phases; B10/B12 on the contrib modules' path)
+    # in the three training phases, B2 and B1 also on the contrib modules'
+    # path and in phase 7; B10/B12 on the contrib modules' path)
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in ("paged_read", "dequant_gemm")}
     launches.update({k: sum(t["launches"][k] for t in (train, train128, gpt))
-                     for k in ("layer_norm_bwd", "dropout", "flash_fwd",
+                     for k in ("dropout", "flash_fwd",
                                "flash_bwd", "softmax_fwd", "softmax_fwd4",
                                "softmax_bwd", "flash_fwd_tiled",
                                "flash_bwd_dq_tiled", "flash_bwd_dkv_tiled",
                                "keep_mask")})
     for k in ("flash_fwd_single", "flash_bwd_single"):
         launches[k] = sum(r["launches"].get(k, 0) for r in mha.values())
+    for k in ("layer_norm_fwd", "layer_norm_bwd"):
+        launches[k] = (
+            sum(t["launches"][k] for t in (train, train128, gpt))
+            + sum(r["launches"].get(k, 0) for r in mha.values())
+            + sum(a.get(k, 0) for a in norm_bench["launches"].values())
+            + openfold["launches"].get(k, 0))
+    launches["softmax_fwd"] += openfold["launches"].get("softmax_fwd", 0)
+    launches["softmax_bwd"] += openfold["launches"].get("softmax_bwd", 0)
     kernels = [
         kernel_entry("paged_read", "apex_tpu_torch/csrc/paged_read.cu",
                      "apex_tpu/ops/paged_attention_pallas.py:106",
@@ -1842,6 +2306,9 @@ def main(argv=None):
         kernel_entry("layer_norm_bwd", "apex_tpu_torch/csrc/layer_norm_bwd.cu",
                      "apex_tpu/ops/layer_norm.py:108", ln_rows, ln_rows[0],
                      launches["layer_norm_bwd"]),
+        kernel_entry("layer_norm_fwd", "apex_tpu_torch/csrc/layer_norm_fwd.cu",
+                     "apex_tpu/ops/layer_norm.py:84", ln_fwd_rows,
+                     ln_fwd_rows[0], launches["layer_norm_fwd"]),
         kernel_entry("dropout", "apex_tpu_torch/csrc/dropout.cu",
                      "apex_tpu/ops/dropout.py:46", drop_rows, drop_rows[0],
                      launches["dropout"]),
@@ -1878,10 +2345,12 @@ def main(argv=None):
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, seed=args.seed, paged_read=paged_rows,
-        dequant_gemm=dq_rows, layer_norm_bwd=ln_rows, dropout=drop_rows,
+        dequant_gemm=dq_rows, layer_norm_bwd=ln_rows,
+        layer_norm_fwd=ln_fwd_rows, dropout=drop_rows,
         flash_fwd=fwd_rows, flash_bwd=bwd_rows, softmax=sm_rows,
         flash_tiled=tiled, engine=runs, train=train, train_s128=train128,
-        train_gpt=gpt, contrib_mha=mha, checks=checks, phase_s=phase_s,
+        train_gpt=gpt, contrib_mha=mha, norm_microbench=norm_bench,
+        openfold=openfold, checks=checks, phase_s=phase_s,
         kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

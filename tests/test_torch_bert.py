@@ -188,13 +188,14 @@ def test_launch_counts_of_one_training_step(monkeypatch):
     """The kernels a training step reaches, counted through their CPU
     plain versions on a remat model of L layers: B3 runs 1 + 2L times
     forward, 2L more in the recompute and 1 + 2L replays; B4 L + L; B5 L;
-    B1 2L + 2 (every LayerNorm, including the MLM head's). BERT-large
-    (L = 24) gives 146, 48, 24 and 50."""
+    B1 2L + 2 (every LayerNorm, including the MLM head's); B2 2L + 2 and
+    again 2L in the recompute. BERT-large (L = 24) gives 146, 48, 24, 50
+    and 98."""
     import apex_tpu_torch.ops.dropout as dmod
     import apex_tpu_torch.ops.flash_attention as fmod
     import apex_tpu_torch.ops.layer_norm as lmod
 
-    counts = {"B1": 0, "B3": 0, "B4": 0, "B5": 0}
+    counts = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
 
     def counting(mod, name, key):
         fn = getattr(mod, name)
@@ -205,6 +206,7 @@ def test_launch_counts_of_one_training_step(monkeypatch):
         monkeypatch.setattr(mod, name, wrapped)
 
     counting(lmod, "layer_norm_backward_plain", "B1")
+    counting(lmod, "layer_norm_forward_plain", "B2")
     counting(dmod, "dropout_plain", "B3")
     counting(fmod, "flash_attention_bsh_plain", "B4")
     counting(fmod, "flash_attention_bsh_backward_plain", "B5")
@@ -218,8 +220,8 @@ def test_launch_counts_of_one_training_step(monkeypatch):
     b, _ = _batch(cfg)
     loss, overflow = step(b)
     assert np.isfinite(loss.item()) and not overflow
-    assert counts == {"B1": 2 * L + 2, "B3": 3 * (2 * L + 1) - 1,
-                      "B4": 2 * L, "B5": L}
+    assert counts == {"B1": 2 * L + 2, "B2": 4 * L + 2,
+                      "B3": 3 * (2 * L + 1) - 1, "B4": 2 * L, "B5": L}
 
 
 def test_unported_paths_raise():
@@ -247,13 +249,14 @@ def test_launch_counts_of_one_composed_global_step(monkeypatch):
     remat, ``accum_steps`` microbatches. Per microbatch B6 runs 2L times
     (forward and recompute), B8 L times, B3 1 + 3L + 3L + (1 + 3L) (the
     attention probabilities are a dropout site now), B1 2L + 2, and no
-    flash kernel. BERT-large (L = 24) gives 48, 24, 218 and 50."""
+    flash kernel, B2 4L + 2 (every LayerNorm, and the layers' again in the
+    recompute). BERT-large (L = 24) gives 48, 24, 218, 50 and 98."""
     import apex_tpu_torch.ops.dropout as dmod
     import apex_tpu_torch.ops.flash_attention as fmod
     import apex_tpu_torch.ops.layer_norm as lmod
     import apex_tpu_torch.ops.softmax as smod
 
-    counts = dict.fromkeys(("B1", "B3", "B4", "B5", "B6", "B8"), 0)
+    counts = dict.fromkeys(("B1", "B2", "B3", "B4", "B5", "B6", "B8"), 0)
 
     def counting(mod, name, key):
         fn = getattr(mod, name)
@@ -264,6 +267,7 @@ def test_launch_counts_of_one_composed_global_step(monkeypatch):
         monkeypatch.setattr(mod, name, wrapped)
 
     counting(lmod, "layer_norm_backward_plain", "B1")
+    counting(lmod, "layer_norm_forward_plain", "B2")
     counting(dmod, "dropout_plain", "B3")
     counting(fmod, "flash_attention_bsh_plain", "B4")
     counting(fmod, "flash_attention_bsh_backward_plain", "B5")
@@ -281,6 +285,7 @@ def test_launch_counts_of_one_composed_global_step(monkeypatch):
                                    accum_steps=accum)
     _, metrics = ts(ts.init(), batch)
     assert np.isfinite(metrics["loss"].item()) and not metrics["skipped"]
-    assert counts == {"B1": accum * (2 * L + 2), "B3": accum * (9 * L + 2),
+    assert counts == {"B1": accum * (2 * L + 2), "B2": accum * (4 * L + 2),
+                      "B3": accum * (9 * L + 2),
                       "B4": 0, "B5": 0, "B6": accum * 2 * L,
                       "B8": accum * L}

@@ -610,3 +610,153 @@ def test_keep_mask_kernel_matches_plain_bit_for_bit(cuda_device, shape):
                                         4321)
         ref = mha_with_mask_reference(q, k, v, keep, mask, True, 0.125, 0.1)
         assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+# -- kernel B2: the LayerNorm / RMSNorm forward -------------------------------
+
+from apex_tpu_torch.contrib import openfold  # noqa: E402
+from apex_tpu_torch.normalization import (  # noqa: E402
+    FusedLayerNorm,
+    FusedRMSNorm,
+)
+from apex_tpu_torch.ops.layer_norm import (  # noqa: E402
+    _plain_forward,
+    layer_norm_forward,
+    layer_norm_forward_kernel,
+    layer_norm_forward_plain,
+)
+from torch_parity import assert_within_bf16_ulp  # noqa: E402
+
+
+def test_forward_wrapper_refuses_what_the_kernel_does_not_take():
+    x = torch.randn(4, 64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        layer_norm_forward_kernel(x.half(), torch.ones(64))
+    with pytest.raises(ValueError, match="weight"):
+        layer_norm_forward_kernel(x, torch.ones(63))
+    with pytest.raises(ValueError, match="bias"):
+        layer_norm_forward_kernel(x, torch.ones(64), torch.zeros(2, 32))
+    with pytest.raises(ValueError, match="no columns"):
+        layer_norm_forward_kernel(torch.randn(4, 0), torch.ones(0))
+
+
+def _check_b2(y, ref, dtype):
+    """B2 against its plain version: fp32 within rtol = atol = 1e-5 (the
+    moments summed in another order; atol for outputs near 0), bf16
+    within one bf16 ulp (both round fp32 values that agree to rounding)."""
+    assert y.dtype == ref.dtype == dtype and y.shape == ref.shape
+    if dtype == torch.float32:
+        assert_close(y, ref, atol=1e-5, rtol=1e-5)
+    else:
+        assert_within_bf16_ulp(y, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [64, 128, 768, 1000, 1024, 4096, 12288])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_fwd_kernel_matches_plain(cuda_device, dtype, rms,
+                                             with_bias, H):
+    """Kernel B2 against its plain version over both dtypes, LayerNorm and
+    RMSNorm, with and without a bias, at H from 64 (a warp per row, half
+    its lanes idle) through 1000 (a width not a multiple of 256), 4096 (a
+    block per row) to 12288 (the strided loop), on an odd row count (257,
+    or 37 at the widest). Deterministic: two launches agree bit for
+    bit."""
+    rows = 37 if H > 4096 else 257
+    gen = torch.Generator().manual_seed(H)
+    x = (torch.randn(rows, H, generator=gen) * 2 + 0.5).to(dtype)
+    w = torch.rand(H, generator=gen) + 0.5
+    b = torch.randn(H, generator=gen) if with_bias else None
+    xd, wd = x.to(cuda_device), w.to(cuda_device)
+    bd = None if b is None else b.to(cuda_device)
+    before = _build.launches["layer_norm_fwd"]
+    y = layer_norm_forward(xd, wd, bd, 1e-5, rms)
+    again = layer_norm_forward_kernel(xd, wd, bd, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert _build.launches["layer_norm_fwd"] == before + 2
+    _check_b2(y, layer_norm_forward_plain(xd, wd, bd, 1e-5, rms), dtype)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [1001, 1024, 2000])
+def test_layer_norm_fwd_kernel_takes_unaligned_rows(cuda_device, dtype, H):
+    """An H not a multiple of eight, and rows starting one element past a
+    16-byte boundary, take the scalar loads; leading dims are flattened."""
+    gen = torch.Generator().manual_seed(7)
+    buf = torch.randn(3 * 5 * H + 1, generator=gen).to(dtype).to(cuda_device)
+    x = buf[1:].view(3, 5, H)
+    w = (torch.rand(H, generator=gen) + 0.5).to(cuda_device)
+    b = torch.randn(H, generator=gen).to(cuda_device)
+    y = layer_norm_forward_kernel(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    _check_b2(y, layer_norm_forward_plain(x, w, b, 1e-5), dtype)
+
+
+@pytest.mark.gpu
+def test_differentiated_norms_run_b2_and_b1(cuda_device):
+    """By the launch counters: a differentiated FusedLayerNorm or
+    FusedRMSNorm runs B2 forward and B1 backward, and its output is the
+    reference formula's within one bf16 ulp; an fp32 call under
+    ``no_grad`` takes the serving forward and no kernel."""
+    ln = FusedLayerNorm(1024)
+    rms = FusedRMSNorm(1024)
+    assert ln.scale.device.type == rms.scale.device.type == "cuda"
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 128, 1024, generator=gen).to(torch.bfloat16)
+    x = x.to(cuda_device)
+    for mod, is_rms in ((ln, False), (rms, True)):
+        before = dict(_build.launches)
+        xg = x.detach().requires_grad_(True)
+        y = mod(xg)
+        y.float().sum().backward()
+        torch.cuda.synchronize()
+        fwd = _build.launches["layer_norm_fwd"] - before["layer_norm_fwd"]
+        bwd = _build.launches["layer_norm_bwd"] - before["layer_norm_bwd"]
+        assert (fwd, bwd) == (1, 1)
+        with torch.no_grad():
+            ref = _plain_forward(x, mod.scale, getattr(mod, "bias", None),
+                                 mod.eps, is_rms)
+        assert_within_bf16_ulp(y, ref)
+    before = _build.launches["layer_norm_fwd"]
+    with torch.no_grad():
+        ln(x.float())
+    assert _build.launches["layer_norm_fwd"] == before
+
+
+@pytest.mark.gpu
+def test_openfold_tier_on_the_card(cuda_device):
+    """The Evoformer path on the card launches B2 and B1 for the pair
+    LayerNorm and B6/B8 (no B7) for the masked bias softmax of gated
+    attention, and agrees with the CPU (fp32; 1e-4 of each tensor's
+    largest entry: fp32 sums in other orders)."""
+    gen = torch.Generator().manual_seed(3)
+    B, s, H, N, D = 1, 4, 8, 64, 32
+    z = torch.randn(B, N, N, 128, generator=gen)
+    w = torch.rand(128, generator=gen) + 0.5
+    b = torch.randn(128, generator=gen)
+    q, k, v, gate = (torch.randn(B, s, H, N, D, generator=gen)
+                     for _ in range(4))
+    bias = torch.randn(B, 1, H, N, N, generator=gen) * 0.1
+    mask = torch.rand(B, s, 1, 1, N, generator=gen) > 0.8
+    res = {}
+    for dev in ("cpu", cuda_device):
+        ts = [t.detach().to(dev).requires_grad_(True)
+              for t in (z, w, b, q, k, v, gate, bias)]
+        before = dict(_build.launches)
+        zn = openfold.layer_norm(*ts[:3])
+        o = openfold.gated_attention(*ts[3:], mask=mask.to(dev),
+                                     scale=D ** -0.5)
+        (zn.sum() + (o * o).sum()).backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            got = {n: _build.launches[n] - before[n] for n in before}
+            assert {n: c for n, c in got.items() if c} == {
+                "layer_norm_fwd": 1, "layer_norm_bwd": 1, "softmax_fwd": 1,
+                "softmax_bwd": 1}
+        res[str(dev)] = [zn, o] + [t.grad for t in ts]
+    for a, r in zip(res[str(cuda_device)], res["cpu"]):
+        assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=1e-4)

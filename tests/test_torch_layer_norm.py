@@ -48,7 +48,7 @@ def test_module_matches_jax_module():
     jax_params = {"params": {"scale": jnp.asarray(w), "bias": jnp.asarray(b)}}
     ref = JaxFusedLayerNorm(normalized_shape=64).apply(jax_params,
                                                        jnp.asarray(x))
-    ln = FusedLayerNorm(64)
+    ln = FusedLayerNorm(64, device="cpu")
     with torch.no_grad():
         ln.scale.copy_(to_torch(w))
         ln.bias.copy_(to_torch(b))
@@ -125,7 +125,7 @@ def test_module_takes_the_training_path_only_under_autograd():
     fp32 affine on a bf16 input, output bf16, fp32 param grads); under
     no_grad it keeps the serving forward."""
     x, w, b = _data((4, 64), seed=3)
-    ln = FusedLayerNorm(64)
+    ln = FusedLayerNorm(64, device="cpu")
     with torch.no_grad():
         ln.scale.copy_(to_torch(w))
         ln.bias.copy_(to_torch(b))

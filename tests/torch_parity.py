@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from apex_tpu_torch.ops._common import bf16_ulps
+
 torch.set_num_threads(1)
 
 
@@ -29,3 +31,15 @@ def assert_close(actual, expected, atol, rtol):
     e = expected.detach().cpu().float().numpy() if isinstance(
         expected, torch.Tensor) else np.asarray(expected, np.float32)
     np.testing.assert_allclose(a, e, atol=atol, rtol=rtol)
+
+
+def assert_within_bf16_ulp(actual, expected, floor=2.0 ** -8):
+    """``|actual - expected|`` within one bf16 ulp of the larger of the
+    two (each a bf16 rounding of fp32 values that agree to rounding)."""
+    a = torch.as_tensor(np.asarray(actual, np.float32)) if not isinstance(
+        actual, torch.Tensor) else actual.detach().cpu().float()
+    e = torch.as_tensor(np.asarray(expected, np.float32)) if not isinstance(
+        expected, torch.Tensor) else expected.detach().cpu().float()
+    worst = bf16_ulps(a, e, floor)
+    assert worst <= 1.0, f"{worst:.3g} bf16 ulps apart (max abs " \
+                         f"{(a - e).abs().max().item():.3g})"

@@ -6,6 +6,7 @@ BERT-large pretraining, or GPT-2 small.
         [--batch 16] [--seq 512] [--accum N] [--flash-min-seq 256 [128]]
     python3 tools/profile_port_train.py --model gpt [--seed N] [--steps N]
         [--batch 8] [--seq 1024] [--accum 4]
+    python3 tools/profile_port_train.py [--model gpt] --ln-fwd plain b2 ...
 
 Builds BERT-large (``BertConfig()``: 24 layers, hidden 1024, 16 heads,
 vocab 30522, dropouts 0.1; bf16, remat) with amp O2 and FusedLAMB(lr 1e-4,
@@ -43,6 +44,14 @@ Prints one JSON summary per arm and writes them, with each arm's Chrome
 trace, to ``chiprun_out/profile_port_train[_gpt].json`` and
 ``chiprun_out/profile_port_train_trace_<flash_min_seq | gpt>.json.gz``.
 
+With ``--ln-fwd ARM ...`` (``plain`` or ``b2``, e.g. ``plain b2 b2
+plain``) one arm is built once and measured once per listed arm, in the
+order given: the differentiated LayerNorm forward is kernel B2 (``b2``,
+the port's own) or, swapped in for that arm alone and restored after it,
+the fp32 reference formula (``plain``: ``F.layer_norm`` in fp32 for
+LayerNorm), the backward B1 in both. The summaries go to
+``chiprun_out/profile_port_train_ln_fwd_<bert | gpt>.json``.
+
     python3 tools/profile_port_train.py --flash-trees NAME=PATH ...
         [--order a,b,b,a]
 
@@ -68,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -85,6 +95,7 @@ _FLASH_GROUPS = {
             ("flash_bwd_dq", "flash_bwd_dq_tiled (B11a)"),
             ("flash_bwd_dkdv", "flash_bwd_dkv_tiled (B11b)"))}
 _GROUPS = (("ln_bwd", "layer_norm_bwd (B1)"),
+           ("ln_fwd", "layer_norm_fwd (B2)"),
            ("softmax_fwd", "softmax_fwd (B6/B7)"),
            ("softmax_bwd", "softmax_bwd (B8)"),
            ("dropout_kernel", "dropout (B3)"),
@@ -261,12 +272,38 @@ def _step_fn(args, flash_min_seq, torch):
     return run, args.batch * args.accum
 
 
-def profile_arm(args, flash_min_seq, card, torch, out):
+@contextlib.contextmanager
+def _ln_forward(arm):
+    """The differentiated LayerNorm forward while one arm is measured:
+    kernel B2 (``b2`` or None) or the fp32 reference formula (``plain``),
+    put back as it was when the arm ends."""
+    import apex_tpu_torch.ops.layer_norm as lmod
+
+    kept = lmod.layer_norm_forward
+    if arm == "plain":
+        lmod.layer_norm_forward = lmod._plain_forward
+    try:
+        yield
+    finally:
+        lmod.layer_norm_forward = kept
+
+
+def profile_arm(args, flash_min_seq, card, torch, out, built=None,
+                ln_fwd=None):
+    """One arm's summary. ``built``: the arm's (step, samples) when it is
+    measured more than once; ``ln_fwd``: the differentiated LayerNorm
+    forward to measure it with (``plain`` or ``b2``, by default B2)."""
+    step, samples = built or _step_fn(args, flash_min_seq, torch)
+    with _ln_forward(ln_fwd):
+        return _measure(args, flash_min_seq, card, torch, out, step,
+                        samples, ln_fwd)
+
+
+def _measure(args, flash_min_seq, card, torch, out, step, samples, ln_fwd):
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch import _build
 
-    step, samples = _step_fn(args, flash_min_seq, torch)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -296,8 +333,9 @@ def profile_arm(args, flash_min_seq, card, torch, out):
     busy_ms = sum(by_group.values())
     n = args.steps
     tag = "gpt" if args.model == "gpt" else flash_min_seq
-    prof.export_chrome_trace(
-        str(out / f"profile_port_train_trace_{tag}.json.gz"))
+    if ln_fwd is None:
+        prof.export_chrome_trace(
+            str(out / f"profile_port_train_trace_{tag}.json.gz"))
     if args.model == "gpt":
         attention = "tiled flash (B9/B11a/B11b)"
     elif args.seq >= flash_min_seq:
@@ -307,6 +345,7 @@ def profile_arm(args, flash_min_seq, card, torch, out):
     return dict(
         card=card, model=args.model, batch=args.batch, seq=args.seq,
         accum=args.accum, flash_min_seq=flash_min_seq, attention=attention,
+        ln_fwd=ln_fwd or "b2",
         steps=n, samples_per_step=samples,
         tokens_per_s=samples * args.seq * n / wall,
         wall_ms_per_step=wall * 1e3 / n,
@@ -335,6 +374,9 @@ def main(argv=None):
                     help="time the flash kernels of these checkouts only")
     ap.add_argument("--order", default=None,
                     help="comma-separated tree names (default: a,b,...,b,a)")
+    ap.add_argument("--ln-fwd", nargs="+", choices=("plain", "b2"),
+                    help="measure one arm once per listed differentiated "
+                    "LayerNorm forward, in this order")
     args = ap.parse_args(argv)
     gpt = args.model == "gpt"
     if args.batch is None:
@@ -362,6 +404,20 @@ def main(argv=None):
         return
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
+    if args.ln_fwd:
+        fms = None if gpt else args.flash_min_seq[0]
+        built = _step_fn(args, fms, torch)
+        arms = []
+        for arm in args.ln_fwd:
+            arms.append(profile_arm(args, fms, card, torch, out, built, arm))
+            print(json.dumps({k: arms[-1][k] for k in (
+                "ln_fwd", "wall_ms_per_step", "device_busy_ms_per_step",
+                "device_idle_share", "device_ms_per_step",
+                "kernel_launch_counters_per_step")}, indent=1), flush=True)
+        name = "gpt" if gpt else "bert"
+        (out / f"profile_port_train_ln_fwd_{name}.json").write_text(
+            json.dumps(arms, indent=1))
+        return
     arms = []
     for fms in ([None] if gpt else args.flash_min_seq):
         arms.append(profile_arm(args, fms, card, torch, out))
