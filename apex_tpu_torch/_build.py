@@ -13,7 +13,8 @@ Each C entry point launches on the stream it is given and returns
 
 The launch counters live here too: every wrapper adds one to its
 kernel's count where it launches, and nowhere else, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. A call that a wrapper routes
+to its plain version on the card is counted under ``<kernel>_plain``.
 """
 
 from __future__ import annotations
@@ -31,13 +32,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-# launches per kernel, read by InferenceEngine.stats() and chip_smoke.py
+# launches per kernel, read by InferenceEngine.stats() and chip_smoke.py;
+# the ``*_plain`` keys count calls on card tensors that a wrapper routes, by
+# shape or dtype, to its plain version because its kernel does not take
+# them (as the JAX package falls back to jnp or XLA there)
 launches = {"paged_read": 0, "dequant_gemm": 0, "layer_norm_fwd": 0,
             "layer_norm_bwd": 0, "dropout": 0, "flash_fwd": 0,
             "flash_bwd": 0, "softmax_fwd": 0, "softmax_fwd4": 0,
             "softmax_bwd": 0, "flash_fwd_tiled": 0, "flash_bwd_dq_tiled": 0,
             "flash_bwd_dkv_tiled": 0, "flash_fwd_single": 0,
-            "flash_bwd_single": 0, "keep_mask": 0}
+            "flash_bwd_single": 0, "keep_mask": 0, "flash_plain": 0,
+            "layer_norm_bwd_plain": 0, "paged_read_plain": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -8,7 +8,7 @@
 // kernels apply, so that a composed reference can use it.
 //
 // Computes y[i] = bits(seed, i) < threshold ? T(float(x[i]) * scale) : 0
-// for a contiguous fp32 or bf16 tensor, where bits(seed, i) is element i
+// for a contiguous fp32, bf16 or fp16 tensor, where bits(seed, i) is element i
 // of the Philox4x32-10 stream (csrc/philox.cuh), threshold is
 // keep_threshold(rate) and scale is 1 / (1 - rate) already rounded to T
 // by the caller (the JAX kernel multiplies by the weakly typed Python
@@ -23,33 +23,18 @@
 //
 // Design: a grid-stride loop over groups of four elements; one Philox call
 // gives the four elements' bits. Where the tensor is 16-byte aligned and
-// the group is whole, the four elements move as one vector (8 bytes bf16,
-// 16 bytes fp32).
+// the group is whole, the four elements move as one vector (8 bytes bf16
+// or fp16, 16 bytes fp32).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtypes.cuh"
 #include "philox.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 template <typename T>
 struct Vec4;  // four elements moved as one load/store
@@ -59,6 +44,10 @@ struct Vec4<float> {
 };
 template <>
 struct Vec4<__nv_bfloat16> {
+  using type = uint2;
+};
+template <>
+struct Vec4<__half> {
   using type = uint2;
 };
 
@@ -167,7 +156,8 @@ extern "C" int flash_keep_mask(void* out, long long n, unsigned int seed,
   return (int)cudaGetLastError();
 }
 
-// dtype codes: 0 float32, 1 bfloat16. x and y contiguous, n elements.
+// dtype codes: 0 float32, 1 bfloat16, 2 float16. x and y contiguous, n
+// elements.
 extern "C" int fused_dropout(const void* x, void* y, long long n, int dtype,
                              unsigned int seed, unsigned int threshold,
                              float scale, void* stream) {
@@ -176,5 +166,6 @@ extern "C" int fused_dropout(const void* x, void* y, long long n, int dtype,
   if (dtype == 0) return launch<float>(x, y, n, seed, threshold, scale, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, y, n, seed, threshold, scale, s);
+  if (dtype == 2) return launch<__half>(x, y, n, seed, threshold, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,8 @@
 //   _fwd_single_kernel (B10) and _bwd_fused_kernel (B12), flash_attention
 //     in its single-tile regime (contrib multihead_attn).
 // The TPU needs five kernels because its blocks must tile 128 lanes and its
-// grid carries sums from step to step; here one forward and one two-kernel
+// grid carries sums from step to step; here one forward per input width
+// (fp32 below; bf16 and fp16 in csrc/flash_fwd_sm90.cu) and one two-kernel
 // backward take any Sq, Sk and strides, so the five share one source of
 // truth for the mask, the Philox numbering and the rounding. The wrappers
 // count each call under the name of the TPU kernel it stands in for.
@@ -33,7 +34,7 @@
 //             delta) * scale, dV = (keep * p / (1 - rate))^T dO, dQ = ds K,
 //             dK = ds^T Q, with p and ds rounded to the input type before
 //             their products.
-// All arithmetic is fp32; inputs and outputs are fp32 or bf16.
+// All arithmetic is fp32; inputs and outputs are fp32, bf16 or fp16.
 //
 // Causal skip: with causal on and no key mask, a key tile wholly above the
 // diagonal contributes exp(FILL - m) = 0 in fp32 to every row (each row
@@ -59,32 +60,34 @@
 // with one block per 64-query tile looping over the key tiles; each
 // recomputes s and p from q, k and lse and replays the same mask.
 //
-// bf16 inputs (the training path) run on the tensor cores through WMMA
-// bf16 fragments with fp32 accumulation. A block is four warps and each
-// warp owns 16 rows of the block's tile: it computes its 16 x 64 scores
-// (and dP) into its own fp32 shared-memory rows, applies the mask,
-// softmax, dropout and rounding there with its 32 lanes, writes p (or
-// ds) back as bf16 and multiplies that with the shared V / dO / Q / K
-// tile, accumulating in fragments. Only the tile loads need the whole
-// block. The forward makes two passes over the keys: the first finds each
-// row's max and sum, the second forms p = exp(s - max) with the final max
-// (so the output accumulator is never rescaled) and accumulates p V. JAX's
-// tiled forward rounds p against the running max instead, so bf16 results
-// differ from it by rounding, not by value.
+// The 16-bit backward (bf16, the training path, and fp16) runs on the
+// tensor cores through WMMA fragments of the input type with fp32
+// accumulation. A block is four warps and each warp owns 16 rows of the
+// block's tile: it computes its 16 x 64 scores (and dP) into its own fp32
+// shared-memory rows, applies the mask, softmax, dropout and rounding
+// there with its 32 lanes, writes p (or ds) back in the input type and
+// multiplies that with the shared V / dO / Q / K tile, accumulating in
+// fragments. Only the tile loads need the whole block. The 16-bit forward
+// is csrc/flash_fwd_sm90.cu (wgmma, TMA, one pass with an online softmax).
 //
 // fp32 inputs run the products as fp32 FMAs on the CUDA cores (67 TFLOP/s
 // peak), from shared memory: 256 threads, thread (ty, tx) computing rows
 // 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of a score tile in
 // registers from tiles padded to D + 1 floats a row; the forward keeps an
 // online softmax (running max and sum per row, the output accumulator
-// rescaled per key tile), as JAX's tiled kernel does.
+// rescaled per key tile), as JAX's tiled kernel does. The backward kernels
+// keep their own 64 x 64 tiles (BQ, BK, query_start): the 16-bit forward's
+// tile size is its own.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "dtypes.cuh"
+#include "flash_common.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -95,35 +98,9 @@ constexpr int kThreads = 256;
 constexpr int TI = 4;        // score rows per thread
 constexpr int TJ = 4;        // score columns per thread
 constexpr int LP = BK + 1;   // padded row of a score tile
-constexpr float FILL = -30000.f;
-
-// Element strides of a (B, NH, rows, D) operand; the D columns of a row are
-// contiguous.
-struct Layout {
-  long long b, h, r;
-};
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const uint8_t* key_mask;  // (B, Sk), nonzero = masked; may be null
-  const void* dout;         // (backward only)
-  const float* lse;         // (B, NH, Sq)
-  const float* delta;       // (B, NH, Sq) (backward only)
-  void* out;                // forward: out; dK/dV kernel: dk; dQ: dq
-  void* out2;               // dK/dV kernel: dv
-  float* lse_out;           // forward only
-  Layout lq, lk, lv, ldo, lo, lo2;
-  int B, Sq, Sk, NH;
-  float scale;
-  int causal;
-  int skip;                 // causal and no key mask: skip dead tiles
-  int dropout;
-  unsigned int seed;
-  unsigned int threshold;
-  float inv_keep;
-};
+using flash::FILL;
+using flash::Layout;
+using flash::Params;
 
 template <typename T>
 __device__ __forceinline__ const T* head_base(const void* ptr,
@@ -527,25 +504,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   }
 }
 
-// -- bf16 inputs: tensor cores (WMMA) ----------------------------------------
+// -- 16-bit backward: tensor cores (WMMA) ------------------------------------
 
 namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
 constexpr int kTcThreads = 128;  // four warps, 16 tile rows each
 
 template <int D>
 struct Tc {
-  static constexpr int LDH = D + 8;                  // bf16 tile row
+  static constexpr int LDH = D + 8;                  // 16-bit tile row
   static constexpr int LDS = (D > BK ? D : BK) + 4;  // fp32 scratch row
-  static constexpr int LDP = BK + 8;                 // bf16 p / ds row
+  static constexpr int LDP = BK + 8;                 // 16-bit p / ds row
   static constexpr int NJ = D / 16;                  // 16-col output frags
 };
 
 using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Rows [r0, r0 + 64) of a head (zeros at rows >= n), a bf16 tile with row
-// stride D + 8 once stored. Where the source rows are 16-byte aligned a
-// thread fetches its chunks into registers (read-only loads, __ldg) and
+// Rows [r0, r0 + 64) of a head (zeros at rows >= n), a 16-bit tile with
+// row stride D + 8 once stored. Where the source rows are 16-byte aligned
+// a thread fetches its chunks into registers (read-only loads, __ldg) and
 // stores them after; callers fetch two tiles before storing either, so all
 // of a thread's loads are in flight together (a load through a plain
 // pointer may not move above an earlier shared store, which serialised
@@ -558,8 +534,8 @@ struct TileRegs {
   uint4 v[PER];
 };
 
-template <int D>
-__device__ __forceinline__ void fetch_tile_tc(TileRegs<D>& t, const bf16* base,
+template <typename T, int D>
+__device__ __forceinline__ void fetch_tile_tc(TileRegs<D>& t, const T* base,
                                               long long rs, int r0, int n) {
   constexpr int CH = TileRegs<D>::CH;
 #pragma unroll
@@ -572,9 +548,8 @@ __device__ __forceinline__ void fetch_tile_tc(TileRegs<D>& t, const bf16* base,
   }
 }
 
-template <int D>
-__device__ __forceinline__ void store_tile_tc(bf16* dst,
-                                              const TileRegs<D>& t) {
+template <typename T, int D>
+__device__ __forceinline__ void store_tile_tc(T* dst, const TileRegs<D>& t) {
   constexpr int CH = TileRegs<D>::CH;
 #pragma unroll
   for (int i = 0; i < TileRegs<D>::PER; ++i) {
@@ -585,57 +560,56 @@ __device__ __forceinline__ void store_tile_tc(bf16* dst,
 }
 
 // The element-wise path, for sources that are not 16-byte aligned.
-template <int D>
-__device__ __forceinline__ void load_tile_tc_scalar(bf16* dst,
-                                                    const bf16* base,
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_tc_scalar(T* dst, const T* base,
                                                     long long rs, int r0,
                                                     int n) {
   for (int e = threadIdx.x; e < 64 * D; e += kTcThreads) {
     const int r = e / D, c = e % D;
-    dst[r * Tc<D>::LDH + c] = r0 + r < n ? base[(r0 + r) * rs + c]
-                                         : __float2bfloat16_rn(0.f);
+    dst[r * Tc<D>::LDH + c] =
+        r0 + r < n ? base[(r0 + r) * rs + c] : from_f32<T>(0.f);
   }
 }
 
-template <int D>
-__device__ __forceinline__ void load_tile_tc(bf16* dst, const bf16* base,
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_tc(T* dst, const T* base,
                                              long long rs, int r0, int n,
                                              bool vec) {
   if (vec) {
     TileRegs<D> t;
-    fetch_tile_tc<D>(t, base, rs, r0, n);
-    store_tile_tc<D>(dst, t);
+    fetch_tile_tc<T, D>(t, base, rs, r0, n);
+    store_tile_tc<T, D>(dst, t);
   } else {
-    load_tile_tc_scalar<D>(dst, base, rs, r0, n);
+    load_tile_tc_scalar<T, D>(dst, base, rs, r0, n);
   }
 }
 
 // Two tiles of the same rows (K and V, or Q and dO), both fetched before
 // either is stored; at D = 128 one after the other, to spare registers.
-template <int D>
-__device__ __forceinline__ void load_tiles_tc(bf16* dst0, const bf16* base0,
-                                              long long rs0, bf16* dst1,
-                                              const bf16* base1,
-                                              long long rs1, int r0, int n,
-                                              bool vec) {
+template <typename T, int D>
+__device__ __forceinline__ void load_tiles_tc(T* dst0, const T* base0,
+                                              long long rs0, T* dst1,
+                                              const T* base1, long long rs1,
+                                              int r0, int n, bool vec) {
   if constexpr (D <= 64) {
     if (vec) {
       TileRegs<D> t0, t1;
-      fetch_tile_tc<D>(t0, base0, rs0, r0, n);
-      fetch_tile_tc<D>(t1, base1, rs1, r0, n);
-      store_tile_tc<D>(dst0, t0);
-      store_tile_tc<D>(dst1, t1);
+      fetch_tile_tc<T, D>(t0, base0, rs0, r0, n);
+      fetch_tile_tc<T, D>(t1, base1, rs1, r0, n);
+      store_tile_tc<T, D>(dst0, t0);
+      store_tile_tc<T, D>(dst1, t1);
       return;
     }
   }
-  load_tile_tc<D>(dst0, base0, rs0, r0, n, vec);
-  load_tile_tc<D>(dst1, base1, rs1, r0, n, vec);
+  load_tile_tc<T, D>(dst0, base0, rs0, r0, n, vec);
+  load_tile_tc<T, D>(dst1, base1, rs1, r0, n, vec);
 }
 
-// out (16 x 64, fp32, row stride LDS) = A (16 x D rows of a bf16 tile) times
-// the transpose of B (64 x D rows of a bf16 tile): raw dot products.
-template <int D>
-__device__ __forceinline__ void warp_dots(const bf16* A, const bf16* Bt,
+// out (16 x 64, fp32, row stride LDS) = A (16 x D rows of a 16-bit tile)
+// times the transpose of B (64 x D rows of a 16-bit tile): raw dot
+// products.
+template <typename T, int D>
+__device__ __forceinline__ void warp_dots(const T* A, const T* Bt,
                                           float* out) {
   constexpr int LDH = Tc<D>::LDH;
   AccFrag acc[BK / 16];
@@ -643,11 +617,11 @@ __device__ __forceinline__ void warp_dots(const bf16* A, const bf16* Bt,
   for (int t = 0; t < BK / 16; ++t) wmma::fill_fragment(acc[t], 0.f);
 #pragma unroll
   for (int d0 = 0; d0 < D; d0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
     wmma::load_matrix_sync(a, A + d0, LDH);
 #pragma unroll
     for (int t = 0; t < BK / 16; ++t) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bt;
       wmma::load_matrix_sync(bt, Bt + t * 16 * LDH + d0, LDH);
       wmma::mma_sync(acc[t], a, bt, acc[t]);
     }
@@ -658,18 +632,18 @@ __device__ __forceinline__ void warp_dots(const bf16* A, const bf16* Bt,
                             wmma::mem_row_major);
 }
 
-// acc[j] += A (16 x 64 bf16, row stride LDP) times B (64 x D rows of a bf16
-// tile), output columns [16 j, 16 j + 16).
-template <int D>
-__device__ __forceinline__ void warp_accumulate(AccFrag* acc, const bf16* A,
-                                                const bf16* Bm) {
+// acc[j] += A (16 x 64, 16-bit, row stride LDP) times B (64 x D rows of a
+// 16-bit tile), output columns [16 j, 16 j + 16).
+template <typename T, int D>
+__device__ __forceinline__ void warp_accumulate(AccFrag* acc, const T* A,
+                                                const T* Bm) {
 #pragma unroll
   for (int k0 = 0; k0 < BK; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
     wmma::load_matrix_sync(a, A + k0, Tc<D>::LDP);
 #pragma unroll
     for (int j = 0; j < Tc<D>::NJ; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bm;
       wmma::load_matrix_sync(bm, Bm + k0 * Tc<D>::LDH + j * 16, Tc<D>::LDH);
       wmma::mma_sync(acc[j], a, bm, acc[j]);
     }
@@ -678,10 +652,10 @@ __device__ __forceinline__ void warp_accumulate(AccFrag* acc, const bf16* A,
 
 // Write a warp's 16 x D accumulator rows to rows [r0, r0 + 16) of a head
 // (rows >= n skipped), through its fp32 scratch rows.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void warp_store_rows(AccFrag* acc, float* scratch,
-                                                bf16* dst, long long rs,
-                                                int r0, int n) {
+                                                T* dst, long long rs, int r0,
+                                                int n) {
 #pragma unroll
   for (int j = 0; j < Tc<D>::NJ; ++j)
     wmma::store_matrix_sync(scratch + j * 16, acc[j], Tc<D>::LDS,
@@ -691,130 +665,24 @@ __device__ __forceinline__ void warp_store_rows(AccFrag* acc, float* scratch,
   for (int e = lane; e < 16 * D; e += 32) {
     const int r = e / D, c = e % D;
     if (r0 + r < n)
-      dst[(r0 + r) * rs + c] =
-          __float2bfloat16_rn(scratch[r * Tc<D>::LDS + c]);
+      dst[(r0 + r) * rs + c] = from_f32<T>(scratch[r * Tc<D>::LDS + c]);
   }
   __syncwarp();
 }
 
-template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-    flash_fwd_tc_kernel(Params p, bool vec) {
-  using L = Tc<D>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * L::LDH;
-  bf16* Vs = Ks + BK * L::LDH;
-  float* Ss = reinterpret_cast<float*>(Vs + BK * L::LDH);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + BQ * L::LDS);
-  int* codes = reinterpret_cast<int*>(Ps + BQ * L::LDP);
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Sq = p.Sq, Sk = p.Sk;
-  // lane owns row rr of its warp's 16 and the 32 keys [32 half, + 32) of
-  // each key tile
-  const int rr = lane >> 1, half = lane & 1;
-  const int qq = q0 + 16 * w + rr;
-  float* Sw = Ss + 16 * w * L::LDS;
-  bf16* Pw = Ps + 16 * w * L::LDP;
-  const bf16* Qw = Qs + 16 * w * L::LDH;
-  const bf16* kb = head_base<bf16>(p.k, p.lk, b, h);
-  const bf16* vb = head_base<bf16>(p.v, p.lv, b, h);
-  load_tile_tc<D>(Qs, head_base<bf16>(p.q, p.lq, b, h), p.lq.r, q0, Sq, vec);
-  const int kend = key_end(p, q0);
-
-  // pass 1: each row's max and sum over all keys
-  float m = -INFINITY, l = 0.f;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    load_tile_tc<D>(Ks, kb, p.lk.r, k0, Sk, vec);
-    load_codes(codes, p, b, k0, kTcThreads);
-    __syncthreads();
-    warp_dots<D>(Qw, Ks, Sw);
-    __syncwarp();
-    float s[32];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = 32 * half + j;
-      s[j] = masked_score(Sw[rr * L::LDS + c], codes[c], qq, k0 + c, p);
-      mt = fmaxf(mt, s[j]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    const float m_new = fmaxf(m, mt);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) rs += expf(s[j] - m_new);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    l = l * expf(m - m_new) + rs;
-    m = m_new;
-    __syncwarp();
-  }
-
-  // pass 2: p = exp(s - max), dropped and rounded to bf16, times V
-  AccFrag o[L::NJ];
-#pragma unroll
-  for (int j = 0; j < L::NJ; ++j) wmma::fill_fragment(o[j], 0.f);
-  PhiloxCursor rng(p.seed);
-  const unsigned long long head_rows =
-      static_cast<unsigned long long>(b * p.NH + h) * Sq;
-  const unsigned long long row_index = (head_rows + qq) * Sk;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    // one tile after the other: fetching both at once costs the forward
-    // registers it needs for its blocks to share an SM
-    load_tile_tc<D>(Ks, kb, p.lk.r, k0, Sk, vec);
-    load_tile_tc<D>(Vs, vb, p.lv.r, k0, Sk, vec);
-    load_codes(codes, p, b, k0, kTcThreads);
-    __syncthreads();
-    warp_dots<D>(Qw, Ks, Sw);
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = 32 * half + j, kk = k0 + c;
-      const float e =
-          expf(masked_score(Sw[rr * L::LDS + c], codes[c], qq, kk, p) - m);
-      float pav = e;
-      if (p.dropout) {
-        const bool keep = qq < Sq && kk < Sk &&
-                          rng.bits(row_index + kk) < p.threshold;
-        pav = keep ? e * p.inv_keep : 0.f;
-      }
-      Pw[rr * L::LDP + c] = __float2bfloat16_rn(pav);
-    }
-    __syncwarp();
-    warp_accumulate<D>(o, Pw, Vs);
-  }
-  // out = (p V) / l, lse = max + log(l)
-  const float safe_l = l > 0.f ? l : 1.f;
-#pragma unroll
-  for (int j = 0; j < L::NJ; ++j)
-    wmma::store_matrix_sync(Sw + j * 16, o[j], L::LDS, wmma::mem_row_major);
-  __syncwarp();
-  if (qq < Sq) {
-    bf16* row = head_base_out<bf16>(p.out, p.lo, b, h) + qq * p.lo.r +
-                half * (D / 2);
-    const float* src = Sw + rr * L::LDS + half * (D / 2);
-#pragma unroll 8
-    for (int c = 0; c < D / 2; ++c)
-      row[c] = __float2bfloat16_rn(src[c] / safe_l);
-    if (half == 0) p.lse_out[head_rows + qq] = m + logf(safe_l);
-  }
-}
-
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads)
     flash_bwd_dkdv_tc_kernel(Params p, bool vec) {
   using L = Tc<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BK * L::LDH;
-  bf16* Qs = Vs + BK * L::LDH;
-  bf16* dOs = Qs + BQ * L::LDH;
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + BK * L::LDH;
+  T* Qs = Vs + BK * L::LDH;
+  T* dOs = Qs + BQ * L::LDH;
   float* St = reinterpret_cast<float*>(dOs + BQ * L::LDH);  // s^T rows
   float* dPt = St + BK * L::LDS;                            // dP^T rows
-  bf16* Pt = reinterpret_cast<bf16*>(dPt + BK * L::LDS);
-  bf16* dSt = Pt + BK * L::LDP;
+  T* Pt = reinterpret_cast<T*>(dPt + BK * L::LDS);
+  T* dSt = Pt + BK * L::LDP;
   float* lse_s = reinterpret_cast<float*>(dSt + BK * L::LDP);
   float* delta_s = lse_s + BQ;
   int* codes = reinterpret_cast<int*>(delta_s + BQ);
@@ -823,12 +691,12 @@ __global__ void __launch_bounds__(kTcThreads)
   const int Sq = p.Sq, Sk = p.Sk;
   float* Stw = St + 16 * w * L::LDS;
   float* dPtw = dPt + 16 * w * L::LDS;
-  bf16* Ptw = Pt + 16 * w * L::LDP;
-  bf16* dStw = dSt + 16 * w * L::LDP;
-  const bf16* qb = head_base<bf16>(p.q, p.lq, b, h);
-  const bf16* dob = head_base<bf16>(p.dout, p.ldo, b, h);
-  load_tiles_tc<D>(Ks, head_base<bf16>(p.k, p.lk, b, h), p.lk.r, Vs,
-                   head_base<bf16>(p.v, p.lv, b, h), p.lv.r, k0, Sk, vec);
+  T* Ptw = Pt + 16 * w * L::LDP;
+  T* dStw = dSt + 16 * w * L::LDP;
+  const T* qb = head_base<T>(p.q, p.lq, b, h);
+  const T* dob = head_base<T>(p.dout, p.ldo, b, h);
+  load_tiles_tc<T, D>(Ks, head_base<T>(p.k, p.lk, b, h), p.lk.r, Vs,
+                      head_base<T>(p.v, p.lv, b, h), p.lv.r, k0, Sk, vec);
   load_codes(codes, p, b, k0, kTcThreads);
   AccFrag dk[L::NJ], dv[L::NJ];
 #pragma unroll
@@ -842,12 +710,12 @@ __global__ void __launch_bounds__(kTcThreads)
       static_cast<unsigned long long>(row_base);
   for (int q0 = query_start(p, k0); q0 < Sq; q0 += BQ) {
     __syncthreads();
-    load_tiles_tc<D>(Qs, qb, p.lq.r, dOs, dob, p.ldo.r, q0, Sq, vec);
+    load_tiles_tc<T, D>(Qs, qb, p.lq.r, dOs, dob, p.ldo.r, q0, Sq, vec);
     load_row_stats(lse_s, delta_s, p, row_base, q0, kTcThreads);
     __syncthreads();
     // this warp's 16 keys against the tile's 64 queries, transposed
-    warp_dots<D>(Ks + 16 * w * L::LDH, Qs, Stw);
-    warp_dots<D>(Vs + 16 * w * L::LDH, dOs, dPtw);
+    warp_dots<T, D>(Ks + 16 * w * L::LDH, Qs, Stw);
+    warp_dots<T, D>(Vs + 16 * w * L::LDH, dOs, dPtw);
     __syncwarp();
     // lane owns queries 2 lane, 2 lane + 1 and the warp's 16 keys (four
     // consecutive keys share one Philox call)
@@ -861,51 +729,51 @@ __global__ void __launch_bounds__(kTcThreads)
                                    dPtw[kr * L::LDS + qc], codes[16 * w + kr],
                                    q0 + qc, k0 + 16 * w + kr, lse_q, delta_q,
                                    p, rng, head_rows);
-        Ptw[kr * L::LDP + qc] = __float2bfloat16_rn(e.pav);
-        dStw[kr * L::LDP + qc] = __float2bfloat16_rn(e.ds);
+        Ptw[kr * L::LDP + qc] = from_f32<T>(e.pav);
+        dStw[kr * L::LDP + qc] = from_f32<T>(e.ds);
       }
     }
     __syncwarp();
-    warp_accumulate<D>(dv, Ptw, dOs);
-    warp_accumulate<D>(dk, dStw, Qs);
+    warp_accumulate<T, D>(dv, Ptw, dOs);
+    warp_accumulate<T, D>(dk, dStw, Qs);
   }
-  warp_store_rows<D>(dk, Stw, head_base_out<bf16>(p.out, p.lo, b, h),
-                     p.lo.r, k0 + 16 * w, Sk);
-  warp_store_rows<D>(dv, Stw, head_base_out<bf16>(p.out2, p.lo2, b, h),
-                     p.lo2.r, k0 + 16 * w, Sk);
+  warp_store_rows<T, D>(dk, Stw, head_base_out<T>(p.out, p.lo, b, h),
+                        p.lo.r, k0 + 16 * w, Sk);
+  warp_store_rows<T, D>(dv, Stw, head_base_out<T>(p.out2, p.lo2, b, h),
+                        p.lo2.r, k0 + 16 * w, Sk);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads)
     flash_bwd_dq_tc_kernel(Params p, bool vec) {
   using L = Tc<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BQ * L::LDH;
-  bf16* Ks = dOs + BQ * L::LDH;
-  bf16* Vs = Ks + BK * L::LDH;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + BQ * L::LDH;
+  T* Ks = dOs + BQ * L::LDH;
+  T* Vs = Ks + BK * L::LDH;
   float* Ss = reinterpret_cast<float*>(Vs + BK * L::LDH);
   float* dPs = Ss + BQ * L::LDS;
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + BQ * L::LDS);
+  T* dSs = reinterpret_cast<T*>(dPs + BQ * L::LDS);
   float* lse_s = reinterpret_cast<float*>(dSs + BQ * L::LDP);
   float* delta_s = lse_s + BQ;
   int* codes = reinterpret_cast<int*>(delta_s + BQ);
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int Sq = p.Sq, Sk = p.Sk;
-  const int rr = lane >> 1, half = lane & 1;
+  const int rr = lane >> 1, side = lane & 1;
   const int qr = 16 * w + rr, qq = q0 + qr;
   float* Sw = Ss + 16 * w * L::LDS;
   float* dPw = dPs + 16 * w * L::LDS;
-  bf16* dSw = dSs + 16 * w * L::LDP;
+  T* dSw = dSs + 16 * w * L::LDP;
   const long long row_base = (static_cast<long long>(b) * p.NH + h) * Sq;
   const unsigned long long head_rows =
       static_cast<unsigned long long>(row_base);
-  const bf16* kb = head_base<bf16>(p.k, p.lk, b, h);
-  const bf16* vb = head_base<bf16>(p.v, p.lv, b, h);
-  load_tiles_tc<D>(Qs, head_base<bf16>(p.q, p.lq, b, h), p.lq.r, dOs,
-                   head_base<bf16>(p.dout, p.ldo, b, h), p.ldo.r, q0, Sq,
-                   vec);
+  const T* kb = head_base<T>(p.k, p.lk, b, h);
+  const T* vb = head_base<T>(p.v, p.lv, b, h);
+  load_tiles_tc<T, D>(Qs, head_base<T>(p.q, p.lq, b, h), p.lq.r, dOs,
+                      head_base<T>(p.dout, p.ldo, b, h), p.ldo.r, q0, Sq,
+                      vec);
   load_row_stats(lse_s, delta_s, p, row_base, q0, kTcThreads);
   AccFrag dq[L::NJ];
 #pragma unroll
@@ -914,33 +782,28 @@ __global__ void __launch_bounds__(kTcThreads)
   const int kend = key_end(p, q0);
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tiles_tc<D>(Ks, kb, p.lk.r, Vs, vb, p.lv.r, k0, Sk, vec);
+    load_tiles_tc<T, D>(Ks, kb, p.lk.r, Vs, vb, p.lv.r, k0, Sk, vec);
     load_codes(codes, p, b, k0, kTcThreads);
     __syncthreads();
-    warp_dots<D>(Qs + 16 * w * L::LDH, Ks, Sw);
-    warp_dots<D>(dOs + 16 * w * L::LDH, Vs, dPw);
+    warp_dots<T, D>(Qs + 16 * w * L::LDH, Ks, Sw);
+    warp_dots<T, D>(dOs + 16 * w * L::LDH, Vs, dPw);
     __syncwarp();
     const float lse_q = lse_s[qr], delta_q = delta_s[qr];
 #pragma unroll 8
     for (int j = 0; j < 32; ++j) {
-      const int c = 32 * half + j;
+      const int c = 32 * side + j;
       const BwdElem e =
           bwd_elem(Sw[rr * L::LDS + c], dPw[rr * L::LDS + c], codes[c], qq,
                    k0 + c, lse_q, delta_q, p, rng, head_rows);
-      dSw[rr * L::LDP + c] = __float2bfloat16_rn(e.ds);
+      dSw[rr * L::LDP + c] = from_f32<T>(e.ds);
     }
     __syncwarp();
-    warp_accumulate<D>(dq, dSw, Ks);
+    warp_accumulate<T, D>(dq, dSw, Ks);
   }
-  warp_store_rows<D>(dq, Sw, head_base_out<bf16>(p.out, p.lo, b, h), p.lo.r,
-                     q0 + 16 * w, Sq);
+  warp_store_rows<T, D>(dq, Sw, head_base_out<T>(p.out, p.lo, b, h), p.lo.r,
+                        q0 + 16 * w, Sq);
 }
 
-template <int D>
-constexpr size_t fwd_tc_smem() {
-  using L = Tc<D>;
-  return 2 * (3 * 64 * L::LDH + 64 * L::LDP) + 4 * 64 * L::LDS + 4 * BK;
-}
 template <int D>
 constexpr size_t dkdv_tc_smem() {
   using L = Tc<D>;
@@ -983,57 +846,72 @@ int launch_kernel(K kernel, size_t smem, dim3 grid, int threads,
   return (int)cudaGetLastError();
 }
 
-// fp32: the CUDA-core kernels; bf16: the tensor-core kernels
-template <int D>
-int fwd(const Params& p, bool bf16_in, bool vec, cudaStream_t s) {
-  dim3 grid((p.Sq + BQ - 1) / BQ, p.NH, p.B);
-  if (bf16_in)
-    return launch_kernel(flash_fwd_tc_kernel<D>, fwd_tc_smem<D>(), grid,
-                         kTcThreads, s, p, vec);
-  return launch_kernel(flash_fwd_kernel<D>, fwd_smem<D>(), grid,
-                       kThreads, s, p);
-}
-
 // parts: 1 the dK/dV kernel (p.out = dk, p.out2 = dv), 2 the dQ kernel
-// (pq.out = dq)
-template <int D>
-int bwd(const Params& p, const Params& pq, int parts, bool bf16_in, bool vec,
+// (pq.out = dq). fp32: the CUDA-core kernels; T 16-bit: the tensor-core
+// ones.
+template <typename T, int D>
+int bwd(const Params& p, const Params& pq, int parts, bool vec,
         cudaStream_t s) {
+  constexpr bool tc = !std::is_same<T, float>::value;
   dim3 grid_k((p.Sk + BK - 1) / BK, p.NH, p.B);
   dim3 grid_q((p.Sq + BQ - 1) / BQ, p.NH, p.B);
   int err = 0;
   if (parts & 1) {
-    err = bf16_in ? launch_kernel(flash_bwd_dkdv_tc_kernel<D>,
-                                  dkdv_tc_smem<D>(), grid_k, kTcThreads, s,
-                                  p, vec)
-                  : launch_kernel(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>(),
-                                  grid_k, kThreads, s, p);
+    if constexpr (tc)
+      err = launch_kernel(flash_bwd_dkdv_tc_kernel<T, D>, dkdv_tc_smem<D>(),
+                          grid_k, kTcThreads, s, p, vec);
+    else
+      err = launch_kernel(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>(), grid_k,
+                          kThreads, s, p);
     if (err != 0) return err;
   }
-  if (parts & 2)
-    err = bf16_in ? launch_kernel(flash_bwd_dq_tc_kernel<D>, dq_tc_smem<D>(),
-                                  grid_q, kTcThreads, s, pq, vec)
-                  : launch_kernel(flash_bwd_dq_kernel<D>, dq_smem<D>(),
-                                  grid_q, kThreads, s, pq);
+  if (parts & 2) {
+    if constexpr (tc)
+      err = launch_kernel(flash_bwd_dq_tc_kernel<T, D>, dq_tc_smem<D>(),
+                          grid_q, kTcThreads, s, pq, vec);
+    else
+      err = launch_kernel(flash_bwd_dq_kernel<D>, dq_smem<D>(), grid_q,
+                          kThreads, s, pq);
+  }
   return err;
 }
 
-int dispatch_fwd(int D, const Params& p, bool bf16_in, bool vec,
+// fp32: the CUDA-core forward; 16-bit: the Hopper forward
+// (csrc/flash_fwd_sm90.cu)
+int dispatch_fwd(int D, const Params& p, int dtype, bool vec,
                  cudaStream_t s) {
+  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return flash::fwd_sm90(p, D, dtype, vec, s);
+  dim3 grid((p.Sq + BQ - 1) / BQ, p.NH, p.B);
   switch (D) {
-    case 32: return fwd<32>(p, bf16_in, vec, s);
-    case 64: return fwd<64>(p, bf16_in, vec, s);
-    case 128: return fwd<128>(p, bf16_in, vec, s);
+    case 32:
+      return launch_kernel(flash_fwd_kernel<32>, fwd_smem<32>(), grid,
+                           kThreads, s, p);
+    case 64:
+      return launch_kernel(flash_fwd_kernel<64>, fwd_smem<64>(), grid,
+                           kThreads, s, p);
+  }
+  return launch_kernel(flash_fwd_kernel<128>, fwd_smem<128>(), grid,
+                       kThreads, s, p);
+}
+
+template <typename T>
+int bwd_for_d(int D, const Params& p, const Params& pq, int parts, bool vec,
+              cudaStream_t s) {
+  switch (D) {
+    case 32: return bwd<T, 32>(p, pq, parts, vec, s);
+    case 64: return bwd<T, 64>(p, pq, parts, vec, s);
+    case 128: return bwd<T, 128>(p, pq, parts, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 int dispatch_bwd(int D, const Params& p, const Params& pq, int parts,
-                 bool bf16_in, bool vec, cudaStream_t s) {
-  switch (D) {
-    case 32: return bwd<32>(p, pq, parts, bf16_in, vec, s);
-    case 64: return bwd<64>(p, pq, parts, bf16_in, vec, s);
-    case 128: return bwd<128>(p, pq, parts, bf16_in, vec, s);
+                 int dtype, bool vec, cudaStream_t s) {
+  switch (dtype) {
+    case 0: return bwd_for_d<float>(D, p, pq, parts, vec, s);
+    case 1: return bwd_for_d<__nv_bfloat16>(D, p, pq, parts, vec, s);
+    case 2: return bwd_for_d<__half>(D, p, pq, parts, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1043,7 +921,7 @@ Layout layout_at(const long long* strides, int i) {
 }
 
 // 16-byte row loads need an aligned base and strides of whole 8-element
-// (bf16) chunks.
+// (16-bit) chunks.
 bool vec_ok(const void* ptr, const Layout& L) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && L.b % 8 == 0 &&
          L.h % 8 == 0 && L.r % 8 == 0;
@@ -1074,10 +952,10 @@ Params make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16 (q, k, v, out). strides: 12 element
-// strides, (batch, head, row) of q, k, v and out, each a (B, NH, rows, D)
-// operand whose D columns are contiguous. key_mask (B, Sk) uint8 or null;
-// lse (B, NH, Sq) fp32. D in {32, 64, 128}.
+// dtype codes: 0 float32, 1 bfloat16, 2 float16 (q, k, v, out). strides: 12
+// element strides, (batch, head, row) of q, k, v and out, each a (B, NH,
+// rows, D) operand whose D columns are contiguous. key_mask (B, Sk) uint8
+// or null; lse (B, NH, Sq) fp32. D in {32, 64, 128}.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const void* key_mask, void* out, void* lse,
                               const long long* strides, int B, int Sq, int Sk,
@@ -1086,7 +964,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               unsigned int threshold, float inv_keep,
                               void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || NH < 1) return (int)cudaErrorInvalidValue;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, key_mask, B, Sq, Sk, NH, scale, causal,
                          dropout, seed, threshold, inv_keep);
   p.lq = layout_at(strides, 0);
@@ -1096,8 +974,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   p.out = out;
   p.lse_out = static_cast<float*>(lse);
   const bool vec = vec_ok(q, p.lq) && vec_ok(k, p.lk) && vec_ok(v, p.lv);
-  return dispatch_fwd(D, p, dtype == 1, vec,
-                      static_cast<cudaStream_t>(stream));
+  return dispatch_fwd(D, p, dtype, vec, static_cast<cudaStream_t>(stream));
 }
 
 // The backward: dq (B, NH, Sq, D), dk, dv (B, NH, Sk, D) in the input
@@ -1114,7 +991,7 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               unsigned int seed, unsigned int threshold,
                               float inv_keep, int parts, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || NH < 1) return (int)cudaErrorInvalidValue;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   if (parts < 1 || parts > 3) return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, key_mask, B, Sq, Sk, NH, scale, causal,
                          dropout, seed, threshold, inv_keep);
@@ -1135,6 +1012,6 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   pq.out2 = nullptr;
   const bool vec = vec_ok(q, p.lq) && vec_ok(k, p.lk) && vec_ok(v, p.lv) &&
                    vec_ok(dout, p.ldo);
-  return dispatch_bwd(D, p, pq, parts, dtype == 1, vec,
+  return dispatch_bwd(D, p, pq, parts, dtype, vec,
                       static_cast<cudaStream_t>(stream));
 }

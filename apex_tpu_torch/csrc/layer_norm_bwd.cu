@@ -5,7 +5,7 @@
 // fused_layer_norm_affine and fused_rms_norm_affine.
 //
 // Computes, for rows x (R, H) and their output gradients g (R, H), both
-// fp32 or both bf16, and an fp32 weight w (H,):
+// fp32, both bf16 or both fp16, and an fp32 weight w (H,):
 //   mean = sum(x) / H (0 for RMSNorm), var = sum((x - mean)^2) / H,
 //   rstd = rsqrt(var + eps), xhat = (x - mean) * rstd, wg = g * w,
 //   dx = (wg - xhat * sum(wg * xhat) / H - sum(wg) / H) * rstd
@@ -22,17 +22,18 @@
 // Design: the TPU kernel accumulates dgamma/dbeta across its sequential
 // row-block grid in VMEM; Hopper's blocks run in parallel and in no order.
 // Here each block owns a run of rows and each thread eight adjacent
-// columns (one 16-byte load for bf16): per row the block reduces the two
-// moments and the two dx sums (warp shuffles, then the warps' partials
+// columns (one 16-byte load for bf16 or fp16): per row the block reduces
+// the two moments and the two dx sums (warp shuffles, then the warps' partials
 // added in a fixed order), writes dx, and adds g * xhat and g into
 // per-thread fp32 column accumulators. At the end each block writes its
 // column partials to a workspace, and a second kernel adds the blocks'
 // partials column by column in block order. No atomics: the result is
 // deterministic.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -52,17 +53,17 @@ __device__ __forceinline__ void load8(const float* p, float v[VPT], bool vec,
   }
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[VPT],
-                                      bool vec, int valid) {
+template <typename H>  // a 16-bit type: eight columns in one 16-byte load
+__device__ __forceinline__ void load8(const H* p, float v[VPT], bool vec,
+                                      int valid) {
   if (vec) {
     uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    const H* e = reinterpret_cast<const H*>(&raw);
 #pragma unroll
-    for (int j = 0; j < VPT; ++j) v[j] = __bfloat162float(e[j]);
+    for (int j = 0; j < VPT; ++j) v[j] = to_f32(e[j]);
   } else {
 #pragma unroll
-    for (int j = 0; j < VPT; ++j)
-      v[j] = j < valid ? __bfloat162float(p[j]) : 0.f;
+    for (int j = 0; j < VPT; ++j) v[j] = j < valid ? to_f32(p[j]) : 0.f;
   }
 }
 
@@ -76,16 +77,17 @@ __device__ __forceinline__ void store8(float* p, const float v[VPT], bool vec,
   }
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[VPT],
-                                       bool vec, int valid) {
+template <typename H>
+__device__ __forceinline__ void store8(H* p, const float v[VPT], bool vec,
+                                       int valid) {
   if (vec) {
     uint4 raw;
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+    H* e = reinterpret_cast<H*>(&raw);
 #pragma unroll
-    for (int j = 0; j < VPT; ++j) e[j] = __float2bfloat16_rn(v[j]);
+    for (int j = 0; j < VPT; ++j) e[j] = from_f32<H>(v[j]);
     *reinterpret_cast<uint4*>(p) = raw;
   } else {
-    for (int j = 0; j < valid; ++j) p[j] = __float2bfloat16_rn(v[j]);
+    for (int j = 0; j < valid; ++j) p[j] = from_f32<H>(v[j]);
   }
 }
 
@@ -216,7 +218,8 @@ extern "C" int layer_norm_bwd_blocks(int rows, int H) {
   return (rows + per - 1) / per;
 }
 
-// dtype codes: 0 float32, 1 bfloat16 (g, x and dx). w, dw, db fp32.
+// dtype codes: 0 float32, 1 bfloat16, 2 float16 (g, x and dx). w, dw,
+// db fp32.
 // Everything contiguous; workspace holds 2 * blocks * H floats.
 extern "C" int layer_norm_bwd(const void* g, const void* x, const void* w,
                               void* dx, void* dw, void* db, void* workspace,
@@ -245,6 +248,11 @@ extern "C" int layer_norm_bwd(const void* g, const void* x, const void* w,
         static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
         static_cast<__nv_bfloat16*>(dx), dw_part, db_part, rows, H, per, eps,
         rms, vec);
+  else if (dtype == 2)
+    ln_bwd_rows_kernel<__half><<<blocks, threads, 0, s>>>(
+        static_cast<const __half*>(g), static_cast<const __half*>(x),
+        static_cast<const float*>(w), static_cast<__half*>(dx), dw_part,
+        db_part, rows, H, per, eps, rms, vec);
   else
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();

@@ -5,8 +5,8 @@
 // fused_layer_norm_affine and fused_rms_norm_affine run when differentiated
 // under APEX_TPU_LN_FWD=pallas.
 //
-// Computes, for rows x (R, H) in fp32 or bf16, an fp32 weight w (H,) and
-// an optional fp32 bias b (H,), all in fp32:
+// Computes, for rows x (R, H) in fp32, bf16 or fp16, an fp32 weight w (H,)
+// and an optional fp32 bias b (H,), all in fp32:
 //   mean = sum(x) / H (0 for RMSNorm), c = x - mean,
 //   var = sum(c * c) / H (two passes over the values, from the centered
 //   ones), rstd = rsqrt(var + eps), y = c * rstd * w (+ b),
@@ -21,7 +21,8 @@
 // Design: a row is held in registers, so x is read once and both moments
 // come from registers. For H <= 1024 one warp owns a row (four rows a
 // block); each lane holds eight adjacent columns per 256-column chunk (one
-// 16-byte load for bf16, two for fp32), and the sums are warp shuffles.
+// 16-byte load for bf16 or fp16, two for fp32), and the sums are warp
+// shuffles.
 // For 1024 < H <= 8192 one 256-thread block owns a row, eight adjacent
 // columns per thread per 2048-column chunk (as B1, csrc/layer_norm_bwd.cu),
 // and the warps' partials are added in warp order. Wider rows loop over
@@ -31,9 +32,10 @@
 // where H is not a multiple of eight, or an unaligned pointer, takes the
 // scalar loads.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -44,13 +46,13 @@ constexpr int kBlockThreads = 256;   // threads per row, block-per-row kernels
 constexpr int kWarpMaxH = 32 * VPT * kMaxChunks;             // 1024
 constexpr int kBlockMaxH = kBlockThreads * VPT * kMaxChunks;  // 8192
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+template <typename T>
+__device__ __forceinline__ float to_f(T v) {
+  return to_f32(v);
 }
-__device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(v);
+template <typename T>
+__device__ __forceinline__ void from_f(float v, T* p) {
+  *p = from_f32<T>(v);
 }
 
 __device__ __forceinline__ void load8(const float* p, float v[VPT], bool vec,
@@ -66,17 +68,17 @@ __device__ __forceinline__ void load8(const float* p, float v[VPT], bool vec,
   }
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[VPT],
-                                      bool vec, int valid) {
+template <typename H>  // a 16-bit type: eight columns in one 16-byte load
+__device__ __forceinline__ void load8(const H* p, float v[VPT], bool vec,
+                                      int valid) {
   if (vec) {
     uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    const H* e = reinterpret_cast<const H*>(&raw);
 #pragma unroll
-    for (int j = 0; j < VPT; ++j) v[j] = __bfloat162float(e[j]);
+    for (int j = 0; j < VPT; ++j) v[j] = to_f32(e[j]);
   } else {
 #pragma unroll
-    for (int j = 0; j < VPT; ++j)
-      v[j] = j < valid ? __bfloat162float(p[j]) : 0.f;
+    for (int j = 0; j < VPT; ++j) v[j] = j < valid ? to_f32(p[j]) : 0.f;
   }
 }
 
@@ -104,16 +106,17 @@ __device__ __forceinline__ void store8(float* p, const float v[VPT], bool vec,
   }
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[VPT],
-                                       bool vec, int valid) {
+template <typename H>
+__device__ __forceinline__ void store8(H* p, const float v[VPT], bool vec,
+                                       int valid) {
   if (vec) {
     uint4 raw;
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+    H* e = reinterpret_cast<H*>(&raw);
 #pragma unroll
-    for (int j = 0; j < VPT; ++j) e[j] = __float2bfloat16_rn(v[j]);
+    for (int j = 0; j < VPT; ++j) e[j] = from_f32<H>(v[j]);
     *reinterpret_cast<uint4*>(p) = raw;
   } else {
-    for (int j = 0; j < valid; ++j) p[j] = __float2bfloat16_rn(v[j]);
+    for (int j = 0; j < valid; ++j) p[j] = from_f32<H>(v[j]);
   }
 }
 
@@ -279,8 +282,8 @@ cudaError_t launch(const T* x, const float* w, const float* b, T* y,
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16 (x and y). w fp32 (H,), b fp32 (H,)
-// or null. Everything contiguous.
+// dtype codes: 0 float32, 1 bfloat16, 2 float16 (x and y). w fp32 (H,), b
+// fp32 (H,) or null. Everything contiguous.
 extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
                               void* y, int rows, int H, int dtype, float eps,
                               int rms, void* stream) {
@@ -295,5 +298,8 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
     return (int)launch<__nv_bfloat16>(
         static_cast<const __nv_bfloat16*>(x), wf, bf,
         static_cast<__nv_bfloat16*>(y), rows, H, eps, rms, s);
+  if (dtype == 2)
+    return (int)launch<__half>(static_cast<const __half*>(x), wf, bf,
+                               static_cast<__half*>(y), rows, H, eps, rms, s);
   return (int)cudaErrorInvalidValue;
 }

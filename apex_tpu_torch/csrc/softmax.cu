@@ -40,10 +40,11 @@
 // scale and mask are explicitly rounded (__fmul_rn, __fadd_rn) so that the
 // compiler cannot contract them into an FMA the JAX kernel does not do.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -52,40 +53,28 @@ constexpr int kThreads = kWarps * 32;
 constexpr float kFill = -30000.f;       // apex_tpu.ops.softmax._NEG
 constexpr int kMaskNone = 0, kMaskAdd = 1, kMaskFill = 2;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// four adjacent elements as one load/store (16 bytes fp32, 8 bytes bf16)
+// four adjacent elements as one load/store (16 bytes fp32, 8 bytes bf16
+// or fp16)
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+template <typename H>  // a 16-bit type
+__device__ __forceinline__ void load4(const H* p, float v[4]) {
   uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  const H* e = reinterpret_cast<const H*>(&raw);
 #pragma unroll
-  for (int t = 0; t < 4; ++t) v[t] = __bfloat162float(e[t]);
+  for (int t = 0; t < 4; ++t) v[t] = to_f32(e[t]);
 }
 __device__ __forceinline__ void store4(float* p, const float v[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
+template <typename H>
+__device__ __forceinline__ void store4(H* p, const float v[4]) {
   uint2 raw;
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+  H* e = reinterpret_cast<H*>(&raw);
 #pragma unroll
-  for (int t = 0; t < 4; ++t) e[t] = __float2bfloat16_rn(v[t]);
+  for (int t = 0; t < 4; ++t) e[t] = from_f32<H>(v[t]);
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
@@ -378,9 +367,22 @@ int launch_bwd(const void* gp, const void* yp, void* dxp, long long rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TG>
+int bwd_for_y(const void* g, const void* y, void* dx, long long rows, int Sk,
+              int y_dtype, float scale, cudaStream_t s) {
+  switch (y_dtype) {
+    case 0: return launch_bwd<TG, float>(g, y, dx, rows, Sk, scale, s);
+    case 1:
+      return launch_bwd<TG, __nv_bfloat16>(g, y, dx, rows, Sk, scale, s);
+    case 2: return launch_bwd<TG, __half>(g, y, dx, rows, Sk, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16. x, y contiguous (rows, Sk). mask:
+// dtype codes: 0 float32, 1 bfloat16, 2 float16. x, y contiguous (rows,
+// Sk). mask:
 // fp32, null when mask_mode is 0 (none), else read at b * sb + h * sh +
 // q * sq for row (b * H + h) * Sq + q (1 add, 2 fill), its last dim
 // contiguous and 16-byte aligned rows where Sk % 4 == 0.
@@ -402,24 +404,25 @@ extern "C" int softmax_fwd(const void* x, const void* mask, void* y,
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(x, m, y, rows, Sk, mv, scale,
                                      mask_mode, causal, s);
+  if (dtype == 2)
+    return launch_fwd<__half>(x, m, y, rows, Sk, mv, scale, mask_mode,
+                              causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// g, y, dx contiguous (rows, Sk); dx in g's type.
+// g, y, dx contiguous (rows, Sk), each of the forward's dtype codes; dx in
+// g's type.
 extern "C" int softmax_bwd(const void* g, const void* y, void* dx,
                            long long rows, int Sk, int g_dtype, int y_dtype,
                            float scale, void* stream) {
   if (rows < 1 || Sk < 1 || (rows + kWarps - 1) / kWarps > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g_dtype == 0 && y_dtype == 0)
-    return launch_bwd<float, float>(g, y, dx, rows, Sk, scale, s);
-  if (g_dtype == 0 && y_dtype == 1)
-    return launch_bwd<float, __nv_bfloat16>(g, y, dx, rows, Sk, scale, s);
-  if (g_dtype == 1 && y_dtype == 0)
-    return launch_bwd<__nv_bfloat16, float>(g, y, dx, rows, Sk, scale, s);
-  if (g_dtype == 1 && y_dtype == 1)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(g, y, dx, rows, Sk,
-                                                    scale, s);
+  switch (g_dtype) {
+    case 0: return bwd_for_y<float>(g, y, dx, rows, Sk, y_dtype, scale, s);
+    case 1:
+      return bwd_for_y<__nv_bfloat16>(g, y, dx, rows, Sk, y_dtype, scale, s);
+    case 2: return bwd_for_y<__half>(g, y, dx, rows, Sk, y_dtype, scale, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,6 +5,10 @@ from __future__ import annotations
 
 import torch
 
+# dtype codes of the training kernels' C interfaces (layer norm, dropout,
+# softmax, flash attention; the types of csrc/dtypes.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 # the finite masked fill shared by every attention read: a dead key
 # position scores FILL, not -inf, so a row with no visible key degrades
 # to a uniform read instead of NaN (apex_tpu.ops.flash_attention.FILL)

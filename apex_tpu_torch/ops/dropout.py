@@ -22,9 +22,12 @@ from __future__ import annotations
 import torch
 
 from apex_tpu_torch import _build
-from apex_tpu_torch.ops._common import keep_threshold, philox_bits
+from apex_tpu_torch.ops._common import (
+    DTYPE_CODES,
+    keep_threshold,
+    philox_bits,
+)
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def keep_scale(rate: float, dtype) -> float:
@@ -47,16 +50,16 @@ def dropout_plain(x, rate: float, seed=None, bits=None):
 
 
 def dropout_kernel(x, rate: float, seed: int):
-    """Launch kernel B3 on a CUDA tensor (fp32 or bf16). Raises on an
-    unsupported dtype or a failed launch."""
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"fused_dropout: x must be float32 or bfloat16, "
-                         f"got {x.dtype}")
+    """Launch kernel B3 on a CUDA tensor (fp32, bf16 or fp16). Raises on
+    an unsupported dtype or a failed launch."""
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"fused_dropout: x must be float32, bfloat16 or "
+                         f"float16, got {x.dtype}")
     x = x.contiguous()
     y = torch.empty_like(x)
     lib = _build.lib()
     code = lib.fused_dropout(
-        x.data_ptr(), y.data_ptr(), x.numel(), _DTYPE_CODES[x.dtype],
+        x.data_ptr(), y.data_ptr(), x.numel(), DTYPE_CODES[x.dtype],
         int(seed) & 0xFFFFFFFF, keep_threshold(rate),
         keep_scale(rate, x.dtype), _build.stream_ptr(x.device))
     _build.check(code, "fused_dropout")

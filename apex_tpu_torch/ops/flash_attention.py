@@ -25,9 +25,10 @@ scores. Semantics kept from the JAX kernels:
 - p and dS are rounded to the input dtype before their products.
 
 On CUDA tensors every entry runs the hand-written kernels of
-``csrc/flash_attn.cu``, which read q, k, v and write their results by
-(batch, head, row) strides, and count the call under the JAX kernel it
-stands in for, by the JAX package's own regime rule (``_block_sizes``):
+``csrc/flash_attn.cu`` and ``csrc/flash_fwd_sm90.cu`` (the 16-bit
+forward), which read q, k, v and write their results by (batch, head,
+row) strides, and count the call under the JAX kernel it stands in for,
+by the JAX package's own regime rule (``_block_sizes``):
 the bsh entry where the JAX bsh kernels apply is B4 (forward) and B5
 (backward); elsewhere one tile for both Sq and Sk is B10 and B12, more is
 the tiled B9, B11a (dQ) and B11b (dK, dV) (GPT-2 at S 1024). The dropout
@@ -38,6 +39,13 @@ version, which draws the same mask (:func:`flash_keep_mask`). ``keep=``
 takes an explicit ``(B, H, Sq, Sk)`` keep mask instead, for parity with
 the JAX package's interpret path (its ``flash_dropout_keep_mask``); CPU
 only.
+
+The kernels take fp32, bf16 and fp16 at head dims 32, 64 and 128. The
+entries pad any other head dim up to the next of these with zero columns
+(:func:`pad_head_dim`; a zero column changes no score) and slice the
+results back, as the JAX package pads D to a multiple of 64; a head dim
+past 128 runs the plain version on the card, counted under
+``flash_plain``.
 """
 
 from __future__ import annotations
@@ -45,9 +53,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from apex_tpu_torch import _build
 from apex_tpu_torch.ops._common import (
+    DTYPE_CODES,
     FILL,
     keep_threshold,
     philox_bits,
@@ -55,8 +65,24 @@ from apex_tpu_torch.ops._common import (
     round_up,
 )
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+
+
+def kernel_head_dim(D: int):
+    """The head dim the kernels run a call of head dim ``D`` at: the
+    smallest of 32, 64 and 128 that holds it, or None past 128 (the plain
+    version's route on the card)."""
+    return next((d for d in _HEAD_DIMS if D <= d), None)
+
+
+def pad_head_dim(ts, Dp: int):
+    """``ts`` (tensors whose last dim is the head dim) with zero columns
+    appended up to ``Dp``; a tensor already that wide is returned as it
+    is. Zero columns of q and k add nothing to a score, zero columns of v
+    give zero columns of out and dq, dk, dv, which the entries slice
+    off."""
+    return [t if t.shape[-1] == Dp else F.pad(t, (0, Dp - t.shape[-1]))
+            for t in ts]
 
 
 # -- the JAX package's regime rule --------------------------------------------
@@ -279,11 +305,11 @@ def flash_attention_bsh_backward_plain(q, k, v, key_mask, out, lse, g,
 # -- the kernels (csrc/flash_attn.cu, csrc/dropout.cu) ------------------------
 
 def _check4(q, k, v, key_mask):
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"flash attention: q, k, v must share one of "
-                         f"float32 / bfloat16, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
+                         f"float32 / bfloat16 / float16, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"flash attention: q (B, H, Sq, D), k and v (B, H, "
@@ -349,7 +375,7 @@ def _launch_fwd(q, k, v, key_mask, causal, scale, dropout_rate,
     code = _build.lib().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
         lse.data_ptr(), _strides(q, k, v, out), B, Sq, Sk, H, D,
-        _DTYPE_CODES[q.dtype], float(scale), int(causal), drop, seed, thr,
+        DTYPE_CODES[q.dtype], float(scale), int(causal), drop, seed, thr,
         inv_keep, _build.stream_ptr(q.device))
     _build.check(code, "flash_attn_fwd")
     return out, lse
@@ -385,7 +411,7 @@ def _launch_bwd(q, k, v, key_mask, lse, delta, g, causal, scale,
         None if dq is None else dq.data_ptr(),
         None if dk is None else dk.data_ptr(),
         None if dv is None else dv.data_ptr(),
-        _strides(q, k, v, g, *lay), B, Sq, Sk, H, D, _DTYPE_CODES[q.dtype],
+        _strides(q, k, v, g, *lay), B, Sq, Sk, H, D, DTYPE_CODES[q.dtype],
         float(scale), int(causal), drop, seed, thr, inv_keep, parts,
         _build.stream_ptr(q.device))
     _build.check(code, "flash_attn_bwd")
@@ -505,11 +531,43 @@ def flash_dropout_keep_mask(B, H, Sq, Sk, dropout_rate, seed, device=None):
 
 # -- the differentiable entries -----------------------------------------------
 
+def _fwd_kernels(q, k, v, key_mask, args, nh):
+    """The forward on the card at a kernel head dim: B4 on the flat layout
+    for a bsh call the JAX package runs on its bsh kernels (``nh``), else
+    B10 or B9 by the JAX regime rule."""
+    if nh is not None:
+        out, lse = flash_fwd_kernel(*(_merge(t) for t in (q, k, v)),
+                                    key_mask, nh, *args)
+        return _heads(out, nh), lse
+    if single_tile(q.shape[2], k.shape[2]):
+        return flash_fwd_single_kernel(q, k, v, key_mask, *args)
+    return flash_fwd_tiled_kernel(q, k, v, key_mask, *args)
+
+
+def _bwd_kernels(q, k, v, key_mask, out, lse, g, g_lse, args, nh):
+    """The backward on the card at a kernel head dim: B5, B12 or B11b +
+    B11a, as :func:`_fwd_kernels` chose the forward."""
+    if nh is not None:
+        grads = flash_bwd_kernel(*(_merge(t) for t in (q, k, v)), key_mask,
+                                 _merge(out), lse, _merge(g), nh, *args)
+        return tuple(_heads(t, nh) for t in grads)
+    delta = attention_delta4(g, out, g_lse)
+    if single_tile(q.shape[2], k.shape[2]):
+        return flash_bwd_single_kernel(q, k, v, key_mask, lse, delta, g,
+                                       *args)
+    dk, dv = flash_bwd_dkv_tiled_kernel(q, k, v, key_mask, lse, delta, g,
+                                        *args)
+    dq = flash_bwd_dq_tiled_kernel(q, k, v, key_mask, lse, delta, g, *args)
+    return dq, dk, dv
+
+
 class _Flash(torch.autograd.Function):
     """``(out, lse)`` on ``(B, H, S, D)``. ``bsh_heads`` is NH for a call of
     the bsh entry, None otherwise; ``bsh_ok`` marks a bsh call that the JAX
     package runs on its bsh kernels. Such a call keeps B4/B5 on the card,
-    and every bsh call keeps the bsh plain versions on the CPU."""
+    and every bsh call keeps the bsh plain versions on the CPU. On the card
+    a head dim the kernels do not take is padded (:func:`pad_head_dim`), or
+    past 128 runs the plain versions (``flash_plain``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal, scale, dropout_rate,
@@ -518,21 +576,23 @@ class _Flash(torch.autograd.Function):
         args = (causal, scale, dropout_rate, dropout_seed)
         cpu = q.device.type == "cpu"
         nh = bsh_heads if bsh_heads is not None and (cpu or bsh_ok) else None
-        if nh is not None:
-            flat = [_merge(t) for t in (q, k, v)]
-            if cpu:
-                out, lse = flash_attention_bsh_plain(*flat, key_mask, nh,
-                                                     *args, keep=keep)
-            else:
-                out, lse = flash_fwd_kernel(*flat, key_mask, nh, *args)
+        D = q.shape[3]
+        Dp = None if cpu else kernel_head_dim(D)
+        if cpu and nh is not None:
+            out, lse = flash_attention_bsh_plain(
+                *(_merge(t) for t in (q, k, v)), key_mask, nh, *args,
+                keep=keep)
             out = _heads(out, nh)
         elif cpu:
             out, lse = flash_fwd_plain(q, k, v, key_mask, *args, keep=keep)
-        elif single_tile(q.shape[2], k.shape[2]):
-            out, lse = flash_fwd_single_kernel(q, k, v, key_mask, *args)
+        elif Dp is None:
+            _build.launches["flash_plain"] += 1
+            out, lse = flash_fwd_plain(q, k, v, key_mask, *args)
         else:
-            out, lse = flash_fwd_tiled_kernel(q, k, v, key_mask, *args)
-        ctx.args, ctx.nh = args, nh
+            out, lse = _fwd_kernels(*pad_head_dim((q, k, v), Dp), key_mask,
+                                    args, nh)
+            out = out[..., :D]
+        ctx.args, ctx.nh, ctx.Dp = args, nh, Dp
         ctx.save_for_backward(q, k, v, key_mask, out, lse, keep)
         return out, lse
 
@@ -541,31 +601,24 @@ class _Flash(torch.autograd.Function):
         q, k, v, key_mask, out, lse, keep = ctx.saved_tensors
         if g is None:
             g = torch.zeros_like(out)
-        args, nh = ctx.args, ctx.nh
-        if nh is not None:
-            flat = [_merge(t) for t in (q, k, v)]
-            o, gf = _merge(out), _merge(g)
-            if q.device.type == "cpu":
-                grads = flash_attention_bsh_backward_plain(
-                    *flat, key_mask, o, lse, gf, nh, *args, keep=keep)
-            else:
-                grads = flash_bwd_kernel(*flat, key_mask, o, lse, gf, nh,
-                                         *args)
+        args, nh, Dp = ctx.args, ctx.nh, ctx.Dp
+        cpu = q.device.type == "cpu"
+        if cpu and nh is not None:
+            grads = flash_attention_bsh_backward_plain(
+                *(_merge(t) for t in (q, k, v)), key_mask, _merge(out), lse,
+                _merge(g), nh, *args, keep=keep)
             grads = tuple(_heads(t, nh) for t in grads)
+        elif cpu or Dp is None:
+            if not cpu:
+                _build.launches["flash_plain"] += 1
+            grads = flash_bwd_plain(q, k, v, key_mask, lse,
+                                    attention_delta4(g, out, g_lse), g,
+                                    *args, keep=keep)
         else:
-            delta = attention_delta4(g, out, g_lse)
-            if q.device.type == "cpu":
-                grads = flash_bwd_plain(q, k, v, key_mask, lse, delta, g,
-                                        *args, keep=keep)
-            elif single_tile(q.shape[2], k.shape[2]):
-                grads = flash_bwd_single_kernel(q, k, v, key_mask, lse,
-                                                delta, g, *args)
-            else:
-                dk, dv = flash_bwd_dkv_tiled_kernel(q, k, v, key_mask, lse,
-                                                    delta, g, *args)
-                dq = flash_bwd_dq_tiled_kernel(q, k, v, key_mask, lse,
-                                               delta, g, *args)
-                grads = (dq, dk, dv)
+            qp, kp, vp, op, gp = pad_head_dim((q, k, v, out, g), Dp)
+            grads = _bwd_kernels(qp, kp, vp, key_mask, op, lse, gp, g_lse,
+                                 args, nh)
+            grads = tuple(t[..., :q.shape[3]] for t in grads)
         return (*grads,) + (None,) * 8
 
 

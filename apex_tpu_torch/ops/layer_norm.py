@@ -3,9 +3,13 @@
 Two hand-written kernels carry the training path: B2
 (``csrc/layer_norm_fwd.cu``), the forward, and B1
 (``csrc/layer_norm_bwd.cu``), the backward, which recomputes the
-statistics from ``x`` instead of saving them. On CPU tensors each wrapper
-runs its plain version (:func:`layer_norm_forward_plain`,
-:func:`layer_norm_backward_plain`), the same fp32 arithmetic in PyTorch.
+statistics from ``x`` instead of saving them; both take fp32, bf16 and
+fp16 rows. On CPU tensors each wrapper runs its plain version
+(:func:`layer_norm_forward_plain`, :func:`layer_norm_backward_plain`), the
+same fp32 arithmetic in PyTorch. B1 holds a row in registers up to H
+8192; a wider row runs the plain backward on the card, counted under
+``layer_norm_bwd_plain`` (the JAX package runs its jnp backward above its
+Pallas width).
 
 As in the JAX package, the forward a call runs depends on whether it is
 differentiated. ``fused_layer_norm_affine`` / ``fused_rms_norm_affine``
@@ -24,9 +28,15 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch import _build
+from apex_tpu_torch.ops._common import DTYPE_CODES
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_H = 8 * 1024     # B1: eight columns per thread, at most 1024 threads
+
+
+def backward_kernel_takes(H: int) -> bool:
+    """Whether kernel B1 takes rows of width ``H``; on the card
+    :func:`layer_norm_backward` sends wider rows to the plain version."""
+    return 0 < H <= _MAX_H
 
 
 def layer_norm_reference(x, weight, bias, eps=1e-5):
@@ -63,14 +73,14 @@ def layer_norm_forward_plain(x, weight, bias=None, eps=1e-5, rms=False):
 
 
 def layer_norm_forward_kernel(x, weight, bias=None, eps=1e-5, rms=False):
-    """Launch kernel B2 on a CUDA tensor ``x`` (fp32 or bf16, any leading
-    shape, normalized over the last dim, any width): ``weight`` and
-    ``bias`` (or None) ``(H,)``, read as fp32. Returns ``y`` in
+    """Launch kernel B2 on a CUDA tensor ``x`` (fp32, bf16 or fp16, any
+    leading shape, normalized over the last dim, any width): ``weight``
+    and ``bias`` (or None) ``(H,)``, read as fp32. Returns ``y`` in
     ``x.dtype``. Raises on what the kernel does not take or a failed
     launch."""
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"layer_norm_forward: x must be float32 or "
-                         f"bfloat16, got {x.dtype}")
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"layer_norm_forward: x must be float32, bfloat16 "
+                         f"or float16, got {x.dtype}")
     H = x.shape[-1] if x.dim() else 0
     for name, t in (("weight", weight), ("bias", bias)):
         if t is not None and (tuple(t.shape) != (H,)
@@ -89,7 +99,7 @@ def layer_norm_forward_kernel(x, weight, bias=None, eps=1e-5, rms=False):
     b = None if bias is None else bias.float().contiguous()
     code = _build.lib().layer_norm_fwd(
         x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        y.data_ptr(), x2.shape[0], H, _DTYPE_CODES[x.dtype], float(eps),
+        y.data_ptr(), x2.shape[0], H, DTYPE_CODES[x.dtype], float(eps),
         int(rms), _build.stream_ptr(x.device))
     _build.check(code, "layer_norm_fwd")
     _build.launches["layer_norm_fwd"] += 1
@@ -128,17 +138,18 @@ def layer_norm_backward_plain(g, x, weight, eps=1e-5, rms=False):
 
 def layer_norm_backward_kernel(g, x, weight, eps=1e-5, rms=False):
     """Launch kernel B1 on CUDA tensors: ``g`` and ``x`` of one dtype
-    (fp32 or bf16), any leading shape; ``weight`` ``(H,)`` (read as fp32).
-    Returns ``dx`` in ``x.dtype`` and fp32 ``dgamma``, ``dbeta``. Raises
-    on what the kernel does not take or a failed launch."""
-    if x.dtype not in _DTYPE_CODES or g.dtype != x.dtype:
+    (fp32, bf16 or fp16), any leading shape; ``weight`` ``(H,)`` (read as
+    fp32). Returns ``dx`` in ``x.dtype`` and fp32 ``dgamma``, ``dbeta``.
+    Raises on what the kernel does not take or a failed launch."""
+    if x.dtype not in DTYPE_CODES or g.dtype != x.dtype:
         raise ValueError(f"layer_norm_backward: g and x must share one of "
-                         f"float32 / bfloat16, got {g.dtype}, {x.dtype}")
+                         f"float32 / bfloat16 / float16, got {g.dtype}, "
+                         f"{x.dtype}")
     if g.shape != x.shape:
         raise ValueError(f"layer_norm_backward: g {tuple(g.shape)} and x "
                          f"{tuple(x.shape)} differ")
     H = x.shape[-1]
-    if tuple(weight.shape) != (H,) or not 0 < H <= _MAX_H:
+    if tuple(weight.shape) != (H,) or not backward_kernel_takes(H):
         raise ValueError(f"layer_norm_backward: weight must be ({H},) with "
                          f"H <= {_MAX_H}, got {tuple(weight.shape)}")
     x2 = x.reshape(-1, H).contiguous()
@@ -154,7 +165,7 @@ def layer_norm_backward_kernel(g, x, weight, eps=1e-5, rms=False):
     code = lib.layer_norm_bwd(
         g2.data_ptr(), x2.data_ptr(), w.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), db.data_ptr(), work.data_ptr(), rows, H,
-        _DTYPE_CODES[x.dtype], float(eps), int(rms),
+        DTYPE_CODES[x.dtype], float(eps), int(rms),
         _build.stream_ptr(x.device))
     _build.check(code, "layer_norm_bwd")
     _build.launches["layer_norm_bwd"] += 1
@@ -163,8 +174,12 @@ def layer_norm_backward_kernel(g, x, weight, eps=1e-5, rms=False):
 
 def layer_norm_backward(g, x, weight, eps=1e-5, rms=False):
     """``(dx, dgamma, dbeta)``: kernel B1 on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors and on CUDA rows wider than B1 takes (counted
+    under ``layer_norm_bwd_plain``)."""
     if x.device.type == "cpu":
+        return layer_norm_backward_plain(g, x, weight, eps, rms)
+    if not backward_kernel_takes(x.shape[-1]):
+        _build.launches["layer_norm_bwd_plain"] += 1
         return layer_norm_backward_plain(g, x, weight, eps, rms)
     return layer_norm_backward_kernel(g, x, weight, eps, rms)
 

@@ -11,7 +11,11 @@ device memory. When (lane, head, query tile) blocks alone would leave
 SMs idle, the table is split across blocks and a second kernel merges
 the splits. On a CPU tensor it runs :func:`paged_prefill_attention_
 plain`, the JAX package's XLA chain written in torch. There is no flag
-and no fallback between the two: the tensor's device decides.
+and no fallback between the two: the tensor's device decides, and on the
+card the shapes and dtypes B14 does not take (:func:`read_kernel_takes`:
+head dims past 128, rows that are not whole 16-byte loads, fp16 queries)
+run the plain chain too, counted under ``paged_read_plain``, as the JAX
+package falls back to its XLA chain where its Pallas gate fails.
 """
 
 from __future__ import annotations
@@ -25,6 +29,20 @@ from apex_tpu_torch.ops._common import FILL
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
 _MAX_HEAD_DIM = 128
+
+
+def read_kernel_takes(q_dtype, pool_dtype, head_dim: int) -> bool:
+    """Whether kernel B14 takes a read of this query dtype, pool dtype and
+    head dim: fp32/bf16 queries over pools of its dtypes, ``head_dim`` at
+    most 128 and a whole number of 16-byte loads a row. The serving engine
+    builds only such pools; anything else (fp16 queries included) takes
+    the plain chain on the card."""
+    if q_dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if pool_dtype not in _DTYPE_CODES:
+        return False
+    size = torch.empty((), dtype=pool_dtype).element_size()
+    return 1 <= head_dim <= _MAX_HEAD_DIM and (head_dim * size) % 16 == 0
 
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, block_tables,
@@ -156,10 +174,14 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_positions,
       k_scales, v_scales: ``[N, bs, H]`` fp32 per-row scales of int8/fp8
         pools (None = full precision).
 
-    Returns ``[B, C, H, D]`` in ``q.dtype``. CUDA tensors run kernel B14;
-    CPU tensors run the plain chain.
+    Returns ``[B, C, H, D]`` in ``q.dtype``. CUDA tensors run kernel B14
+    where it takes them (:func:`read_kernel_takes`), else the plain chain,
+    counted under ``paged_read_plain``; CPU tensors run the plain chain.
     """
-    if q.device.type == "cpu":
+    cpu = q.device.type == "cpu"
+    if cpu or not read_kernel_takes(q.dtype, k_pages.dtype, q.shape[-1]):
+        if not cpu:
+            _build.launches["paged_read_plain"] += 1
         return paged_prefill_attention_plain(
             q, k_pages, v_pages, block_tables, q_positions, context_lens,
             scale, k_scales, v_scales)

@@ -24,9 +24,8 @@ from __future__ import annotations
 import torch
 
 from apex_tpu_torch import _build
-from apex_tpu_torch.ops._common import FILL
+from apex_tpu_torch.ops._common import DTYPE_CODES, FILL
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_MODES = {None: 0, "add": 1, "fill": 2}
 
 
@@ -70,9 +69,9 @@ def softmax_bwd_plain(g, y, scale: float = 1.0):
 
 
 def _check_dtype(name, t):
-    if t.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, "
-                         f"got {t.dtype}")
+    if t.dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: the kernel takes float32, bfloat16 or "
+                         f"float16, got {t.dtype}")
 
 
 def softmax_fwd_kernel(x, mask=None, scale: float = 1.0,
@@ -109,7 +108,7 @@ def softmax_fwd_kernel(x, mask=None, scale: float = 1.0,
     lib = _build.lib()
     code = lib.softmax_fwd(
         x.data_ptr(), None if m is None else m.data_ptr(), y.data_ptr(),
-        rows, sk, heads, sq, sb, sh, sqs, _DTYPE_CODES[x.dtype],
+        rows, sk, heads, sq, sb, sh, sqs, DTYPE_CODES[x.dtype],
         float(scale), _MASK_MODES[mask_mode], int(causal),
         _build.stream_ptr(x.device))
     _build.check(code, "softmax_fwd")
@@ -119,7 +118,7 @@ def softmax_fwd_kernel(x, mask=None, scale: float = 1.0,
 
 def softmax_bwd_kernel(g, y, scale: float = 1.0):
     """Launch kernel B8 on CUDA tensors: ``g`` and ``y`` of one shape,
-    each fp32 or bf16; ``dx`` in ``g``'s dtype."""
+    each fp32, bf16 or fp16; ``dx`` in ``g``'s dtype."""
     _check_dtype("softmax_bwd", g)
     _check_dtype("softmax_bwd", y)
     if g.shape != y.shape:
@@ -133,7 +132,7 @@ def softmax_bwd_kernel(g, y, scale: float = 1.0):
     lib = _build.lib()
     code = lib.softmax_bwd(
         g.data_ptr(), y.data_ptr(), dx.data_ptr(), g.numel() // sk, sk,
-        _DTYPE_CODES[g.dtype], _DTYPE_CODES[y.dtype], float(scale),
+        DTYPE_CODES[g.dtype], DTYPE_CODES[y.dtype], float(scale),
         _build.stream_ptr(g.device))
     _build.check(code, "softmax_bwd")
     _build.launches["softmax_bwd"] += 1

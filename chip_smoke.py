@@ -52,7 +52,9 @@ with weights drawn from ``--seed``: 12 requests with prompts of 64-768
 tokens and 64 new tokens each, half greedy and half sampled, added in
 two waves, first on fp weights, then with ``weight_quantization="int8"``.
 Every kernel launch counter is set to 0 just before each run and read
-just after: the runs must have gone through both kernels. The card's
+just after: the runs must have gone through both kernels, and, as in
+phases 3-7, no call may have been routed to a plain version (every
+``*_plain`` counter 0). The card's
 prefill logits are held against the port on the CPU (atol 2e-3), and
 the greedy tokens of one request are compared with the CPU engine's.
 
@@ -82,7 +84,12 @@ heads, sequence-first views, a key mask) in bf16 and in fp32 (phase 6's
 dtype, which the kernels line reports); and B13, the keep mask, bit for
 bit against the plain Philox mask, then B9's fp32 dropout against the
 composed reference with B13's mask. Library yardsticks: SDPA without
-dropout (``is_causal=True``) and its backward.
+dropout (``is_causal=True``) and its backward. Last, the 16-bit forward
+that B4, B9 and B10 launch on bf16 and fp16 inputs
+(``csrc/flash_fwd_sm90.cu``): both dtypes at the three shapes above, at
+dropout 0 and 0.1, timed beside SDPA, then Sq != Sk, S 1000 with a fully
+masked row, Sk % 4 != 0, unaligned and sequence-first inputs and head
+dims 32 and 128, each within 1e-2 of the plain version.
 
 Phase 5 trains GPT-2 small (``GPTConfig()``, full width and depth, bf16,
 remat, dropout 0.1) with amp O2 and FusedAdam (the GPT-3 paper's 125M
@@ -147,6 +154,13 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def check_no_route(launches, label):
+    """The main paths run kernels only: no call was routed to a plain
+    version on the card (every ``*_plain`` counter 0)."""
+    routed = {k: v for k, v in launches.items() if k.endswith("_plain") and v}
+    check(not routed, f"{label}: calls routed to plain versions {routed}")
 
 
 def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
@@ -1160,6 +1174,165 @@ def phase1_flash_tiled(torch, F, dev, seed):
     return rows
 
 
+# -- phase 1: the 16-bit Hopper forward (B4, B9, B10 on bf16 and fp16) -------
+
+def phase1_flash_fwd16(torch, F, dev, seed):
+    """The 16-bit forward (``csrc/flash_fwd_sm90.cu``: wgmma, TMA, one pass
+    with an online softmax), which B4, B9 and B10 launch on bf16 and fp16
+    inputs, against ``flash_fwd_plain`` / ``flash_attention_bsh_plain``,
+    which draw the same Philox mask. bf16 and fp16 at the three main-path
+    shapes (B4: BERT-large, B 16, S 512, NH 16, D 64, flat heads, a key
+    mask; B9: GPT-2 small, B 8, S 1024, NH 12, D 64, causal; B10:
+    multihead_attn, T 512, B 8, NH 16, D 64, sequence-first views, a key
+    mask) at rates 0 and 0.1, each timed beside SDPA (rate 0) and its
+    bound; then, in bf16 and fp16, Sq != Sk, an S that is not a multiple
+    of the 128-key tile with a fully masked row, Sk % 4 != 0 (the
+    per-element dropout bits), inputs off a 16-byte boundary (the element
+    loads in place of TMA), sequence-first views past one tile, and head
+    dims 32 and 128.
+    Tolerance (today's): out within atol = rtol = 1e-2 and within 1e-2 of
+    its norm, lse within 1e-3."""
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_bsh_plain,
+        flash_fwd_kernel,
+        flash_fwd_plain,
+        flash_fwd_single_kernel,
+        flash_fwd_tiled_kernel,
+    )
+
+    tol = 1e-2
+    g = torch.Generator().manual_seed(seed + 16)
+    rows, checks = [], []
+
+    def key_mask(B, S, full_last=True):
+        m = torch.zeros(B, S, dtype=torch.bool)
+        m[0, S // 2:] = True
+        if full_last:
+            m[B - 1] = True                 # a fully masked row
+        return m.to(dev)
+
+    def hold(tag, out, lse, rout, rlse):
+        check(torch.isfinite(out.float()).all().item(), f"{tag}: non-finite")
+        ok, mx, rel = flash_close(torch, out, rout, tol)
+        lse_err = (lse - rlse).abs().max().item()
+        check(ok and lse_err <= 1e-3, f"{tag}: max abs err {mx}, norm err "
+              f"{rel}, lse err {lse_err}")
+        return mx, rel, lse_err
+
+    # bf16 and fp16 at the main-path shapes
+    fp16 = torch.float16
+    for name, B, S, NH, D, causal, masked in (
+            ("B4 flash_fwd", 16, 512, 16, 64, False, True),
+            ("B9 flash_fwd_tiled", 8, 1024, 12, 64, True, False),
+            ("B10 flash_fwd_single", 8, 512, 16, 64, False, True)):
+        mask = key_mask(B, S) if masked else None
+        for dt in (torch.bfloat16, fp16):
+            if name.startswith("B10"):
+                qkv = torch.randn(S, B, 3, NH, D, generator=g)
+                qkv = qkv.to(dt).to(dev)
+                q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3)
+                           for i in range(3))
+            else:
+                flat = [torch.randn(B, S, NH * D, generator=g).to(dt).to(dev)
+                        for _ in range(3)]
+                q, k, v = (t.view(B, S, NH, D).transpose(1, 2)
+                           for t in flat)
+            pairs = B * NH * (S * (S + 1) // 2 if causal else S * S)
+            nbytes = 4 * q.numel() * 2 + 4 * B * NH * S + (B * S if masked
+                                                           else 0)
+            b_ms, b_by = bound(nbytes, 4 * D * pairs, BF16_FLOP_PER_S)
+            am = None
+            if masked:
+                am = torch.zeros(B, 1, 1, S, dtype=dt, device=dev)
+                am[mask[:, None, None, :]] = -30000.0
+            for rate in (0.0, 0.1):
+                args = (causal, D ** -0.5, rate, seed + 7 if rate else None)
+                if name.startswith("B4"):
+                    def fn():
+                        o, l = flash_fwd_kernel(*flat, mask, NH, *args)
+                        return o.view(B, S, NH, D).transpose(1, 2), l
+                elif name.startswith("B9"):
+                    def fn():
+                        return flash_fwd_tiled_kernel(q, k, v, mask, *args)
+                else:
+                    def fn():
+                        return flash_fwd_single_kernel(q, k, v, mask, *args)
+                out, lse = fn()
+                rout, rlse = flash_fwd_plain(q, k, v, mask, *args)
+                torch.cuda.synchronize()
+                tag = f"{name} {str(dt)[6:]}"
+                mx, rel, lse_err = hold(f"{tag} rate {rate}", out, lse, rout,
+                                        rlse)
+                sdpa = None
+                if rate == 0.0:
+                    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=am, is_causal=causal,
+                        scale=D ** -0.5), iters=20)
+                r = dict(case=f"{name} B {B} S {S} NH {NH} D {D} "
+                         f"{str(dt)[6:]} {'causal ' if causal else ''}"
+                         f"rate {rate}", max_abs_err=mx, norm_err=rel,
+                         lse_err=lse_err, tol=tol,
+                         ms=time_ms(fn, iters=20), library_ms=sdpa,
+                         flops=4 * D * pairs, bytes=nbytes, bound_ms=b_ms,
+                         bound_by=b_by)
+                rows.append(r)
+                lib = "n/a" if sdpa is None else f"{sdpa:.4f}"
+                print(f"[16-bit forward] {r['case']}: max_abs_err {mx:.3g} "
+                      f"norm_err {rel:.3g} (tol {tol}) | ms {r['ms']:.4f} "
+                      f"sdpa_ms {lib} bound_ms {b_ms:.4f} ({b_by})",
+                      flush=True)
+                del out, lse, rout, rlse
+            torch.cuda.empty_cache()
+
+    # the edges, in bf16 and fp16
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for dt in (torch.bfloat16, fp16):
+        for tag, B, NH, Sq, Sk, D, causal, masked, layout in (
+                ("Sq 256 x Sk 1024", 2, 2, 256, 1024, 64, True, False, ""),
+                ("S 1000, fully masked row", 2, 3, 1000, 1000, 64, True,
+                 True, ""),
+                ("Sk 77 (Sk % 4 != 0)", 2, 2, 77, 77, 64, False, True, ""),
+                ("Sq 130 x Sk 61", 2, 3, 130, 61, 64, True, False, ""),
+                ("unaligned", 2, 2, 200, 200, 64, False, True, "shifted"),
+                ("sequence-first T 640", 4, 4, 640, 640, 64, False, True,
+                 "seq"),
+                ("D 32", 2, 2, 300, 300, 32, True, True, ""),
+                ("D 128", 2, 2, 300, 300, 128, False, True, "")):
+            if layout == "seq":
+                qkv = torch.randn(Sq, B, 3, NH, D, generator=g).to(dt).to(
+                    dev)
+                q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3)
+                           for i in range(3))
+            else:
+                q = torch.randn(B, NH, Sq, D, generator=g).to(dt).to(dev)
+                k, v = (torch.randn(B, NH, Sk, D, generator=g).to(dt).to(dev)
+                        for _ in range(2))
+                if layout == "shifted":
+                    q, k, v = shifted(q), shifted(k), shifted(v)
+            mask = key_mask(B, Sk) if masked else None
+            args = (causal, D ** -0.5, 0.1, seed + 8)
+            out, lse = flash_fwd_tiled_kernel(q, k, v, mask, *args)
+            rout, rlse = flash_fwd_plain(q, k, v, mask, *args)
+            torch.cuda.synchronize()
+            mx, rel, lse_err = hold(f"16-bit forward {tag} {dt}", out, lse,
+                                    rout, rlse)
+            checks.append(dict(case=f"{tag} {str(dt)[6:]} rate 0.1",
+                               max_abs_err=mx, norm_err=rel,
+                               lse_err=lse_err))
+    worst = max(c["max_abs_err"] for c in checks)
+    print(f"[check] 16-bit forward, bf16 and fp16: Sq != Sk, S 1000 with a "
+          f"fully masked row, Sk 77 and 61, unaligned, sequence-first T 640, "
+          f"D 32 and 128, dropout 0.1: max abs err {worst:.3g} (tol {tol})",
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(main_shapes=rows, checks=checks)
+
+
 # -- phase 2: the engine at GPT-2-small width ---------------------------------
 
 def traffic(seed, vocab):
@@ -1229,6 +1402,7 @@ def serve(torch, model, config, reqs, label, card, dev):
     check(launches["paged_read"] >= L * forwards,
           f"{label}: paged_read launched {launches['paged_read']} times, "
           f"expected >= {L * forwards}")
+    check_no_route(launches, label)
     if config.weight_quantization is not None:
         check(launches["dequant_gemm"] > 0,
               f"{label}: dequant_gemm never launched")
@@ -1477,6 +1651,7 @@ def phase3(torch, dev, seed, card, steps=5, warmup=2):
         check(launches[k] == per_step * steps,
               f"{k}: {launches[k]} launches in {steps} steps, expected "
               f"{per_step} per step")
+    check_no_route(launches, "phase 3")
     ms = sorted(t * 1e3 for t in times)
     rec = dict(card=card, n_params=n_params, batch=B, seq=S,
                masked_positions=int(batch["masked_positions"].shape[1]),
@@ -1623,6 +1798,7 @@ def phase4(torch, dev, seed, card, steps=5, warmup=2):
         check(launches[k] == per_mb * accum * steps,
               f"{k}: {launches[k]} launches in {steps} global steps of "
               f"{accum} microbatches, expected {per_mb} per microbatch")
+    check_no_route(launches, "phase 4")
     ms = sorted(t * 1e3 for t in times)
     med = ms[len(ms) // 2]
     rec = dict(card=card, n_params=n_params, microbatch=B, seq=S,
@@ -1789,6 +1965,7 @@ def phase5(torch, dev, seed, card, steps=5, warmup=2):
         check(launches[k] == per_mb * accum * steps,
               f"{k}: {launches[k]} launches in {steps} global steps of "
               f"{accum} microbatches, expected {per_mb} per microbatch")
+    check_no_route(launches, "phase 5")
     ms = sorted(t * 1e3 for t in times)
     med = ms[len(ms) // 2]
     tokens = B * S * accum
@@ -1883,6 +2060,7 @@ def phase6(torch, dev, seed, card):
               and launches["layer_norm_bwd"] == 1,
               f"contrib {name} multihead_attn: B10/B12, B2/B1 launches "
               f"{launches}")
+        check_no_route(launches, f"phase 6 {name}")
         recs[name] = dict(card=card, T=T, B=B, Tk=Tk, embed=E, heads=NH,
                           worst_rel_err=worst, launches={
                               k: v for k, v in launches.items() if v},
@@ -1958,6 +2136,7 @@ def norm_microbench(torch, F, dev, seed, card, n_apps=16, iters=10, N=8192,
         grads[arm] = run(arm)
         torch.cuda.synchronize()
         launches[arm] = {k: v for k, v in _build.launches.items() if v}
+        check_no_route(launches[arm], f"phase 7 {arm}")
     for fused, stock in (("FusedLayerNorm", "stock LayerNorm"),
                          ("FusedRMSNorm", "stock RMSNorm")):
         check(launches[fused] == {"layer_norm_fwd": n_apps,
@@ -2170,6 +2349,7 @@ def openfold_tier(torch, dev, seed, card, steps=3, e=EVOFORMER):
         times.append(time.perf_counter() - t)
         losses.append(loss.item())
     launches = {k: v for k, v in _build.launches.items() if v}
+    check_no_route(launches, "phase 7 OpenFold tier")
     check(launches == {k: v * steps
                        for k, v in OPENFOLD_STEP_LAUNCHES.items()},
           f"OpenFold tier launches {launches} in {steps} steps, expected "
@@ -2254,6 +2434,8 @@ def main(argv=None):
                                seed)
     sm_rows = timed("phase 1 B6-B8", phase1_softmax, torch, dev, seed)
     tiled = timed("phase 1 B9-B13", phase1_flash_tiled, torch, F, dev, seed)
+    fwd16 = timed("phase 1 16-bit forward", phase1_flash_fwd16, torch, F,
+                  dev, seed)
     runs, checks = timed("phase 2", phase2, torch, dev, seed, card)
     checks["card_vs_cpu_train_step"] = timed("phase 3 card vs CPU",
                                              card_vs_cpu, torch, dev, seed)
@@ -2312,7 +2494,7 @@ def main(argv=None):
         kernel_entry("dropout", "apex_tpu_torch/csrc/dropout.cu",
                      "apex_tpu/ops/dropout.py:46", drop_rows, drop_rows[0],
                      launches["dropout"]),
-        kernel_entry("flash_fwd", "apex_tpu_torch/csrc/flash_attn.cu",
+        kernel_entry("flash_fwd", "apex_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "apex_tpu/ops/flash_attention.py:968", fwd_rows,
                      fwd_rows[1], launches["flash_fwd"]),
         kernel_entry("flash_bwd", "apex_tpu_torch/csrc/flash_attn.cu",
@@ -2330,7 +2512,8 @@ def main(argv=None):
     ]
     flash_src = "apex_tpu_torch/csrc/flash_attn.cu"
     for name, key, replaces, src in (
-            ("flash_fwd_tiled", "fwd_tiled", ":120", flash_src),
+            ("flash_fwd_tiled", "fwd_tiled", ":120",
+             "apex_tpu_torch/csrc/flash_fwd_sm90.cu"),
             ("flash_bwd_dq_tiled", "dq_tiled", ":226", flash_src),
             ("flash_bwd_dkv_tiled", "dkv_tiled", ":324", flash_src),
             ("flash_fwd_single", "fwd_single", ":183", flash_src),
@@ -2348,10 +2531,10 @@ def main(argv=None):
         dequant_gemm=dq_rows, layer_norm_bwd=ln_rows,
         layer_norm_fwd=ln_fwd_rows, dropout=drop_rows,
         flash_fwd=fwd_rows, flash_bwd=bwd_rows, softmax=sm_rows,
-        flash_tiled=tiled, engine=runs, train=train, train_s128=train128,
-        train_gpt=gpt, contrib_mha=mha, norm_microbench=norm_bench,
-        openfold=openfold, checks=checks, phase_s=phase_s,
-        kernels=kernels), indent=1))
+        flash_tiled=tiled, flash_fwd16=fwd16, engine=runs, train=train,
+        train_s128=train128, train_gpt=gpt, contrib_mha=mha,
+        norm_microbench=norm_bench, openfold=openfold, checks=checks,
+        phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps({"kernels": kernels}), flush=True)

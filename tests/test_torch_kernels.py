@@ -169,7 +169,7 @@ from apex_tpu_torch.ops.layer_norm import (  # noqa: E402
 
 def test_training_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.randn(4, 64)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         dropout_kernel(x.double(), 0.1, 1)
     with pytest.raises(ValueError, match="share"):
         layer_norm_backward_kernel(x.bfloat16(), x, torch.ones(64))
@@ -179,7 +179,7 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head dim"):
         flash_fwd_kernel(q, q, q, None, 2)
     with pytest.raises(ValueError, match="share"):
-        flash_fwd_kernel(q.half(), q.half(), q.half(), None, 2)
+        flash_fwd_kernel(q.double(), q.double(), q.double(), None, 2)
 
 
 def _ln_case(rows, H, dtype, device, seed=0):
@@ -338,15 +338,15 @@ from apex_tpu_torch.ops.softmax import (  # noqa: E402
 
 def test_softmax_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.randn(2, 8)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        softmax_fwd_kernel(x.half())
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        softmax_fwd_kernel(x.double())
     with pytest.raises(ValueError, match="mask_mode"):
         softmax_fwd_kernel(x, torch.zeros(2, 8))
     with pytest.raises(ValueError, match="mask_mode"):
         softmax_fwd_kernel(x, None, mask_mode="add")
     with pytest.raises(ValueError, match="differ"):
         softmax_bwd_kernel(x, x[:1])
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         softmax_bwd_kernel(x.double(), x)
 
 
@@ -477,7 +477,7 @@ def test_tiled_wrappers_refuse_what_the_kernels_do_not_take():
         flash_fwd_tiled_kernel(q, q, q)
     q = torch.randn(1, 2, 8, 64)
     with pytest.raises(ValueError, match="share"):
-        flash_fwd_tiled_kernel(q.half(), q.half(), q.half())
+        flash_fwd_tiled_kernel(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="Sk, D"):
         flash_fwd_tiled_kernel(q, q[..., :32], q)
     with pytest.raises(ValueError, match="key_mask"):
@@ -630,8 +630,8 @@ from torch_parity import assert_within_bf16_ulp  # noqa: E402
 
 def test_forward_wrapper_refuses_what_the_kernel_does_not_take():
     x = torch.randn(4, 64)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        layer_norm_forward_kernel(x.half(), torch.ones(64))
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        layer_norm_forward_kernel(x.double(), torch.ones(64))
     with pytest.raises(ValueError, match="weight"):
         layer_norm_forward_kernel(x, torch.ones(63))
     with pytest.raises(ValueError, match="bias"):
@@ -760,3 +760,306 @@ def test_openfold_tier_on_the_card(cuda_device):
         res[str(dev)] = [zn, o] + [t.grad for t in ts]
     for a, r in zip(res[str(cuda_device)], res["cpu"]):
         assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=1e-4)
+
+
+# -- fp16, the routes to the plain versions, the 16-bit Hopper forward --------
+
+from apex_tpu_torch.ops.flash_attention import kernel_head_dim  # noqa: E402
+from apex_tpu_torch.ops.paged_attention import read_kernel_takes  # noqa: E402
+
+
+def _fp16_ulps(out, ref, floor=2.0 ** -6):
+    """Largest ``|out - ref|`` in fp16 ulps (2^-10 of the binade) of the
+    larger magnitude, taken no smaller than at ``floor``."""
+    out, ref = out.detach().float().cpu(), ref.detach().float().cpu()
+    mag = torch.maximum(out.abs(), ref.abs()).clamp(min=floor)
+    _, e = torch.frexp(mag)
+    return ((out - ref).abs() / torch.ldexp(torch.ones_like(mag), e - 11)
+            ).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("H", [200, 1024, 4096, 12288])
+def test_fp16_norm_kernels_match_plain(cuda_device, H, rms):
+    """B2 (forward) and, up to H 8192, B1 (backward) on fp16 rows with
+    fp32 params against their plain versions: y and dx fp16 roundings of
+    fp32 values that agree to rounding, within one fp16 ulp (floored at
+    2^-6 for values near 0); dgamma, dbeta within 1e-4 of their largest
+    entry. H 12288 runs B1's route: ``layer_norm_backward`` counts
+    ``layer_norm_bwd_plain`` and launches no B1."""
+    rows = 37 if H > 4096 else 257
+    x, g, w = _ln_case(rows, H, torch.float16, cuda_device, seed=H)
+    b = torch.randn(H, generator=torch.Generator().manual_seed(2)).to(
+        cuda_device)
+    y = layer_norm_forward_kernel(x, w, None if rms else b, 1e-5, rms)
+    assert y.dtype == torch.float16
+    assert _fp16_ulps(y, layer_norm_forward_plain(
+        x, w, None if rms else b, 1e-5, rms)) <= 1.0
+    before = dict(_build.launches)
+    dx, dw, db = layer_norm_backward(g, x, w, 1e-5, rms)
+    torch.cuda.synchronize()
+    routed = H > 8192
+    assert _build.launches["layer_norm_bwd"] - before["layer_norm_bwd"] \
+        == (0 if routed else 1)
+    assert _build.launches["layer_norm_bwd_plain"] \
+        - before["layer_norm_bwd_plain"] == (1 if routed else 0)
+    rdx, rdw, rdb = layer_norm_backward_plain(g, x, w, 1e-5, rms)
+    assert dx.dtype == torch.float16
+    assert _fp16_ulps(dx, rdx) <= 1.0
+    for a, r in ((dw, rdw), (db, rdb)):
+        assert_close(a, r, atol=1e-4 * r.abs().max().item() + 1e-6,
+                     rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1,), (3, 517), (16, 64, 128)])
+def test_fp16_dropout_kernel_matches_plain_bit_for_bit(cuda_device, shape):
+    """B3 on fp16: the plain version's Philox bits and fp16 keep scale,
+    bit for bit (odd sizes take the scalar tail)."""
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(3))
+    x = x.half().to(cuda_device)
+    before = _build.launches["dropout"]
+    y = dropout_kernel(x, 0.1, 4321)
+    torch.cuda.synchronize()
+    assert _build.launches["dropout"] == before + 1
+    assert y.dtype == torch.float16
+    assert torch.equal(y, dropout_plain(x, 0.1, 4321))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mshape,mode,scale,causal,counter",
+                         SOFTMAX_CASES)
+def test_fp16_softmax_kernels_match_plain(cuda_device, shape, mshape, mode,
+                                          scale, causal, counter):
+    """B6/B7 and B8 on fp16 scores against their plain versions: within
+    one fp16 ulp of values up to 1 (2^-10); B8 also with fp16 y and an
+    fp32 gradient (the dtypes mix)."""
+    x, m = _softmax_case(shape, mshape, mode, torch.float16, cuda_device)
+    before = dict(_build.launches)
+    y = softmax_fwd_kernel(x, m, scale, causal, mode)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(
+        cuda_device)
+    dx = softmax_bwd_kernel(g.half(), y, scale)
+    dx32 = softmax_bwd_kernel(g, y, scale)
+    torch.cuda.synchronize()
+    assert _build.launches[counter] == before[counter] + 1
+    assert _build.launches["softmax_bwd"] == before["softmax_bwd"] + 2
+    assert y.dtype == dx.dtype == torch.float16
+    assert_close(y, softmax_fwd_plain(x, m, scale, causal, mode),
+                 atol=2.0 ** -10, rtol=2.0 ** -10)
+    assert_close(dx, softmax_bwd_plain(g.half(), y, scale), atol=2.0 ** -10,
+                 rtol=2e-3)
+    assert_close(dx32, softmax_bwd_plain(g, y, scale), atol=1e-5, rtol=1e-5)
+
+
+# (B, H, Sq, Sk, D, causal, key mask, rate, layout): the new forward at
+# GPT-2 small's B9 shape, BERT-large's B4 shape (flat bsh views),
+# multihead_attn's B10 shape (sequence-first views), Sq != Sk, an S that
+# is not a multiple of the 128-key tile, Sk % 4 != 0 (the per-element
+# dropout bits), head dims 32 and 128, and inputs off a 16-byte boundary
+# (the element loads in place of TMA)
+FWD_CASES = [
+    (8, 12, 1024, 1024, 64, True, False, 0.0, "flat"),
+    (8, 12, 1024, 1024, 64, True, False, 0.1, "flat"),
+    (16, 16, 512, 512, 64, False, True, 0.0, "flat"),
+    (16, 16, 512, 512, 64, False, True, 0.1, "flat"),
+    (8, 16, 512, 512, 64, False, True, 0.1, "seq"),
+    (2, 2, 256, 1024, 64, True, False, 0.1, "bhsd"),
+    (2, 3, 1000, 1000, 64, True, True, 0.1, "bhsd"),
+    (2, 2, 77, 77, 64, False, True, 0.1, "bhsd"),
+    (2, 3, 130, 61, 64, True, False, 0.1, "bhsd"),
+    (2, 2, 300, 300, 32, True, True, 0.1, "bhsd"),
+    (2, 2, 300, 300, 128, False, True, 0.1, "bhsd"),
+    (2, 2, 200, 200, 64, False, True, 0.1, "shifted"),
+    (2, 2, 200, 200, 128, True, False, 0.0, "shifted"),
+]
+
+
+def _fwd_case(B, H, Sq, Sk, D, masked, layout, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    if layout == "flat":            # heads read by stride from (B, S, H D)
+        q, k, v = (torch.randn(B, S, H * D, generator=gen).to(dtype)
+                   .to(device).view(B, S, H, D).transpose(1, 2)
+                   for S in (Sq, Sk, Sk))
+    elif layout == "seq":           # (T, B, H, D) views
+        qkv = torch.randn(Sq, B, 3, H, D, generator=gen).to(dtype).to(device)
+        q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3) for i in range(3))
+    else:
+        q = torch.randn(B, H, Sq, D, generator=gen).to(dtype).to(device)
+        k, v = (torch.randn(B, H, Sk, D, generator=gen).to(dtype).to(device)
+                for _ in range(2))
+        if layout == "shifted":
+            def shifted(t):
+                buf = torch.empty(t.numel() + 1, dtype=t.dtype,
+                                  device=t.device)
+                out = buf[1:].view(t.shape)
+                out.copy_(t)
+                return out
+            q, k, v = shifted(q), shifted(k), shifted(v)
+            assert q.data_ptr() % 16 != 0
+    mask = None
+    if masked:
+        mask = torch.zeros(B, Sk, dtype=torch.bool)
+        mask[0, Sk // 2:] = True
+        mask[B - 1] = True               # a fully masked row
+        mask = mask.to(device)
+    return q, k, v, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,masked,rate,layout", FWD_CASES)
+def test_sm90_forward_matches_plain(cuda_device, B, H, Sq, Sk, D, causal,
+                                    masked, rate, layout, dtype):
+    """The 16-bit Hopper forward (``csrc/flash_fwd_sm90.cu``) through the
+    tiled wrapper against ``flash_fwd_plain``, which draws the same Philox
+    mask: out within atol = rtol = 1e-2 and 1e-2 of its norm (p is
+    rounded against the running max in the kernel, the final max in the
+    plain version; the smoke's tolerance), lse within 1e-4 relative; a
+    fully masked row is the mean of v over its Sk keys."""
+    q, k, v, mask = _fwd_case(B, H, Sq, Sk, D, masked, layout, dtype,
+                              cuda_device, seed=Sq + D)
+    args = (causal, D ** -0.5, rate, 99 if rate else None)
+    before = _build.launches["flash_fwd_tiled"]
+    out, lse = flash_fwd_tiled_kernel(q, k, v, mask, *args)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_fwd_tiled"] == before + 1
+    rout, rlse = flash_fwd_plain(q, k, v, mask, *args)
+    assert out.dtype == dtype and out.shape == rout.shape
+    assert torch.isfinite(out.float()).all()
+    assert_close(out, rout, atol=1e-2, rtol=1e-2)
+    a, r = out.float(), rout.float()
+    assert ((a - r).norm() / r.norm()).item() <= 1e-2
+    assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+    if masked and not causal and rate == 0.0:
+        mean = v[B - 1].float().mean(1, keepdim=True).expand(H, Sq, D)
+        assert_close(out[B - 1], mean, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,D,causal,rate", [
+    (128, 64, False, 0.0), (200, 64, True, 0.1), (512, 64, False, 0.1),
+    (130, 128, True, 0.0)])
+def test_fp16_flash_kernels_match_plain(cuda_device, S, D, causal, rate):
+    """B4 and B5 on fp16 against their plain versions (as the bf16 case
+    of ``test_flash_kernels_match_plain``): within 1e-2 (an fp16 ulp at
+    |values| up to ~8, plus p and dS rounded at other points)."""
+    B, NH = 2, 2
+    q, k, v, g, mask = _attn_case(B, S, NH, D, torch.float16, cuda_device,
+                                  seed=S)
+    args = (NH, causal, D ** -0.5, rate, 77 if rate else None)
+    before = dict(_build.launches)
+    out, lse = flash_fwd_kernel(q, k, v, mask, *args)
+    grads = flash_bwd_kernel(q, k, v, mask, out, lse, g, *args)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert _build.launches["flash_bwd"] == before["flash_bwd"] + 1
+    rout, rlse = flash_attention_bsh_plain(q, k, v, mask, *args)
+    rgrads = flash_attention_bsh_backward_plain(q, k, v, mask, rout, rlse, g,
+                                                *args)
+    assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+    for a, r in zip((out, *grads), (rout, *rgrads)):
+        assert a.dtype == torch.float16 and a.shape == r.shape
+        assert torch.isfinite(a.float()).all()
+        assert_close(a, r, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [48, 96, 160])
+@pytest.mark.parametrize("entry", ["flash_attention", "bsh"])
+def test_flash_head_dims_on_the_card(cuda_device, D, entry):
+    """Head dims the kernels do not take run on the card without a
+    ValueError: 48 and 96 padded to 64 and 128 (the kernels' counters
+    move, ``flash_plain`` does not), 160 routed to the plain versions
+    (``flash_plain`` counts the forward and the backward, no kernel
+    moves). fp32 outputs and gradients against the plain path on the card
+    within 1e-4 (the kernels' sums in other orders); NH 4 makes the bsh
+    entry a B4/B5 call for D 96 (four heads fill 128-lane blocks)."""
+    B, NH, S = 2, 4, 256
+    gen = torch.Generator().manual_seed(D)
+    q, k, v, g = (torch.randn(B, NH, S, D, generator=gen).to(cuda_device)
+                  for _ in range(4))
+    mask = torch.zeros(B, S, dtype=torch.bool, device=cuda_device)
+    mask[1, 150:] = True
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(_build.launches)
+    if entry == "bsh":
+        flat = [t.transpose(1, 2).reshape(B, S, NH * D) for t in ts]
+        out = flash_attention_bsh(*flat, mask, NH, True, D ** -0.5, 0.1, 3)
+        out.backward(g.transpose(1, 2).reshape(B, S, NH * D))
+        out = out.view(B, S, NH, D).transpose(1, 2)
+    else:
+        out = flash_attention(*ts, mask, True, D ** -0.5, 0.1, 3)
+        out.backward(g)
+    torch.cuda.synchronize()
+    moved = {n: _build.launches[n] - before[n] for n in before
+             if _build.launches[n] != before[n]}
+    if kernel_head_dim(D) is None:
+        assert moved == {"flash_plain": 2}
+    else:
+        assert "flash_plain" not in moved and moved
+    rout, rlse = flash_fwd_plain(q, k, v, mask, True, D ** -0.5, 0.1, 3)
+    rgrads = flash_bwd_plain(q, k, v, mask, rlse, attention_delta4(g, rout),
+                             g, True, D ** -0.5, 0.1, 3)
+    assert out.shape == rout.shape
+    for a, r in zip([out.detach()] + [t.grad for t in ts], (rout, *rgrads)):
+        assert a.shape == r.shape
+        assert_close(a, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_wide_norm_module_on_the_card(cuda_device):
+    """A differentiated FusedLayerNorm at H 12288 on the card: B2 forward,
+    the routed plain backward (``layer_norm_bwd_plain``), no ValueError;
+    gradients equal the plain backward's."""
+    ln = FusedLayerNorm(12288)
+    x = torch.randn(4, 12288, generator=torch.Generator().manual_seed(5))
+    x = x.to(cuda_device).requires_grad_(True)
+    before = dict(_build.launches)
+    y = ln(x)
+    g = torch.randn_like(y)
+    y.backward(g)
+    torch.cuda.synchronize()
+    moved = {n: _build.launches[n] - before[n] for n in before
+             if _build.launches[n] != before[n]}
+    assert moved == {"layer_norm_fwd": 1, "layer_norm_bwd_plain": 1}
+    rdx, rdw, rdb = layer_norm_backward_plain(g, x.detach(), ln.scale,
+                                              ln.eps)
+    assert torch.equal(x.grad, rdx)
+    assert torch.equal(ln.scale.grad, rdw)
+    assert torch.equal(ln.bias.grad, rdb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,q_dtype,pool_dtype", [
+    (256, torch.float32, torch.float32), (36, torch.bfloat16, torch.bfloat16),
+    (64, torch.float16, torch.float32), (64, torch.float32, torch.float32)])
+def test_paged_read_routes_on_the_card(cuda_device, D, q_dtype, pool_dtype):
+    """``paged_prefill_attention`` on the card: D 256, 72-byte bf16 rows
+    and fp16 queries run the plain chain (``paged_read_plain``, the same
+    function: equal results), D 64 fp32 runs B14 (within 1e-4 of it)."""
+    gen = torch.Generator().manual_seed(D)
+    N_, BS_, H_, B_, C_ = 12, 16, 2, 3, 5
+    ctx = torch.tensor([40, 0, 77], dtype=torch.int32)
+    tbl = torch.full((B_, 6), N_, dtype=torch.int32)
+    tbl[0, :3] = torch.tensor([4, 1, 7])
+    tbl[2, :5] = torch.tensor([0, 9, 2, 11, 5])
+    qpos = (ctx[:, None] - C_ + torch.arange(C_)[None]).clamp(min=0)
+    q = torch.randn(B_, C_, H_, D, generator=gen).to(q_dtype)
+    kp, vp = (torch.randn(N_, BS_, H_, D, generator=gen).to(pool_dtype)
+              for _ in range(2))
+    args = [t.to(cuda_device) for t in (q, kp, vp, tbl, qpos.int(), ctx)]
+    before = dict(_build.launches)
+    out = paged_prefill_attention(*args, 0.2)
+    torch.cuda.synchronize()
+    takes = read_kernel_takes(q_dtype, pool_dtype, D)
+    assert _build.launches["paged_read"] - before["paged_read"] == int(takes)
+    assert _build.launches["paged_read_plain"] \
+        - before["paged_read_plain"] == int(not takes)
+    ref = paged_prefill_attention_plain(*args, 0.2)
+    assert out.dtype == q_dtype and out.shape == ref.shape
+    if takes:
+        assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    else:
+        assert torch.equal(out, ref)

@@ -66,7 +66,9 @@ wrappers (B4 + B5) at BERT-large's shape (B 16, S 512, 16 heads, D 64,
 bf16, a key mask padding half the rows) and, where the tree has them,
 the tiled wrappers (B9, B11b, B11a) at GPT-2 small's (B 8, S 1024, 12
 heads, D 64, bf16, causal, heads read by stride from the flat
-activations), each at dropout 0 and 0.1. It prints one JSON line per run:
+activations) and the single-tile wrappers (B10, B12) at contrib
+multihead_attn's (T 512, B 8, 16 heads, D 64, bf16, sequence-first views,
+a key mask), each at dropout 0 and 0.1. It prints one JSON line per run:
 ms per launch of each CUDA kernel by case, with the card's name and power
 limit.
 
@@ -178,6 +180,23 @@ if hasattr(fa, "flash_fwd_tiled_kernel"):
             fa.flash_bwd_dq_tiled_kernel(q, k, v, None, lse, delta, do,
                                          *args)),
             f"gpt2-small rate {rate}")
+if hasattr(fa, "flash_fwd_single_kernel"):
+    T, B, NH = 512, 8, 16
+    qkv = torch.randn(T, B, 3, NH, D, generator=g).to(torch.bfloat16).to(dev)
+    q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3) for i in range(3))
+    do = torch.randn(B, NH, T, D, generator=g).to(torch.bfloat16).to(dev)
+    mask = torch.zeros(B, T, dtype=torch.bool)
+    mask[:B // 2, 300:] = True
+    mask = mask.to(dev)
+    for rate in (0.0, 0.1):
+        args = (False, D ** -0.5, rate, 7 if rate else None)
+        out, lse = fa.flash_fwd_single_kernel(q, k, v, mask, *args)
+        delta = fa.attention_delta4(do, out)
+        prof(lambda: (
+            fa.flash_fwd_single_kernel(q, k, v, mask, *args),
+            fa.flash_bwd_single_kernel(q, k, v, mask, lse, delta, do,
+                                       *args)),
+            f"multihead-attn rate {rate}")
 print(json.dumps(res))
 '''
 
