@@ -10,11 +10,12 @@
 //   _fwd_single_kernel (B10) and _bwd_fused_kernel (B12), flash_attention
 //     in its single-tile regime (contrib multihead_attn).
 // The TPU needs five kernels because its blocks must tile 128 lanes and its
-// grid carries sums from step to step; here one forward per input width
-// (fp32 below; bf16 and fp16 in csrc/flash_fwd_sm90.cu) and one two-kernel
-// backward take any Sq, Sk and strides, so the five share one source of
-// truth for the mask, the Philox numbering and the rounding. The wrappers
-// count each call under the name of the TPU kernel it stands in for.
+// grid carries sums from step to step; here one forward and one two-kernel
+// backward per input width (fp32 in this file; bf16 and fp16 in
+// csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu) take any Sq, Sk and
+// strides, so the five share one source of truth for the mask, the Philox
+// numbering and the rounding. The wrappers count each call under the name
+// of the TPU kernel it stands in for.
 //
 // Semantics (per batch row b and head h; q rows 0 .. Sq - 1, keys 0 .. Sk-1):
 //   s[q, k] = (q_q . k_k) * scale, or FILL = -30000 where key k is masked
@@ -54,39 +55,29 @@
 // strides with the head dim contiguous, so the flat (B, S, NH * D)
 // activations of the bsh entry, the (B, NH, S, D) tensors of
 // flash_attention and the sequence-first (T, B, NH, D) views of the contrib
-// modules are all read in place, and works on 64 x 64 score tiles. The
-// backward is two kernels, so that no sum needs atomics (deterministic):
-// dK/dV with one block per 64-key tile looping over the query tiles, and dQ
-// with one block per 64-query tile looping over the key tiles; each
-// recomputes s and p from q, k and lse and replays the same mask.
+// modules are all read in place. The backward is two kernels, so that no
+// sum needs atomics (deterministic): dK/dV walking the query tiles of a key
+// tile, and dQ walking the key tiles of a query tile; each recomputes s and
+// p from q, k and lse and replays the same mask.
 //
-// The 16-bit backward (bf16, the training path, and fp16) runs on the
-// tensor cores through WMMA fragments of the input type with fp32
-// accumulation. A block is four warps and each warp owns 16 rows of the
-// block's tile: it computes its 16 x 64 scores (and dP) into its own fp32
-// shared-memory rows, applies the mask, softmax, dropout and rounding
-// there with its 32 lanes, writes p (or ds) back in the input type and
-// multiplies that with the shared V / dO / Q / K tile, accumulating in
-// fragments. Only the tile loads need the whole block. The 16-bit forward
-// is csrc/flash_fwd_sm90.cu (wgmma, TMA, one pass with an online softmax).
-//
-// fp32 inputs run the products as fp32 FMAs on the CUDA cores (67 TFLOP/s
-// peak), from shared memory: 256 threads, thread (ty, tx) computing rows
-// 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of a score tile in
+// This file holds the entry points and the fp32 kernels. fp32 inputs run
+// the products as fp32 FMAs on the CUDA cores (67 TFLOP/s peak), on 64 x 64
+// score tiles from shared memory: 256 threads, thread (ty, tx) computing
+// rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of a score tile in
 // registers from tiles padded to D + 1 floats a row; the forward keeps an
 // online softmax (running max and sum per row, the output accumulator
-// rescaled per key tile), as JAX's tiled kernel does. The backward kernels
-// keep their own 64 x 64 tiles (BQ, BK, query_start): the 16-bit forward's
-// tile size is its own.
+// rescaled per key tile), as JAX's tiled kernel does. The dK/dV kernel
+// takes one block per 64-key tile, the dQ kernel one per 64-query tile
+// (BQ, BK, query_start). The 16-bit inputs (bf16, the training path, and
+// fp16) run on the tensor cores in the Hopper kernels: the forward in
+// csrc/flash_fwd_sm90.cu (wgmma, TMA, one pass with an online softmax),
+// the backward's dK/dV and dQ kernels in csrc/flash_bwd_sm90.cu (wgmma,
+// TMA, p and dS formed in registers), with tile sizes of their own.
 
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "dtypes.cuh"
 #include "flash_common.cuh"
 #include "philox.cuh"
 
@@ -99,20 +90,10 @@ constexpr int TI = 4;        // score rows per thread
 constexpr int TJ = 4;        // score columns per thread
 constexpr int LP = BK + 1;   // padded row of a score tile
 using flash::FILL;
+using flash::head_base;
+using flash::head_base_out;
 using flash::Layout;
 using flash::Params;
-
-template <typename T>
-__device__ __forceinline__ const T* head_base(const void* ptr,
-                                              const Layout& L, int b, int h) {
-  return static_cast<const T*>(ptr) + b * L.b + h * L.h;
-}
-
-template <typename T>
-__device__ __forceinline__ T* head_base_out(void* ptr, const Layout& L, int b,
-                                            int h) {
-  return static_cast<T*>(ptr) + b * L.b + h * L.h;
-}
 
 // One past the last key a query tile starting at q0 must visit.
 __device__ __forceinline__ int key_end(const Params& p, int q0) {
@@ -504,319 +485,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   }
 }
 
-// -- 16-bit backward: tensor cores (WMMA) ------------------------------------
-
-namespace wmma = nvcuda::wmma;
-constexpr int kTcThreads = 128;  // four warps, 16 tile rows each
-
-template <int D>
-struct Tc {
-  static constexpr int LDH = D + 8;                  // 16-bit tile row
-  static constexpr int LDS = (D > BK ? D : BK) + 4;  // fp32 scratch row
-  static constexpr int LDP = BK + 8;                 // 16-bit p / ds row
-  static constexpr int NJ = D / 16;                  // 16-col output frags
-};
-
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Rows [r0, r0 + 64) of a head (zeros at rows >= n), a 16-bit tile with
-// row stride D + 8 once stored. Where the source rows are 16-byte aligned
-// a thread fetches its chunks into registers (read-only loads, __ldg) and
-// stores them after; callers fetch two tiles before storing either, so all
-// of a thread's loads are in flight together (a load through a plain
-// pointer may not move above an earlier shared store, which serialised
-// them).
-template <int D>
-struct TileRegs {
-  static constexpr int CH = D / 8;                  // 16-byte chunks a row
-  static constexpr int PER = 64 * CH / kTcThreads;  // chunks a thread
-  static_assert(64 * CH % kTcThreads == 0, "whole chunks per thread");
-  uint4 v[PER];
-};
-
-template <typename T, int D>
-__device__ __forceinline__ void fetch_tile_tc(TileRegs<D>& t, const T* base,
-                                              long long rs, int r0, int n) {
-  constexpr int CH = TileRegs<D>::CH;
-#pragma unroll
-  for (int i = 0; i < TileRegs<D>::PER; ++i) {
-    const int e = threadIdx.x + i * kTcThreads;
-    const int r = e / CH, c = (e % CH) * 8;
-    t.v[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      t.v[i] = __ldg(reinterpret_cast<const uint4*>(base + (r0 + r) * rs + c));
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void store_tile_tc(T* dst, const TileRegs<D>& t) {
-  constexpr int CH = TileRegs<D>::CH;
-#pragma unroll
-  for (int i = 0; i < TileRegs<D>::PER; ++i) {
-    const int e = threadIdx.x + i * kTcThreads;
-    *reinterpret_cast<uint4*>(dst + (e / CH) * Tc<D>::LDH + (e % CH) * 8) =
-        t.v[i];
-  }
-}
-
-// The element-wise path, for sources that are not 16-byte aligned.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_tc_scalar(T* dst, const T* base,
-                                                    long long rs, int r0,
-                                                    int n) {
-  for (int e = threadIdx.x; e < 64 * D; e += kTcThreads) {
-    const int r = e / D, c = e % D;
-    dst[r * Tc<D>::LDH + c] =
-        r0 + r < n ? base[(r0 + r) * rs + c] : from_f32<T>(0.f);
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_tc(T* dst, const T* base,
-                                             long long rs, int r0, int n,
-                                             bool vec) {
-  if (vec) {
-    TileRegs<D> t;
-    fetch_tile_tc<T, D>(t, base, rs, r0, n);
-    store_tile_tc<T, D>(dst, t);
-  } else {
-    load_tile_tc_scalar<T, D>(dst, base, rs, r0, n);
-  }
-}
-
-// Two tiles of the same rows (K and V, or Q and dO), both fetched before
-// either is stored; at D = 128 one after the other, to spare registers.
-template <typename T, int D>
-__device__ __forceinline__ void load_tiles_tc(T* dst0, const T* base0,
-                                              long long rs0, T* dst1,
-                                              const T* base1, long long rs1,
-                                              int r0, int n, bool vec) {
-  if constexpr (D <= 64) {
-    if (vec) {
-      TileRegs<D> t0, t1;
-      fetch_tile_tc<T, D>(t0, base0, rs0, r0, n);
-      fetch_tile_tc<T, D>(t1, base1, rs1, r0, n);
-      store_tile_tc<T, D>(dst0, t0);
-      store_tile_tc<T, D>(dst1, t1);
-      return;
-    }
-  }
-  load_tile_tc<T, D>(dst0, base0, rs0, r0, n, vec);
-  load_tile_tc<T, D>(dst1, base1, rs1, r0, n, vec);
-}
-
-// out (16 x 64, fp32, row stride LDS) = A (16 x D rows of a 16-bit tile)
-// times the transpose of B (64 x D rows of a 16-bit tile): raw dot
-// products.
-template <typename T, int D>
-__device__ __forceinline__ void warp_dots(const T* A, const T* Bt,
-                                          float* out) {
-  constexpr int LDH = Tc<D>::LDH;
-  AccFrag acc[BK / 16];
-#pragma unroll
-  for (int t = 0; t < BK / 16; ++t) wmma::fill_fragment(acc[t], 0.f);
-#pragma unroll
-  for (int d0 = 0; d0 < D; d0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + d0, LDH);
-#pragma unroll
-    for (int t = 0; t < BK / 16; ++t) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bt;
-      wmma::load_matrix_sync(bt, Bt + t * 16 * LDH + d0, LDH);
-      wmma::mma_sync(acc[t], a, bt, acc[t]);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < BK / 16; ++t)
-    wmma::store_matrix_sync(out + t * 16, acc[t], Tc<D>::LDS,
-                            wmma::mem_row_major);
-}
-
-// acc[j] += A (16 x 64, 16-bit, row stride LDP) times B (64 x D rows of a
-// 16-bit tile), output columns [16 j, 16 j + 16).
-template <typename T, int D>
-__device__ __forceinline__ void warp_accumulate(AccFrag* acc, const T* A,
-                                                const T* Bm) {
-#pragma unroll
-  for (int k0 = 0; k0 < BK; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + k0, Tc<D>::LDP);
-#pragma unroll
-    for (int j = 0; j < Tc<D>::NJ; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bm;
-      wmma::load_matrix_sync(bm, Bm + k0 * Tc<D>::LDH + j * 16, Tc<D>::LDH);
-      wmma::mma_sync(acc[j], a, bm, acc[j]);
-    }
-  }
-}
-
-// Write a warp's 16 x D accumulator rows to rows [r0, r0 + 16) of a head
-// (rows >= n skipped), through its fp32 scratch rows.
-template <typename T, int D>
-__device__ __forceinline__ void warp_store_rows(AccFrag* acc, float* scratch,
-                                                T* dst, long long rs, int r0,
-                                                int n) {
-#pragma unroll
-  for (int j = 0; j < Tc<D>::NJ; ++j)
-    wmma::store_matrix_sync(scratch + j * 16, acc[j], Tc<D>::LDS,
-                            wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  for (int e = lane; e < 16 * D; e += 32) {
-    const int r = e / D, c = e % D;
-    if (r0 + r < n)
-      dst[(r0 + r) * rs + c] = from_f32<T>(scratch[r * Tc<D>::LDS + c]);
-  }
-  __syncwarp();
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kTcThreads)
-    flash_bwd_dkdv_tc_kernel(Params p, bool vec) {
-  using L = Tc<D>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + BK * L::LDH;
-  T* Qs = Vs + BK * L::LDH;
-  T* dOs = Qs + BQ * L::LDH;
-  float* St = reinterpret_cast<float*>(dOs + BQ * L::LDH);  // s^T rows
-  float* dPt = St + BK * L::LDS;                            // dP^T rows
-  T* Pt = reinterpret_cast<T*>(dPt + BK * L::LDS);
-  T* dSt = Pt + BK * L::LDP;
-  float* lse_s = reinterpret_cast<float*>(dSt + BK * L::LDP);
-  float* delta_s = lse_s + BQ;
-  int* codes = reinterpret_cast<int*>(delta_s + BQ);
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Sq = p.Sq, Sk = p.Sk;
-  float* Stw = St + 16 * w * L::LDS;
-  float* dPtw = dPt + 16 * w * L::LDS;
-  T* Ptw = Pt + 16 * w * L::LDP;
-  T* dStw = dSt + 16 * w * L::LDP;
-  const T* qb = head_base<T>(p.q, p.lq, b, h);
-  const T* dob = head_base<T>(p.dout, p.ldo, b, h);
-  load_tiles_tc<T, D>(Ks, head_base<T>(p.k, p.lk, b, h), p.lk.r, Vs,
-                      head_base<T>(p.v, p.lv, b, h), p.lv.r, k0, Sk, vec);
-  load_codes(codes, p, b, k0, kTcThreads);
-  AccFrag dk[L::NJ], dv[L::NJ];
-#pragma unroll
-  for (int j = 0; j < L::NJ; ++j) {
-    wmma::fill_fragment(dk[j], 0.f);
-    wmma::fill_fragment(dv[j], 0.f);
-  }
-  PhiloxCursor rng(p.seed);
-  const long long row_base = (static_cast<long long>(b) * p.NH + h) * Sq;
-  const unsigned long long head_rows =
-      static_cast<unsigned long long>(row_base);
-  for (int q0 = query_start(p, k0); q0 < Sq; q0 += BQ) {
-    __syncthreads();
-    load_tiles_tc<T, D>(Qs, qb, p.lq.r, dOs, dob, p.ldo.r, q0, Sq, vec);
-    load_row_stats(lse_s, delta_s, p, row_base, q0, kTcThreads);
-    __syncthreads();
-    // this warp's 16 keys against the tile's 64 queries, transposed
-    warp_dots<T, D>(Ks + 16 * w * L::LDH, Qs, Stw);
-    warp_dots<T, D>(Vs + 16 * w * L::LDH, dOs, dPtw);
-    __syncwarp();
-    // lane owns queries 2 lane, 2 lane + 1 and the warp's 16 keys (four
-    // consecutive keys share one Philox call)
-#pragma unroll
-    for (int qi = 0; qi < 2; ++qi) {
-      const int qc = 2 * lane + qi;
-      const float lse_q = lse_s[qc], delta_q = delta_s[qc];
-#pragma unroll 4
-      for (int kr = 0; kr < 16; ++kr) {
-        const BwdElem e = bwd_elem(Stw[kr * L::LDS + qc],
-                                   dPtw[kr * L::LDS + qc], codes[16 * w + kr],
-                                   q0 + qc, k0 + 16 * w + kr, lse_q, delta_q,
-                                   p, rng, head_rows);
-        Ptw[kr * L::LDP + qc] = from_f32<T>(e.pav);
-        dStw[kr * L::LDP + qc] = from_f32<T>(e.ds);
-      }
-    }
-    __syncwarp();
-    warp_accumulate<T, D>(dv, Ptw, dOs);
-    warp_accumulate<T, D>(dk, dStw, Qs);
-  }
-  warp_store_rows<T, D>(dk, Stw, head_base_out<T>(p.out, p.lo, b, h),
-                        p.lo.r, k0 + 16 * w, Sk);
-  warp_store_rows<T, D>(dv, Stw, head_base_out<T>(p.out2, p.lo2, b, h),
-                        p.lo2.r, k0 + 16 * w, Sk);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kTcThreads)
-    flash_bwd_dq_tc_kernel(Params p, bool vec) {
-  using L = Tc<D>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + BQ * L::LDH;
-  T* Ks = dOs + BQ * L::LDH;
-  T* Vs = Ks + BK * L::LDH;
-  float* Ss = reinterpret_cast<float*>(Vs + BK * L::LDH);
-  float* dPs = Ss + BQ * L::LDS;
-  T* dSs = reinterpret_cast<T*>(dPs + BQ * L::LDS);
-  float* lse_s = reinterpret_cast<float*>(dSs + BQ * L::LDP);
-  float* delta_s = lse_s + BQ;
-  int* codes = reinterpret_cast<int*>(delta_s + BQ);
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Sq = p.Sq, Sk = p.Sk;
-  const int rr = lane >> 1, side = lane & 1;
-  const int qr = 16 * w + rr, qq = q0 + qr;
-  float* Sw = Ss + 16 * w * L::LDS;
-  float* dPw = dPs + 16 * w * L::LDS;
-  T* dSw = dSs + 16 * w * L::LDP;
-  const long long row_base = (static_cast<long long>(b) * p.NH + h) * Sq;
-  const unsigned long long head_rows =
-      static_cast<unsigned long long>(row_base);
-  const T* kb = head_base<T>(p.k, p.lk, b, h);
-  const T* vb = head_base<T>(p.v, p.lv, b, h);
-  load_tiles_tc<T, D>(Qs, head_base<T>(p.q, p.lq, b, h), p.lq.r, dOs,
-                      head_base<T>(p.dout, p.ldo, b, h), p.ldo.r, q0, Sq,
-                      vec);
-  load_row_stats(lse_s, delta_s, p, row_base, q0, kTcThreads);
-  AccFrag dq[L::NJ];
-#pragma unroll
-  for (int j = 0; j < L::NJ; ++j) wmma::fill_fragment(dq[j], 0.f);
-  PhiloxCursor rng(p.seed);
-  const int kend = key_end(p, q0);
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    load_tiles_tc<T, D>(Ks, kb, p.lk.r, Vs, vb, p.lv.r, k0, Sk, vec);
-    load_codes(codes, p, b, k0, kTcThreads);
-    __syncthreads();
-    warp_dots<T, D>(Qs + 16 * w * L::LDH, Ks, Sw);
-    warp_dots<T, D>(dOs + 16 * w * L::LDH, Vs, dPw);
-    __syncwarp();
-    const float lse_q = lse_s[qr], delta_q = delta_s[qr];
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = 32 * side + j;
-      const BwdElem e =
-          bwd_elem(Sw[rr * L::LDS + c], dPw[rr * L::LDS + c], codes[c], qq,
-                   k0 + c, lse_q, delta_q, p, rng, head_rows);
-      dSw[rr * L::LDP + c] = from_f32<T>(e.ds);
-    }
-    __syncwarp();
-    warp_accumulate<T, D>(dq, dSw, Ks);
-  }
-  warp_store_rows<T, D>(dq, Sw, head_base_out<T>(p.out, p.lo, b, h), p.lo.r,
-                        q0 + 16 * w, Sq);
-}
-
-template <int D>
-constexpr size_t dkdv_tc_smem() {
-  using L = Tc<D>;
-  return 2 * (4 * 64 * L::LDH + 2 * 64 * L::LDP) + 4 * 2 * 64 * L::LDS +
-         4 * 2 * BQ + 4 * BK;
-}
-template <int D>
-constexpr size_t dq_tc_smem() {
-  using L = Tc<D>;
-  return 2 * (4 * 64 * L::LDH + 64 * L::LDP) + 4 * 2 * 64 * L::LDS +
-         4 * 2 * BQ + 4 * BK;
-}
-
 template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LP) +
@@ -847,32 +515,20 @@ int launch_kernel(K kernel, size_t smem, dim3 grid, int threads,
 }
 
 // parts: 1 the dK/dV kernel (p.out = dk, p.out2 = dv), 2 the dQ kernel
-// (pq.out = dq). fp32: the CUDA-core kernels; T 16-bit: the tensor-core
-// ones.
-template <typename T, int D>
-int bwd(const Params& p, const Params& pq, int parts, bool vec,
-        cudaStream_t s) {
-  constexpr bool tc = !std::is_same<T, float>::value;
+// (pq.out = dq); fp32 only (16-bit: csrc/flash_bwd_sm90.cu).
+template <int D>
+int bwd(const Params& p, const Params& pq, int parts, cudaStream_t s) {
   dim3 grid_k((p.Sk + BK - 1) / BK, p.NH, p.B);
   dim3 grid_q((p.Sq + BQ - 1) / BQ, p.NH, p.B);
   int err = 0;
   if (parts & 1) {
-    if constexpr (tc)
-      err = launch_kernel(flash_bwd_dkdv_tc_kernel<T, D>, dkdv_tc_smem<D>(),
-                          grid_k, kTcThreads, s, p, vec);
-    else
-      err = launch_kernel(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>(), grid_k,
-                          kThreads, s, p);
+    err = launch_kernel(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>(), grid_k,
+                        kThreads, s, p);
     if (err != 0) return err;
   }
-  if (parts & 2) {
-    if constexpr (tc)
-      err = launch_kernel(flash_bwd_dq_tc_kernel<T, D>, dq_tc_smem<D>(),
-                          grid_q, kTcThreads, s, pq, vec);
-    else
-      err = launch_kernel(flash_bwd_dq_kernel<D>, dq_smem<D>(), grid_q,
-                          kThreads, s, pq);
-  }
+  if (parts & 2)
+    err = launch_kernel(flash_bwd_dq_kernel<D>, dq_smem<D>(), grid_q,
+                        kThreads, s, pq);
   return err;
 }
 
@@ -895,33 +551,25 @@ int dispatch_fwd(int D, const Params& p, int dtype, bool vec,
                        kThreads, s, p);
 }
 
-template <typename T>
-int bwd_for_d(int D, const Params& p, const Params& pq, int parts, bool vec,
-              cudaStream_t s) {
-  switch (D) {
-    case 32: return bwd<T, 32>(p, pq, parts, vec, s);
-    case 64: return bwd<T, 64>(p, pq, parts, vec, s);
-    case 128: return bwd<T, 128>(p, pq, parts, vec, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
+// fp32: the CUDA-core kernels; 16-bit: the Hopper pair
+// (csrc/flash_bwd_sm90.cu)
 int dispatch_bwd(int D, const Params& p, const Params& pq, int parts,
                  int dtype, bool vec, cudaStream_t s) {
-  switch (dtype) {
-    case 0: return bwd_for_d<float>(D, p, pq, parts, vec, s);
-    case 1: return bwd_for_d<__nv_bfloat16>(D, p, pq, parts, vec, s);
-    case 2: return bwd_for_d<__half>(D, p, pq, parts, vec, s);
+  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return flash::bwd_sm90(p, pq, parts, D, dtype, vec, s);
+  switch (D) {
+    case 32: return bwd<32>(p, pq, parts, s);
+    case 64: return bwd<64>(p, pq, parts, s);
   }
-  return (int)cudaErrorInvalidValue;
+  return bwd<128>(p, pq, parts, s);
 }
 
 Layout layout_at(const long long* strides, int i) {
   return Layout{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
 }
 
-// 16-byte row loads need an aligned base and strides of whole 8-element
-// (16-bit) chunks.
+// TMA (16-bit inputs) needs a 16-byte aligned base and strides of whole
+// 16-byte chunks.
 bool vec_ok(const void* ptr, const Layout& L) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && L.b % 8 == 0 &&
          L.h % 8 == 0 && L.r % 8 == 0;

@@ -25,9 +25,10 @@ scores. Semantics kept from the JAX kernels:
 - p and dS are rounded to the input dtype before their products.
 
 On CUDA tensors every entry runs the hand-written kernels of
-``csrc/flash_attn.cu`` and ``csrc/flash_fwd_sm90.cu`` (the 16-bit
-forward), which read q, k, v and write their results by (batch, head,
-row) strides, and count the call under the JAX kernel it stands in for,
+``csrc/flash_attn.cu`` (fp32), ``csrc/flash_fwd_sm90.cu`` (the 16-bit
+forward) and ``csrc/flash_bwd_sm90.cu`` (the 16-bit backward), which read
+q, k, v and write their results by (batch, head, row) strides, and count
+the call under the JAX kernel it stands in for,
 by the JAX package's own regime rule (``_block_sizes``):
 the bsh entry where the JAX bsh kernels apply is B4 (forward) and B5
 (backward); elsewhere one tile for both Sq and Sk is B10 and B12, more is
@@ -266,7 +267,7 @@ def flash_bwd_plain(q, k, v, key_mask, lse, delta, g, causal=False,
 def attention_delta4(g, out, g_lse=None):
     """delta = rowsum(dO * O) - dlse on ``(B, H, Sq, D)``: ``(B, H, Sq)``
     fp32 (``g_lse`` is the lse cotangent, ``(B, H, Sq)``, or None)."""
-    delta = (g.float() * out.float()).sum(-1)
+    delta = (g.float() * out).sum(-1)  # out promoted exactly: one pass fewer
     if g_lse is not None:
         delta = delta - g_lse.float()
     return delta.contiguous()

@@ -40,7 +40,8 @@ library call that computes the same function (``F.scaled_dot_product_attention``
 on the gathered K/V for B14, ``torch.matmul`` on the dequantized weight
 for B15, the backward of ``F.layer_norm`` for B1, ``F.layer_norm`` /
 ``F.rms_norm`` for B2, ``F.dropout`` for B3,
-SDPA and its backward without dropout for B4/B5, ``torch.softmax`` and
+SDPA and its backward (device time) without dropout for B4/B5,
+``torch.softmax`` and
 its backward for B6/B8; the port calls none of them), and the least time
 the card could take: the larger of the bytes moved over 3.35 TB/s and
 the operations over the peak rate of their type (67 TFLOP/s fp32, 989
@@ -84,12 +85,18 @@ heads, sequence-first views, a key mask) in bf16 and in fp32 (phase 6's
 dtype, which the kernels line reports); and B13, the keep mask, bit for
 bit against the plain Philox mask, then B9's fp32 dropout against the
 composed reference with B13's mask. Library yardsticks: SDPA without
-dropout (``is_causal=True``) and its backward. Last, the 16-bit forward
-that B4, B9 and B10 launch on bf16 and fp16 inputs
-(``csrc/flash_fwd_sm90.cu``): both dtypes at the three shapes above, at
-dropout 0 and 0.1, timed beside SDPA, then Sq != Sk, S 1000 with a fully
-masked row, Sk % 4 != 0, unaligned and sequence-first inputs and head
-dims 32 and 128, each within 1e-2 of the plain version.
+dropout (``is_causal=True``) and its backward, the backward by device
+time (the calls queued behind a sleep kernel that outlasts their
+enqueue, then timed by CUDA events: a host loop of autograd calls would
+time the host). A backward row times the whole backward its
+autograd entry runs (delta and the kernels; B11a and B11b also alone).
+Last, the 16-bit kernels that B4/B5, B9/B11 and B10/B12 launch on bf16
+and fp16 inputs (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``):
+both dtypes at the three shapes above, at dropout 0 and 0.1, forward and
+backward, each timed beside SDPA and held within 1e-2 of the plain
+version, the backward also bit for bit against a second run; then the
+forward at Sq != Sk, S 1000 with a fully masked row, Sk % 4 != 0,
+unaligned and sequence-first inputs and head dims 32 and 128.
 
 Phase 5 trains GPT-2 small (``GPTConfig()``, full width and depth, bf16,
 remat, dropout 0.1) with amp O2 and FusedAdam (the GPT-3 paper's 125M
@@ -206,6 +213,45 @@ def time_ms(fn, iters=50, warmup=3, graph=True):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def queued_ms(fn, iters=20, warmup=3):
+    """Device time of one call of ``fn`` whose host work may outlast its
+    device work (an autograd backward): the calls are queued behind a
+    sleep kernel that outlasts their enqueue, so the CUDA events around
+    them time the device running them back to back, not the host. Fails
+    when the sleep did not cover the enqueue."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    stop.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10 ** 7 / start.elapsed_time(stop)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = 3 * host_ms + 10
+    torch.cuda._sleep(int(cycles_per_ms * sleep_ms))
+    start.record()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    queued = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    check(queued < sleep_ms, f"queued_ms: enqueue took {queued:.1f} ms, "
+          f"longer than the {sleep_ms:.1f} ms sleep ahead of it")
+    ms = start.elapsed_time(stop) / iters
+    check(ms > 0, "queued_ms: no device time")
+    return ms
 
 
 def device_ms(fn, iters=3):
@@ -708,9 +754,8 @@ def phase1_flash(torch, F, dev, seed):
                                                 attn_mask=add_mask,
                                                 scale=scale)
             gh = do.view(B, S, NH, D).transpose(1, 2)
-            lib_b = time_ms(lambda: torch.autograd.grad(
-                lo, (qs, ks, vs), gh, retain_graph=True), iters=20,
-                graph=False)
+            lib_b = queued_ms(lambda: torch.autograd.grad(
+                lo, (qs, ks, vs), gh, retain_graph=True))
         bw = dict(case=f["case"],
                   max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")),
                   norm_err={n: norm_errs[n] for n in ("dq", "dk", "dv")},
@@ -975,12 +1020,24 @@ def phase1_flash_tiled(torch, F, dev, seed):
                           for t in (q, k, v))
             lo = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                                 scale=scale)
-            sdpa_b = time_ms(lambda: torch.autograd.grad(
-                lo, (qs, ks, vs), do, retain_graph=True), iters=10,
-                graph=False)
+            sdpa_b = queued_ms(lambda: torch.autograd.grad(
+                lo, (qs, ks, vs), do, retain_graph=True))
             del qs, ks, vs, lo
         plain_b = time_ms(lambda: flash_bwd_plain(
             q, k, v, None, rlse, rdelta, do, *args), iters=2)
+
+        def whole_bwd():
+            # what the autograd entry runs: delta, B11b, B11a
+            d = attention_delta4(do, out)
+            flash_bwd_dkv_tiled_kernel(q, k, v, None, lse, d, do, *args)
+            flash_bwd_dq_tiled_kernel(q, k, v, None, lse, d, do, *args)
+
+        whole = time_ms(whole_bwd, iters=20)
+        wb_ms, wb_by = bound(8 * n * 2 + 2 * stats, 10 * D * pairs,
+                             BF16_FLOP_PER_S)
+        print(f"[B11 whole backward] {case}: delta + B11b + B11a ms "
+              f"{whole:.4f} sdpa_backward_ms {sdpa_b:.4f} bound_ms "
+              f"{wb_ms:.4f} ({wb_by})", flush=True)
         for key, kind, fn, flops, nbytes, names in (
                 ("fwd_tiled", "B9 flash_fwd_tiled",
                  lambda: flash_fwd_tiled_kernel(q, k, v, None, *args),
@@ -1008,6 +1065,8 @@ def phase1_flash_tiled(torch, F, dev, seed):
                      tol=tol, ms=time_ms(fn, iters=20), plain_ms=plain,
                      library_ms=lib, flops=flops, bytes=nbytes,
                      bound_ms=b_ms, bound_by=b_by)
+            if key != "fwd_tiled":
+                r.update(whole_bwd_ms=whole, whole_bwd_bound_ms=wb_ms)
             rows[key].append(r)
             report(kind, r)
         del out, lse, delta, dq, dk, dv, rout, rlse, rdelta, rgrads
@@ -1127,12 +1186,12 @@ def phase1_flash_tiled(torch, F, dev, seed):
             case=case, max_abs_err=max(res[m][0] for m in ("dq", "dk", "dv")),
             norm_err=max(res[m][1] for m in ("dq", "dk", "dv")), tol=dt_tol,
             ms=time_ms(lambda: flash_bwd_single_kernel(
-                q, k, v, mask, lse, delta, do, *args), iters=20),
+                q, k, v, mask, lse, attention_delta4(do, out), do, *args),
+                iters=20),
             plain_ms=time_ms(lambda: flash_bwd_plain(
                 q, k, v, mask, rlse, rdelta, do, *args), iters=3),
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                lo, (qs, ks, vs), do, retain_graph=True), iters=10,
-                graph=False),
+            library_ms=queued_ms(lambda: torch.autograd.grad(
+                lo, (qs, ks, vs), do, retain_graph=True)),
             flops=10 * D * pairs, bound_ms=b_ms, bound_by=b_by))
         report("B12 flash_bwd_single", rows["bwd_single"][-1])
         del qkv, q, k, v, do, out, lse, delta, grads, rout, rlse, rdelta
@@ -1174,26 +1233,39 @@ def phase1_flash_tiled(torch, F, dev, seed):
     return rows
 
 
-# -- phase 1: the 16-bit Hopper forward (B4, B9, B10 on bf16 and fp16) -------
+# -- phase 1: the 16-bit Hopper kernels (B4/B5, B9/B11, B10/B12; bf16, fp16) -
 
 def phase1_flash_fwd16(torch, F, dev, seed):
-    """The 16-bit forward (``csrc/flash_fwd_sm90.cu``: wgmma, TMA, one pass
-    with an online softmax), which B4, B9 and B10 launch on bf16 and fp16
-    inputs, against ``flash_fwd_plain`` / ``flash_attention_bsh_plain``,
-    which draw the same Philox mask. bf16 and fp16 at the three main-path
-    shapes (B4: BERT-large, B 16, S 512, NH 16, D 64, flat heads, a key
-    mask; B9: GPT-2 small, B 8, S 1024, NH 12, D 64, causal; B10:
+    """The 16-bit Hopper kernels that B4, B9 and B10 (the forward,
+    ``csrc/flash_fwd_sm90.cu``: wgmma, TMA, one pass with an online
+    softmax) and B5, B11a/B11b and B12 (the backward,
+    ``csrc/flash_bwd_sm90.cu``: a dK/dV and a dQ kernel on wgmma and TMA)
+    launch on bf16 and fp16 inputs, against ``flash_fwd_plain`` /
+    ``flash_bwd_plain`` / the bsh plain versions, which draw the same
+    Philox mask. bf16 and fp16 at the three main-path shapes (B4/B5:
+    BERT-large, B 16, S 512, NH 16, D 64, flat heads, a key mask; B9/B11:
+    GPT-2 small, B 8, S 1024, NH 12, D 64, causal; B10/B12:
     multihead_attn, T 512, B 8, NH 16, D 64, sequence-first views, a key
-    mask) at rates 0 and 0.1, each timed beside SDPA (rate 0) and its
-    bound; then, in bf16 and fp16, Sq != Sk, an S that is not a multiple
-    of the 128-key tile with a fully masked row, Sk % 4 != 0 (the
+    mask) at rates 0 and 0.1, the forward and the whole backward the
+    autograd entry runs (delta and the kernel or kernels) each timed beside
+    SDPA's forward or backward (rate 0; the backward by device time) and
+    its bound, the backward run twice and held bit for bit; then the
+    forward, in bf16 and fp16, at Sq != Sk, an S that is not a multiple of
+    the 128-key tile with a fully masked row, Sk % 4 != 0 (the
     per-element dropout bits), inputs off a 16-byte boundary (the element
     loads in place of TMA), sequence-first views past one tile, and head
-    dims 32 and 128.
-    Tolerance (today's): out within atol = rtol = 1e-2 and within 1e-2 of
-    its norm, lse within 1e-3."""
+    dims 32 and 128 (the card tests hold the backward at those edges).
+    Tolerance (today's): out, dq, dk, dv within atol = rtol = 1e-2 and
+    within 1e-2 of their norm, lse within 1e-3."""
     from apex_tpu_torch.ops.flash_attention import (
+        attention_delta4,
+        flash_attention_bsh_backward_plain,
         flash_attention_bsh_plain,
+        flash_bwd_dkv_tiled_kernel,
+        flash_bwd_dq_tiled_kernel,
+        flash_bwd_kernel,
+        flash_bwd_plain,
+        flash_bwd_single_kernel,
         flash_fwd_kernel,
         flash_fwd_plain,
         flash_fwd_single_kernel,
@@ -1202,7 +1274,7 @@ def phase1_flash_fwd16(torch, F, dev, seed):
 
     tol = 1e-2
     g = torch.Generator().manual_seed(seed + 16)
-    rows, checks = [], []
+    rows, bwd_rows, checks = [], [], []
 
     def key_mask(B, S, full_last=True):
         m = torch.zeros(B, S, dtype=torch.bool)
@@ -1221,10 +1293,12 @@ def phase1_flash_fwd16(torch, F, dev, seed):
 
     # bf16 and fp16 at the main-path shapes
     fp16 = torch.float16
-    for name, B, S, NH, D, causal, masked in (
-            ("B4 flash_fwd", 16, 512, 16, 64, False, True),
-            ("B9 flash_fwd_tiled", 8, 1024, 12, 64, True, False),
-            ("B10 flash_fwd_single", 8, 512, 16, 64, False, True)):
+    for name, bname, B, S, NH, D, causal, masked in (
+            ("B4 flash_fwd", "B5 flash_bwd", 16, 512, 16, 64, False, True),
+            ("B9 flash_fwd_tiled", "B11b + B11a flash_bwd_*_tiled", 8, 1024,
+             12, 64, True, False),
+            ("B10 flash_fwd_single", "B12 flash_bwd_single", 8, 512, 16, 64,
+             False, True)):
         mask = key_mask(B, S) if masked else None
         for dt in (torch.bfloat16, fp16):
             if name.startswith("B10"):
@@ -1237,14 +1311,19 @@ def phase1_flash_fwd16(torch, F, dev, seed):
                         for _ in range(3)]
                 q, k, v = (t.view(B, S, NH, D).transpose(1, 2)
                            for t in flat)
+            do_flat = torch.randn(B, S, NH * D, generator=g).to(dt).to(dev)
+            do = do_flat.view(B, S, NH, D).transpose(1, 2)
             pairs = B * NH * (S * (S + 1) // 2 if causal else S * S)
             nbytes = 4 * q.numel() * 2 + 4 * B * NH * S + (B * S if masked
                                                            else 0)
             b_ms, b_by = bound(nbytes, 4 * D * pairs, BF16_FLOP_PER_S)
+            bb_ms, bb_by = bound(2 * nbytes + 4 * B * NH * S,
+                                 10 * D * pairs, BF16_FLOP_PER_S)
             am = None
             if masked:
                 am = torch.zeros(B, 1, 1, S, dtype=dt, device=dev)
                 am[mask[:, None, None, :]] = -30000.0
+            sdpa_b = None
             for rate in (0.0, 0.1):
                 args = (causal, D ** -0.5, rate, seed + 7 if rate else None)
                 if name.startswith("B4"):
@@ -1281,6 +1360,79 @@ def phase1_flash_fwd16(torch, F, dev, seed):
                       f"norm_err {rel:.3g} (tol {tol}) | ms {r['ms']:.4f} "
                       f"sdpa_ms {lib} bound_ms {b_ms:.4f} ({b_by})",
                       flush=True)
+
+                # the backward: what the autograd entry runs after this
+                # forward (delta, then the kernel or kernels)
+                if name.startswith("B4"):
+                    out_flat = out.transpose(1, 2).reshape(B, S, NH * D)
+
+                    def bwd():
+                        return flash_bwd_kernel(*flat, mask, out_flat, lse,
+                                                do_flat, NH, *args)
+                    rflat = flash_attention_bsh_backward_plain(
+                        *flat, mask, rout.transpose(1, 2).reshape(
+                            B, S, NH * D), rlse, do_flat, NH, *args)
+                    ref = [t.view(B, S, NH, D).transpose(1, 2)
+                           for t in rflat]
+                    del rflat
+                else:
+                    def bwd():
+                        d = attention_delta4(do, out)
+                        if name.startswith("B10"):
+                            return flash_bwd_single_kernel(
+                                q, k, v, mask, lse, d, do, *args)
+                        dk, dv = flash_bwd_dkv_tiled_kernel(
+                            q, k, v, mask, lse, d, do, *args)
+                        return (flash_bwd_dq_tiled_kernel(
+                            q, k, v, mask, lse, d, do, *args), dk, dv)
+                    ref = flash_bwd_plain(q, k, v, mask, rlse,
+                                          attention_delta4(do, rout), do,
+                                          *args)
+                got = bwd()
+                again = bwd()
+                torch.cuda.synchronize()
+                if name.startswith("B4"):
+                    got = [t.view(B, S, NH, D).transpose(1, 2) for t in got]
+                    again = [t.view(B, S, NH, D).transpose(1, 2)
+                             for t in again]
+                errs = {}
+                for gname, a, rr, a2 in zip(("dq", "dk", "dv"), got, ref,
+                                            again):
+                    check(torch.isfinite(a.float()).all().item(),
+                          f"{bname} {str(dt)[6:]} rate {rate} {gname}: "
+                          f"non-finite")
+                    ok, gmx, grel = flash_close(torch, a, rr, tol)
+                    check(ok, f"{bname} {str(dt)[6:]} rate {rate} {gname}: "
+                          f"max abs err {gmx}, norm err {grel}")
+                    check(torch.equal(a, a2), f"{bname} {str(dt)[6:]} rate "
+                          f"{rate} {gname}: two runs differ")
+                    errs[gname] = (gmx, grel)
+                del got, again, ref
+                if sdpa_b is None:
+                    qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                                  for t in (q, k, v))
+                    lo = F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=am, is_causal=causal,
+                        scale=D ** -0.5)
+                    sdpa_b = queued_ms(lambda: torch.autograd.grad(
+                        lo, (qs, ks, vs), do, retain_graph=True))
+                    del qs, ks, vs, lo
+                br = dict(case=f"{bname} B {B} S {S} NH {NH} D {D} "
+                          f"{str(dt)[6:]} {'causal ' if causal else ''}"
+                          f"rate {rate}",
+                          max_abs_err=max(e[0] for e in errs.values()),
+                          norm_err=max(e[1] for e in errs.values()),
+                          tol=tol, bit_identical_rerun=True,
+                          ms=time_ms(bwd, iters=20), library_ms=sdpa_b,
+                          flops=10 * D * pairs, bytes=2 * nbytes,
+                          bound_ms=bb_ms, bound_by=bb_by)
+                bwd_rows.append(br)
+                print(f"[16-bit backward] {br['case']}: max_abs_err "
+                      f"{br['max_abs_err']:.3g} norm_err "
+                      f"{br['norm_err']:.3g} (tol {tol}), rerun "
+                      f"bit-identical | ms {br['ms']:.4f} "
+                      f"sdpa_backward_ms {sdpa_b:.4f} (rate 0) bound_ms "
+                      f"{bb_ms:.4f} ({bb_by})", flush=True)
                 del out, lse, rout, rlse
             torch.cuda.empty_cache()
 
@@ -1330,7 +1482,7 @@ def phase1_flash_fwd16(torch, F, dev, seed):
           f"D 32 and 128, dropout 0.1: max abs err {worst:.3g} (tol {tol})",
           flush=True)
     torch.cuda.empty_cache()
-    return dict(main_shapes=rows, checks=checks)
+    return dict(main_shapes=rows, backward=bwd_rows, checks=checks)
 
 
 # -- phase 2: the engine at GPT-2-small width ---------------------------------
@@ -2434,8 +2586,8 @@ def main(argv=None):
                                seed)
     sm_rows = timed("phase 1 B6-B8", phase1_softmax, torch, dev, seed)
     tiled = timed("phase 1 B9-B13", phase1_flash_tiled, torch, F, dev, seed)
-    fwd16 = timed("phase 1 16-bit forward", phase1_flash_fwd16, torch, F,
-                  dev, seed)
+    fwd16 = timed("phase 1 16-bit forward and backward", phase1_flash_fwd16,
+                  torch, F, dev, seed)
     runs, checks = timed("phase 2", phase2, torch, dev, seed, card)
     checks["card_vs_cpu_train_step"] = timed("phase 3 card vs CPU",
                                              card_vs_cpu, torch, dev, seed)
@@ -2497,7 +2649,7 @@ def main(argv=None):
         kernel_entry("flash_fwd", "apex_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "apex_tpu/ops/flash_attention.py:968", fwd_rows,
                      fwd_rows[1], launches["flash_fwd"]),
-        kernel_entry("flash_bwd", "apex_tpu_torch/csrc/flash_attn.cu",
+        kernel_entry("flash_bwd", "apex_tpu_torch/csrc/flash_bwd_sm90.cu",
                      "apex_tpu/ops/flash_attention.py:1013", bwd_rows,
                      bwd_rows[1], launches["flash_bwd"]),
         kernel_entry("softmax_fwd", "apex_tpu_torch/csrc/softmax.cu",
@@ -2510,12 +2662,14 @@ def main(argv=None):
                      "apex_tpu/ops/softmax.py:82", sm_rows["softmax_bwd"],
                      sm_rows["softmax_bwd"][0], launches["softmax_bwd"]),
     ]
+    # B10/B12 take their fp32 rows (phase 6's path): the CUDA-core kernels
     flash_src = "apex_tpu_torch/csrc/flash_attn.cu"
+    bwd16_src = "apex_tpu_torch/csrc/flash_bwd_sm90.cu"
     for name, key, replaces, src in (
             ("flash_fwd_tiled", "fwd_tiled", ":120",
              "apex_tpu_torch/csrc/flash_fwd_sm90.cu"),
-            ("flash_bwd_dq_tiled", "dq_tiled", ":226", flash_src),
-            ("flash_bwd_dkv_tiled", "dkv_tiled", ":324", flash_src),
+            ("flash_bwd_dq_tiled", "dq_tiled", ":226", bwd16_src),
+            ("flash_bwd_dkv_tiled", "dkv_tiled", ":324", bwd16_src),
             ("flash_fwd_single", "fwd_single", ":183", flash_src),
             ("flash_bwd_single", "bwd_single", ":275", flash_src),
             ("keep_mask", "keep_mask", ":649",

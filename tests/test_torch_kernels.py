@@ -1063,3 +1063,146 @@ def test_paged_read_routes_on_the_card(cuda_device, D, q_dtype, pool_dtype):
         assert_close(out, ref, atol=1e-4, rtol=1e-4)
     else:
         assert torch.equal(out, ref)
+
+
+# -- the 16-bit Hopper backward (csrc/flash_bwd_sm90.cu) ----------------------
+
+from apex_tpu_torch.ops.flash_attention import flash_bwd_single_kernel  # noqa: E402,E501
+
+# (entry, B, H, Sq, Sk, D, causal, masked, rate, layout): the kernels' tile
+# edges (64 and 128 rows or keys; S 127-129, 255, 257, 1000), Sq != Sk both
+# ways (Sq 256 x Sk 1024 causal leaves key tiles no query reaches), causal
+# with and without a key mask (the tile skip only without), a fully masked
+# batch row (the masked cases), Sk % 4 != 0 (per-score dropout bits), head
+# dims 32, 64 and 128, inputs off a 16-byte boundary (element loads in
+# place of TMA), the sequence-first (T, B, H, D) views and the flat
+# (B, S, H * D) heads; through the tiled wrappers (B11b + B11a), the bsh
+# one (B5) and the single-tile one (B12)
+BWD_CASES = [
+    ("tiled", 2, 2, 127, 127, 64, True, True, 0.1, "bhsd"),
+    ("tiled", 2, 2, 128, 128, 64, False, True, 0.0, "bhsd"),
+    ("tiled", 2, 2, 129, 129, 64, True, False, 0.1, "bhsd"),
+    ("tiled", 2, 3, 255, 255, 32, True, True, 0.1, "bhsd"),
+    ("tiled", 2, 2, 257, 257, 128, False, True, 0.1, "bhsd"),
+    ("tiled", 2, 3, 1000, 1000, 64, True, True, 0.1, "bhsd"),
+    ("tiled", 2, 3, 1000, 1000, 64, True, False, 0.0, "bhsd"),
+    ("tiled", 2, 2, 1000, 1000, 128, True, False, 0.1, "bhsd"),
+    ("tiled", 2, 2, 256, 1024, 64, True, False, 0.1, "bhsd"),
+    ("tiled", 2, 3, 130, 61, 64, True, False, 0.1, "bhsd"),
+    ("tiled", 2, 2, 77, 77, 64, False, True, 0.1, "bhsd"),
+    ("tiled", 2, 2, 300, 300, 32, True, True, 0.0, "bhsd"),
+    ("tiled", 2, 2, 200, 200, 64, False, True, 0.1, "shifted"),
+    ("tiled", 2, 2, 200, 200, 128, True, False, 0.0, "shifted"),
+    ("tiled", 4, 4, 640, 640, 64, False, True, 0.1, "seq"),
+    ("tiled", 8, 12, 1024, 1024, 64, True, False, 0.1, "flat"),
+    ("single", 8, 16, 512, 512, 64, False, True, 0.1, "seq"),
+    ("single", 2, 2, 255, 255, 128, True, True, 0.0, "bhsd"),
+    ("bsh", 4, 4, 512, 512, 64, False, True, 0.1, "flat"),
+    ("bsh", 2, 2, 257, 257, 64, True, True, 0.0, "flat"),
+]
+
+
+def _bwd_run(entry, q, k, v, mask, lse, out, g, g_lse, args):
+    """One backward through the entry's wrapper(s), by the plain forward's
+    ``out`` and ``lse``: ``(dq, dk, dv, counters)``."""
+    if entry == "bsh":
+        B, H, S, D = q.shape
+        flat = [t.transpose(1, 2).reshape(B, S, H * D) for t in
+                (q, k, v, out, g)]
+        grads = flash_bwd_kernel(*flat[:3], mask, flat[3], lse, flat[4], H,
+                                 *args)
+        return (*(t.view(B, S, H, D).transpose(1, 2) for t in grads),
+                ("flash_bwd",))
+    delta = attention_delta4(g, out, g_lse)
+    if entry == "single":
+        return (*flash_bwd_single_kernel(q, k, v, mask, lse, delta, g, *args),
+                ("flash_bwd_single",))
+    dk, dv = flash_bwd_dkv_tiled_kernel(q, k, v, mask, lse, delta, g, *args)
+    dq = flash_bwd_dq_tiled_kernel(q, k, v, mask, lse, delta, g, *args)
+    return dq, dk, dv, ("flash_bwd_dkv_tiled", "flash_bwd_dq_tiled")
+
+
+def _bwd_case(entry, B, H, Sq, Sk, D, causal, masked, rate, layout, dtype,
+              device):
+    q, k, v, mask = _fwd_case(B, H, Sq, Sk, D, masked, layout, dtype, device,
+                              seed=Sq + Sk + D)
+    gen = torch.Generator().manual_seed(Sq + 7)
+    g = torch.randn(B, H, Sq, D, generator=gen).to(dtype).to(device)
+    if layout == "shifted":
+        buf = torch.empty(g.numel() + 1, dtype=dtype, device=device)
+        g = buf[1:].view(g.shape)
+        g.copy_(torch.randn(B, H, Sq, D, generator=gen).to(dtype))
+    g_lse = None
+    if entry == "tiled":
+        g_lse = (0.1 * torch.randn(B, H, Sq, generator=gen)).to(device)
+    args = (causal, D ** -0.5, rate, 99 if rate else None)
+    rout, rlse = flash_fwd_plain(q, k, v, mask, *args)
+    return q, k, v, mask, rout, rlse, g, g_lse, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float16, 1e-2)])
+@pytest.mark.parametrize(
+    "entry,B,H,Sq,Sk,D,causal,masked,rate,layout", BWD_CASES)
+def test_sm90_backward_matches_plain(cuda_device, entry, B, H, Sq, Sk, D,
+                                     causal, masked, rate, layout, dtype,
+                                     tol):
+    """The 16-bit Hopper backward (``csrc/flash_bwd_sm90.cu``) through each
+    wrapper that launches it, against ``flash_bwd_plain`` /
+    ``flash_attention_bsh_backward_plain`` on the same lse and delta (the
+    plain forward's), which draw the same Philox mask: dq, dk, dv within
+    the existing tolerances of the B4/B5 card tests (bf16 3e-2, fp16 1e-2:
+    a 16-bit ulp at |values| up to ~4, p and dS rounded at other points),
+    each within 1e-2 of its norm, and written in the caller's layout."""
+    q, k, v, mask, rout, rlse, g, g_lse, args = _bwd_case(
+        entry, B, H, Sq, Sk, D, causal, masked, rate, layout, dtype,
+        cuda_device)
+    before = dict(_build.launches)
+    dq, dk, dv, counters = _bwd_run(entry, q, k, v, mask, rlse, rout, g,
+                                    g_lse, args)
+    torch.cuda.synchronize()
+    assert {n: _build.launches[n] - before[n] for n in before
+            if _build.launches[n] != before[n]} == {n: 1 for n in counters}
+    if entry == "bsh":
+        flat = [t.transpose(1, 2).reshape(B, Sq, H * D)
+                for t in (q, k, v, rout, g)]
+        rgrads = [t.view(B, Sq, H, D).transpose(1, 2) for t in
+                  flash_attention_bsh_backward_plain(
+                      *flat[:3], mask, flat[3], rlse, flat[4], H, *args)]
+    else:
+        rgrads = flash_bwd_plain(q, k, v, mask, rlse,
+                                 attention_delta4(g, rout, g_lse), g, *args)
+    for a, r, t in zip((dq, dk, dv), rgrads, (q, k, v)):
+        assert a.dtype == dtype and a.shape == r.shape
+        assert torch.isfinite(a.float()).all()
+        assert_close(a, r, atol=tol, rtol=tol)
+        x, y = a.float(), r.float()
+        assert ((x - y).norm() / y.norm()).item() <= 1e-2
+        if entry != "bsh":   # nested as the caller's operand (_empty_as)
+            assert sorted(range(4), key=lambda d: -a.stride(d)) == \
+                sorted(range(4), key=lambda d: -t.stride(d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("entry,B,H,Sq,Sk,D,causal,masked,rate,layout", [
+    ("tiled", 2, 3, 1000, 1000, 64, True, True, 0.1, "bhsd"),
+    ("tiled", 8, 12, 1024, 1024, 64, True, False, 0.1, "flat"),
+    ("single", 8, 16, 512, 512, 64, False, True, 0.1, "seq"),
+    ("bsh", 4, 4, 512, 512, 64, False, True, 0.1, "flat"),
+    ("tiled", 2, 2, 77, 77, 128, False, True, 0.1, "shifted"),
+])
+def test_sm90_backward_is_bit_identical_run_to_run(
+        cuda_device, entry, B, H, Sq, Sk, D, causal, masked, rate, layout,
+        dtype):
+    """The backward takes every sum in a fixed order (no atomics): the
+    same call twice gives bit-identical dq, dk and dv."""
+    q, k, v, mask, rout, rlse, g, g_lse, args = _bwd_case(
+        entry, B, H, Sq, Sk, D, causal, masked, rate, layout, dtype,
+        cuda_device)
+    first = _bwd_run(entry, q, k, v, mask, rlse, rout, g, g_lse, args)[:3]
+    second = _bwd_run(entry, q, k, v, mask, rlse, rout, g, g_lse, args)[:3]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -90,9 +90,15 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # kernel-name fragments -> the group a kernel's device time is charged to;
 # the flash kernels' groups name the TPU kernel each model's calls stand
-# in for
+# in for. The 16-bit kernels are flash_fwd_sm90_kernel,
+# flash_bwd_dkdv_sm90_kernel and flash_bwd_dq_sm90_kernel, the fp32 ones
+# flash_fwd_kernel, flash_bwd_dkdv_kernel and flash_bwd_dq_kernel: BERT's
+# two backward kernels are B5, GPT's dQ kernel B11a and its dK/dV kernel
+# B11b. A flash kernel that no fragment names is an error, not "other".
 _FLASH_GROUPS = {
-    "bert": (("flash_fwd", "flash_fwd (B4)"), ("flash_bwd", "flash_bwd (B5)")),
+    "bert": (("flash_fwd", "flash_fwd (B4)"),
+             ("flash_bwd_dkdv", "flash_bwd (B5)"),
+             ("flash_bwd_dq", "flash_bwd (B5)")),
     "gpt": (("flash_fwd", "flash_fwd_tiled (B9)"),
             ("flash_bwd_dq", "flash_bwd_dq_tiled (B11a)"),
             ("flash_bwd_dkdv", "flash_bwd_dkv_tiled (B11b)"))}
@@ -220,6 +226,8 @@ def _group(name: str, model: str) -> str:
     for frag, group in _FLASH_GROUPS[model] + _GROUPS:
         if frag in name:
             return group
+    if "flash_" in name:
+        raise ValueError(f"no flash group names the kernel {name!r}")
     return "other"
 
 
