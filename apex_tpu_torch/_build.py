@@ -129,10 +129,10 @@ _SIGNATURES = {
     "paged_read": [_VP] * 10 + [_I] * 9 + [ctypes.c_float, _VP],
     # B, C, H, M, bs -> number of key splits
     "paged_read_splits": [_I] * 5,
-    # x, w_q, scale, out, workspace, M, K, N, w_dtype, stream
-    "dequant_gemm": [_VP] * 5 + [_I] * 4 + [_VP],
-    # M, K, N, &k_chunk -> number of K splits
-    "dequant_gemm_splits": [_I] * 3 + [ctypes.POINTER(_I)],
+    # x, w_q, scale, out, M, K, N, w_dtype, m0, stream
+    "dequant_gemm": [_VP] * 4 + [_I] * 5 + [_VP],
+    # M, K, N, m0, &tm, &per -> number of K splits (the cluster size)
+    "dequant_gemm_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
     # x, w, b (or null), y, rows, H, dtype, eps, rms, stream
     "layer_norm_fwd": [_VP] * 4 + [_I] * 3 + [_F, _I, _VP],
     # g, x, w, dx, dw, db, workspace, rows, H, dtype, eps, rms, stream

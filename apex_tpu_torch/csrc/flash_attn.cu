@@ -11,7 +11,8 @@
 //     in its single-tile regime (contrib multihead_attn).
 // The TPU needs five kernels because its blocks must tile 128 lanes and its
 // grid carries sums from step to step; here one forward and one two-kernel
-// backward per input width (fp32 in this file; bf16 and fp16 in
+// backward per input width (the fp32 forward in this file, the fp32
+// backward in csrc/flash_bwd_f32.cu; bf16 and fp16 in
 // csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu) take any Sq, Sk and
 // strides, so the five share one source of truth for the mask, the Philox
 // numbering and the rounding. The wrappers count each call under the name
@@ -60,19 +61,20 @@
 // tile, and dQ walking the key tiles of a query tile; each recomputes s and
 // p from q, k and lse and replays the same mask.
 //
-// This file holds the entry points and the fp32 kernels. fp32 inputs run
-// the products as fp32 FMAs on the CUDA cores (67 TFLOP/s peak), on 64 x 64
+// This file holds the entry points and the fp32 forward. It runs the
+// products as fp32 FMAs on the CUDA cores (67 TFLOP/s peak), on 64 x 64
 // score tiles from shared memory: 256 threads, thread (ty, tx) computing
 // rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of a score tile in
-// registers from tiles padded to D + 1 floats a row; the forward keeps an
-// online softmax (running max and sum per row, the output accumulator
-// rescaled per key tile), as JAX's tiled kernel does. The dK/dV kernel
-// takes one block per 64-key tile, the dQ kernel one per 64-query tile
-// (BQ, BK, query_start). The 16-bit inputs (bf16, the training path, and
-// fp16) run on the tensor cores in the Hopper kernels: the forward in
-// csrc/flash_fwd_sm90.cu (wgmma, TMA, one pass with an online softmax),
-// the backward's dK/dV and dQ kernels in csrc/flash_bwd_sm90.cu (wgmma,
-// TMA, p and dS formed in registers), with tile sizes of their own.
+// registers from tiles padded to D + 1 floats a row, with an online
+// softmax (running max and sum per row, the output accumulator rescaled
+// per key tile), as JAX's tiled kernel does; one block per 64-query tile
+// (BQ, BK). The fp32 backward runs its products in 3xTF32 on the tensor
+// cores (csrc/flash_bwd_f32.cu, mma.sync: each fp32 operand split into two
+// TF32 halves, three products). The 16-bit inputs (bf16, the training
+// path, and fp16) run on the tensor cores in the Hopper kernels: the
+// forward in csrc/flash_fwd_sm90.cu (wgmma, TMA, one pass with an online
+// softmax), the backward's dK/dV and dQ kernels in csrc/flash_bwd_sm90.cu
+// (wgmma, TMA, p and dS formed in registers), with tile sizes of their own.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,11 +102,6 @@ __device__ __forceinline__ int key_end(const Params& p, int q0) {
   return p.skip ? min(p.Sk, q0 + BQ) : p.Sk;
 }
 
-// The first query tile that reaches a key tile starting at k0.
-__device__ __forceinline__ int query_start(const Params& p, int k0) {
-  return p.skip ? (k0 / BQ) * BQ : 0;
-}
-
 // Load rows [r0, r0 + 64) (zeros at rows >= n) of a head into a
 // (64 x (D + 1)) fp32 tile.
 template <int D>
@@ -128,18 +125,6 @@ __device__ __forceinline__ void load_codes(int* codes, const Params& p,
                   p.key_mask[static_cast<long long>(b) * p.Sk + kk])
                    ? 1
                    : 0;
-  }
-}
-
-// Per-row lse and delta of a query tile (zeros past Sq).
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
-                                               const Params& p,
-                                               long long row_base, int q0,
-                                               int nthreads) {
-  for (int r = threadIdx.x; r < BQ; r += nthreads) {
-    const bool in = q0 + r < p.Sq;
-    lse_s[r] = in ? __ldg(p.lse + row_base + q0 + r) : 0.f;
-    delta_s[r] = in ? __ldg(p.delta + row_base + q0 + r) : 0.f;
   }
 }
 
@@ -285,224 +270,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   }
 }
 
-// p (pre-dropout), the dropped p that feeds dV, and ds for one score
-// element, from its raw dot products q.k and dO.v.
-struct BwdElem {
-  float pav;
-  float ds;
-};
-
-__device__ __forceinline__ BwdElem bwd_elem(float dot, float dpv, int code,
-                                            int qq, int kk, float lse_q,
-                                            float delta_q, const Params& p,
-                                            PhiloxCursor& rng,
-                                            unsigned long long head_rows) {
-  BwdElem r;
-  if (qq >= p.Sq || code == 2) {
-    r.pav = 0.f;
-    r.ds = 0.f;
-    return r;
-  }
-  const float s = masked_score(dot, code, qq, kk, p);
-  const float pr = expf(s - lse_q);
-  float pav = pr, dp = dpv;
-  if (p.dropout) {
-    const bool keep =
-        rng.bits((head_rows + qq) * p.Sk + kk) < p.threshold;
-    pav = keep ? pr * p.inv_keep : 0.f;
-    dp = keep ? dpv * p.inv_keep : 0.f;
-  }
-  r.pav = pav;
-  r.ds = pr * (dp - delta_q) * p.scale;
-  return r;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Params p) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
-  float* dSs = Ps + BQ * LP;
-  float* lse_s = dSs + BQ * LP;
-  float* delta_s = lse_s + BQ;
-  int* codes = reinterpret_cast<int*>(delta_s + BQ);
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int Sq = p.Sq, Sk = p.Sk;
-  const float* qb = head_base<float>(p.q, p.lq, b, h);
-  const float* dob = head_base<float>(p.dout, p.ldo, b, h);
-  load_tile<D>(Ks, head_base<float>(p.k, p.lk, b, h), p.lk.r, k0, Sk);
-  load_tile<D>(Vs, head_base<float>(p.v, p.lv, b, h), p.lv.r, k0, Sk);
-  load_codes(codes, p, b, k0, kThreads);
-  float dk[TI][DJ], dv[TI][DJ];  // key rows 4 ty + i, columns tx * DJ + jj
-#pragma unroll
-  for (int i = 0; i < TI; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
-  PhiloxCursor rng(p.seed);
-  const long long row_base = (static_cast<long long>(b) * p.NH + h) * Sq;
-  const unsigned long long head_rows =
-      static_cast<unsigned long long>(row_base);
-  for (int q0 = query_start(p, k0); q0 < Sq; q0 += BQ) {
-    __syncthreads();
-    load_tile<D>(Qs, qb, p.lq.r, q0, Sq);
-    load_tile<D>(dOs, dob, p.ldo.r, q0, Sq);
-    load_row_stats(lse_s, delta_s, p, row_base, q0, kThreads);
-    __syncthreads();
-    float s[TI][TJ], dpv[TI][TJ];
-    tile_dots<D>(Qs, Ks, s, ty, tx);
-    tile_dots<D>(dOs, Vs, dpv, ty, tx);
-#pragma unroll
-    for (int i = 0; i < TI; ++i) {
-      const int qr = ty * TI + i;
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        const int kj = tx * TJ + j;
-        const BwdElem e =
-            bwd_elem(s[i][j], dpv[i][j], codes[kj], q0 + qr, k0 + kj,
-                     lse_s[qr], delta_s[qr], p, rng, head_rows);
-        Ps[qr * LP + kj] = e.pav;
-        dSs[qr * LP + kj] = e.ds;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pa[TI], da[TI], ob[DJ], qr[DJ];
-#pragma unroll
-      for (int i = 0; i < TI; ++i) {
-        pa[i] = Ps[qq * LP + ty * TI + i];
-        da[i] = dSs[qq * LP + ty * TI + i];
-      }
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        ob[jj] = dOs[qq * LD + tx * DJ + jj];
-        qr[jj] = Qs[qq * LD + tx * DJ + jj];
-      }
-#pragma unroll
-      for (int i = 0; i < TI; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) {
-          dv[i][jj] = fmaf(pa[i], ob[jj], dv[i][jj]);
-          dk[i][jj] = fmaf(da[i], qr[jj], dk[i][jj]);
-        }
-    }
-  }
-  float* dkb = head_base_out<float>(p.out, p.lo, b, h);
-  float* dvb = head_base_out<float>(p.out2, p.lo2, b, h);
-#pragma unroll
-  for (int i = 0; i < TI; ++i) {
-    const int kk = k0 + ty * TI + i;
-    if (kk >= Sk) continue;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      dkb[kk * p.lo.r + tx * DJ + jj] = dk[i][jj];
-      dvb[kk * p.lo2.r + tx * DJ + jj] = dv[i][jj];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* dSs = Vs + BK * LD;
-  float* lse_s = dSs + BQ * LP;
-  float* delta_s = lse_s + BQ;
-  int* codes = reinterpret_cast<int*>(delta_s + BQ);
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int Sq = p.Sq, Sk = p.Sk;
-  const long long row_base = (static_cast<long long>(b) * p.NH + h) * Sq;
-  const unsigned long long head_rows =
-      static_cast<unsigned long long>(row_base);
-  const float* kb = head_base<float>(p.k, p.lk, b, h);
-  const float* vb = head_base<float>(p.v, p.lv, b, h);
-  load_tile<D>(Qs, head_base<float>(p.q, p.lq, b, h), p.lq.r, q0, Sq);
-  load_tile<D>(dOs, head_base<float>(p.dout, p.ldo, b, h), p.ldo.r, q0, Sq);
-  load_row_stats(lse_s, delta_s, p, row_base, q0, kThreads);
-  float dq[TI][DJ];  // query rows 4 ty + i, columns tx * DJ + jj
-#pragma unroll
-  for (int i = 0; i < TI; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) dq[i][jj] = 0.f;
-  PhiloxCursor rng(p.seed);
-  const int kend = key_end(p, q0);
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    load_tile<D>(Ks, kb, p.lk.r, k0, Sk);
-    load_tile<D>(Vs, vb, p.lv.r, k0, Sk);
-    load_codes(codes, p, b, k0, kThreads);
-    __syncthreads();
-    float s[TI][TJ], dpv[TI][TJ];
-    tile_dots<D>(Qs, Ks, s, ty, tx);
-    tile_dots<D>(dOs, Vs, dpv, ty, tx);
-#pragma unroll
-    for (int i = 0; i < TI; ++i) {
-      const int qr = ty * TI + i;
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        const int kj = tx * TJ + j;
-        const BwdElem e =
-            bwd_elem(s[i][j], dpv[i][j], codes[kj], q0 + qr, k0 + kj,
-                     lse_s[qr], delta_s[qr], p, rng, head_rows);
-        dSs[qr * LP + kj] = e.ds;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float da[TI], kr[DJ];
-#pragma unroll
-      for (int i = 0; i < TI; ++i) da[i] = dSs[(ty * TI + i) * LP + kk];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) kr[jj] = Ks[kk * LD + tx * DJ + jj];
-#pragma unroll
-      for (int i = 0; i < TI; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj)
-          dq[i][jj] = fmaf(da[i], kr[jj], dq[i][jj]);
-    }
-  }
-  float* dqb = head_base_out<float>(p.out, p.lo, b, h);
-#pragma unroll
-  for (int i = 0; i < TI; ++i) {
-    const int qq = q0 + ty * TI + i;
-    if (qq >= Sq) continue;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj)
-      dqb[qq * p.lo.r + tx * DJ + jj] = dq[i][jj];
-  }
-}
-
 template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LP) +
          sizeof(int) * BK;
 }
-template <int D>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) *
-             (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * LP + 2 * BQ) +
-         sizeof(int) * BK;
-}
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) *
-             (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LP + 2 * BQ) +
-         sizeof(int) * BK;
-}
-
 template <typename K, typename... Args>
 int launch_kernel(K kernel, size_t smem, dim3 grid, int threads,
                   cudaStream_t stream, Args... args) {
@@ -512,24 +284,6 @@ int launch_kernel(K kernel, size_t smem, dim3 grid, int threads,
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
-}
-
-// parts: 1 the dK/dV kernel (p.out = dk, p.out2 = dv), 2 the dQ kernel
-// (pq.out = dq); fp32 only (16-bit: csrc/flash_bwd_sm90.cu).
-template <int D>
-int bwd(const Params& p, const Params& pq, int parts, cudaStream_t s) {
-  dim3 grid_k((p.Sk + BK - 1) / BK, p.NH, p.B);
-  dim3 grid_q((p.Sq + BQ - 1) / BQ, p.NH, p.B);
-  int err = 0;
-  if (parts & 1) {
-    err = launch_kernel(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>(), grid_k,
-                        kThreads, s, p);
-    if (err != 0) return err;
-  }
-  if (parts & 2)
-    err = launch_kernel(flash_bwd_dq_kernel<D>, dq_smem<D>(), grid_q,
-                        kThreads, s, pq);
-  return err;
 }
 
 // fp32: the CUDA-core forward; 16-bit: the Hopper forward
@@ -551,28 +305,26 @@ int dispatch_fwd(int D, const Params& p, int dtype, bool vec,
                        kThreads, s, p);
 }
 
-// fp32: the CUDA-core kernels; 16-bit: the Hopper pair
-// (csrc/flash_bwd_sm90.cu)
+// fp32: the 3xTF32 pair (csrc/flash_bwd_f32.cu); 16-bit: the Hopper pair
+// (csrc/flash_bwd_sm90.cu). vec: every input's base and strides are whole
+// 16-byte chunks.
 int dispatch_bwd(int D, const Params& p, const Params& pq, int parts,
                  int dtype, bool vec, cudaStream_t s) {
   if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   if (dtype != 0) return flash::bwd_sm90(p, pq, parts, D, dtype, vec, s);
-  switch (D) {
-    case 32: return bwd<32>(p, pq, parts, s);
-    case 64: return bwd<64>(p, pq, parts, s);
-  }
-  return bwd<128>(p, pq, parts, s);
+  return flash::bwd_f32(p, pq, parts, D, vec, s);
 }
 
 Layout layout_at(const long long* strides, int i) {
   return Layout{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
 }
 
-// TMA (16-bit inputs) needs a 16-byte aligned base and strides of whole
-// 16-byte chunks.
-bool vec_ok(const void* ptr, const Layout& L) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && L.b % 8 == 0 &&
-         L.h % 8 == 0 && L.r % 8 == 0;
+// TMA (16-bit inputs) and the fp32 backward's cp.async copies need a
+// 16-byte aligned base and strides of whole 16-byte chunks (per: elements
+// a chunk).
+bool vec_ok(const void* ptr, const Layout& L, int per) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && L.b % per == 0 &&
+         L.h % per == 0 && L.r % per == 0;
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -621,7 +373,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   p.lo = layout_at(strides, 3);
   p.out = out;
   p.lse_out = static_cast<float*>(lse);
-  const bool vec = vec_ok(q, p.lq) && vec_ok(k, p.lk) && vec_ok(v, p.lv);
+  const bool vec =
+      vec_ok(q, p.lq, 8) && vec_ok(k, p.lk, 8) && vec_ok(v, p.lv, 8);
   return dispatch_fwd(D, p, dtype, vec, static_cast<cudaStream_t>(stream));
 }
 
@@ -658,8 +411,9 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   pq.out = dq;
   pq.lo = layout_at(strides, 4);
   pq.out2 = nullptr;
-  const bool vec = vec_ok(q, p.lq) && vec_ok(k, p.lk) && vec_ok(v, p.lv) &&
-                   vec_ok(dout, p.ldo);
+  const int per = dtype == 0 ? 4 : 8;
+  const bool vec = vec_ok(q, p.lq, per) && vec_ok(k, p.lk, per) &&
+                   vec_ok(v, p.lv, per) && vec_ok(dout, p.ldo, per);
   return dispatch_bwd(D, p, pq, parts, dtype, vec,
                       static_cast<cudaStream_t>(stream));
 }

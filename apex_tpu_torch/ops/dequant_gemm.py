@@ -5,20 +5,26 @@
 in fp32, where ``w_q`` is an int8 or float8_e4m3fn ``(K, N)`` kernel in
 the JAX ``(in, out)`` layout and ``scale`` its ``(N,)`` fp32
 per-output-channel scale. On CUDA tensors it runs the hand-written
-kernel B15 (``csrc/dequant_gemm.cu``), which dequantizes weight tiles in
-shared memory so the full-precision weights never exist in device
-memory; on CPU tensors it runs :func:`dequant_matmul_plain`.
+kernel B15 (``csrc/dequant_gemm.cu``), one launch a call, which
+dequantizes weight tiles in shared memory so the full-precision weights
+never exist in device memory: up to ``M0`` rows it streams the weights
+(a 16-row tile, K split over a cluster until two blocks sit on every
+SM), past it it runs a register-tiled fp32 GEMM; on CPU tensors it runs
+:func:`dequant_matmul_plain`.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from apex_tpu_torch import _build
 
 _W_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
+
+# The largest M that B15 runs in its streaming regime; larger M take the
+# register-tiled one. Chosen from H100 times of both regimes at M 1-128
+# on the three GPT-2 (K, N) pairs (``PERF.md`` section 6).
+M0 = 16
 
 
 def dequant_matmul_plain(x, w_q, scale):
@@ -31,8 +37,9 @@ def dequant_matmul_plain(x, w_q, scale):
 def dequant_gemm(x2d, w_q, scale):
     """Launch kernel B15 on CUDA tensors: ``x2d`` ``(M, K)`` (cast to
     fp32), ``w_q`` ``(K, N)`` int8/e4m3, ``scale`` ``(N,)``. Returns
-    ``(M, N)`` fp32. Raises on an unsupported dtype, shape or device,
-    or a failed launch."""
+    ``(M, N)`` fp32; M up to :data:`M0` (read at each call) runs the
+    streaming regime. Raises on an unsupported dtype, shape or device, or
+    a failed launch."""
     if w_q.dtype not in _W_CODES:
         raise ValueError(f"dequant_gemm: weights must be int8 or "
                          f"float8_e4m3fn, got {w_q.dtype}")
@@ -56,16 +63,10 @@ def dequant_gemm(x2d, w_q, scale):
     scale = scale.float().contiguous()
     lib = _build.lib()
     out = torch.empty((M, N), dtype=torch.float32, device=x2d.device)
-    # the kernel splits K across blocks at small M; the splits' partial
-    # sums go to this workspace and are added in a fixed order
-    k_chunk = ctypes.c_int(0)
-    splits = lib.dequant_gemm_splits(M, K, N, ctypes.byref(k_chunk))
-    work = (torch.empty((splits, M, N), dtype=torch.float32,
-                        device=x2d.device) if splits > 1 else None)
     code = lib.dequant_gemm(
         x2d.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if work is None else work.data_ptr(), M, K, N,
-        _W_CODES[w_q.dtype], _build.stream_ptr(x2d.device))
+        M, K, N, _W_CODES[w_q.dtype], M0,
+        _build.stream_ptr(x2d.device))
     _build.check(code, "dequant_gemm")
     _build.launches["dequant_gemm"] += 1
     return out

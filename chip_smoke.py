@@ -17,9 +17,12 @@ PyTorch version on the same inputs:
   int8 pool with per-row scales. Tolerance: atol = rtol = 1e-4 for fp32
   math on fp32 outputs (online vs full softmax reorders the sums), 2e-2
   for bf16 outputs (one bf16 ulp at their magnitude).
-- ``dequant_gemm`` (B15): M in {8, 128} x (K, N) in {(768, 768),
-  (768, 3072), (3072, 768)}, int8 and float8_e4m3fn weights. Tolerance
-  atol = rtol = 1e-4 (fp32 sums in another order than cuBLAS).
+- ``dequant_gemm`` (B15): M in {1, 8, 64, 128} (decode lanes and
+  prefill chunks, both of its regimes) x (K, N) in {(768, 768), (768,
+  3072), (3072, 768)}, int8 and float8_e4m3fn weights. Tolerance atol =
+  rtol = 1e-4 (fp32 sums in another order than cuBLAS); a second call
+  must give the same bits, and the profiler must count one CUDA kernel
+  a call.
 - ``layer_norm_bwd`` (B1), ``dropout`` (B3), ``flash_fwd`` (B4) and
   ``flash_bwd`` (B5) at the BERT-large training shapes, with the
   tolerances their functions state.
@@ -82,9 +85,12 @@ fp32 checks at an unaligned S (1000) with a fully masked row and at Sq
 256 x Sk 1024 through ``flash_attention_with_lse`` with an lse cotangent;
 the single-tile B10/B12 at contrib multihead_attn's shape (T 512, B 8, 16
 heads, sequence-first views, a key mask) in bf16 and in fp32 (phase 6's
-dtype, which the kernels line reports); and B13, the keep mask, bit for
-bit against the plain Philox mask, then B9's fp32 dropout against the
-composed reference with B13's mask. Library yardsticks: SDPA without
+dtype, which the kernels line reports; the fp32 backward's bound is at
+495/3 TFLOP/s, three TF32 products a product, and the row names the
+kernels SDPA's backward runs); the fp32 backward (B11b + B11a) at GPT-2
+small's shape, causal, beside SDPA's fp32 backward; and B13, the keep
+mask, bit for bit against the plain Philox mask, then B9's fp32 dropout
+against the composed reference with B13's mask. Library yardsticks: SDPA without
 dropout (``is_causal=True``) and its backward, the backward by device
 time (the calls queued behind a sleep kernel that outlasts their
 enqueue, then timed by CUDA events: a host loop of autograd calls would
@@ -152,6 +158,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+# fp32 products as three TF32 tensor-core products (the fp32 flash
+# backward's route): 495 TFLOP/s dense TF32 over 3
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 
 class SmokeFailure(RuntimeError):
@@ -271,6 +280,32 @@ def device_ms(fn, iters=3):
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     return (sum(e.self_device_time_total for e in events) / 1e3 / iters,
             sum(e.count for e in events) / iters)
+
+
+def kernels_per_call(fn, tries=3):
+    """CUDA kernels one call of ``fn`` launches, by ``device_ms``. The
+    profiler now and then records no device activity at all for a window;
+    such a window is taken again, up to ``tries`` times."""
+    for _ in range(tries):
+        _, n = device_ms(fn)
+        if n > 0:
+            break
+    return n
+
+
+def kernel_names(fn):
+    """The CUDA kernels one call of ``fn`` runs (after a warm-up), by
+    ``torch.profiler``: [name (cut to 100 characters), device ms]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [[e.key[:100], round(e.self_device_time_total / 1e3, 4)]
+            for e in prof.key_averages() if e.self_device_time_total > 0]
 
 
 def card_line():
@@ -413,9 +448,23 @@ def phase1_paged(torch, F, dev, seed):
     return rows
 
 
+def dequant_plan(M, K, N):
+    """(tile rows, K splits, 32-row stages a split) of B15's launch."""
+    import ctypes
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops.dequant_gemm import M0
+
+    rows, per = ctypes.c_int(0), ctypes.c_int(0)
+    splits = _build.lib().dequant_gemm_plan(M, K, N, M0, ctypes.byref(rows),
+                                            ctypes.byref(per))
+    return [rows.value, splits, per.value]
+
+
 def phase1_dequant(torch, dev, seed):
     from apex_tpu_torch.models.gpt import quantize_dense_kernel
     from apex_tpu_torch.ops.dequant_gemm import (
+        M0,
         dequant_matmul,
         dequant_matmul_plain,
     )
@@ -423,13 +472,14 @@ def phase1_dequant(torch, dev, seed):
     rows = []
     g = torch.Generator().manual_seed(seed)
     for mode in ("int8", "fp8"):
-        for M in (8, 128):
+        for M in (1, 8, 64, 128):
             for K, N in ((768, 768), (768, 3072), (3072, 768)):
                 w_q, s = quantize_dense_kernel(
                     torch.randn(K, N, generator=g) * 0.02, mode)
                 x = torch.randn(M, K, generator=g)
                 w_q, s, x = w_q.to(dev), s.to(dev), x.to(dev)
                 out = dequant_matmul(x, w_q, s)
+                again = dequant_matmul(x, w_q, s)
                 ref = dequant_matmul_plain(x, w_q, s)
                 torch.cuda.synchronize()
                 err = (out - ref).abs()
@@ -438,6 +488,12 @@ def phase1_dequant(torch, dev, seed):
                 check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4),
                       f"dequant_gemm {mode} {M}x{K}x{N}: max abs err "
                       f"{max_abs}")
+                check(torch.equal(out, again), f"dequant_gemm {mode} "
+                      f"{M}x{K}x{N}: a rerun changed the bits")
+                per_call = kernels_per_call(
+                    lambda: dequant_matmul(x, w_q, s))
+                check(per_call == 1, f"dequant_gemm {mode} {M}x{K}x{N}: "
+                      f"{per_call} CUDA kernels a call, not 1")
                 w = w_q.float() * s[None]
                 nbytes = 4 * M * K + w_q.numel() * w_q.element_size() \
                     + 4 * N + 4 * M * N
@@ -445,7 +501,9 @@ def phase1_dequant(torch, dev, seed):
                 row = dict(
                     case=f"{mode} M={M} K={K} N={N}", mode=mode, M=M, K=K,
                     N=N, max_abs_err=max_abs, max_rel_err=max_rel,
-                    tol=1e-4,
+                    tol=1e-4, kernels_per_call=per_call,
+                    regime="streaming" if M <= M0 else "tiled",
+                    plan=dequant_plan(M, K, N),
                     ms=time_ms(lambda: dequant_matmul(x, w_q, s)),
                     plain_ms=time_ms(lambda: dequant_matmul_plain(x, w_q,
                                                                   s)),
@@ -453,7 +511,9 @@ def phase1_dequant(torch, dev, seed):
                     bytes=nbytes, flops=2 * M * K * N, bound_ms=b_ms,
                     bound_by=b_by)
                 rows.append(row)
-                print(f"[B15 dequant_gemm] {row['case']}: max_abs_err "
+                print(f"[B15 dequant_gemm] {row['case']} ({row['regime']}, "
+                      f"rows/splits/stages {row['plan']}, {per_call} "
+                      f"kernel a call): max_abs_err "
                       f"{max_abs:.3g} max_rel_err {max_rel:.3g} | ms "
                       f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
                       f"library_ms {row['library_ms']:.4f} bound_ms "
@@ -1128,8 +1188,9 @@ def phase1_flash_tiled(torch, F, dev, seed):
     torch.cuda.empty_cache()
 
     # B10 / B12 at contrib multihead_attn's shape, sequence-first views:
-    # bf16 (the tensor-core kernels), then fp32 (the CUDA-core kernels,
-    # which phase 6's fp32 modules run; the kernels line takes this row)
+    # bf16 (the Hopper kernels), then fp32 (the CUDA-core forward and the
+    # 3xTF32 backward, which phase 6's fp32 modules run; the kernels line
+    # takes this row)
     T, B3, NH3 = 512, 8, 16
     mask = torch.zeros(B3, T, dtype=torch.bool)
     for b in range(B3 // 2):
@@ -1137,8 +1198,9 @@ def phase1_flash_tiled(torch, F, dev, seed):
     mask = mask.to(dev)
     args = (False, scale, 0.0, None)
     pairs = B3 * NH3 * T * T
-    for dt, dt_tol, rate_ops in ((bf16, tol, BF16_FLOP_PER_S),
-                                 (torch.float32, 1e-4, FP32_FLOP_PER_S)):
+    for dt, dt_tol, rate_ops, rate_bwd in (
+            (bf16, tol, BF16_FLOP_PER_S, BF16_FLOP_PER_S),
+            (torch.float32, 1e-4, FP32_FLOP_PER_S, TF32X3_FLOP_PER_S)):
         size = torch.finfo(dt).bits // 8
         qkv = torch.randn(T, B3, 3, NH3, D, generator=g).to(dt).to(dev)
         q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3) for i in range(3))
@@ -1181,7 +1243,7 @@ def phase1_flash_tiled(torch, F, dev, seed):
             flops=4 * D * pairs, bound_ms=b_ms, bound_by=b_by))
         report("B10 flash_fwd_single", rows["fwd_single"][-1])
         b_ms, b_by = bound(8 * n * size + 8 * B3 * NH3 * T + B3 * T,
-                           10 * D * pairs, rate_ops)
+                           10 * D * pairs, rate_bwd)
         rows["bwd_single"].append(dict(
             case=case, max_abs_err=max(res[m][0] for m in ("dq", "dk", "dv")),
             norm_err=max(res[m][1] for m in ("dq", "dk", "dv")), tol=dt_tol,
@@ -1192,11 +1254,68 @@ def phase1_flash_tiled(torch, F, dev, seed):
                 q, k, v, mask, rlse, rdelta, do, *args), iters=3),
             library_ms=queued_ms(lambda: torch.autograd.grad(
                 lo, (qs, ks, vs), do, retain_graph=True)),
+            library_kernels=kernel_names(lambda: torch.autograd.grad(
+                lo, (qs, ks, vs), do, retain_graph=True)),
             flops=10 * D * pairs, bound_ms=b_ms, bound_by=b_by))
         report("B12 flash_bwd_single", rows["bwd_single"][-1])
+        print(f"[B12 flash_bwd_single] {case}: SDPA's backward runs "
+              f"{rows['bwd_single'][-1]['library_kernels']}", flush=True)
         del qkv, q, k, v, do, out, lse, delta, grads, rout, rlse, rdelta
         del rgrads, qs, ks, vs, lo, add_mask
         torch.cuda.empty_cache()
+
+    # the fp32 backward at GPT-2 small's tiled shape (the fp32 card-vs-CPU
+    # steps): B11b + B11a beside SDPA's fp32 backward, rate 0
+    rows["bwd_tiled_f32"] = []
+    B, S, NH = 8, 1024, 12
+    q, k, v, do = (torch.randn(B, NH, S, D, generator=g).to(dev)
+                   for _ in range(4))
+    args = (True, scale, 0.0, None)
+    out, lse = flash_fwd_tiled_kernel(q, k, v, None, *args)
+    delta = attention_delta4(do, out)
+    dk, dv = flash_bwd_dkv_tiled_kernel(q, k, v, None, lse, delta, do, *args)
+    dq = flash_bwd_dq_tiled_kernel(q, k, v, None, lse, delta, do, *args)
+    rgrads = flash_bwd_plain(q, k, v, None, lse, delta, do, *args)
+    res = [flash_close(torch, a, r, 1e-4) for a, r in zip((dq, dk, dv),
+                                                          rgrads)]
+    for name, (ok, mx, rel) in zip(("dq", "dk", "dv"), res):
+        check(ok, f"fp32 tiled backward {name}: max abs err {mx}, norm err "
+              f"{rel}")
+    del dq, dk, dv, rgrads
+    pairs = B * NH * S * (S + 1) // 2
+    n = q.numel()
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                        scale=scale)
+
+    def whole_bwd():
+        d = attention_delta4(do, out)
+        flash_bwd_dkv_tiled_kernel(q, k, v, None, lse, d, do, *args)
+        flash_bwd_dq_tiled_kernel(q, k, v, None, lse, d, do, *args)
+
+    b_ms, b_by = bound(8 * n * 4 + 8 * B * NH * S, 10 * D * pairs,
+                       TF32X3_FLOP_PER_S)
+    row = dict(
+        case=f"B {B} S {S} NH {NH} D {D} fp32 causal rate 0",
+        max_abs_err=max(r[1] for r in res), norm_err=max(r[2] for r in res),
+        tol=1e-4, ms=time_ms(whole_bwd, iters=10),
+        dkv_ms=time_ms(lambda: flash_bwd_dkv_tiled_kernel(
+            q, k, v, None, lse, delta, do, *args), iters=10),
+        dq_ms=time_ms(lambda: flash_bwd_dq_tiled_kernel(
+            q, k, v, None, lse, delta, do, *args), iters=10),
+        plain_ms=time_ms(lambda: flash_bwd_plain(q, k, v, None, lse, delta,
+                                                 do, *args), iters=2),
+        library_ms=queued_ms(lambda: torch.autograd.grad(
+            lo, (qs, ks, vs), do, retain_graph=True)),
+        library_kernels=kernel_names(lambda: torch.autograd.grad(
+            lo, (qs, ks, vs), do, retain_graph=True)),
+        flops=10 * D * pairs, bound_ms=b_ms, bound_by=b_by)
+    rows["bwd_tiled_f32"].append(row)
+    report("B11 fp32 whole backward (delta + B11b + B11a)", row)
+    print(f"[B11 fp32] B11b {row['dkv_ms']:.4f} ms, B11a {row['dq_ms']:.4f} "
+          f"ms; SDPA's backward runs {row['library_kernels']}", flush=True)
+    del q, k, v, do, out, lse, delta, qs, ks, vs, lo
+    torch.cuda.empty_cache()
 
     # B13 bit for bit at GPT-2 small's mask shape; B9's dropout at fp32
     shape = (8, 12, 1024, 1024)
@@ -2159,8 +2278,8 @@ def phase6(torch, dev, seed, card):
     kernels, must launch) against the same modules on the CPU. Outputs and
     the input and parameter gradients within atol 1e-4 of the reference's
     largest entry and rtol 1e-3 (fp32 sums in other orders; the card's
-    attention is the CUDA-core kernels, the CPU's the plain version, both
-    applying the seed's Philox keep mask)."""
+    attention is the CUDA-core forward and the 3xTF32 backward, the CPU's
+    the plain version, both applying the seed's Philox keep mask)."""
     from apex_tpu_torch import _build
     from apex_tpu_torch.contrib.multihead_attn import (
         EncdecMultiheadAttn,
@@ -2662,7 +2781,8 @@ def main(argv=None):
                      "apex_tpu/ops/softmax.py:82", sm_rows["softmax_bwd"],
                      sm_rows["softmax_bwd"][0], launches["softmax_bwd"]),
     ]
-    # B10/B12 take their fp32 rows (phase 6's path): the CUDA-core kernels
+    # B10/B12 take their fp32 rows (phase 6's path): the CUDA-core forward
+    # and the 3xTF32 backward
     flash_src = "apex_tpu_torch/csrc/flash_attn.cu"
     bwd16_src = "apex_tpu_torch/csrc/flash_bwd_sm90.cu"
     for name, key, replaces, src in (
@@ -2671,7 +2791,8 @@ def main(argv=None):
             ("flash_bwd_dq_tiled", "dq_tiled", ":226", bwd16_src),
             ("flash_bwd_dkv_tiled", "dkv_tiled", ":324", bwd16_src),
             ("flash_fwd_single", "fwd_single", ":183", flash_src),
-            ("flash_bwd_single", "bwd_single", ":275", flash_src),
+            ("flash_bwd_single", "bwd_single", ":275",
+             "apex_tpu_torch/csrc/flash_bwd_f32.cu"),
             ("keep_mask", "keep_mask", ":649",
              "apex_tpu_torch/csrc/dropout.cu")):
         rows = tiled[key]

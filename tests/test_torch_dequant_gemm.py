@@ -41,7 +41,9 @@ def test_quantizer_byte_identical_to_jax(mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("M,K,N", [(1, 64, 256), (8, 48, 40), (5, 96, 24)])
+@pytest.mark.parametrize("M,K,N", [(1, 64, 256), (8, 48, 40), (5, 96, 24),
+                                   (1, 100, 70), (16, 100, 70),
+                                   (17, 100, 70), (129, 100, 70)])
 def test_plain_matches_jax_reference(mode, M, K, N):
     qj, sj = jax_quantize(jnp.asarray(_kernel(K, N, 1)), mode)
     x = np.random.RandomState(2).randn(2, M, K).astype(np.float32)

@@ -6,6 +6,7 @@ This file imports no JAX, so on the card it runs without the JAX
 package: ``python -m pytest --noconftest -p no:cacheprovider -m gpu
 tests/test_torch_kernels.py``."""
 
+import importlib
 import shutil
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 from apex_tpu_torch import _build
 from apex_tpu_torch.models.gpt import quantize_dense_kernel
 from apex_tpu_torch.ops.dequant_gemm import (
+    M0,
     dequant_gemm,
     dequant_matmul,
     dequant_matmul_plain,
@@ -26,6 +28,9 @@ from apex_tpu_torch.ops.paged_attention import (
 )
 from torch_parity import assert_close, cuda_device  # noqa: F401
 
+# the module (the package re-exports a function of the same name)
+dequant_gemm_module = importlib.import_module(
+    "apex_tpu_torch.ops.dequant_gemm")
 H, D, BS, M, N = 4, 64, 16, 8, 40
 
 
@@ -131,23 +136,79 @@ def test_paged_read_kernel_matches_plain(cuda_device, B, C, kv_dtype, atol):
     assert_close(out, ref, atol=atol, rtol=atol)
 
 
+# B15's edge shapes: M on both sides of the decode lanes, the 128-row
+# prefill chunk and the streaming limit M0; K and N ragged and at GPT-2's
+# widths
+B15_M = sorted({1, 5, 7, 8, 9, 16, 17, 64, 127, 128, 129, 300, M0, M0 + 1})
+B15_KN = [(K, N) for K in (100, 768, 3072) for N in (70, 768, 3072)]
+
+
+def _b15_case(mode, M, K, N, device):
+    gen = torch.Generator().manual_seed(K + N)
+    q, s = quantize_dense_kernel(torch.randn(K, N, generator=gen) * 0.02,
+                                 mode)
+    x = torch.randn(M, K, generator=gen)
+    return x.to(device), q.to(device), s.to(device)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
-@pytest.mark.parametrize("Mr,K,Nc", [(8, 768, 768), (8, 768, 3072),
-                                     (128, 3072, 768), (5, 100, 70)])
+@pytest.mark.parametrize("Mr,K,Nc", [(M, K, N) for M in B15_M
+                                     for K, N in B15_KN])
 def test_dequant_gemm_kernel_matches_plain(cuda_device, mode, Mr, K, Nc):
     """Kernel B15 against its plain version (fp32 in both; the kernel
-    sums K in one fixed order, cuBLAS in another: atol 1e-4)."""
-    gen = torch.Generator().manual_seed(K + Nc)
-    q, s = quantize_dense_kernel(
-        torch.randn(K, Nc, generator=gen) * 0.02, mode)
-    x = torch.randn(Mr, K, generator=gen)
-    q, s, x = q.to(cuda_device), s.to(cuda_device), x.to(cuda_device)
+    sums K in one fixed order, cuBLAS in another: atol 1e-4), in both
+    regimes (streaming up to M0, tiled past it)."""
+    x, q, s = _b15_case(mode, Mr, K, Nc, cuda_device)
     before = _build.launches["dequant_gemm"]
     out = dequant_matmul(x, q, s)
     torch.cuda.synchronize()
     assert _build.launches["dequant_gemm"] == before + 1
     assert_close(out, dequant_matmul_plain(x, q, s), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("Mr,K,Nc", [(1, 768, 768), (8, 768, 3072),
+                                     (16, 3072, 768), (64, 768, 768),
+                                     (128, 3072, 768), (300, 100, 70)])
+def test_dequant_gemm_is_bit_identical_run_to_run(cuda_device, monkeypatch,
+                                                  mode, Mr, K, Nc):
+    """B15 adds its K splits' partial sums in a fixed (cluster-rank)
+    order: the same call twice gives the same bits, in both regimes."""
+    x, q, s = _b15_case(mode, Mr, K, Nc, cuda_device)
+    for m0 in (0, 1 << 30):   # the tiled regime, then the streaming one
+        monkeypatch.setattr(dequant_gemm_module, "M0", m0)
+        first = dequant_gemm(x, q, s)
+        second = dequant_gemm(x, q, s)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        assert_close(first, dequant_matmul_plain(x, q, s), atol=1e-4,
+                     rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Mr", [1, 8, 128])
+def test_dequant_gemm_is_one_kernel_launch(cuda_device, Mr):
+    """One B15 call is one CUDA kernel: no split-sum pass, no workspace
+    fill (counted by the profiler over one call, outputs allocated). The
+    profiler now and then records no device activity for a window; such a
+    window is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, q, s = _b15_case("int8", Mr, 3072, 768, cuda_device)
+    dequant_gemm(x, q, s)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dequant_gemm(x, q, s)
+            torch.cuda.synchronize()
+        on_card = [(e.key, e.count) for e in prof.key_averages()
+                   if e.self_device_time_total > 0]
+        if on_card:
+            break
+    assert len(on_card) == 1 and on_card[0][1] == 1, on_card
+    assert "dequant_gem" in on_card[0][0], on_card   # gemv or gemm
 
 
 # -- the training slice: B1, B3, B4, B5 ----------------------------------------
@@ -1142,19 +1203,23 @@ def _bwd_case(entry, B, H, Sq, Sk, D, causal, masked, rate, layout, dtype,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
-                                       (torch.float16, 1e-2)])
+                                       (torch.float16, 1e-2),
+                                       (torch.float32, 1e-4)])
 @pytest.mark.parametrize(
     "entry,B,H,Sq,Sk,D,causal,masked,rate,layout", BWD_CASES)
 def test_sm90_backward_matches_plain(cuda_device, entry, B, H, Sq, Sk, D,
                                      causal, masked, rate, layout, dtype,
                                      tol):
-    """The 16-bit Hopper backward (``csrc/flash_bwd_sm90.cu``) through each
-    wrapper that launches it, against ``flash_bwd_plain`` /
+    """The 16-bit Hopper backward (``csrc/flash_bwd_sm90.cu``) and the fp32
+    3xTF32 backward (``csrc/flash_bwd_f32.cu``) through each wrapper that
+    launches them, against ``flash_bwd_plain`` /
     ``flash_attention_bsh_backward_plain`` on the same lse and delta (the
     plain forward's), which draw the same Philox mask: dq, dk, dv within
     the existing tolerances of the B4/B5 card tests (bf16 3e-2, fp16 1e-2:
-    a 16-bit ulp at |values| up to ~4, p and dS rounded at other points),
-    each within 1e-2 of its norm, and written in the caller's layout."""
+    a 16-bit ulp at |values| up to ~4, p and dS rounded at other points;
+    fp32 1e-4: sums in other orders, 3xTF32 products within ~2^-20 of
+    fp32's), each within 1e-2 of its norm, and written in the caller's
+    layout."""
     q, k, v, mask, rout, rlse, g, g_lse, args = _bwd_case(
         entry, B, H, Sq, Sk, D, causal, masked, rate, layout, dtype,
         cuda_device)
@@ -1185,7 +1250,8 @@ def test_sm90_backward_matches_plain(cuda_device, entry, B, H, Sq, Sk, D,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("entry,B,H,Sq,Sk,D,causal,masked,rate,layout", [
     ("tiled", 2, 3, 1000, 1000, 64, True, True, 0.1, "bhsd"),
     ("tiled", 8, 12, 1024, 1024, 64, True, False, 0.1, "flat"),

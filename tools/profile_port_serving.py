@@ -39,7 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
 _GROUPS = (("paged_read_kernel", "paged_read (B14)"),
            ("merge_splits_kernel", "paged_read split merge (B14)"),
            ("dequant_gemm_kernel", "dequant_gemm (B15)"),
-           ("sum_splits_kernel", "dequant_gemm split sum (B15)"),
+           ("dequant_gemv_kernel", "dequant_gemm (B15)"),
            ("gemm", "cuBLAS products"),
            ("gemv", "cuBLAS products"))
 

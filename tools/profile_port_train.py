@@ -68,7 +68,9 @@ the tiled wrappers (B9, B11b, B11a) at GPT-2 small's (B 8, S 1024, 12
 heads, D 64, bf16, causal, heads read by stride from the flat
 activations) and the single-tile wrappers (B10, B12) at contrib
 multihead_attn's (T 512, B 8, 16 heads, D 64, bf16, sequence-first views,
-a key mask), each at dropout 0 and 0.1. It prints one JSON line per run:
+a key mask), each at dropout 0 and 0.1, then the fp32 backward alone
+(B12 at the contrib shape, B11b + B11a at GPT-2's) at both rates, where
+the tree has the single-tile wrappers. It prints one JSON line per run:
 ms per launch of each CUDA kernel by case, with the card's name and power
 limit.
 
@@ -92,9 +94,10 @@ ROOT = Path(__file__).resolve().parent.parent
 # the flash kernels' groups name the TPU kernel each model's calls stand
 # in for. The 16-bit kernels are flash_fwd_sm90_kernel,
 # flash_bwd_dkdv_sm90_kernel and flash_bwd_dq_sm90_kernel, the fp32 ones
-# flash_fwd_kernel, flash_bwd_dkdv_kernel and flash_bwd_dq_kernel: BERT's
-# two backward kernels are B5, GPT's dQ kernel B11a and its dK/dV kernel
-# B11b. A flash kernel that no fragment names is an error, not "other".
+# flash_fwd_kernel, flash_bwd_dkdv_f32_kernel and flash_bwd_dq_f32_kernel:
+# BERT's two backward kernels are B5, GPT's dQ kernel B11a and its dK/dV
+# kernel B11b. A flash kernel that no fragment names is an error, not
+# "other".
 _FLASH_GROUPS = {
     "bert": (("flash_fwd", "flash_fwd (B4)"),
              ("flash_bwd_dkdv", "flash_bwd (B5)"),
@@ -203,6 +206,31 @@ if hasattr(fa, "flash_fwd_single_kernel"):
             fa.flash_bwd_single_kernel(q, k, v, mask, lse, delta, do,
                                        *args)),
             f"multihead-attn rate {rate}")
+    # the fp32 backward (phase 6's contrib modules, the fp32 card-vs-CPU
+    # steps) at the same shape and at GPT-2's tiled one
+    qkv, do = qkv.float(), do.float()
+    q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3) for i in range(3))
+    for rate in (0.0, 0.1):
+        args = (False, D ** -0.5, rate, 7 if rate else None)
+        out, lse = fa.flash_fwd_single_kernel(q, k, v, mask, *args)
+        delta = fa.attention_delta4(do, out)
+        prof(lambda: fa.flash_bwd_single_kernel(q, k, v, mask, lse, delta,
+                                                do, *args),
+             f"multihead-attn fp32 rate {rate}")
+    del qkv, q, k, v, do
+    B, S, NH = 8, 1024, 12
+    flat = [torch.randn(B, S, NH * D, generator=g).to(dev) for _ in range(4)]
+    q, k, v, do = (t.view(B, S, NH, D).transpose(1, 2) for t in flat)
+    for rate in (0.0, 0.1):
+        args = (True, D ** -0.5, rate, 7 if rate else None)
+        out, lse = fa.flash_fwd_tiled_kernel(q, k, v, None, *args)
+        delta = fa.attention_delta4(do, out)
+        prof(lambda: (
+            fa.flash_bwd_dkv_tiled_kernel(q, k, v, None, lse, delta, do,
+                                          *args),
+            fa.flash_bwd_dq_tiled_kernel(q, k, v, None, lse, delta, do,
+                                         *args)),
+            f"gpt2-small fp32 rate {rate}")
 print(json.dumps(res))
 '''
 
