@@ -137,8 +137,8 @@ _SIGNATURES = {
     "layer_norm_fwd": [_VP] * 4 + [_I] * 3 + [_F, _I, _VP],
     # g, x, w, dx, dw, db, workspace, rows, H, dtype, eps, rms, stream
     "layer_norm_bwd": [_VP] * 7 + [_I] * 3 + [_F, _I, _VP],
-    # rows, H -> number of row blocks (sizes the workspace)
-    "layer_norm_bwd_blocks": [_I] * 2,
+    # rows, H -> the fp32 elements of the workspace
+    "layer_norm_bwd_workspace": [_I] * 2,
     # x, y, n, dtype, seed, threshold, scale, stream
     "fused_dropout": [_VP, _VP, _LL, _I, _U, _U, _F, _VP],
     # q, k, v, key_mask, out, lse, strides[12], B, Sq, Sk, NH, D, dtype,

@@ -1,13 +1,14 @@
 // The per-thread row bookkeeping that the flash backward kernels share:
 // csrc/flash_bwd_sm90.cu (bf16/fp16, wgmma) and csrc/flash_bwd_f32.cu (fp32,
-// mma.sync). Both keep their score tiles in the same register layout: a
-// warp owns 16 rows, a thread rows lane / 4 and lane / 4 + 8, and element
-// 4 j + e of a tile of N columns is column 8 j + 2 (lane % 4) + (e & 1) of
-// row half e / 2 (the m16n8 accumulator of mma.sync, which wgmma's m64nN
-// accumulator repeats per warp). The dK/dV kernels hold S^T (keys along
-// the rows, queries along the columns), the dQ kernels S (queries along
-// the rows). Here: the masked exponentials of a tile and its Philox keep
-// bits in that layout.
+// mma.sync), and with them the fp32 forward (csrc/flash_fwd_f32.cu, the
+// dQ kernels' half). All keep their score tiles in the same register
+// layout: a warp owns 16 rows, a thread rows lane / 4 and lane / 4 + 8, and
+// element 4 j + e of a tile of N columns is column 8 j + 2 (lane % 4) + (e
+// & 1) of row half e / 2 (the m16n8 accumulator of mma.sync, which wgmma's
+// m64nN accumulator repeats per warp). The dK/dV kernels hold S^T (keys
+// along the rows, queries along the columns), the dQ kernels and the
+// forward S (queries along the rows). Here: the masked scores and
+// exponentials of a tile and its Philox keep bits in that layout.
 #pragma once
 
 #include <math.h>
@@ -119,9 +120,10 @@ __device__ __forceinline__ uint64_t keep_t(const KeyRows& r, int q0,
 
 // -- the dQ kernels: S, queries along the rows -------------------------------
 
-// What a dQ thread knows of its rows: queries qa and qb =
-// qa + 8 (keys run along the columns), their lse and delta, the warp's
-// lowest query, the rows' Philox element offsets, and the key mask row.
+// What a dQ thread (or an fp32 forward thread) knows of its rows: queries
+// qa and qb = qa + 8 (keys run along the columns), their lse and delta
+// (the backward's), the warp's lowest query, the rows' Philox element
+// offsets, and the key mask row.
 struct QueryRows {
   int qa, qb, quad, lane, warp_lo;
   float lse_a, lse_b, delta_a, delta_b;
@@ -158,12 +160,15 @@ __device__ __forceinline__ uint32_t col_mask(const QueryRows& r, int k0,
   return colmask;
 }
 
-// p = exp(s - lse) of one tile from its raw dots (in s), keys k0 ..; the
-// mask and the Sk bound only where they can bite (kMasked).
+// The scores of one tile from its raw dots (in s), keys k0 ..: scaled,
+// FILL where the key is masked (colmask) or, when causal, above the
+// diagonal, -inf past Sk; the mask and the Sk bound only where they can
+// bite (kMasked). The fp32 forward and every dQ kernel take their mask
+// from here.
 template <int N, bool kMasked>
-__device__ __forceinline__ void probs_q(float (&s)[N / 2], const QueryRows& r,
-                                        int k0, uint32_t colmask,
-                                        const Params& p) {
+__device__ __forceinline__ void scores_q(float (&s)[N / 2],
+                                         const QueryRows& r, int k0,
+                                         uint32_t colmask, const Params& p) {
   const float scale = p.scale;
   const bool causal = p.causal != 0;
 #pragma unroll
@@ -179,9 +184,21 @@ __device__ __forceinline__ void probs_q(float (&s)[N / 2], const QueryRows& r,
         v = dead ? FILL : v;
         v = col < p.Sk ? v : -INFINITY;
       }
-      s[4 * j + e] = ex2((v - ((e & 2) ? r.lse_b : r.lse_a)) * kLog2e);
+      s[4 * j + e] = v;
     }
   }
+}
+
+// p = exp(s - lse) of one tile from its raw dots (in s), keys k0 ..; the
+// mask as scores_q.
+template <int N, bool kMasked>
+__device__ __forceinline__ void probs_q(float (&s)[N / 2], const QueryRows& r,
+                                        int k0, uint32_t colmask,
+                                        const Params& p) {
+  scores_q<N, kMasked>(s, r, k0, colmask, p);
+#pragma unroll
+  for (int idx = 0; idx < N / 2; ++idx)
+    s[idx] = ex2((s[idx] - ((idx & 2) ? r.lse_b : r.lse_a)) * kLog2e);
 }
 
 // The keep bits of one tile (bit 4 j + e: accumulator element 4 j + e),

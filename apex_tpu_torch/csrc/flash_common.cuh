@@ -1,7 +1,7 @@
-// What csrc/flash_attn.cu (the entry points and the fp32 forward),
-// csrc/flash_fwd_sm90.cu (the 16-bit forward), csrc/flash_bwd_sm90.cu (the
-// 16-bit backward) and csrc/flash_bwd_f32.cu (the fp32 backward) share: the
-// launch parameters and the masked fill.
+// What csrc/flash_attn.cu (the entry points), csrc/flash_fwd_sm90.cu (the
+// 16-bit forward), csrc/flash_bwd_sm90.cu (the 16-bit backward),
+// csrc/flash_fwd_f32.cu (the fp32 forward) and csrc/flash_bwd_f32.cu (the
+// fp32 backward) share: the launch parameters and the masked fill.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +62,11 @@ int fwd_sm90(const Params& p, int D, int dtype, bool vec, cudaStream_t s);
 // dout.
 int bwd_sm90(const Params& p, const Params& pq, int parts, int D, int dtype,
              bool vec, cudaStream_t s);
+
+// The fp32 forward (csrc/flash_fwd_f32.cu), as fwd_sm90; vec: q, k and v
+// start on 16-byte boundaries with strides of whole 16-byte chunks (the
+// cp.async copies' rule).
+int fwd_f32(const Params& p, int D, bool vec, cudaStream_t s);
 
 // The fp32 backward (csrc/flash_bwd_f32.cu), as bwd_sm90; vec: q, k, v and
 // dout start on 16-byte boundaries with strides of whole 16-byte chunks.

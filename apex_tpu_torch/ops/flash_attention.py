@@ -24,10 +24,12 @@ scores. Semantics kept from the JAX kernels:
   m, l and lse stay pre-dropout;
 - p and dS are rounded to the input dtype before their products.
 
-On CUDA tensors every entry runs the hand-written kernels of
-``csrc/flash_attn.cu`` (fp32), ``csrc/flash_fwd_sm90.cu`` (the 16-bit
-forward) and ``csrc/flash_bwd_sm90.cu`` (the 16-bit backward), which read
-q, k, v and write their results by (batch, head, row) strides, and count
+On CUDA tensors every entry runs the hand-written kernels behind the
+entry points of ``csrc/flash_attn.cu``: ``csrc/flash_fwd_f32.cu`` and
+``csrc/flash_bwd_f32.cu`` (fp32, 3xTF32 tensor-core products),
+``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (bf16, fp16),
+which read q, k, v and write their results by (batch, head, row)
+strides, and count
 the call under the JAX kernel it stands in for,
 by the JAX package's own regime rule (``_block_sizes``):
 the bsh entry where the JAX bsh kernels apply is B4 (forward) and B5

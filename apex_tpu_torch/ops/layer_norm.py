@@ -7,9 +7,9 @@ statistics from ``x`` instead of saving them; both take fp32, bf16 and
 fp16 rows. On CPU tensors each wrapper runs its plain version
 (:func:`layer_norm_forward_plain`, :func:`layer_norm_backward_plain`), the
 same fp32 arithmetic in PyTorch. B1 holds a row in registers up to H
-8192; a wider row runs the plain backward on the card, counted under
-``layer_norm_bwd_plain`` (the JAX package runs its jnp backward above its
-Pallas width).
+1024 and takes two passes over wider rows up to H 8192; a wider row runs
+the plain backward on the card, counted under ``layer_norm_bwd_plain``
+(the JAX package runs its jnp backward above its Pallas width).
 
 As in the JAX package, the forward a call runs depends on whether it is
 differentiated. ``fused_layer_norm_affine`` / ``fused_rms_norm_affine``
@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from apex_tpu_torch import _build
 from apex_tpu_torch.ops._common import DTYPE_CODES
 
-_MAX_H = 8 * 1024     # B1: eight columns per thread, at most 1024 threads
+_MAX_H = 8 * 1024     # B1's widest row (csrc/layer_norm_bwd.cu kMaxH)
 
 
 def backward_kernel_takes(H: int) -> bool:
@@ -157,11 +157,12 @@ def layer_norm_backward_kernel(g, x, weight, eps=1e-5, rms=False):
     w = weight.float().contiguous()
     rows = x2.shape[0]
     lib = _build.lib()
-    blocks = lib.layer_norm_bwd_blocks(rows, H)
-    work = torch.empty((2, blocks, H), dtype=torch.float32, device=x.device)
+    # the kernels' fp32 scratch: per-block column partials (and, past H
+    # 1024, per-row statistics), sized by the launch plan
+    work = torch.empty(lib.layer_norm_bwd_workspace(rows, H),
+                       dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x2)
-    dw = torch.empty(H, dtype=torch.float32, device=x.device)
-    db = torch.empty(H, dtype=torch.float32, device=x.device)
+    dw, db = torch.empty((2, H), dtype=torch.float32, device=x.device)
     code = lib.layer_norm_bwd(
         g2.data_ptr(), x2.data_ptr(), w.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), db.data_ptr(), work.data_ptr(), rows, H,

@@ -23,7 +23,10 @@ PyTorch version on the same inputs:
   rtol = 1e-4 (fp32 sums in another order than cuBLAS); a second call
   must give the same bits, and the profiler must count one CUDA kernel
   a call.
-- ``layer_norm_bwd`` (B1), ``dropout`` (B3), ``flash_fwd`` (B4) and
+- ``layer_norm_bwd`` (B1) at the shapes of B2's list below that it takes
+  (H up to 8192: BERT-large and GPT-2 small activations in bf16, BERT-large
+  in fp32, RMSNorm, the OpenFold pair and MSA, an odd H), each rerun and
+  required bit-identical; ``dropout`` (B3), ``flash_fwd`` (B4) and
   ``flash_bwd`` (B5) at the BERT-large training shapes, with the
   tolerances their functions state.
 - ``layer_norm_fwd`` (B2) at (8192, 1024) bf16 x with fp32 params
@@ -41,14 +44,16 @@ Each case is timed on the device (calls captured in a CUDA graph and
 replayed, CUDA events around the replay) beside its plain version, a
 library call that computes the same function (``F.scaled_dot_product_attention``
 on the gathered K/V for B14, ``torch.matmul`` on the dequantized weight
-for B15, the backward of ``F.layer_norm`` for B1, ``F.layer_norm`` /
+for B15, ``aten.native_layer_norm_backward`` (RMSNorm:
+``aten._fused_rms_norm_backward``) for B1, ``F.layer_norm`` /
 ``F.rms_norm`` for B2, ``F.dropout`` for B3,
 SDPA and its backward (device time) without dropout for B4/B5,
 ``torch.softmax`` and
 its backward for B6/B8; the port calls none of them), and the least time
 the card could take: the larger of the bytes moved over 3.35 TB/s and
 the operations over the peak rate of their type (67 TFLOP/s fp32, 989
-TFLOP/s bf16 tensor cores; H100 SXM data sheet).
+TFLOP/s bf16 tensor cores, and 495/3 TFLOP/s for the fp32 flash kernels'
+3xTF32 products: three TF32 products a product; H100 SXM data sheet).
 
 Phase 2 serves traffic through the port's entry points at GPT-2-small
 width (vocab 50257, hidden 768, 12 layers, 12 heads, 1024 positions)
@@ -85,10 +90,11 @@ fp32 checks at an unaligned S (1000) with a fully masked row and at Sq
 256 x Sk 1024 through ``flash_attention_with_lse`` with an lse cotangent;
 the single-tile B10/B12 at contrib multihead_attn's shape (T 512, B 8, 16
 heads, sequence-first views, a key mask) in bf16 and in fp32 (phase 6's
-dtype, which the kernels line reports; the fp32 backward's bound is at
-495/3 TFLOP/s, three TF32 products a product, and the row names the
-kernels SDPA's backward runs); the fp32 backward (B11b + B11a) at GPT-2
-small's shape, causal, beside SDPA's fp32 backward; and B13, the keep
+dtype, which the kernels line reports; the fp32 kernels' bounds are at
+495/3 TFLOP/s, three TF32 products a product, the fp32 forward must rerun
+bit for bit, and the rows name the kernels SDPA's forward and backward
+run); the fp32 forward (B9) and backward (B11b + B11a) at GPT-2 small's
+shape, causal, beside SDPA's fp32 forward and backward; and B13, the keep
 mask, bit for bit against the plain Philox mask, then B9's fp32 dropout
 against the composed reference with B13's mask. Library yardsticks: SDPA without
 dropout (``is_causal=True``) and its backward, the backward by device
@@ -293,18 +299,21 @@ def kernels_per_call(fn, tries=3):
     return n
 
 
-def kernel_names(fn):
+def kernel_names(fn, calls=10):
     """The CUDA kernels one call of ``fn`` runs (after a warm-up), by
-    ``torch.profiler``: [name (cut to 100 characters), device ms]."""
+    ``torch.profiler`` over ``calls`` calls: [name (cut to 100
+    characters), device ms a call]. (A window around one short call has
+    come back with no device activity on the card.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return [[e.key[:100], round(e.self_device_time_total / 1e3, 4)]
+    return [[e.key[:100], round(e.self_device_time_total / 1e3 / calls, 4)]
             for e in prof.key_averages() if e.self_device_time_total > 0]
 
 
@@ -530,52 +539,82 @@ def close_stats(torch, out, ref):
 
 
 def phase1_layer_norm(torch, dev, seed):
-    """B1 at the BERT-large LN shape (B * S = 8192 rows, H = 1024), bf16
-    and fp32 rows, fp32 weight. dx within atol 1e-2 + rtol 1e-2 (bf16:
+    """B1 at the shapes of ``B2_CASES`` it takes (H up to 8192: BERT-large
+    and GPT-2 small activations, B * S = 8192 rows, bf16; BERT-large in
+    fp32; RMSNorm; the OpenFold pair (65536, 128) and MSA (32768, 256);
+    an odd H 1000), fp32 weight. dx within atol 1e-2 + rtol 1e-2 (bf16:
     one bf16 ulp is 2^-7 relative) or 1e-5 (fp32); dgamma, dbeta within
-    1e-4 of their largest entry (fp32 sums over 8192 rows in other
-    orders)."""
+    1e-4 of their largest entry (fp32 sums over the rows in other
+    orders); a second launch bit-identical (fixed-order sums). The library
+    call is ``aten.native_layer_norm_backward`` (params in x's dtype) for
+    LayerNorm and ``aten._fused_rms_norm_backward`` for RMSNorm."""
     from apex_tpu_torch.ops.layer_norm import (
         layer_norm_backward_kernel,
         layer_norm_backward_plain,
     )
 
-    rows, H, eps = 8192, 1024, 1e-12
+    eps = 1e-12
     g = torch.Generator().manual_seed(seed)
     out = []
-    for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+    for label, rows, H, dname, rms, _ in B2_CASES:
+        if H > 8192:
+            continue                   # the plain route, not B1
+        dt = getattr(torch, dname)
+        tol = 1e-5 if dt == torch.float32 else 1e-2
         x = (torch.randn(rows, H, generator=g) * 2 + 0.5).to(dt).to(dev)
         gr = torch.randn(rows, H, generator=g).to(dt).to(dev)
         w = (torch.rand(H, generator=g) + 0.5).to(dev)
-        dx, dw, db = layer_norm_backward_kernel(gr, x, w, eps)
-        rdx, rdw, rdb = layer_norm_backward_plain(gr, x, w, eps)
+        dx, dw, db = layer_norm_backward_kernel(gr, x, w, eps, rms)
+        again = layer_norm_backward_kernel(gr, x, w, eps, rms)
+        rdx, rdw, rdb = layer_norm_backward_plain(gr, x, w, eps, rms)
         torch.cuda.synchronize()
+        case = f"{label}: rows {rows} H {H} {dname}{' RMS' if rms else ''}"
         max_abs, max_rel = close_stats(torch, dx, rdx)
         check(torch.allclose(dx.float(), rdx.float(), atol=tol, rtol=tol),
-              f"layer_norm_bwd {dt}: dx max abs err {max_abs}")
+              f"layer_norm_bwd {case}: dx max abs err {max_abs}")
         for a, r, n in ((dw, rdw, "dgamma"), (db, rdb, "dbeta")):
             e = (a - r).abs().max().item() / r.abs().max().item()
-            check(e <= 1e-4, f"layer_norm_bwd {dt}: {n} rel err {e}")
-        # the library call: the autograd backward of F.layer_norm
+            check(e <= 1e-4, f"layer_norm_bwd {case}: {n} rel err {e}")
+        check(all(torch.equal(a, b) for a, b in zip((dx, dw, db), again)),
+              f"layer_norm_bwd {case}: a second launch differs")
+        del again, rdx, rdw, rdb
+        # the library call: one aten backward on the same inputs
         wl = w.to(dt)
-        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [H], wl, wl, eps)
+        if rms:
+            library = "aten._fused_rms_norm_backward"
+            _, rstd = torch.ops.aten._fused_rms_norm(x, [H], wl, eps)
+
+            def lib_call():
+                return torch.ops.aten._fused_rms_norm_backward(
+                    gr, x, [H], rstd, wl, [True, True])
+        else:
+            library = "aten.native_layer_norm_backward"
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x, [H], wl, wl,
+                                                             eps)
+
+            def lib_call():
+                return torch.ops.aten.native_layer_norm_backward(
+                    gr, x, [H], mean, rstd, wl, wl, [True, True, True])
         esz = x.element_size()
         nbytes = 3 * rows * H * esz + 3 * H * 4
         b_ms, b_by = bound(nbytes, 12 * rows * H)
         row = dict(
-            case=f"rows {rows} H {H} {dt}", max_abs_err=max_abs,
-            max_rel_err=max_rel, tol=tol,
-            ms=time_ms(lambda: layer_norm_backward_kernel(gr, x, w, eps)),
-            plain_ms=time_ms(lambda: layer_norm_backward_plain(gr, x, w,
-                                                               eps), iters=10),
-            library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-                gr, x, [H], mean, rstd, wl, wl, [True, True, True])),
-            bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+            case=case, max_abs_err=max_abs, max_rel_err=max_rel, tol=tol,
+            bit_identical_rerun=True,
+            ms=time_ms(lambda: layer_norm_backward_kernel(gr, x, w, eps,
+                                                          rms)),
+            plain_ms=time_ms(lambda: layer_norm_backward_plain(
+                gr, x, w, eps, rms), iters=10),
+            library_ms=time_ms(lib_call), library=library, bytes=nbytes,
+            bound_ms=b_ms, bound_by=b_by)
         out.append(row)
-        print(f"[B1 layer_norm_bwd] {row['case']}: max_abs_err {max_abs:.3g} "
-              f"(tol {tol}) | ms {row['ms']:.4f} plain_ms "
-              f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
-              f"bound_ms {b_ms:.4f} ({b_by})", flush=True)
+        print(f"[B1 layer_norm_bwd] {case}: max_abs_err {max_abs:.3g} "
+              f"(tol {tol}), rerun bit-identical | ms {row['ms']:.4f} "
+              f"plain_ms {row['plain_ms']:.4f} library_ms "
+              f"{row['library_ms']:.4f} ({library}) bound_ms {b_ms:.4f} "
+              f"({b_by})", flush=True)
+        del x, gr, w, dx, dw, db
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1188,9 +1227,9 @@ def phase1_flash_tiled(torch, F, dev, seed):
     torch.cuda.empty_cache()
 
     # B10 / B12 at contrib multihead_attn's shape, sequence-first views:
-    # bf16 (the Hopper kernels), then fp32 (the CUDA-core forward and the
-    # 3xTF32 backward, which phase 6's fp32 modules run; the kernels line
-    # takes this row)
+    # bf16 (the Hopper kernels), then fp32 (the 3xTF32 forward and
+    # backward, which phase 6's fp32 modules run; the kernels line takes
+    # this row)
     T, B3, NH3 = 512, 8, 16
     mask = torch.zeros(B3, T, dtype=torch.bool)
     for b in range(B3 // 2):
@@ -1200,7 +1239,7 @@ def phase1_flash_tiled(torch, F, dev, seed):
     pairs = B3 * NH3 * T * T
     for dt, dt_tol, rate_ops, rate_bwd in (
             (bf16, tol, BF16_FLOP_PER_S, BF16_FLOP_PER_S),
-            (torch.float32, 1e-4, FP32_FLOP_PER_S, TF32X3_FLOP_PER_S)):
+            (torch.float32, 1e-4, TF32X3_FLOP_PER_S, TF32X3_FLOP_PER_S)):
         size = torch.finfo(dt).bits // 8
         qkv = torch.randn(T, B3, 3, NH3, D, generator=g).to(dt).to(dev)
         q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3) for i in range(3))
@@ -1216,6 +1255,11 @@ def phase1_flash_tiled(torch, F, dev, seed):
         torch.cuda.synchronize()
         check(out.permute(2, 0, 1, 3).is_contiguous(),
               "B10 did not write the context in the caller's layout")
+        if dt == torch.float32:
+            again = flash_fwd_single_kernel(q, k, v, mask, *args)
+            check(torch.equal(again[0], out) and torch.equal(again[1], lse),
+                  "fp32 B10 is not bit-identical run to run")
+            del again
         res = {}
         for name, a, r in zip(("out", "dq", "dk", "dv"), (out, *grads),
                               (rout, *rgrads)):
@@ -1240,8 +1284,13 @@ def phase1_flash_tiled(torch, F, dev, seed):
                              iters=3),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=add_mask, scale=scale), iters=20),
+            library_kernels=kernel_names(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=add_mask, scale=scale)),
             flops=4 * D * pairs, bound_ms=b_ms, bound_by=b_by))
         report("B10 flash_fwd_single", rows["fwd_single"][-1])
+        print(f"[B10 flash_fwd_single] {case}: SDPA's forward runs "
+              f"{rows['fwd_single'][-1]['library_kernels']}", flush=True)
         b_ms, b_by = bound(8 * n * size + 8 * B3 * NH3 * T + B3 * T,
                            10 * D * pairs, rate_bwd)
         rows["bwd_single"].append(dict(
@@ -1264,14 +1313,45 @@ def phase1_flash_tiled(torch, F, dev, seed):
         del rgrads, qs, ks, vs, lo, add_mask
         torch.cuda.empty_cache()
 
-    # the fp32 backward at GPT-2 small's tiled shape (the fp32 card-vs-CPU
-    # steps): B11b + B11a beside SDPA's fp32 backward, rate 0
-    rows["bwd_tiled_f32"] = []
+    # the fp32 forward and backward at GPT-2 small's tiled shape (the fp32
+    # card-vs-CPU steps): B9 beside SDPA's fp32 forward, B11b + B11a beside
+    # SDPA's fp32 backward, rate 0
+    rows["fwd_tiled_f32"], rows["bwd_tiled_f32"] = [], []
     B, S, NH = 8, 1024, 12
     q, k, v, do = (torch.randn(B, NH, S, D, generator=g).to(dev)
                    for _ in range(4))
     args = (True, scale, 0.0, None)
     out, lse = flash_fwd_tiled_kernel(q, k, v, None, *args)
+    rout, rlse = flash_fwd_plain(q, k, v, None, *args)
+    again = flash_fwd_tiled_kernel(q, k, v, None, *args)
+    torch.cuda.synchronize()
+    ok, mx, rel = flash_close(torch, out, rout, 1e-4)
+    lse_err = (lse - rlse).abs().max().item()
+    check(ok and lse_err <= 1e-4, f"fp32 tiled forward: max abs err {mx}, "
+          f"norm err {rel}, lse err {lse_err}")
+    check(torch.equal(again[0], out) and torch.equal(again[1], lse),
+          "fp32 B9 is not bit-identical run to run")
+    del rout, rlse, again
+    pairs = B * NH * S * (S + 1) // 2
+    n = q.numel()
+    b_ms, b_by = bound(4 * n * 4 + 4 * B * NH * S, 4 * D * pairs,
+                       TF32X3_FLOP_PER_S)
+    row = dict(
+        case=f"B {B} S {S} NH {NH} D {D} fp32 causal rate 0",
+        max_abs_err=mx, norm_err=rel, lse_err=lse_err, tol=1e-4,
+        ms=time_ms(lambda: flash_fwd_tiled_kernel(q, k, v, None, *args),
+                   iters=20),
+        plain_ms=time_ms(lambda: flash_fwd_plain(q, k, v, None, *args),
+                         iters=2),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), iters=20),
+        library_kernels=kernel_names(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale)),
+        flops=4 * D * pairs, bound_ms=b_ms, bound_by=b_by)
+    rows["fwd_tiled_f32"].append(row)
+    report("B9 fp32 flash_fwd_tiled", row)
+    print(f"[B9 fp32] SDPA's forward runs {row['library_kernels']}",
+          flush=True)
     delta = attention_delta4(do, out)
     dk, dv = flash_bwd_dkv_tiled_kernel(q, k, v, None, lse, delta, do, *args)
     dq = flash_bwd_dq_tiled_kernel(q, k, v, None, lse, delta, do, *args)
@@ -1282,8 +1362,6 @@ def phase1_flash_tiled(torch, F, dev, seed):
         check(ok, f"fp32 tiled backward {name}: max abs err {mx}, norm err "
               f"{rel}")
     del dq, dk, dv, rgrads
-    pairs = B * NH * S * (S + 1) // 2
-    n = q.numel()
     qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     lo = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                         scale=scale)
@@ -2278,8 +2356,8 @@ def phase6(torch, dev, seed, card):
     kernels, must launch) against the same modules on the CPU. Outputs and
     the input and parameter gradients within atol 1e-4 of the reference's
     largest entry and rtol 1e-3 (fp32 sums in other orders; the card's
-    attention is the CUDA-core forward and the 3xTF32 backward, the CPU's
-    the plain version, both applying the seed's Philox keep mask)."""
+    attention is the 3xTF32 forward and backward on the tensor cores, the
+    CPU's the plain version, both applying the seed's Philox keep mask)."""
     from apex_tpu_torch import _build
     from apex_tpu_torch.contrib.multihead_attn import (
         EncdecMultiheadAttn,
@@ -2781,16 +2859,16 @@ def main(argv=None):
                      "apex_tpu/ops/softmax.py:82", sm_rows["softmax_bwd"],
                      sm_rows["softmax_bwd"][0], launches["softmax_bwd"]),
     ]
-    # B10/B12 take their fp32 rows (phase 6's path): the CUDA-core forward
-    # and the 3xTF32 backward
-    flash_src = "apex_tpu_torch/csrc/flash_attn.cu"
+    # B10/B12 take their fp32 rows (phase 6's path): the 3xTF32 forward and
+    # backward
     bwd16_src = "apex_tpu_torch/csrc/flash_bwd_sm90.cu"
     for name, key, replaces, src in (
             ("flash_fwd_tiled", "fwd_tiled", ":120",
              "apex_tpu_torch/csrc/flash_fwd_sm90.cu"),
             ("flash_bwd_dq_tiled", "dq_tiled", ":226", bwd16_src),
             ("flash_bwd_dkv_tiled", "dkv_tiled", ":324", bwd16_src),
-            ("flash_fwd_single", "fwd_single", ":183", flash_src),
+            ("flash_fwd_single", "fwd_single", ":183",
+             "apex_tpu_torch/csrc/flash_fwd_f32.cu"),
             ("flash_bwd_single", "bwd_single", ":275",
              "apex_tpu_torch/csrc/flash_bwd_f32.cu"),
             ("keep_mask", "keep_mask", ":649",

@@ -6,7 +6,8 @@ kernels run in interpret mode here, on the same numpy inputs.
 
 The shapes are the edges of the card kernels' tiles (64, 128 and 256 rows
 or keys, and the JAX package's own 128- to 512-row blocks): S 127, 128,
-129, 255, 257 and 1000, Sq != Sk both ways, causal with and without a key
+129, 255, 257 and 1000, Sq != Sk both ways (Sq 40: one query tile whose
+last warp of the fp32 kernels holds no row), causal with and without a key
 mask, a batch row whose keys are all masked, head dims 32, 64 and 128,
 dropout 0 and 0.1 (the port gets JAX's own keep mask). A fully masked row
 keeps the JAX kernels' semantics: its scores are all FILL, p is uniform
@@ -80,6 +81,7 @@ CASES = [
     (1000, 1000, 64, True, False, 0.0),
     (129, 257, 64, True, False, 0.1),
     (257, 127, 32, False, True, 0.1),
+    (40, 136, 32, True, True, 0.1),
 ]
 
 

@@ -252,25 +252,37 @@ def _ln_case(rows, H, dtype, device, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("rows,H", [(1, 64), (37, 200), (300, 1024),
-                                    (8192, 1024)])
-def test_layer_norm_bwd_kernel_matches_plain(cuda_device, rows, H, dtype):
-    """Kernel B1 against its plain version: dx within 1e-5 (fp32) or one
-    bf16 ulp of |dx| up to ~8 (0.0625, bf16 output); dgamma, dbeta
-    within 1e-4 of their largest entry (fp32 sums in another order).
-    H = 200 takes the unvectorized path. Deterministic: two launches
-    agree bit for bit."""
+                                    (8192, 1024), (4099, 128), (1000, 256),
+                                    (513, 768), (300, 1000), (64, 4096),
+                                    (37, 8192)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda_device, rows, H, dtype,
+                                             rms):
+    """Kernel B1 against its plain version, LayerNorm and RMSNorm, at the
+    widths its layout branches on (8 lanes a row to H 64, 16 to H 128, a
+    warp with one to four chunks to H 1024, the two passes past it): dx
+    within 1e-5 (fp32), one bf16 ulp of |dx| up to ~8 (0.0625, bf16
+    output) or one fp16 ulp (fp16 output); dgamma, dbeta within 1e-4 of
+    their largest entry (fp32 sums in another order). H = 200 takes the
+    unvectorized path, odd row counts a ragged last turn of the grid.
+    Deterministic: two launches agree bit for bit."""
     x, g, w = _ln_case(rows, H, dtype, cuda_device)
     before = _build.launches["layer_norm_bwd"]
-    dx, dw, db = layer_norm_backward(g, x, w, 1e-12)
-    again = layer_norm_backward_kernel(g, x, w, 1e-12)
+    dx, dw, db = layer_norm_backward(g, x, w, 1e-12, rms)
+    again = layer_norm_backward_kernel(g, x, w, 1e-12, rms)
     torch.cuda.synchronize()
     assert _build.launches["layer_norm_bwd"] == before + 2
-    rdx, rdw, rdb = layer_norm_backward_plain(g, x, w, 1e-12)
+    rdx, rdw, rdb = layer_norm_backward_plain(g, x, w, 1e-12, rms)
     assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
-    assert_close(dx, rdx, atol=1e-5 if dtype == torch.float32 else 0.0625,
-                 rtol=1e-5 if dtype == torch.float32 else 1e-2)
+    if dtype == torch.float16:
+        assert _fp16_ulps(dx, rdx) <= 1.0
+    else:
+        assert_close(dx, rdx,
+                     atol=1e-5 if dtype == torch.float32 else 0.0625,
+                     rtol=1e-5 if dtype == torch.float32 else 1e-2)
     for a, r in ((dw, rdw), (db, rdb)):
         assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=1e-4)
     for a, b in zip((dx, dw, db), again):
@@ -1128,7 +1140,10 @@ def test_paged_read_routes_on_the_card(cuda_device, D, q_dtype, pool_dtype):
 
 # -- the 16-bit Hopper backward (csrc/flash_bwd_sm90.cu) ----------------------
 
-from apex_tpu_torch.ops.flash_attention import flash_bwd_single_kernel  # noqa: E402,E501
+from apex_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_bwd_single_kernel,
+    flash_fwd_single_kernel,
+)
 
 # (entry, B, H, Sq, Sk, D, causal, masked, rate, layout): the kernels' tile
 # edges (64 and 128 rows or keys; S 127-129, 255, 257, 1000), Sq != Sk both
@@ -1137,6 +1152,124 @@ from apex_tpu_torch.ops.flash_attention import flash_bwd_single_kernel  # noqa: 
 # batch row (the masked cases), Sk % 4 != 0 (per-score dropout bits), head
 # dims 32, 64 and 128, inputs off a 16-byte boundary (element loads in
 # place of TMA), the sequence-first (T, B, H, D) views and the flat
+# (B, H, Sq, Sk, D, causal, key mask, rate, layout): the fp32 forward
+# (csrc/flash_fwd_f32.cu) at head dims 32, 64 and 128, Sq == Sk and
+# contrib encdec's Sq 512 x Sk 384, causal with a key mask (no tile skip)
+# and without (the skip), S off the 64-row tiles (200, 1000), Sk % 4 != 0
+# (the per-element dropout bits), GPT-2's flat bsh heads, sequence-first
+# views and inputs off a 16-byte boundary (the element loads in place of
+# cp.async)
+F32_FWD_CASES = [
+    (2, 2, 200, 200, 32, False, True, 0.1, "bhsd"),
+    (2, 2, 200, 200, 64, True, True, 0.0, "bhsd"),
+    (2, 3, 1000, 1000, 64, True, False, 0.1, "bhsd"),
+    (2, 2, 1000, 1000, 128, True, True, 0.1, "bhsd"),
+    (2, 4, 512, 384, 64, False, True, 0.1, "bhsd"),
+    (2, 2, 512, 384, 128, True, False, 0.0, "bhsd"),
+    (2, 3, 130, 61, 32, True, False, 0.1, "bhsd"),
+    (8, 12, 1024, 1024, 64, True, False, 0.1, "flat"),
+    (8, 16, 512, 512, 64, False, True, 0.1, "seq"),
+    (4, 4, 200, 200, 32, False, True, 0.0, "seq"),
+    (2, 2, 200, 200, 64, True, True, 0.1, "shifted"),
+    (2, 2, 77, 77, 128, False, True, 0.0, "shifted"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,masked,rate,layout",
+                         F32_FWD_CASES)
+def test_f32_forward_matches_plain(cuda_device, B, H, Sq, Sk, D, causal,
+                                   masked, rate, layout):
+    """The fp32 forward (3xTF32 ``mma.sync``) through the tiled and the
+    single-tile wrappers against ``flash_fwd_plain``, which draws the same
+    Philox mask: out and lse within atol = rtol = 1e-4 (fp32 sums in other
+    orders, online vs full softmax, 3xTF32 products within ~2^-20 of
+    fp32's); the half-padded row and the fully masked one (the mean of v
+    over all Sk keys) included; the context written in the caller's
+    layout."""
+    q, k, v, mask = _fwd_case(B, H, Sq, Sk, D, masked, layout,
+                              torch.float32, cuda_device, seed=Sq + Sk + D)
+    args = (causal, D ** -0.5, rate, 99 if rate else None)
+    rout, rlse = flash_fwd_plain(q, k, v, mask, *args)
+    for wrapper, counter in ((flash_fwd_tiled_kernel, "flash_fwd_tiled"),
+                             (flash_fwd_single_kernel, "flash_fwd_single")):
+        before = dict(_build.launches)
+        out, lse = wrapper(q, k, v, mask, *args)
+        torch.cuda.synchronize()
+        assert {n: _build.launches[n] - before[n] for n in before
+                if _build.launches[n] != before[n]} == {counter: 1}
+        assert out.dtype == torch.float32 and out.shape == rout.shape
+        assert torch.isfinite(out).all()
+        assert_close(out, rout, atol=1e-4, rtol=1e-4)
+        assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+        assert sorted(range(4), key=lambda d: -out.stride(d)) == \
+            sorted(range(4), key=lambda d: -q.stride(d))
+        if masked and not causal and rate == 0.0:
+            mean = v[B - 1].mean(1, keepdim=True).expand(H, Sq, D)
+            assert_close(out[B - 1], mean, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,masked,rate,layout", [
+    (2, 3, 1000, 1000, 64, True, True, 0.1, "bhsd"),
+    (8, 12, 1024, 1024, 64, True, False, 0.1, "flat"),
+    (8, 16, 512, 512, 64, False, True, 0.1, "seq"),
+    (2, 2, 77, 77, 128, False, True, 0.1, "shifted"),
+])
+def test_f32_forward_is_bit_identical_run_to_run(
+        cuda_device, B, H, Sq, Sk, D, causal, masked, rate, layout):
+    """The fp32 forward takes every sum in a fixed order: the same call
+    twice gives bit-identical out and lse."""
+    q, k, v, mask = _fwd_case(B, H, Sq, Sk, D, masked, layout,
+                              torch.float32, cuda_device, seed=Sq + D)
+    args = (causal, D ** -0.5, rate, 5 if rate else None)
+    first = flash_fwd_tiled_kernel(q, k, v, mask, *args)
+    second = flash_fwd_tiled_kernel(q, k, v, mask, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,D,causal,masked,rate,layout", [
+    (1000, 1000, 64, True, True, 0.1, "bhsd"),
+    (1024, 1024, 64, True, False, 0.1, "bhsd"),
+    (512, 384, 64, False, True, 0.1, "bhsd"),
+    (130, 61, 32, True, False, 0.1, "bhsd"),
+    (512, 512, 128, False, True, 0.1, "seq"),
+    (200, 200, 64, True, True, 0.1, "shifted"),
+])
+def test_f32_forward_then_backward_matches_plain_pair(
+        cuda_device, Sq, Sk, D, causal, masked, rate, layout):
+    """``flash_attention`` in fp32 on the card (the 3xTF32 forward, then
+    the 3xTF32 backward on the forward's own lse and keep bits) against
+    the plain forward and backward on the CPU's arithmetic, through
+    autograd: out and the gradients within atol = rtol = 1e-4, so the lse
+    the forward saves and the keep bits the backward replays are the
+    plain pair's."""
+    B, H = 2, 2
+    q, k, v, mask = _fwd_case(B, H, Sq, Sk, D, masked, layout,
+                              torch.float32, cuda_device, seed=Sq + 3)
+    g = torch.randn(B, H, Sq, D, generator=torch.Generator().manual_seed(
+        Sq)).to(cuda_device)
+    args = (causal, D ** -0.5, rate, 17 if rate else None)
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(_build.launches)
+    out = flash_attention(*ts, mask, *args)
+    out.backward(g)
+    torch.cuda.synchronize()
+    fired = {n for n in before if _build.launches[n] != before[n]}
+    assert fired & {"flash_fwd_tiled", "flash_fwd_single"}
+    assert not any(n.endswith("_plain") for n in fired)
+    rout, rlse = flash_fwd_plain(q, k, v, mask, *args)
+    rgrads = flash_bwd_plain(q, k, v, mask, rlse,
+                             attention_delta4(g, rout), g, *args)
+    for a, r in zip([out.detach()] + [t.grad for t in ts],
+                    (rout, *rgrads)):
+        assert torch.isfinite(a).all()
+        assert_close(a, r, atol=1e-4, rtol=1e-4)
+
+
 # (B, S, H * D) heads; through the tiled wrappers (B11b + B11a), the bsh
 # one (B5) and the single-tile one (B12)
 BWD_CASES = [

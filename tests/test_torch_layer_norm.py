@@ -99,10 +99,12 @@ def test_fused_layer_norm_affine_vjp_matches_jax(dtype, atol):
 
 
 @pytest.mark.parametrize("rms", [False, True])
-@pytest.mark.parametrize("shape", [(64, 256), (3, 5, 96)])
+@pytest.mark.parametrize("shape", [(64, 256), (3, 5, 96), (16, 128),
+                                   (8, 768), (5, 1000)])
 def test_backward_plain_matches_jax_bwd_jnp(shape, rms):
     """``layer_norm_backward_plain`` is ``_bwd_jnp`` in PyTorch (fp32,
-    any leading shape, LayerNorm and RMSNorm): 1e-5."""
+    any leading shape, LayerNorm and RMSNorm, at the narrow, main-path and
+    odd widths whose layouts kernel B1 branches on): 1e-5."""
     rng = np.random.RandomState(4)
     x, w, _ = _data(shape, 5)
     g = rng.randn(*shape).astype(np.float32)

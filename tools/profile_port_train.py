@@ -68,11 +68,14 @@ the tiled wrappers (B9, B11b, B11a) at GPT-2 small's (B 8, S 1024, 12
 heads, D 64, bf16, causal, heads read by stride from the flat
 activations) and the single-tile wrappers (B10, B12) at contrib
 multihead_attn's (T 512, B 8, 16 heads, D 64, bf16, sequence-first views,
-a key mask), each at dropout 0 and 0.1, then the fp32 backward alone
-(B12 at the contrib shape, B11b + B11a at GPT-2's) at both rates, where
-the tree has the single-tile wrappers. It prints one JSON line per run:
-ms per launch of each CUDA kernel by case, with the card's name and power
-limit.
+a key mask), each at dropout 0 and 0.1, then the fp32 forward alone (B10
+at the contrib shape, B9 at GPT-2's) and the fp32 backward alone (B12 at
+the contrib shape, B11b + B11a at GPT-2's) at both rates, where the tree
+has the single-tile wrappers; last, each CUDA kernel of B1, the
+LayerNorm backward, by name, at (8192, 1024), (8192, 768) and (65536,
+128) bf16 (BERT-large, GPT-2 small, the OpenFold pair). It prints one
+JSON line per run: ms per launch of each CUDA kernel by case, with the
+card's name and power limit.
 
 Needs a CUDA card.
 """
@@ -94,7 +97,7 @@ ROOT = Path(__file__).resolve().parent.parent
 # the flash kernels' groups name the TPU kernel each model's calls stand
 # in for. The 16-bit kernels are flash_fwd_sm90_kernel,
 # flash_bwd_dkdv_sm90_kernel and flash_bwd_dq_sm90_kernel, the fp32 ones
-# flash_fwd_kernel, flash_bwd_dkdv_f32_kernel and flash_bwd_dq_f32_kernel:
+# flash_fwd_f32_kernel, flash_bwd_dkdv_f32_kernel and flash_bwd_dq_f32_kernel:
 # BERT's two backward kernels are B5, GPT's dQ kernel B11a and its dK/dV
 # kernel B11b. A flash kernel that no fragment names is an error, not
 # "other".
@@ -139,6 +142,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 from apex_tpu_torch import _build
 from apex_tpu_torch.ops import flash_attention as fa
+from apex_tpu_torch.ops import layer_norm as ln
 
 _build.lib()
 dev = torch.device("cuda")
@@ -155,7 +159,7 @@ def prof(fn, label):
             fn()
         torch.cuda.synchronize()
     for e in pr.key_averages():
-        m = re.search(r"(flash_\w+)<", e.key)
+        m = re.search(r"(flash_\w+|ln_bwd_\w+)[<(]", e.key)
         if m and e.self_device_time_total > 0:
             res[f"{label} {m.group(1)}"] = (
                 e.self_device_time_total / 1e3 / e.count)
@@ -212,6 +216,8 @@ if hasattr(fa, "flash_fwd_single_kernel"):
     q, k, v = (qkv[:, :, i].permute(1, 2, 0, 3) for i in range(3))
     for rate in (0.0, 0.1):
         args = (False, D ** -0.5, rate, 7 if rate else None)
+        prof(lambda: fa.flash_fwd_single_kernel(q, k, v, mask, *args),
+             f"multihead-attn fp32 forward rate {rate}")
         out, lse = fa.flash_fwd_single_kernel(q, k, v, mask, *args)
         delta = fa.attention_delta4(do, out)
         prof(lambda: fa.flash_bwd_single_kernel(q, k, v, mask, lse, delta,
@@ -223,6 +229,8 @@ if hasattr(fa, "flash_fwd_single_kernel"):
     q, k, v, do = (t.view(B, S, NH, D).transpose(1, 2) for t in flat)
     for rate in (0.0, 0.1):
         args = (True, D ** -0.5, rate, 7 if rate else None)
+        prof(lambda: fa.flash_fwd_tiled_kernel(q, k, v, None, *args),
+             f"gpt2-small fp32 forward rate {rate}")
         out, lse = fa.flash_fwd_tiled_kernel(q, k, v, None, *args)
         delta = fa.attention_delta4(do, out)
         prof(lambda: (
@@ -231,6 +239,17 @@ if hasattr(fa, "flash_fwd_single_kernel"):
             fa.flash_bwd_dq_tiled_kernel(q, k, v, None, lse, delta, do,
                                          *args)),
             f"gpt2-small fp32 rate {rate}")
+    del flat, q, k, v, do
+# B1, the LayerNorm backward, each of its CUDA kernels by name: BERT-large
+# and GPT-2 small activations, the OpenFold pair representation
+for rows, H in ((8192, 1024), (8192, 768), (65536, 128)):
+    x = (torch.randn(rows, H, generator=g) * 2 + 0.5).to(torch.bfloat16).to(
+        dev)
+    gr = torch.randn(rows, H, generator=g).to(torch.bfloat16).to(dev)
+    w = (torch.rand(H, generator=g) + 0.5).to(dev)
+    prof(lambda: ln.layer_norm_backward_kernel(gr, x, w, 1e-5),
+         f"layer-norm backward ({rows}, {H}) bf16")
+    del x, gr, w
 print(json.dumps(res))
 '''
 
