@@ -124,11 +124,11 @@ _PLL = ctypes.POINTER(_LL)
 
 _SIGNATURES = {
     # q, k_pages, v_pages, k_scales, v_scales, block_tables, q_positions,
-    # context_lens, out, workspace, B, C, H, D, N, bs, M, q_dtype,
-    # kv_dtype, scale, stream
-    "paged_read": [_VP] * 10 + [_I] * 9 + [ctypes.c_float, _VP],
-    # B, C, H, M, bs -> number of key splits
-    "paged_read_splits": [_I] * 5,
+    # context_lens, out, B, C, H, D, N, bs, M, q_dtype, kv_dtype, scale,
+    # stream
+    "paged_read": [_VP] * 9 + [_I] * 9 + [ctypes.c_float, _VP],
+    # B, C, H, M, bs, &decode, &qtiles -> key splits (the cluster size)
+    "paged_read_plan": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
     # x, w_q, scale, out, M, K, N, w_dtype, m0, stream
     "dequant_gemm": [_VP] * 4 + [_I] * 5 + [_VP],
     # M, K, N, m0, &tm, &per -> number of K splits (the cluster size)

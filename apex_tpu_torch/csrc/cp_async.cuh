@@ -1,6 +1,6 @@
 // The cp.async copies (global to shared memory, asynchronous, sm_80+)
-// that csrc/dequant_gemm.cu and csrc/flash_bwd_f32.cu stage their tiles
-// with.
+// that csrc/dequant_gemm.cu, csrc/flash_bwd_f32.cu, csrc/paged_read.cu and
+// csrc/layer_norm_fwd.cu stage their tiles with.
 #pragma once
 
 #include <stdint.h>

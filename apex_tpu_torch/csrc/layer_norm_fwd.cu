@@ -18,23 +18,36 @@
 // 1024, bf16) it reads 16 MB and writes 16 MB, ~10 us at 3.35 TB/s,
 // against ~8 fp32 operations per element.
 //
-// Design: a row is held in registers, so x is read once and both moments
-// come from registers. For H <= 1024 one warp owns a row (four rows a
-// block); each lane holds eight adjacent columns per 256-column chunk (one
-// 16-byte load for bf16 or fp16, two for fp32), and the sums are warp
-// shuffles.
-// For 1024 < H <= 8192 one 256-thread block owns a row, eight adjacent
-// columns per thread per 2048-column chunk (as B1, csrc/layer_norm_bwd.cu),
-// and the warps' partials are added in warp order. Wider rows loop over
-// their columns from memory, three passes (sum, centered squares, output).
+// Design: a row is held on chip, so x is read once and both moments come
+// from the copy. For H <= 1024 one warp owns a row (four rows a block);
+// each lane holds eight adjacent columns per 256-column chunk in
+// registers (one 16-byte load for bf16 or fp16, two for fp32), and the
+// sums are warp shuffles. For 1024 < H <= 8192 one 256-thread block owns a
+// row, eight adjacent columns per thread per 2048-column chunk in
+// registers (as B1, csrc/layer_norm_bwd.cu), and the warps' partials are
+// added in warp order.
+// Wider rows (ln_fwd_slice_kernel) are staged into shared memory in x's
+// own dtype by 16-byte cp.async copies, all in flight at once, and both
+// moments and the output are taken from that copy. A row of up to 48 KB
+// (24,576 16-bit or 12,288 fp32 columns) is one block's; a wider row is
+// cut into slices of at most 48 KB, one a block, over a thread-block
+// cluster of up to 8 blocks (so that several blocks share an SM and one
+// row's arithmetic overlaps another's loads). The blocks of a cluster
+// exchange their partial sums through distributed shared memory and add
+// them in rank order. A row is at most 1 MiB (262,144 fp32 or 524,288
+// 16-bit columns: 128 KB a block at a cluster of 8); the wrapper refuses a
+// wider one. (Measured on the H100: 32 KB slices, 128 or 512 threads a
+// block, and 2 or 4 rows a block sharing their weight loads were slower.)
 // Every sum is taken in a fixed order: the result is deterministic. The
 // weight and bias are read through the read-only path (__ldg). A tail
 // where H is not a multiple of eight, or an unaligned pointer, takes the
 // scalar loads.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "dtypes.cuh"
 
 namespace {
@@ -45,6 +58,11 @@ constexpr int kWarpRows = 4;         // rows per block, warp-per-row kernel
 constexpr int kBlockThreads = 256;   // threads per row, block-per-row kernels
 constexpr int kWarpMaxH = 32 * VPT * kMaxChunks;             // 1024
 constexpr int kBlockMaxH = kBlockThreads * VPT * kMaxChunks;  // 8192
+constexpr int kMaxCluster = 8;        // blocks a row past kBlockMaxH
+constexpr int kSliceBytes = 48 * 1024;  // the widest slice a block stages
+constexpr int kMaxRowBytes = 1 << 20;  // kMaxCluster slices of 128 KB
+
+namespace cg = cooperative_groups;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T v) {
@@ -202,32 +220,119 @@ __global__ void __launch_bounds__(WARP ? 32 * kWarpRows : kBlockThreads)
   }
 }
 
-// Rows wider than registers hold: a block per row, three strided passes
-// over the row in memory.
+// The sum of the cluster's block partials v (each block's the same in
+// all its threads), added in rank order through distributed shared
+// memory; slot is this block's word for it. The caller's next cluster
+// barrier keeps the slot alive until every block has read it.
+__device__ __forceinline__ float cluster_sum(float v, float* slot, int cl) {
+  if (cl == 1) return v;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) *slot = v;
+  cluster.sync();
+  float s = 0.f;
+  for (int r = 0; r < cl; ++r) s += *cluster.map_shared_rank(slot, r);
+  return s;
+}
+
+// Rows wider than registers hold: block `rank` of a cluster of cl owns
+// columns [rank * slice, (rank + 1) * slice) of a row, staged once into
+// shared memory. vec: 16-byte copies, chunks of eight columns (H a
+// multiple of eight, every pointer 16-byte aligned); else element by
+// element.
 template <typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-    ln_fwd_loop_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                       const float* __restrict__ b, T* __restrict__ y,
-                       int rows, int H, float eps, int rms) {
+    ln_fwd_slice_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        const float* __restrict__ b, T* __restrict__ y,
+                        int H, int cl, int slice, float eps, int rms,
+                        bool vec) {
+  constexpr int kCopy = 16 / sizeof(T);  // columns a 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);
   __shared__ float red[kBlockThreads / 32];
-  const T* xr = x + static_cast<size_t>(blockIdx.x) * H;
-  T* yr = y + static_cast<size_t>(blockIdx.x) * H;
+  __shared__ float slots[2];  // this block's partial sum, then squares
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x % cl;
+  const size_t row = blockIdx.x / cl;
+  const int c0 = rank * slice;
+  const int n = max(0, min(H - c0, slice));
+  const T* xr = x + row * H + c0;
+  T* yr = y + row * H + c0;
+  const float* wr = w + c0;
+  const float* br = b == nullptr ? nullptr : b + c0;
   const float hf = static_cast<float>(H);
-  float s = 0.f;
-  if (!rms)
-    for (int j = threadIdx.x; j < H; j += blockDim.x) s += to_f(xr[j]);
-  const float mean = rms ? 0.f : row_sum<false>(s, red) / hf;
+
+  if (vec) {
+    for (int c = tid; c < n / kCopy; c += kBlockThreads)
+      cp_async16(xs + c * kCopy, xr + c * kCopy);
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    for (int j = tid; j < n; j += kBlockThreads) xs[j] = xr[j];
+  }
+  __syncthreads();
+
+  float mean = 0.f;
+  if (!rms) {
+    float s = 0.f;
+    if (vec) {
+      for (int c = tid; c < n / VPT; c += kBlockThreads) {
+        float v[VPT];
+        load8(xs + c * VPT, v, true, VPT);
+#pragma unroll
+        for (int j = 0; j < VPT; ++j) s += v[j];
+      }
+    } else {
+      for (int j = tid; j < n; j += kBlockThreads) s += to_f(xs[j]);
+    }
+    mean = cluster_sum(row_sum<false>(s, red), &slots[0], cl) / hf;
+  }
   float sq = 0.f;
-  for (int j = threadIdx.x; j < H; j += blockDim.x) {
-    const float d = to_f(xr[j]) - mean;
-    sq += d * d;
+  if (vec) {
+    for (int c = tid; c < n / VPT; c += kBlockThreads) {
+      float v[VPT];
+      load8(xs + c * VPT, v, true, VPT);
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const float d = v[j] - mean;
+        sq += d * d;
+      }
+    }
+  } else {
+    for (int j = tid; j < n; j += kBlockThreads) {
+      const float d = to_f(xs[j]) - mean;
+      sq += d * d;
+    }
   }
-  const float rstd = rsqrtf(row_sum<false>(sq, red) / hf + eps);
-  for (int j = threadIdx.x; j < H; j += blockDim.x) {
-    float o = (to_f(xr[j]) - mean) * rstd * __ldg(w + j);
-    if (b != nullptr) o += __ldg(b + j);
-    from_f(o, yr + j);
+  const float rstd =
+      rsqrtf(cluster_sum(row_sum<false>(sq, red), &slots[1], cl) / hf + eps);
+  // done with the other blocks' slots: they may leave once this block's
+  // arrival is seen, and it waits for theirs only before leaving itself
+  if (cl > 1)
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+
+  if (vec) {
+    for (int c = tid; c < n / VPT; c += kBlockThreads) {
+      // the weight and bias loads first, both in flight together
+      float wv[VPT], bv[VPT], v[VPT], out[VPT];
+      ldg8(wr + c * VPT, wv, true, VPT);
+      if (br != nullptr) ldg8(br + c * VPT, bv, true, VPT);
+      load8(xs + c * VPT, v, true, VPT);
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        out[j] = (v[j] - mean) * rstd * wv[j];
+        if (br != nullptr) out[j] += bv[j];
+      }
+      store8(yr + c * VPT, out, true, VPT);
+    }
+  } else {
+    for (int j = tid; j < n; j += kBlockThreads) {
+      float o = (to_f(xs[j]) - mean) * rstd * __ldg(wr + j);
+      if (br != nullptr) o += __ldg(br + j);
+      from_f(o, yr + j);
+    }
   }
+  if (cl > 1)
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 bool aligned16(const void* p) {
@@ -275,15 +380,44 @@ cudaError_t launch(const T* x, const float* w, const float* b, T* y,
     return launch_reg<T, false>(chunks, rows, kBlockThreads, s, x, w, b, y,
                                 rows, H, eps, rms, vec);
   }
-  ln_fwd_loop_kernel<T><<<rows, kBlockThreads, 0, s>>>(x, w, b, y, rows, H,
-                                                       eps, rms);
-  return cudaGetLastError();
+  // past kBlockMaxH: the fewest blocks a row whose slices stay within
+  // kSliceBytes, each slice a whole number of 8-column chunks
+  const long long row_bytes = static_cast<long long>(H) * sizeof(T);
+  if (row_bytes > kMaxRowBytes) return cudaErrorInvalidValue;
+  long long blocks = (row_bytes + kSliceBytes - 1) / kSliceBytes;
+  if (blocks > kMaxCluster) blocks = kMaxCluster;
+  const int cl = static_cast<int>(blocks);
+  const int slice = ((H + cl - 1) / cl + VPT - 1) / VPT * VPT;
+  const int smem = slice * static_cast<int>(sizeof(T));
+  auto kernel = ln_fwd_slice_kernel<T>;
+  static int configured = 0;  // the largest opt-in granted so far
+  if (smem > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) * cl);
+  cfg.blockDim = dim3(kBlockThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cl > 1 ? 1 : 0;
+  cudaLaunchKernelEx(&cfg, kernel, x, w, b, y, H, cl, slice, eps, rms, vec);
+  return cudaGetLastError();  // and clears it
 }
 
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16, 2 float16 (x and y). w fp32 (H,), b
-// fp32 (H,) or null. Everything contiguous.
+// fp32 (H,) or null. Everything contiguous; a row of at most 1 MiB
+// (kMaxRowBytes).
 extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
                               void* y, int rows, int H, int dtype, float eps,
                               int rms, void* stream) {

@@ -4,12 +4,16 @@ paged_prefill_attention`` / ``paged_decode_attention`` and of the Pallas
 read kernel in ``apex_tpu.ops.paged_attention_pallas``).
 
 On a CUDA tensor the read runs on the hand-written kernel B14
-(``csrc/paged_read.cu``): it walks each lane's block table, stages the
-K/V rows of each pool block through shared memory and keeps an online
-fp32 softmax, so the gathered ``[B, ctx, H, D]`` K/V never exist in
-device memory. When (lane, head, query tile) blocks alone would leave
-SMs idle, the table is split across blocks and a second kernel merges
-the splits. On a CPU tensor it runs :func:`paged_prefill_attention_
+(``csrc/paged_read.cu``), one kernel a call: it walks each lane's block
+table, stages the K/V rows in the pool's dtype through shared memory and
+keeps an online fp32 softmax, so the gathered ``[B, ctx, H, D]`` K/V
+never exist in device memory. A chunk (C > 1) runs its products on the
+tensor cores (bf16 queries over bf16, int8 or fp8 pools in bf16 with P
+split into hi and lo, otherwise 3xTF32), a decode step (C = 1) on the
+CUDA cores; the keys
+of a (lane, head, query tile) are split over a thread-block cluster by
+the lane's own context, read on the device, and the splits are merged in
+the same launch. On a CPU tensor it runs :func:`paged_prefill_attention_
 plain`, the JAX package's XLA chain written in torch. There is no flag
 and no fallback between the two: the tensor's device decides, and on the
 card the shapes and dtypes B14 does not take (:func:`read_kernel_takes`:
@@ -136,18 +140,12 @@ def paged_read_attention(q, k_pages, v_pages, block_tables, q_positions,
         k_scales = k_scales.float().contiguous()
         v_scales = v_scales.float().contiguous()
     out = torch.empty_like(q)
-    lib = _build.lib()
-    # per split: running max, sum and unnormalized accumulator
-    splits = lib.paged_read_splits(B, C, H, M, bs)
-    work = (torch.empty(B * C * H * splits * (D + 2), dtype=torch.float32,
-                        device=q.device) if splits > 1 else None)
-    code = lib.paged_read(
+    code = _build.lib().paged_read(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         None if k_scales is None else k_scales.data_ptr(),
         None if v_scales is None else v_scales.data_ptr(),
         tbl.data_ptr(), None if qpos is None else qpos.data_ptr(),
-        ctx.data_ptr(), out.data_ptr(),
-        None if work is None else work.data_ptr(), B, C, H, D, N, bs, M,
+        ctx.data_ptr(), out.data_ptr(), B, C, H, D, N, bs, M,
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], float(scale),
         _build.stream_ptr(q.device))
     _build.check(code, "paged_read")

@@ -12,11 +12,15 @@ main path gives it and holds the result against the kernel's plain
 PyTorch version on the same inputs:
 
 - ``paged_read`` (B14): H = 12, D = 64, bs = 16, M = 64 table entries, a
-  512-block pool; decode (C = 1, B = 8 lanes with ragged contexts from 0
-  to 1020) and a 128-row prefill chunk (B = 1), fp32 and bf16, plus an
-  int8 pool with per-row scales. Tolerance: atol = rtol = 1e-4 for fp32
-  math on fp32 outputs (online vs full softmax reorders the sums), 2e-2
-  for bf16 outputs (one bf16 ulp at their magnitude).
+  512-block pool (the serving engine's shapes); decode (C = 1, B = 8
+  lanes with ragged contexts from 0 to 1020, and 8 live lanes at 300 to
+  1000, the engine's steady decode, its keys split over a cluster) and a
+  128-row prefill chunk (B = 1), fp32 and bf16, plus int8 and fp8 pools
+  with per-row scales. Tolerance: atol = rtol = 1e-4 for fp32 math on
+  fp32 outputs (online vs full softmax and 3xTF32 products reorder the
+  sums), 2e-2 for bf16 outputs (one bf16 ulp at their magnitude); a
+  second call must give the same bits, and the profiler must count one
+  CUDA kernel a call.
 - ``dequant_gemm`` (B15): M in {1, 8, 64, 128} (decode lanes and
   prefill chunks, both of its regimes) x (K, N) in {(768, 768), (768,
   3072), (3072, 768)}, int8 and float8_e4m3fn weights. Tolerance atol =
@@ -32,9 +36,10 @@ PyTorch version on the same inputs:
 - ``layer_norm_fwd`` (B2) at (8192, 1024) bf16 x with fp32 params
   (BERT-large), (8192, 768) bf16 (GPT-2 small), (8192, 1024) fp32, RMSNorm
   (8192, 1024) bf16 without bias, the OpenFold pair (65536, 128) and MSA
-  (32768, 256) shapes in bf16, an odd H (1000) and a wide one (12288): bf16
-  within one bf16 ulp of the plain version's rounding, fp32 within rtol =
-  atol = 1e-5.
+  (32768, 256) shapes in bf16, an odd H (1000), a wide one (12288, GPT-3
+  175B's width) in bf16 and fp32, and one past a block's shared memory
+  ((1024, 131072) bf16, a cluster of 6 blocks a row): bf16 within one bf16
+  ulp of the plain version's rounding, fp32 within rtol = atol = 1e-5.
 - ``softmax_fwd`` (B6), ``softmax_fwd4`` (B7) and ``softmax_bwd`` (B8) at
   BERT-large's S 128 score shape (64, 16, 128, 128), bf16 and fp32, and
   at an unaligned Sk of 77; a plain version that scales after the mask
@@ -52,8 +57,10 @@ SDPA and its backward (device time) without dropout for B4/B5,
 its backward for B6/B8; the port calls none of them), and the least time
 the card could take: the larger of the bytes moved over 3.35 TB/s and
 the operations over the peak rate of their type (67 TFLOP/s fp32, 989
-TFLOP/s bf16 tensor cores, and 495/3 TFLOP/s for the fp32 flash kernels'
-3xTF32 products: three TF32 products a product; H100 SXM data sheet).
+TFLOP/s bf16 tensor cores, and 495/3 TFLOP/s for the fp32 products of
+the flash kernels, which run as 3xTF32: three TF32 products a product;
+B14 at the rate of the route its dtypes take, ``paged_flop_rate``; H100
+SXM data sheet).
 
 Phase 2 serves traffic through the port's entry points at GPT-2-small
 width (vocab 50257, hidden 768, 12 layers, 12 heads, 1024 positions)
@@ -344,11 +351,14 @@ def paged_case(torch, B, C, ctx, dtype, pool_dtype, seed, dev):
     k = torch.randn(N, bs, H, D, generator=g)
     v = torch.randn(N, bs, H, D, generator=g)
     ks = vs = None
-    if pool_dtype == torch.int8:
+    if pool_dtype in (torch.int8, torch.float8_e4m3fn):
         ks = torch.rand(N, bs, H, generator=g) * 0.02 + 0.005
         vs = torch.rand(N, bs, H, generator=g) * 0.02 + 0.005
+    if pool_dtype == torch.int8:
         k = torch.clamp((k * 40).round(), -127, 127).to(torch.int8)
         v = torch.clamp((v * 40).round(), -127, 127).to(torch.int8)
+    elif pool_dtype == torch.float8_e4m3fn:
+        k, v = (k * 20).to(pool_dtype), (v * 20).to(pool_dtype)
     else:
         k, v = k.to(pool_dtype), v.to(pool_dtype)
     ctx_t = torch.tensor(ctx, dtype=torch.int32)
@@ -405,29 +415,72 @@ def sdpa_inputs(torch, args):
             vg.to(dt).transpose(1, 2), vis[:, None], scale)
 
 
+def paged_plan(B, C, H, M, bs):
+    """(regime, key splits, query tiles) of B14's launch."""
+    import ctypes
+
+    from apex_tpu_torch import _build
+
+    decode, qtiles = ctypes.c_int(0), ctypes.c_int(0)
+    splits = _build.lib().paged_read_plan(B, C, H, M, bs,
+                                          ctypes.byref(decode),
+                                          ctypes.byref(qtiles))
+    return ["decode" if decode.value else "prefill", splits, qtiles.value]
+
+
+def paged_cases(torch):
+    """B14's cases: (name, B, C, contexts, q dtype, pool dtype, tol)."""
+    decode_ctx = [0, 1, 17, 100, 333, 512, 777, 1020]
+    live_ctx = [300, 400, 500, 600, 700, 800, 900, 1000]
+    f32, bf16 = torch.float32, torch.bfloat16
+    int8, fp8 = torch.int8, torch.float8_e4m3fn
+    return [
+        ("decode fp32", 8, 1, decode_ctx, f32, f32, 1e-4),
+        ("decode bf16", 8, 1, decode_ctx, bf16, bf16, 2e-2),
+        ("decode int8 pool", 8, 1, decode_ctx, f32, int8, 1e-4),
+        ("decode fp8 pool", 8, 1, decode_ctx, f32, fp8, 1e-4),
+        ("decode fp32, 8 live lanes", 8, 1, live_ctx, f32, f32, 1e-4),
+        ("prefill fp32", 1, 128, [1000], f32, f32, 1e-4),
+        ("prefill bf16", 1, 128, [1000], bf16, bf16, 2e-2),
+        ("prefill int8 pool", 1, 128, [1000], f32, int8, 1e-4),
+        ("prefill fp8 pool", 1, 128, [1000], f32, fp8, 1e-4),
+    ]
+
+
+def paged_flop_rate(torch, q_dtype, pool_dtype):
+    """The peak rate for B14's products at fp32-class precision, by the
+    route the operands' dtypes take (``csrc/paged_read.cu``): bf16 queries
+    over bf16, int8 or e4m3 pools run Q K^T as one bf16 product (exact)
+    and P V as two (P split into bf16 hi and lo), so half the operations
+    at 989 TFLOP/s and half at 989/2; one fp32 side and one exact side
+    take two TF32 products (495/2); fp32 over fp32 takes three (495/3)."""
+    q32 = q_dtype == torch.float32
+    pool32 = pool_dtype == torch.float32
+    if q32 and pool32:
+        return TF32X3_FLOP_PER_S
+    if q32 or pool32:
+        return 495e12 / 2
+    return BF16_FLOP_PER_S / 1.5
+
+
 def phase1_paged(torch, F, dev, seed):
+    """B14 at the serving engine's shapes against its plain version, a
+    rerun bit for bit, one CUDA kernel a call. Its arithmetic (4 D
+    operations a visible (query, key) pair) is bounded at the rate of the
+    tensor-core route its dtypes take (``paged_flop_rate``);
+    ``bound_ms_fp32_cores`` keeps the 67 TFLOP/s CUDA-core bound the rows
+    had before the prefill products moved to the tensor cores."""
     from apex_tpu_torch.ops.paged_attention import (
         paged_prefill_attention,
         paged_prefill_attention_plain,
     )
 
-    decode_ctx = [0, 1, 17, 100, 333, 512, 777, 1020]
-    cases = [
-        ("decode fp32", 8, 1, decode_ctx, torch.float32, torch.float32,
-         1e-4),
-        ("decode bf16", 8, 1, decode_ctx, torch.bfloat16, torch.bfloat16,
-         2e-2),
-        ("decode int8 pool", 8, 1, decode_ctx, torch.float32, torch.int8,
-         1e-4),
-        ("prefill fp32", 1, 128, [1000], torch.float32, torch.float32,
-         1e-4),
-        ("prefill bf16", 1, 128, [1000], torch.bfloat16, torch.bfloat16,
-         2e-2),
-    ]
     rows = []
-    for i, (name, B, C, ctx, dt, pool_dt, tol) in enumerate(cases):
+    for i, (name, B, C, ctx, dt, pool_dt, tol) in enumerate(
+            paged_cases(torch)):
         args = paged_case(torch, B, C, ctx, dt, pool_dt, seed + i, dev)
         out = paged_prefill_attention(*args)
+        again = paged_prefill_attention(*args)
         ref = paged_prefill_attention_plain(*args)
         torch.cuda.synchronize()
         check(torch.isfinite(out.float()).all().item(),
@@ -437,23 +490,35 @@ def phase1_paged(torch, F, dev, seed):
         max_rel = (err / ref.float().abs().clamp(min=1e-3)).max().item()
         check(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
               f"paged_read {name}: max abs err {max_abs} over tol {tol}")
+        check(torch.equal(out, again),
+              f"paged_read {name}: a rerun changed the bits")
+        per_call = kernels_per_call(lambda: paged_prefill_attention(*args))
+        check(per_call == 1, f"paged_read {name}: {per_call} CUDA kernels "
+              f"a call, not 1")
         qT, kT, vT, mask, scale = sdpa_inputs(torch, args)
         nbytes, flops = paged_cost(args)
-        b_ms, b_by = bound(nbytes, flops)
+        rate = paged_flop_rate(torch, dt, pool_dt)
+        b_ms, b_by = bound(nbytes, flops, rate)
         row = dict(
             case=name, B=B, C=C, dtype=str(dt), pool=str(pool_dt),
             max_abs_err=max_abs, max_rel_err=max_rel, tol=tol,
+            kernels_per_call=per_call,
+            plan=paged_plan(B, C, args[0].shape[2], args[3].shape[1],
+                            args[1].shape[1]),
             ms=time_ms(lambda: paged_prefill_attention(*args)),
             plain_ms=time_ms(lambda: paged_prefill_attention_plain(*args)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qT, kT, vT, attn_mask=mask, scale=scale)),
-            bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by)
+            bytes=nbytes, flops=flops, flop_rate=rate, bound_ms=b_ms,
+            bound_by=b_by,
+            bound_ms_fp32_cores=bound(nbytes, flops)[0])
         rows.append(row)
-        print(f"[B14 paged_read] {name}: max_abs_err {max_abs:.3g} "
-              f"max_rel_err {max_rel:.3g} (tol {tol}) | ms {row['ms']:.4f} "
-              f"plain_ms {row['plain_ms']:.4f} library_ms "
-              f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})",
-              flush=True)
+        print(f"[B14 paged_read] {name} ({row['plan'][0]}, "
+              f"{row['plan'][1]} splits, {per_call} kernel a call): "
+              f"max_abs_err {max_abs:.3g} max_rel_err {max_rel:.3g} (tol "
+              f"{tol}) | ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+              f"library_ms {row['library_ms']:.4f} bound_ms {b_ms:.4f} "
+              f"({b_by})", flush=True)
     return rows
 
 
@@ -621,8 +686,9 @@ def phase1_layer_norm(torch, dev, seed):
 # (label, rows, H, dtype name, rms, bias): B2's main-path shapes. BERT-large
 # and GPT-2 small activations (B * S = 8192 rows), the Evoformer pair (c_z
 # 128) and MSA (c_m 256) representations at AlphaFold2's initial-training
-# crop (256 residues, 128 clusters), an H not a multiple of 256 and a width
-# past what registers hold
+# crop (256 residues, 128 clusters), an H not a multiple of 256, a width
+# past what registers hold (GPT-3 175B's 12288, in bf16 and fp32) and one
+# past what one block's shared memory holds (a cluster of blocks a row)
 B2_CASES = (
     ("BERT-large", 8192, 1024, "bfloat16", False, True),
     ("GPT-2 small", 8192, 768, "bfloat16", False, True),
@@ -632,6 +698,8 @@ B2_CASES = (
     ("OpenFold MSA", 32768, 256, "bfloat16", False, True),
     ("odd H", 8192, 1000, "bfloat16", False, True),
     ("wide H", 8192, 12288, "bfloat16", False, True),
+    ("wide H fp32", 8192, 12288, "float32", False, True),
+    ("past one block", 1024, 131072, "bfloat16", False, True),
 )
 
 

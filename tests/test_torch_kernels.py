@@ -121,8 +121,9 @@ def test_paged_read_kernel_matches_plain(cuda_device, B, C, kv_dtype, atol):
     """Kernel B14 against its plain version: fp32 math in both, online
     vs full softmax (atol 1e-4); bf16 pools and queries give bf16
     outputs, compared at one bf16 ulp of their magnitude (2e-2). The
-    small grids split the table across blocks and merge the splits;
-    132 lanes fill the card without splitting."""
+    small grids split each lane's keys over a thread-block cluster and
+    merge the splits in the same launch; 132 lanes fill the card with
+    fewer splits."""
     args = _paged_inputs(B, C, kv_dtype, seed=C, device=cuda_device)
     if kv_dtype == torch.bfloat16:
         args[0] = args[0].to(torch.bfloat16)
@@ -134,6 +135,111 @@ def test_paged_read_kernel_matches_plain(cuda_device, B, C, kv_dtype, atol):
     assert out.dtype == args[0].dtype and out.shape == ref.shape
     assert torch.isfinite(out.float()).all()
     assert_close(out, ref, atol=atol, rtol=atol)
+
+
+def _paged_edge_case(B, C, D, bs, kv_dtype, device, seed=0, q_dtype=None):
+    """A 512-key table per lane (bs * M = 512), lane 0 idle (ctx 0) when
+    B > 1, the others ragged; prefill positions end past ctx (the last
+    two rows of a chunk sit at and past it); queries in ``q_dtype``
+    (default: bf16 over bf16 pools, else fp32)."""
+    H, M = 4, 512 // bs
+    N = max(64, B * M // 2)
+    rng = np.random.RandomState(seed)
+    ctx = rng.randint(max(C, 1), M * bs + 1, B).astype(np.int32)
+    if B > 1:
+        ctx[0] = 0
+    tbl = np.full((B, M), N, np.int32)
+    used = 0
+    perm = rng.permutation(N)
+    for b in range(B):
+        n = -(-int(ctx[b]) // bs)
+        tbl[b, :n] = perm[(used + np.arange(n)) % N]
+        used += n
+    q = torch.from_numpy(rng.randn(B, C, H, D).astype(np.float32))
+    kv = [torch.from_numpy(rng.randn(N, bs, H, D).astype(np.float32))
+          for _ in range(2)]
+    scales = [None, None]
+    if kv_dtype in (torch.int8, torch.float8_e4m3fn):
+        scales = [torch.from_numpy(rng.uniform(0.005, 0.03, (N, bs, H))
+                                   .astype(np.float32)) for _ in range(2)]
+        kv = ([torch.clamp((t * 40).round(), -127, 127).to(torch.int8)
+               for t in kv] if kv_dtype == torch.int8
+              else [(t * 20).to(kv_dtype) for t in kv])
+    else:
+        kv = [t.to(kv_dtype) for t in kv]
+    if q_dtype is None:
+        q_dtype = torch.bfloat16 if kv_dtype == torch.bfloat16 else q.dtype
+    q = q.to(q_dtype)
+    qpos = None
+    if C > 1:
+        pos = np.maximum(ctx[:, None] - C + 2 + np.arange(C)[None], 0)
+        qpos = torch.from_numpy(pos.astype(np.int32))
+    args = [q, kv[0], kv[1], torch.from_numpy(tbl), qpos,
+            torch.from_numpy(ctx), 1.0 / D ** 0.5, scales[0], scales[1]]
+    return [a.to(device) if isinstance(a, torch.Tensor) else a
+            for a in args]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 132])
+@pytest.mark.parametrize("kv_dtype,q_dtype", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.int8, None),
+    (torch.float8_e4m3fn, None), (torch.float32, torch.bfloat16),
+    (torch.int8, torch.bfloat16), (torch.float8_e4m3fn, torch.bfloat16)])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("C", [1, 7, 128, 300])
+def test_paged_read_kernel_edges(cuda_device, C, bs, D, kv_dtype, q_dtype,
+                                 B):
+    """B14 in both regimes (C = 1 decode on the CUDA cores, C > 1 on the
+    tensor cores) at every pool dtype, head dim and block size against
+    its plain version (fp32 outputs within 1e-4: 3xTF32 products and the
+    online softmax reorder the sums; bf16 outputs within 2e-2, one bf16
+    ulp), with an idle lane and rows at or past ctx; one lane (the keys
+    split over a cluster) and 132 (fewer splits). Queries are fp32, or
+    bf16 over bf16 pools; bf16 queries over the other pools take the bf16
+    m16n8k16 products (int8, e4m3) or TF32 with no low part for Q (fp32).
+    A second call gives the same bits: the splits are added in rank
+    order."""
+    args = _paged_edge_case(B, C, D, bs, kv_dtype, cuda_device,
+                            seed=C + bs + D, q_dtype=q_dtype)
+    before = _build.launches["paged_read"]
+    out = paged_prefill_attention(*args)
+    again = paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["paged_read"] == before + 2
+    ref = paged_prefill_attention_plain(*args)
+    assert out.dtype == args[0].dtype and out.shape == ref.shape
+    assert torch.isfinite(out.float()).all()
+    tol = 2e-2 if args[0].dtype == torch.bfloat16 else 1e-4
+    assert_close(out, ref, atol=tol, rtol=tol)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                      torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("B,C", [(8, 1), (1, 128), (132, 1), (2, 300)])
+def test_paged_read_is_one_kernel_launch(cuda_device, B, C, kv_dtype):
+    """One B14 call is one CUDA kernel in either regime, split or not: no
+    merge kernel, no workspace fill (the profiler over one call; a window
+    that records no device activity is taken again, up to three times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _paged_edge_case(B, C, 64, 16, kv_dtype, cuda_device)
+    paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            paged_prefill_attention(*args)
+            torch.cuda.synchronize()
+        on_card = [(e.key, e.count) for e in prof.key_averages()
+                   if e.self_device_time_total > 0]
+        if on_card:
+            break
+    assert len(on_card) == 1 and on_card[0][1] == 1, on_card
+    kernel = "paged_decode" if C == 1 else "paged_prefill"
+    assert kernel in on_card[0][0], on_card
 
 
 # B15's edge shapes: M on both sides of the decode lanes, the 128-row
@@ -734,8 +840,8 @@ def test_layer_norm_fwd_kernel_matches_plain(cuda_device, dtype, rms,
     """Kernel B2 against its plain version over both dtypes, LayerNorm and
     RMSNorm, with and without a bias, at H from 64 (a warp per row, half
     its lanes idle) through 1000 (a width not a multiple of 256), 4096 (a
-    block per row) to 12288 (the strided loop), on an odd row count (257,
-    or 37 at the widest). Deterministic: two launches agree bit for
+    block per row) to 12288 (staged in shared memory), on an odd row count
+    (257, or 37 at the widest). Deterministic: two launches agree bit for
     bit."""
     rows = 37 if H > 4096 else 257
     gen = torch.Generator().manual_seed(H)
@@ -750,6 +856,48 @@ def test_layer_norm_fwd_kernel_matches_plain(cuda_device, dtype, rms,
     torch.cuda.synchronize()
     assert _build.launches["layer_norm_fwd"] == before + 2
     _check_b2(y, layer_norm_forward_plain(xd, wd, bd, 1e-5, rms), dtype)
+    assert torch.equal(y, again)
+
+
+def test_forward_wrapper_refuses_rows_past_1_mib():
+    """B2 stages a row in the shared memory of at most 8 clustered blocks:
+    a row past 1 MiB is refused before any launch."""
+    w = torch.ones(262145)
+    with pytest.raises(ValueError, match="1 MiB"):
+        layer_norm_forward_kernel(torch.randn(1, 262145), w)
+    with pytest.raises(ValueError, match="1 MiB"):
+        layer_norm_forward_kernel(
+            torch.randn(1, 524289, dtype=torch.bfloat16), torch.ones(524289))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [37, 301])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("H", [8193, 12288, 65536, 131072])
+def test_layer_norm_fwd_wide_rows(cuda_device, H, dtype, rms, rows):
+    """B2 past H 8192, where a row is staged once in shared memory: 8193
+    (scalar loads, a slice a block), 12288 (GPT-3 175B's width), 65536 and
+    131072 (past one block's 227 KB: a cluster of blocks whose partial sums
+    meet in distributed shared memory); LayerNorm with a bias and RMSNorm
+    without; 37 rows (a row a block) and 301 (several rows a block, the
+    last block short). fp32 within rtol = atol = 1e-5, bf16 within one
+    bf16 ulp, fp16 within one fp16 ulp of the plain version; a rerun gives
+    the same bits."""
+    gen = torch.Generator().manual_seed(H + rows)
+    x = (torch.randn(rows, H, generator=gen) * 2 + 0.5).to(dtype).to(
+        cuda_device)
+    w = (torch.rand(H, generator=gen) + 0.5).to(cuda_device)
+    b = None if rms else torch.randn(H, generator=gen).to(cuda_device)
+    y = layer_norm_forward_kernel(x, w, b, 1e-5, rms)
+    again = layer_norm_forward_kernel(x, w, b, 1e-5, rms)
+    ref = layer_norm_forward_plain(x, w, b, 1e-5, rms)
+    torch.cuda.synchronize()
+    if dtype == torch.float16:
+        assert y.dtype == dtype and _fp16_ulps(y, ref) <= 1.0
+    else:
+        _check_b2(y, ref, dtype)
     assert torch.equal(y, again)
 
 

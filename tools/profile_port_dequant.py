@@ -5,9 +5,8 @@ two versions are compared inside one call.
 
     python3 tools/profile_port_dequant.py NAME=PATH ... [--order a,b,b,a]
 
-Each ``NAME=PATH`` is a checkout (for a parent commit: ``git archive
-<commit> | tar -x -C <dir>`` into a directory ``.gitignore`` lists); the
-runs go in ``--order`` (default: each tree once, then again in reverse).
+Each ``NAME=PATH`` is a checkout (``tools/port_trees.py``); the runs go
+in ``--order`` (default: each tree once, then again in reverse).
 For each tree it builds the kernels, then times ``dequant_gemm`` on int8
 weights at M in {1, 8, 16, 32, 64, 128} for the three (K, N) pairs of
 GPT-2 small's quantized matmuls ((768, 768), (768, 3072), (3072, 768)),
@@ -32,11 +31,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+import port_trees
 
 _CHILD = r'''
 import importlib, json, sys
@@ -123,30 +120,17 @@ print(json.dumps(res))
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("trees", nargs="+", metavar="NAME=PATH")
-    ap.add_argument("--order", default=None)
+    port_trees.add_tree_args(ap)
     args = ap.parse_args(argv)
-    trees = dict(t.split("=", 1) for t in args.trees)
-    order = (args.order.split(",") if args.order
-             else list(trees) + list(reversed(list(trees))))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    trees, order = port_trees.trees_and_order(args.trees, args.order)
+    card = port_trees.card_line()
     runs = []
     for name in order:
-        res = subprocess.run([sys.executable, "-c", _CHILD, trees[name]],
-                             capture_output=True, text=True, timeout=1200)
-        if res.returncode != 0:
-            sys.exit(f"{name}: {res.stderr[-2000:]}")
         run = {"tree": name, "card": card,
-               "ms": json.loads(res.stdout.strip().splitlines()[-1])}
+               "ms": port_trees.run_child(_CHILD, trees[name], timeout=1200)}
         runs.append(run)
         print(json.dumps(run), flush=True)
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "profile_port_dequant.json").write_text(json.dumps(runs,
-                                                              indent=1))
+    port_trees.save("profile_port_dequant", runs)
     return 0
 
 

@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Device time of kernels B14 (the paged read) and B2 (the LayerNorm
+forward, rows past 8192 columns) on one CUDA card, and the smoke's
+end-to-end numbers, for one or more trees of the repository, each in a
+process of its own, so that two versions are compared inside one call.
+
+    python3 tools/profile_port_kernels.py NAME=PATH ... [--order a,b,b,a]
+        [--phases]
+
+Each ``NAME=PATH`` is a checkout (``tools/port_trees.py``); the runs go
+in ``--order`` (default: each tree once, then again in reverse). Every
+tree runs the same harness, this checkout's ``chip_smoke.py``, against
+its own ``apex_tpu_torch``. For each tree it builds the kernels, then
+times, through the public wrappers:
+
+- ``paged_prefill_attention`` at every case of ``chip_smoke.paged_cases``
+  (inputs from ``chip_smoke.paged_case``, seeds as phase 1 draws them);
+- ``layer_norm_forward_kernel`` at (8192, 12288) bf16 and fp32, (8192,
+  8200) bf16 and (1024, 131072) bf16, with fp32 weight and bias;
+
+each two ways: ``chip_smoke.time_ms`` (50 calls captured in a CUDA graph,
+one replay timed: L2-warm, as the smoke's kernels line) and
+``torch.profiler`` over 20 calls (device time by kernel name and the
+kernels a call). With ``--phases`` a second process a run drives the
+smoke's phases 2-5 (``chip_smoke.phase2`` .. ``phase5``: serving at both
+weight modes, the BERT-large S 512 and S 128 steps, GPT-2 small) and
+records their end-to-end numbers. Prints one JSON line per run with the
+card's name and power limit, and writes the runs to
+``chiprun_out/profile_port_kernels.json``. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import port_trees
+
+# shared head of both children: the tree's package first on the path, then
+# this checkout's smoke script as the harness (argv: tree, smoke path)
+_HEAD = r'''
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("smoke_harness", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+import torch
+from apex_tpu_torch import _build
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.lib()
+dev = torch.device("cuda")
+'''
+
+_KERNELS = _HEAD + r'''
+from torch.profiler import ProfilerActivity, profile
+from apex_tpu_torch.ops.layer_norm import layer_norm_forward_kernel
+from apex_tpu_torch.ops.paged_attention import paged_prefill_attention
+
+
+def by_kernel(fn, calls=20):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return ({e.key[:80]: e.self_device_time_total / 1e3 / calls for e in ev},
+            sum(e.count for e in ev) / calls)
+
+
+def row(kernel, case, fn):
+    kern, per_call = by_kernel(fn)
+    return dict(kernel=kernel, case=case, graph_ms=smoke.time_ms(fn),
+                profiler_ms=sum(kern.values()), kernels=kern,
+                kernels_per_call=per_call)
+
+
+rows = []
+for i, (name, B, C, ctx, dt, pool, _) in enumerate(smoke.paged_cases(torch)):
+    args = smoke.paged_case(torch, B, C, ctx, dt, pool, i, dev)
+    rows.append(row("B14", name, lambda: paged_prefill_attention(*args)))
+g = torch.Generator().manual_seed(0)
+for rws, H, dname in ((8192, 12288, "bfloat16"), (8192, 12288, "float32"),
+                      (8192, 8200, "bfloat16"), (1024, 131072, "bfloat16")):
+    x = (torch.randn(rws, H, generator=g) * 2 + 0.5).to(
+        getattr(torch, dname)).to(dev)
+    w = (torch.rand(H, generator=g) + 0.5).to(dev)
+    b = torch.randn(H, generator=g).to(dev)
+    rows.append(row("B2", f"({rws}, {H}) {dname}",
+                    lambda: layer_norm_forward_kernel(x, w, b, 1e-5, False)))
+    del x
+print(json.dumps(rows))
+'''
+
+_PHASES = _HEAD + r'''
+card = smoke.card_line()
+runs, _ = smoke.phase2(torch, dev, 0, card)
+res = {f"decode tokens/s, {k}": r["decode_tokens_per_s"]
+       for k, r in runs.items()}
+res.update({f"prefill tokens/s, {k}": r["prefill_tokens_per_s"]
+            for k, r in runs.items()})
+bert = smoke.phase3(torch, dev, 0, card)
+res["BERT S 512 step ms"] = bert["step_ms"]
+s128 = smoke.phase4(torch, dev, 0, card)
+res["BERT S 128 global step ms"] = s128["step_ms"]
+gpt = smoke.phase5(torch, dev, 0, card)
+res["GPT-2 tokens/s"] = gpt["tokens_per_s"]
+print(json.dumps(res))
+'''
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    port_trees.add_tree_args(ap)
+    ap.add_argument("--phases", action="store_true",
+                    help="also drive the smoke's phases 2-5 for each tree")
+    args = ap.parse_args(argv)
+    trees, order = port_trees.trees_and_order(args.trees, args.order)
+    card = port_trees.card_line()
+    smoke = str(port_trees.ROOT / "chip_smoke.py")
+    runs = []
+    for name in order:
+        run = {"tree": name, "card": card,
+               "rows": port_trees.run_child(_KERNELS, trees[name], smoke)}
+        line = {f"{r['kernel']} {r['case']}": [round(r["graph_ms"], 4),
+                                               round(r["profiler_ms"], 4),
+                                               r["kernels_per_call"]]
+                for r in run["rows"]}
+        if args.phases:
+            run["phases"] = port_trees.run_child(_PHASES, trees[name], smoke,
+                                                 timeout=1200)
+            line.update(run["phases"])
+        runs.append(run)
+        print(json.dumps({"tree": name, "card": card, "ms": line}),
+              flush=True)
+    port_trees.save("profile_port_kernels", runs)
+
+
+if __name__ == "__main__":
+    main()

@@ -57,9 +57,8 @@ LayerNorm), the backward B1 in both. The summaries go to
 
 times the flash-attention CUDA kernels alone, for one or more trees of
 the repository, each in a process of its own, so that two versions are
-compared inside one call. Each ``NAME=PATH`` is a checkout (for a parent
-commit: ``git archive <commit> | tar -x -C <dir>`` into a directory
-``.gitignore`` lists); the runs go in ``--order`` (default: each tree
+compared inside one call. Each ``NAME=PATH`` is a checkout
+(``tools/port_trees.py``); the runs go in ``--order`` (default: each tree
 once, then again in reverse). For each tree it builds the kernels, then
 times under ``torch.profiler`` (device activity only) 20 calls of the bsh
 wrappers (B4 + B5) at BERT-large's shape (B 16, S 512, 16 heads, D 64,
@@ -86,10 +85,11 @@ import argparse
 import collections
 import contextlib
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+import port_trees
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -259,12 +259,7 @@ def flash_kernels(trees, order, card):
     """Run :data:`_FLASH_CHILD` for each tree name in ``order``; print one
     JSON line per run."""
     for name in order:
-        res = subprocess.run([sys.executable, "-c", _FLASH_CHILD,
-                              trees[name]], capture_output=True, text=True,
-                             timeout=1200)
-        if res.returncode != 0:
-            sys.exit(f"{name}: {res.stderr[-2000:]}")
-        times = json.loads(res.stdout.strip().splitlines()[-1])
+        times = port_trees.run_child(_FLASH_CHILD, trees[name], timeout=1200)
         print(json.dumps({"tree": name, "card": card, "ms": {
             k: round(v, 4) for k, v in sorted(times.items())}}), flush=True)
 
@@ -444,10 +439,7 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--accum", type=int, default=None)
     ap.add_argument("--flash-min-seq", type=int, nargs="+", default=[256])
-    ap.add_argument("--flash-trees", nargs="+", metavar="NAME=PATH",
-                    help="time the flash kernels of these checkouts only")
-    ap.add_argument("--order", default=None,
-                    help="comma-separated tree names (default: a,b,...,b,a)")
+    port_trees.add_tree_args(ap, "--flash-trees")
     ap.add_argument("--ln-fwd", nargs="+", choices=("plain", "b2"),
                     help="measure one arm once per listed differentiated "
                     "LayerNorm forward, in this order")
@@ -466,15 +458,10 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    card = port_trees.card_line()
     if args.flash_trees:
-        trees = dict(t.split("=", 1) for t in args.flash_trees)
-        order = (args.order.split(",") if args.order
-                 else list(trees) + list(reversed(list(trees))))
-        flash_kernels(trees, order, card)
+        flash_kernels(*port_trees.trees_and_order(args.flash_trees,
+                                                  args.order), card)
         return
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
