@@ -153,11 +153,13 @@ _SIGNATURES = {
     # out, n, seed, threshold, stream
     "flash_keep_mask": [_VP, _LL, _U, _U, _VP],
     # x, mask, y, rows, Sk, H, Sq, sb, sh, sq, dtype, scale, mask_mode,
-    # causal, stream
+    # fill, causal, stream
     "softmax_fwd": [_VP] * 3 + [_LL, _I, _I, _I, _LL, _LL, _LL, _I, _F, _I,
-                                _I, _VP],
-    # g, y, dx, rows, Sk, g_dtype, y_dtype, scale, stream
-    "softmax_bwd": [_VP] * 3 + [_LL, _I, _I, _I, _F, _VP],
+                                _F, _I, _VP],
+    # g, y, mask, dx, rows, Sk, H, Sq, sb, sh, sq, g_dtype, y_dtype, scale,
+    # stream
+    "softmax_bwd": [_VP] * 4 + [_LL, _I, _I, _I, _LL, _LL, _LL, _I, _I, _F,
+                                _VP],
 }
 
 

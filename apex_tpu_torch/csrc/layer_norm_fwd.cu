@@ -34,10 +34,16 @@
 // cluster of up to 8 blocks (so that several blocks share an SM and one
 // row's arithmetic overlaps another's loads). The blocks of a cluster
 // exchange their partial sums through distributed shared memory and add
-// them in rank order. A row is at most 1 MiB (262,144 fp32 or 524,288
-// 16-bit columns: 128 KB a block at a cluster of 8); the wrapper refuses a
-// wider one. (Measured on the H100: 32 KB slices, 128 or 512 threads a
-// block, and 2 or 4 rows a block sharing their weight loads were slower.)
+// them in rank order (measured on the H100: 32 KB slices, 128 or 512
+// threads a block, and 2 or 4 rows a block sharing their weight loads were
+// slower). Up to 1 MiB a row (262,144 fp32 or 524,288 16-bit columns:
+// 128 KB a block at a cluster of 8) is staged. A wider row is streamed by
+// the same kernel without the staging: each of the 8 blocks of its cluster
+// owns one contiguous eighth of the row and reads it three times, once per
+// pass of the formula (the sum, then the sum of squares about the mean,
+// then y), the second and third reads from L2 where the rows in flight
+// fit its 50 MB. Such rows come from a multi-dim normalized_shape
+// flattened into one row, as (128, 4096) in fp32.
 // Every sum is taken in a fixed order: the result is deterministic. The
 // weight and bias are read through the read-only path (__ldg). A tail
 // where H is not a multiple of eight, or an unaligned pointer, takes the
@@ -60,7 +66,7 @@ constexpr int kWarpMaxH = 32 * VPT * kMaxChunks;             // 1024
 constexpr int kBlockMaxH = kBlockThreads * VPT * kMaxChunks;  // 8192
 constexpr int kMaxCluster = 8;        // blocks a row past kBlockMaxH
 constexpr int kSliceBytes = 48 * 1024;  // the widest slice a block stages
-constexpr int kMaxRowBytes = 1 << 20;  // kMaxCluster slices of 128 KB
+constexpr int kMaxStagedBytes = 1 << 20;  // kMaxCluster slices of 128 KB
 
 namespace cg = cooperative_groups;
 
@@ -236,10 +242,10 @@ __device__ __forceinline__ float cluster_sum(float v, float* slot, int cl) {
 
 // Rows wider than registers hold: block `rank` of a cluster of cl owns
 // columns [rank * slice, (rank + 1) * slice) of a row, staged once into
-// shared memory. vec: 16-byte copies, chunks of eight columns (H a
-// multiple of eight, every pointer 16-byte aligned); else element by
-// element.
-template <typename T>
+// shared memory (STAGE) or read from device memory by each pass. vec:
+// 16-byte loads, chunks of eight columns (H a multiple of eight, every
+// pointer 16-byte aligned); else element by element.
+template <typename T, bool STAGE>
 __global__ void __launch_bounds__(kBlockThreads)
     ln_fwd_slice_kernel(const T* __restrict__ x, const float* __restrict__ w,
                         const float* __restrict__ b, T* __restrict__ y,
@@ -261,20 +267,25 @@ __global__ void __launch_bounds__(kBlockThreads)
   const float* br = b == nullptr ? nullptr : b + c0;
   const float hf = static_cast<float>(H);
 
-  if (vec) {
-    for (int c = tid; c < n / kCopy; c += kBlockThreads)
-      cp_async16(xs + c * kCopy, xr + c * kCopy);
-    cp_async_commit();
-    cp_async_wait<0>();
+  if (STAGE) {
+    if (vec) {
+      for (int c = tid; c < n / kCopy; c += kBlockThreads)
+        cp_async16(xs + c * kCopy, xr + c * kCopy);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      for (int j = tid; j < n; j += kBlockThreads) xs[j] = xr[j];
+    }
+    __syncthreads();
   } else {
-    for (int j = tid; j < n; j += kBlockThreads) xs[j] = xr[j];
+    xs = const_cast<T*>(xr);  // the passes below read device memory
   }
-  __syncthreads();
 
   float mean = 0.f;
   if (!rms) {
     float s = 0.f;
     if (vec) {
+#pragma unroll 4
       for (int c = tid; c < n / VPT; c += kBlockThreads) {
         float v[VPT];
         load8(xs + c * VPT, v, true, VPT);
@@ -288,6 +299,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
   float sq = 0.f;
   if (vec) {
+#pragma unroll 4
     for (int c = tid; c < n / VPT; c += kBlockThreads) {
       float v[VPT];
       load8(xs + c * VPT, v, true, VPT);
@@ -381,17 +393,20 @@ cudaError_t launch(const T* x, const float* w, const float* b, T* y,
                                 rows, H, eps, rms, vec);
   }
   // past kBlockMaxH: the fewest blocks a row whose slices stay within
-  // kSliceBytes, each slice a whole number of 8-column chunks
+  // kSliceBytes, each slice a whole number of 8-column chunks; past
+  // kMaxStagedBytes a cluster of kMaxCluster streaming blocks
   const long long row_bytes = static_cast<long long>(H) * sizeof(T);
-  if (row_bytes > kMaxRowBytes) return cudaErrorInvalidValue;
+  const bool stage = row_bytes <= kMaxStagedBytes;
   long long blocks = (row_bytes + kSliceBytes - 1) / kSliceBytes;
   if (blocks > kMaxCluster) blocks = kMaxCluster;
   const int cl = static_cast<int>(blocks);
-  const int slice = ((H + cl - 1) / cl + VPT - 1) / VPT * VPT;
-  const int smem = slice * static_cast<int>(sizeof(T));
-  auto kernel = ln_fwd_slice_kernel<T>;
+  const int slice = static_cast<int>(
+      ((static_cast<long long>(H) + cl - 1) / cl + VPT - 1) / VPT * VPT);
+  const int smem = stage ? slice * static_cast<int>(sizeof(T)) : 0;
+  auto kernel = stage ? ln_fwd_slice_kernel<T, true>
+                      : ln_fwd_slice_kernel<T, false>;
   static int configured = 0;  // the largest opt-in granted so far
-  if (smem > configured) {
+  if (stage && smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -416,8 +431,7 @@ cudaError_t launch(const T* x, const float* w, const float* b, T* y,
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16, 2 float16 (x and y). w fp32 (H,), b
-// fp32 (H,) or null. Everything contiguous; a row of at most 1 MiB
-// (kMaxRowBytes).
+// fp32 (H,) or null. Everything contiguous; any H >= 1.
 extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
                               void* y, int rows, int H, int dtype, float eps,
                               int rms, void* stream) {

@@ -8,7 +8,8 @@ fp16 rows. On CPU tensors each wrapper runs its plain version
 (:func:`layer_norm_forward_plain`, :func:`layer_norm_backward_plain`), the
 same fp32 arithmetic in PyTorch. B2 reads a row from device memory once
 (in registers up to H 8192, staged in shared memory past it, one block or
-a thread-block cluster a row) and refuses a row past 1 MiB. B1 holds a
+a thread-block cluster a row) and, past 1 MiB a row, streams it three
+times through a cluster of eight blocks. B1 holds a
 row in registers up to H 1024 and takes two passes over wider rows up to
 H 8192; a wider row runs
 the plain backward on the card, counted under ``layer_norm_bwd_plain``
@@ -34,7 +35,6 @@ from apex_tpu_torch import _build
 from apex_tpu_torch.ops._common import DTYPE_CODES
 
 _MAX_H = 8 * 1024     # B1's widest row (csrc/layer_norm_bwd.cu kMaxH)
-_FWD_MAX_ROW_BYTES = 1 << 20  # B2's widest row (layer_norm_fwd.cu kMaxRowBytes)
 
 
 def backward_kernel_takes(H: int) -> bool:
@@ -78,10 +78,10 @@ def layer_norm_forward_plain(x, weight, bias=None, eps=1e-5, rms=False):
 
 def layer_norm_forward_kernel(x, weight, bias=None, eps=1e-5, rms=False):
     """Launch kernel B2 on a CUDA tensor ``x`` (fp32, bf16 or fp16, any
-    leading shape, normalized over the last dim, rows of at most 1 MiB:
-    262,144 fp32 or 524,288 16-bit columns): ``weight`` and ``bias`` (or
-    None) ``(H,)``, read as fp32. Returns ``y`` in ``x.dtype``. Raises on
-    what the kernel does not take or a failed launch."""
+    leading shape, normalized over the last dim, any width): ``weight``
+    and ``bias`` (or None) ``(H,)``, read as fp32. Returns ``y`` in
+    ``x.dtype``. Raises on what the kernel does not take or a failed
+    launch."""
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"layer_norm_forward: x must be float32, bfloat16 "
                          f"or float16, got {x.dtype}")
@@ -95,9 +95,6 @@ def layer_norm_forward_kernel(x, weight, bias=None, eps=1e-5, rms=False):
     if H < 1:
         raise ValueError(f"layer_norm_forward: x {tuple(x.shape)} has no "
                          f"columns to normalize")
-    if H * x.element_size() > _FWD_MAX_ROW_BYTES:
-        raise ValueError(f"layer_norm_forward: a row of {H} {x.dtype} "
-                         f"columns is past the kernel's 1 MiB")
     x2 = x.reshape(-1, H).contiguous()
     y = torch.empty_like(x2)
     if x2.shape[0] == 0:

@@ -37,13 +37,18 @@ PyTorch version on the same inputs:
   (BERT-large), (8192, 768) bf16 (GPT-2 small), (8192, 1024) fp32, RMSNorm
   (8192, 1024) bf16 without bias, the OpenFold pair (65536, 128) and MSA
   (32768, 256) shapes in bf16, an odd H (1000), a wide one (12288, GPT-3
-  175B's width) in bf16 and fp32, and one past a block's shared memory
-  ((1024, 131072) bf16, a cluster of 6 blocks a row): bf16 within one bf16
-  ulp of the plain version's rounding, fp32 within rtol = atol = 1e-5.
+  175B's width) in bf16 and fp32, one past a block's shared memory
+  ((1024, 131072) bf16, a cluster of 6 blocks a row) and one past 1 MiB
+  ((64, 524288) fp32, a (128, 4096) normalized_shape flattened: streamed
+  by a cluster of 8): bf16 within one bf16 ulp of the plain version's
+  rounding, fp32 within rtol = atol = 1e-5.
 - ``softmax_fwd`` (B6), ``softmax_fwd4`` (B7) and ``softmax_bwd`` (B8) at
-  BERT-large's S 128 score shape (64, 16, 128, 128), bf16 and fp32, and
+  BERT-large's S 128 score shape (64, 16, 128, 128), bf16 and fp32, with
+  no mask, the boolean key mask read in the kernel (and B8 zeroing its
+  keys), the mask pre-folded into x, causal, and an additive mask, and
   at an unaligned Sk of 77; a plain version that scales after the mask
-  must fail the check at a negative scale.
+  must fail the check at a negative scale; the pre-fold's two passes
+  around B6 and B8 timed beside the in-kernel mask.
 
 Each case is timed on the device (calls captured in a CUDA graph and
 replayed, CUDA events around the replay) beside its plain version, a
@@ -60,7 +65,10 @@ the operations over the peak rate of their type (67 TFLOP/s fp32, 989
 TFLOP/s bf16 tensor cores, and 495/3 TFLOP/s for the fp32 products of
 the flash kernels, which run as 3xTF32: three TF32 products a product;
 B14 at the rate of the route its dtypes take, ``paged_flop_rate``; H100
-SXM data sheet).
+SXM data sheet), and for the kernels that draw Philox bits (B3, B13, the
+flash kernels at a dropout rate) their integer instructions over the
+INT32 rate (``PHILOX_INSTR`` a call of four draws, 64 lanes an SM a clock
+at 1.98 GHz).
 
 Phase 2 serves traffic through the port's entry points at GPT-2-small
 width (vocab 50257, hidden 768, 12 layers, 12 heads, 1024 positions)
@@ -146,7 +154,9 @@ OpenFold tier at AlphaFold2's initial-training Evoformer shapes (crop 256,
 heads of 32): LayerNorm of the MSA and pair representations,
 ``gated_attention`` with the pair bias and an MSA mask (B6/B8), and
 ``FusedAdamSWA`` steps, in bf16, after a card-vs-CPU check of the tier in
-fp32 at 64 residues and 16 clusters.
+fp32 at 64 residues and 16 clusters; last, a differentiated
+``FusedLayerNorm`` and ``FusedRMSNorm`` of ``normalized_shape`` (128,
+4096) in fp32 (a 2 MiB row: B2's streamed path) against the CPU.
 
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
@@ -174,6 +184,13 @@ BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # fp32 products as three TF32 tensor-core products (the fp32 flash
 # backward's route): 495 TFLOP/s dense TF32 over 3
 TF32X3_FLOP_PER_S = 495e12 / 3
+# integer work of the kernels that draw Philox4x32-10 bits (B3, B13, the
+# flash kernels at a dropout rate): SASS instructions a philox4x32_10 call
+# (csrc/philox.cuh, counted in the built keep-mask kernel by
+# tools/philox_sass.py), at 64 INT32 lanes an SM a clock on 132 SMs at the
+# H100 SXM's 1.98 GHz boost clock (the highest, so the least time)
+PHILOX_INSTR = 38
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 class SmokeFailure(RuntimeError):
@@ -192,11 +209,18 @@ def check_no_route(launches, label):
     check(not routed, f"{label}: calls routed to plain versions {routed}")
 
 
-def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
-    """The least time for the work: bytes over the memory rate or
-    operations over the peak rate of their type, whichever is larger."""
+def philox_ops(draws):
+    """Integer instructions of ``draws`` Philox bits (one call gives 4)."""
+    return -(-draws // 4) * PHILOX_INSTR
+
+
+def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S, int_ops=0):
+    """The least time for the work: bytes over the memory rate, or
+    operations over the peak rate of their type (floating-point ones, and
+    the integer ones of Philox draws over the INT32 rate, each on its own
+    pipe), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_rate * 1e3
+    t_ops = max(flops / flop_rate, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -687,8 +711,10 @@ def phase1_layer_norm(torch, dev, seed):
 # and GPT-2 small activations (B * S = 8192 rows), the Evoformer pair (c_z
 # 128) and MSA (c_m 256) representations at AlphaFold2's initial-training
 # crop (256 residues, 128 clusters), an H not a multiple of 256, a width
-# past what registers hold (GPT-3 175B's 12288, in bf16 and fp32) and one
-# past what one block's shared memory holds (a cluster of blocks a row)
+# past what registers hold (GPT-3 175B's 12288, in bf16 and fp32), one
+# past what one block's shared memory holds (a cluster of blocks a row) and
+# one past what a cluster stages (a multi-dim normalized_shape (128, 4096)
+# in fp32 flattened into a 2 MiB row, streamed)
 B2_CASES = (
     ("BERT-large", 8192, 1024, "bfloat16", False, True),
     ("GPT-2 small", 8192, 768, "bfloat16", False, True),
@@ -700,6 +726,7 @@ B2_CASES = (
     ("wide H", 8192, 12288, "bfloat16", False, True),
     ("wide H fp32", 8192, 12288, "float32", False, True),
     ("past one block", 1024, 131072, "bfloat16", False, True),
+    ("past 1 MiB, (128, 4096) fp32", 64, 524288, "float32", False, True),
 )
 
 
@@ -805,7 +832,7 @@ def phase1_dropout(torch, F, dev, seed):
     frac = kept.float().mean().item()
     check(abs(frac - (1 - rate)) <= 0.002, f"dropout kept fraction {frac}")
     nbytes = 2 * x.numel() * x.element_size()
-    b_ms, b_by = bound(nbytes, 4 * x.numel())
+    b_ms, b_by = bound(nbytes, 4 * x.numel(), int_ops=philox_ops(x.numel()))
     row = dict(case="(16, 512, 1024) bf16 rate 0.1", max_abs_err=0.0,
                kept_fraction=frac,
                ms=time_ms(lambda: dropout_kernel(x, rate, s)),
@@ -897,7 +924,8 @@ def phase1_flash(torch, F, dev, seed):
             del keep, mout, mlse, mgrads
         fl = 4 * B * NH * S * S * D
         nbytes = 4 * q.numel() * 2 + lse.numel() * 4 + B * S
-        b_ms, b_by = bound(nbytes, fl, BF16_FLOP_PER_S)
+        iops = philox_ops(B * NH * S * S) if rate else 0
+        b_ms, b_by = bound(nbytes, fl, BF16_FLOP_PER_S, iops)
         f = dict(case=f"B {B} S {S} NH {NH} D {D} bf16 rate {rate}",
                  max_abs_err=errs["out"], norm_err=norm_errs["out"],
                  unscaled_norm_err=unscaled.get("out"), lse_err=lse_err,
@@ -912,7 +940,7 @@ def phase1_flash(torch, F, dev, seed):
         fwd_rows.append(f)
         fl_b = 10 * B * NH * S * S * D
         nbytes_b = 8 * q.numel() * 2 + lse.numel() * 4 + B * S
-        bb_ms, bb_by = bound(nbytes_b, fl_b, BF16_FLOP_PER_S)
+        bb_ms, bb_by = bound(nbytes_b, fl_b, BF16_FLOP_PER_S, iops)
         lib_b = None
         if rate == 0.0:
             qs, ks, vs = (t.detach().clone().requires_grad_(True)
@@ -955,17 +983,24 @@ def phase1_flash(torch, F, dev, seed):
 
 def phase1_softmax(torch, dev, seed):
     """B6, B7 and B8 at BERT-large's S 128 attention shape, (64, 16, 128,
-    128) (B 64 microbatch, 16 heads): B6 with no mask, with the pre-folded
-    boolean key mask (the training path's input, x = FILL where masked)
-    and causal at scale 1/8; B7 with an additive fp32 (64, 1, 1, 128)
-    mask; B8 at the same shape; an fp32 case of each; and Sk 77 (the
-    unaligned path) with a (64, 1, 1, 77) fill mask at scale -0.5, through
-    B7 and B8. Each is held against its plain version at atol = rtol =
-    1e-2 elementwise and 1e-3 of the tensor's norm for bf16 outputs (one
-    bf16 ulp of a value below 1 is at most 2^-8; kernel and plain version
-    both round once from fp32 sums in other orders), 1e-5 and 1e-5 for
-    fp32. A plain version that applies the scale after the mask must fail
-    that check at scale -0.5."""
+    128) (B 64 microbatch, 16 heads): B6 with no mask, with the boolean
+    (64, 1, 1, 128) key mask read in the kernel (the training path's
+    route, ``"fold"``), with that mask pre-folded into x (x = FILL where
+    masked, the JAX package's route) and causal at scale 1/8; B7 with an
+    additive fp32 (64, 1, 1, 128) mask; B8 at the same shape, with the key
+    mask's zeroing after the in-kernel route; an fp32 case of each; and Sk
+    77 (the unaligned path) with a boolean (64, 1, 1, 77) fill mask at
+    scale -0.5, through B7 and B8. Each is held against its plain version
+    at atol = rtol = 1e-2 elementwise and 1e-3 of the tensor's norm for
+    bf16 outputs (one bf16 ulp of a value below 1 is at most 2^-8; kernel
+    and plain version both round once from fp32 sums in other orders),
+    1e-5 and 1e-5 for fp32. A plain version that applies the scale after
+    the mask must fail that check at scale -0.5. The library yardstick of
+    the masked forwards is ``torch.softmax`` on the pre-folded tensor.
+    Last, the two routes of the training path's boolean key mask, each
+    forward and backward, in one process: the pre-fold's ``where`` + B6
+    and B8 + the ``where``'s backward, against the in-kernel mask's B6 and
+    masked B8 (``route`` rows)."""
     from apex_tpu_torch.ops._common import FILL
     from apex_tpu_torch.ops.softmax import (
         softmax_bwd_kernel,
@@ -1001,6 +1036,8 @@ def phase1_softmax(torch, dev, seed):
         fwd_cases += [
             (f"no mask {tag}", "softmax_fwd", x, None, None, 1.0, False,
              lambda x=x: torch.softmax(x, -1)),
+            (f"boolean key mask in the kernel {tag}", "softmax_fwd", x, keys,
+             "fold", 1.0, False, lambda x=folded: torch.softmax(x, -1)),
             (f"pre-folded key mask {tag}", "softmax_fwd", folded, None, None,
              1.0, False, lambda x=folded: torch.softmax(x, -1)),
             (f"causal scale 1/8 {tag}", "softmax_fwd", x, None, None, 0.125,
@@ -1008,31 +1045,36 @@ def phase1_softmax(torch, dev, seed):
             (f"additive (B, 1, 1, Sk) mask {tag}", "softmax_fwd4", x, add,
              "add", 1.0, False, None)]
     x77 = rand((B, NH, 77, 77), torch.bfloat16)
-    fill77 = (torch.rand(B, 1, 1, 77, generator=g) < 0.3).float().to(dev)
+    fill77 = (torch.rand(B, 1, 1, 77, generator=g) < 0.3).to(dev)
     fwd_cases.append(("Sk 77 fill mask scale -0.5 bf16", "softmax_fwd4", x77,
                       fill77, "fill", -0.5, False, None))
 
-    def bwd_row(name, gr, y, scale):
-        dx = softmax_bwd_kernel(gr, y, scale)
-        rdx = softmax_bwd_plain(gr, y, scale)
+    def bwd_row(name, gr, y, scale, mask=None):
+        dx = softmax_bwd_kernel(gr, y, scale, mask)
+        rdx = softmax_bwd_plain(gr, y, scale, mask)
         torch.cuda.synchronize()
         ok, norm_err, tol = close(dx, rdx, gr.dtype)
         max_abs = close_stats(torch, dx, rdx)[0]
         check(ok, f"softmax backward {name}: max abs err {max_abs}, norm "
               f"err {norm_err}")
-        nbytes = gr.numel() * (2 * gr.element_size() + y.element_size())
+        if mask is not None:
+            check(bool((dx[mask.expand(dx.shape)] == 0).all()),
+                  f"softmax backward {name}: a masked key's dx is not 0")
+        nbytes = gr.numel() * (2 * gr.element_size() + y.element_size()) + (
+            0 if mask is None else mask.numel())
         b_ms, b_by = bound(nbytes, 5 * gr.numel())
         return dict(
             case=f"{tuple(gr.shape)} {name}", max_abs_err=max_abs,
             norm_err=norm_err, tol=tol,
-            ms=time_ms(lambda: softmax_bwd_kernel(gr, y, scale)),
-            plain_ms=time_ms(lambda: softmax_bwd_plain(gr, y, scale),
+            ms=time_ms(lambda: softmax_bwd_kernel(gr, y, scale, mask)),
+            plain_ms=time_ms(lambda: softmax_bwd_plain(gr, y, scale, mask),
                              iters=10),
             library_ms=time_ms(lambda: torch._softmax_backward_data(
                 gr, y, -1, gr.dtype) * scale),
             bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
-    rows = {"softmax_fwd": [], "softmax_fwd4": [], "softmax_bwd": []}
+    rows = {"softmax_fwd": [], "softmax_fwd4": [], "softmax_bwd": [],
+            "route": []}
     for name, counter, x, m, mode, scale, causal, lib in fwd_cases:
         y = softmax_fwd_kernel(x, m, scale, causal, mode)
         ref = softmax_fwd_plain(x, m, scale, causal, mode)
@@ -1046,13 +1088,13 @@ def phase1_softmax(torch, dev, seed):
         wrong = None
         if scale <= 0:
             # the scale applied after the mask: masked keys win instead
-            v = torch.where(m > 0, FILL, x.float()) * scale
+            v = torch.where(m, FILL, x.float()) * scale
             bad_ok, wrong, _ = close(torch.softmax(v, -1).to(x.dtype), ref,
                                      x.dtype)
             check(not bad_ok, f"softmax {name}: the check passes a plain "
                   f"version that scales after the mask")
         nbytes = 2 * x.numel() * x.element_size() + (
-            0 if m is None else m.numel() * 4)
+            0 if m is None else m.numel() * m.element_size())
         b_ms, b_by = bound(nbytes, 10 * x.numel())
         rows[counter].append(dict(
             case=f"{tuple(x.shape)} {name}", max_abs_err=max_abs,
@@ -1064,14 +1106,20 @@ def phase1_softmax(torch, dev, seed):
             library_ms=None if lib is None else time_ms(lib),
             bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
         if x.dtype == torch.bfloat16:
-            # B8 on the same rows: g random, y the forward's output; an
-            # fp32 case beside the unmasked one
+            # B8 on the same rows: g random, y the forward's output (with
+            # the in-kernel key mask, its zeroing); an fp32 case beside the
+            # unmasked one
             gr = rand(x.shape, x.dtype, 1.0)
-            rows["softmax_bwd"].append(bwd_row(name, gr, y, scale))
+            fold = m if mode == "fold" else None
+            rows["softmax_bwd"].append(bwd_row(name, gr, y, scale, fold))
             if mode is None and not causal and scale == 1.0 and \
                     "pre-folded" not in name:
                 rows["softmax_bwd"].append(bwd_row(
                     "no mask fp32", gr.float(), y.float(), scale))
+            if mode == "fold":
+                rows["route"].append(softmax_routes(
+                    torch, x, keys, gr, y, scale, softmax_fwd_kernel,
+                    softmax_bwd_kernel))
             del gr
     for counter, tag in (("softmax_fwd", "B6"), ("softmax_fwd4", "B7"),
                          ("softmax_bwd", "B8")):
@@ -1083,8 +1131,34 @@ def phase1_softmax(torch, dev, seed):
                   f"(tol {r['tol']}) | ms {r['ms']:.4f} plain_ms "
                   f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
                   f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    for r in rows["route"]:
+        print(f"[B6/B8 key-mask routes] {r['case']}: pre-fold where + B6 "
+              f"{r['prefold_fwd_ms']:.4f} ms, B8 + where backward "
+              f"{r['prefold_bwd_ms']:.4f} ms | in-kernel mask B6 "
+              f"{r['in_kernel_fwd_ms']:.4f} ms, masked B8 "
+              f"{r['in_kernel_bwd_ms']:.4f} ms", flush=True)
     torch.cuda.empty_cache()
     return rows
+
+
+def softmax_routes(torch, x, keys, gr, y, scale, fwd, bwd):
+    """Device time (graph replay) of the two routes of a boolean key mask
+    with scale > 0, forward and backward: the JAX package's pre-fold
+    (``where(mask, FILL / scale, x)`` then B6; B8 then the ``where``'s
+    backward, ``where(mask, 0, dx)``) and the mask read in the kernel (B6
+    with ``"fold"``; B8 with the mask)."""
+    from apex_tpu_torch.ops._common import FILL
+
+    return dict(
+        case=f"{tuple(x.shape)} {str(x.dtype)[6:]} key mask "
+             f"{tuple(keys.shape)}",
+        prefold_fwd_ms=time_ms(lambda: fwd(
+            torch.where(keys, FILL / scale, x), None, scale)),
+        prefold_bwd_ms=time_ms(lambda: torch.where(
+            keys, 0.0, bwd(gr, y, scale))),
+        in_kernel_fwd_ms=time_ms(lambda: fwd(x, keys, scale, False,
+                                             "fold")),
+        in_kernel_bwd_ms=time_ms(lambda: bwd(gr, y, scale, keys)))
 
 
 # -- phase 1: the tiled and single-tile flash kernels, B9-B13 ------------------
@@ -1200,8 +1274,9 @@ def phase1_flash_tiled(torch, F, dev, seed):
             flash_bwd_dq_tiled_kernel(q, k, v, None, lse, d, do, *args)
 
         whole = time_ms(whole_bwd, iters=20)
+        iops = philox_ops(pairs) if rate else 0
         wb_ms, wb_by = bound(8 * n * 2 + 2 * stats, 10 * D * pairs,
-                             BF16_FLOP_PER_S)
+                             BF16_FLOP_PER_S, iops)
         print(f"[B11 whole backward] {case}: delta + B11b + B11a ms "
               f"{whole:.4f} sdpa_backward_ms {sdpa_b:.4f} bound_ms "
               f"{wb_ms:.4f} ({wb_by})", flush=True)
@@ -1217,7 +1292,8 @@ def phase1_flash_tiled(torch, F, dev, seed):
                  lambda: flash_bwd_dkv_tiled_kernel(q, k, v, None, lse,
                                                     delta, do, *args),
                  8 * D * pairs, 6 * n * 2 + 2 * stats, ("dk", "dv"))):
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            # each kernel draws the bits of its scores itself
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S, iops)
             if key == "fwd_tiled":
                 plain = time_ms(lambda: flash_fwd_plain(q, k, v, None,
                                                         *args), iters=2)
@@ -1473,7 +1549,7 @@ def phase1_flash_tiled(torch, F, dev, seed):
           "mask")
     frac = keep.float().mean().item()
     check(abs(frac - 0.9) <= 0.001, f"keep_mask kept fraction {frac}")
-    b_ms, b_by = bound(keep.numel(), 0)
+    b_ms, b_by = bound(keep.numel(), 0, int_ops=philox_ops(keep.numel()))
     rows["keep_mask"].append(dict(
         case=f"{shape} rate 0.1", max_abs_err=0.0, kept_fraction=frac,
         ms=time_ms(lambda: keep_mask_kernel(*shape, 0.1, seed + 13, dev)),
@@ -1581,9 +1657,6 @@ def phase1_flash_fwd16(torch, F, dev, seed):
             pairs = B * NH * (S * (S + 1) // 2 if causal else S * S)
             nbytes = 4 * q.numel() * 2 + 4 * B * NH * S + (B * S if masked
                                                            else 0)
-            b_ms, b_by = bound(nbytes, 4 * D * pairs, BF16_FLOP_PER_S)
-            bb_ms, bb_by = bound(2 * nbytes + 4 * B * NH * S,
-                                 10 * D * pairs, BF16_FLOP_PER_S)
             am = None
             if masked:
                 am = torch.zeros(B, 1, 1, S, dtype=dt, device=dev)
@@ -1591,6 +1664,11 @@ def phase1_flash_fwd16(torch, F, dev, seed):
             sdpa_b = None
             for rate in (0.0, 0.1):
                 args = (causal, D ** -0.5, rate, seed + 7 if rate else None)
+                iops = philox_ops(pairs) if rate else 0
+                b_ms, b_by = bound(nbytes, 4 * D * pairs, BF16_FLOP_PER_S,
+                                   iops)
+                bb_ms, bb_by = bound(2 * nbytes + 4 * B * NH * S,
+                                     10 * D * pairs, BF16_FLOP_PER_S, iops)
                 if name.startswith("B4"):
                     def fn():
                         o, l = flash_fwd_kernel(*flat, mask, NH, *args)
@@ -2096,8 +2174,9 @@ def phase3(torch, dev, seed, card, steps=5, warmup=2):
 # at the 49 hidden sites plus the 24 attention-probability sites, run
 # forward, again in the recompute (72) and replayed in the backward; the
 # softmax forward per layer and again in its recompute, its backward per
-# layer; no flash kernel and no 4-D-mask softmax (the boolean key mask is
-# pre-folded)
+# layer; no flash kernel. The boolean (B, 1, 1, S) key mask is read in the
+# softmax kernels (the JAX pre-fold's route: counted as B6, not as the 4-D
+# mask's B7), so no where pass over the scores precedes B6 or follows B8
 MICROBATCH_LAUNCHES = {"layer_norm_fwd": 50 + 48, "layer_norm_bwd": 50,
                        "dropout": 73 + 72 + 73, "softmax_fwd": 24 + 24,
                        "softmax_bwd": 24,
@@ -2611,6 +2690,51 @@ def norm_microbench(torch, F, dev, seed, card, n_apps=16, iters=10, N=8192,
     return rec
 
 
+def wide_norms(torch, dev, seed, card):
+    """A differentiated ``FusedLayerNorm`` and ``FusedRMSNorm`` with
+    ``normalized_shape=(128, 4096)`` in fp32 on (8, 128, 4096): one 2 MiB
+    row a sample after the flattening, past what B2 stages on chip. The
+    forward only (the backward of rows past H 8192 is routed to the plain
+    version): one B2 launch each and nothing routed, the output within
+    1e-5 of the same module's on the CPU (1e-5 of its largest entry)."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+
+    g = torch.Generator().manual_seed(seed + 11)
+    x = torch.randn(8, 128, 4096, generator=g) * 2 + 0.5
+    scale = torch.rand(128, 4096, generator=g) + 0.5
+    rec = {}
+    for cls in (FusedLayerNorm, FusedRMSNorm):
+        ys = {}
+        for d in (dev, torch.device("cpu")):
+            mod = cls((128, 4096), device=d)
+            with torch.no_grad():
+                mod.scale.copy_(scale)
+            xd = x.to(d).detach().requires_grad_(True)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t = time.perf_counter()
+            ys[d.type] = mod(xd).detach()
+            torch.cuda.synchronize()
+            if d.type == "cuda":
+                ms = (time.perf_counter() - t) * 1e3
+                launches = {k: v for k, v in _build.launches.items() if v}
+        check_no_route(launches, f"phase 7 {cls.__name__} (128, 4096)")
+        check(launches == {"layer_norm_fwd": 1},
+              f"{cls.__name__} (128, 4096): launches {launches}")
+        ref = ys["cpu"]
+        err = (ys["cuda"].cpu() - ref).abs().max().item()
+        check(err <= 1e-5 * ref.abs().max().item(),
+              f"{cls.__name__} (128, 4096) card vs CPU: max abs err {err}")
+        rec[cls.__name__] = dict(max_abs_err=err, wall_ms=ms,
+                                 launches=launches)
+        print(f"[{cls.__name__} (128, 4096) fp32] {card}: (8, 128, 4096), "
+              f"differentiated forward on B2, card vs CPU max abs err "
+              f"{err:.3g} | wall ms {ms:.3f} | launches {launches}",
+              flush=True)
+    return rec
+
+
 # AlphaFold2's initial training (Jumper et al. 2021, Supplementary
 # Information 1.11 and Algorithm 7): crop 256 residues, 128 MSA clusters,
 # c_m 256, c_z 128, MSA row-wise gated self-attention with pair bias, 8
@@ -2618,7 +2742,8 @@ def norm_microbench(torch, F, dev, seed, card, n_apps=16, iters=10, N=8192,
 EVOFORMER = dict(n_res=256, n_seq=128, c_m=256, c_z=128, heads=8, dh=32)
 # one tier step (forward, backward, FusedAdamSWA) on the card: the MSA and
 # pair LayerNorms (B2 forward, B1 backward), the masked pair-bias softmax
-# (pre-folded boolean mask: B6, and B8 backward; no B7)
+# (the boolean MSA mask read in the kernel, the pre-fold's route: B6, and
+# B8 backward; no B7)
 OPENFOLD_STEP_LAUNCHES = {"layer_norm_fwd": 2, "layer_norm_bwd": 2,
                           "softmax_fwd": 1, "softmax_bwd": 1}
 
@@ -2871,6 +2996,8 @@ def main(argv=None):
         seed)
     openfold = timed("phase 7 OpenFold tier", openfold_tier, torch, dev,
                      seed, card)
+    wide = timed("phase 7 multi-dim norms past 1 MiB", wide_norms, torch,
+                 dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the three training phases, B2 and B1 also on the contrib modules'
@@ -2890,7 +3017,8 @@ def main(argv=None):
             sum(t["launches"][k] for t in (train, train128, gpt))
             + sum(r["launches"].get(k, 0) for r in mha.values())
             + sum(a.get(k, 0) for a in norm_bench["launches"].values())
-            + openfold["launches"].get(k, 0))
+            + openfold["launches"].get(k, 0)
+            + sum(r["launches"].get(k, 0) for r in wide.values()))
     launches["softmax_fwd"] += openfold["launches"].get("softmax_fwd", 0)
     launches["softmax_bwd"] += openfold["launches"].get("softmax_bwd", 0)
     kernels = [
@@ -2925,7 +3053,9 @@ def main(argv=None):
                      sm_rows["softmax_fwd4"][0], launches["softmax_fwd4"]),
         kernel_entry("softmax_bwd", "apex_tpu_torch/csrc/softmax.cu",
                      "apex_tpu/ops/softmax.py:82", sm_rows["softmax_bwd"],
-                     sm_rows["softmax_bwd"][0], launches["softmax_bwd"]),
+                     next(r for r in sm_rows["softmax_bwd"]
+                          if "in the kernel" in r["case"]),
+                     launches["softmax_bwd"]),
     ]
     # B10/B12 take their fp32 rows (phase 6's path): the 3xTF32 forward and
     # backward
@@ -2954,7 +3084,8 @@ def main(argv=None):
         flash_fwd=fwd_rows, flash_bwd=bwd_rows, softmax=sm_rows,
         flash_tiled=tiled, flash_fwd16=fwd16, engine=runs, train=train,
         train_s128=train128, train_gpt=gpt, contrib_mha=mha,
-        norm_microbench=norm_bench, openfold=openfold, checks=checks,
+        norm_microbench=norm_bench, openfold=openfold, wide_norms=wide,
+        checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

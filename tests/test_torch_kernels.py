@@ -523,16 +523,31 @@ def test_softmax_wrappers_refuse_what_the_kernels_do_not_take():
         softmax_fwd_kernel(x, torch.zeros(2, 8))
     with pytest.raises(ValueError, match="mask_mode"):
         softmax_fwd_kernel(x, None, mask_mode="add")
+    keys = torch.zeros(2, 8, dtype=torch.bool)
+    with pytest.raises(ValueError, match="boolean"):
+        softmax_fwd_kernel(x, keys.float(), mask_mode="fold")
+    with pytest.raises(ValueError, match="fits"):
+        softmax_fwd_kernel(x.half(), keys, 0.125, mask_mode="fold")
+    with pytest.raises(ValueError, match="fits"):
+        softmax_fwd_kernel(x, keys, -1.0, mask_mode="fold")
+    with pytest.raises(ValueError, match="boolean"):
+        softmax_bwd_kernel(x, x, 1.0, keys.float())
     with pytest.raises(ValueError, match="differ"):
         softmax_bwd_kernel(x, x[:1])
     with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         softmax_bwd_kernel(x.double(), x)
 
 
-# (x shape, mask shape or None, mask mode, scale, causal, counter): B7
-# where the mask is 4-D broadcast-compatible, B6 otherwise; Sk 77 and 33
-# take the unaligned path, 1030 the looping path, 600 the looping path
-# with a per-head mask
+# (x shape, mask shape or None, mask kind, scale, causal, counter): the
+# kinds are None, "pre-folded" (x = FILL where a boolean key mask is set,
+# no mask), "add" (fp32), "fill" (an fp32 0/1 tile), "bool fill" and
+# "fold" (a boolean mask read one byte a key, the JAX pre-fold's route);
+# B7 where an add or fill mask is 4-D broadcast-compatible, B6 otherwise;
+# the "fold" scales keep FILL / scale within fp16.
+# Sk 64 takes half-warp rows in fp32, 77 and 33 the unaligned path, 128
+# half-warp rows in 16-bit, 256 and 512 whole-warp rows, 600 and 1030 the
+# looping path; the 5-D masks merge their leading dims or (the last) are
+# expanded to x's shape
 SOFTMAX_CASES = [
     ((4, 16, 128, 128), None, None, 1.0, False, "softmax_fwd"),
     ((4, 16, 128, 128), None, None, 0.125, True, "softmax_fwd"),
@@ -543,21 +558,46 @@ SOFTMAX_CASES = [
     ((6, 33), (6, 33), "fill", 0.0, False, "softmax_fwd"),
     ((3, 7, 1030), None, None, 0.3, False, "softmax_fwd"),
     ((2, 2, 200, 200), (2, 2, 1, 200), "fill", 1.0, True, "softmax_fwd4"),
+    ((4, 16, 128, 128), (4, 1, 1, 128), "pre-folded", 1.0, False,
+     "softmax_fwd"),
+    ((4, 16, 128, 128), (4, 1, 1, 128), "fold", 1.0, False, "softmax_fwd"),
+    ((2, 3, 77, 77), (2, 1, 1, 77), "fold", 0.5, True, "softmax_fwd"),
+    ((2, 4, 256, 256), (2, 1, 1, 256), "fold", 0.5, False, "softmax_fwd"),
+    ((2, 2, 16, 512), (2, 1, 1, 512), "fold", 0.7, True, "softmax_fwd"),
+    ((2, 3, 8, 600), (2, 1, 8, 600), "fold", 2.0, False, "softmax_fwd"),
+    ((3, 7, 1030), (3, 1, 1030), "fold", 0.6, False, "softmax_fwd"),
+    ((2, 3, 5, 40, 40), (2, 3, 1, 1, 40), "fold", 0.75, False,
+     "softmax_fwd"),
+    ((2, 3, 4, 8, 32), (2, 1, 4, 1, 32), "fold", 1.0, False,
+     "softmax_fwd"),
+    ((2, 4, 256, 256), (2, 1, 1, 256), "bool fill", -0.5, False,
+     "softmax_fwd4"),
+    ((4, 16, 128, 128), (4, 1, 1, 128), "bool fill", 0.0, True,
+     "softmax_fwd4"),
+    ((2, 2, 16, 512), None, None, 0.7, True, "softmax_fwd"),
+    ((3, 5, 64), (3, 1, 64), "add", 1.0, False, "softmax_fwd"),
 ]
 
 
-def _softmax_case(shape, mshape, mode, dtype, device, seed=0):
+def _softmax_case(shape, mshape, kind, dtype, device, seed=0):
+    """(x, mask, mask_mode) for a case; every mask hides all the keys of
+    row 0 of x."""
     gen = torch.Generator().manual_seed(seed)
-    x = (torch.randn(*shape, generator=gen) * 3).to(dtype).to(device)
-    m = None
-    if mode == "add":
+    x = (torch.randn(*shape, generator=gen) * 3).to(dtype)
+    m, mode = None, kind
+    if kind == "add":
         m = torch.where(torch.rand(*mshape, generator=gen) < 0.3, -1e4,
-                        torch.randn(*mshape, generator=gen)).to(device)
-    elif mode == "fill":
-        m = (torch.rand(*mshape, generator=gen) < 0.3).float()
-        m.view(-1, mshape[-1])[0] = 1.0          # a fully masked row
-        m = m.to(device)
-    return x, m
+                        torch.randn(*mshape, generator=gen))
+    elif kind is not None:
+        m = torch.rand(*mshape, generator=gen) < 0.3
+        m.view(-1, mshape[-1])[0] = True          # a fully masked row
+        if kind == "fill":
+            m = m.float()
+        elif kind == "bool fill":
+            mode = "fill"
+        elif kind == "pre-folded":
+            x, m, mode = torch.where(m, -30000.0, x), None, None
+    return x.to(device), None if m is None else m.to(device), mode
 
 
 @pytest.mark.gpu
@@ -568,14 +608,18 @@ def _softmax_case(shape, mshape, mode, dtype, device, seed=0):
 def test_softmax_kernels_match_plain(cuda_device, shape, mshape, mode,
                                      scale, causal, counter, dtype, tol):
     """Kernels B6/B7 and B8 against their plain versions: fp32 within 1e-5
-    (expf and the row sums in another order); bf16 outputs within one bf16
-    ulp of values up to 1 (1e-2). A fully masked row is uniform."""
-    x, m = _softmax_case(shape, mshape, mode, dtype, cuda_device)
+    (ex2.approx, a reciprocal and the row sums in another order); bf16
+    outputs within one bf16 ulp of values up to 1 (1e-2). A fully masked
+    row is uniform. With the boolean "fold" mask, B8 is held to
+    ``softmax_bwd_plain`` followed by the zeroing at masked keys, and
+    those entries of dx are exactly 0."""
+    x, m, mode = _softmax_case(shape, mshape, mode, dtype, cuda_device)
+    fold = m if mode == "fold" else None
     before = dict(_build.launches)
     y = softmax_fwd_kernel(x, m, scale, causal, mode)
     g = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(
         dtype).to(cuda_device)
-    dx = softmax_bwd_kernel(g, y, scale)
+    dx = softmax_bwd_kernel(g, y, scale, fold)
     dx32 = softmax_bwd_kernel(g.float(), y, scale)   # g and y in two dtypes
     torch.cuda.synchronize()
     assert _build.launches[counter] == before[counter] + 1
@@ -583,28 +627,63 @@ def test_softmax_kernels_match_plain(cuda_device, shape, mshape, mode,
     ref = softmax_fwd_plain(x, m, scale, causal, mode)
     assert y.dtype == dtype and torch.isfinite(y.float()).all()
     assert_close(y, ref, atol=tol, rtol=tol)
-    assert_close(dx, softmax_bwd_plain(g, y, scale), atol=tol, rtol=tol)
+    assert_close(dx, softmax_bwd_plain(g, y, scale, fold), atol=tol,
+                 rtol=tol)
+    if fold is not None:
+        assert (dx[fold.expand(shape)] == 0).all()
     assert dx32.dtype == torch.float32
     assert_close(dx32, softmax_bwd_plain(g.float(), y, scale), atol=1e-5,
                  rtol=1e-5)
-    if mode == "fill" and not causal:
+    if m is not None and mode != "add" and not causal:
         row = y.reshape(-1, shape[-1])[0].float()
         assert_close(row, torch.full_like(row, 1.0 / shape[-1]), atol=tol,
                      rtol=0)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk,mode", [(128, "fold"), (128, "add"),
+                                     (77, "fill"), (256, "fold"),
+                                     (600, "fold")])
+def test_softmax_kernels_take_unaligned_inputs(cuda_device, dtype, sk, mode):
+    """x, the mask, g and y one element past a 16-byte boundary take the
+    element loads: B6/B7 and B8 against their plain versions (fp32 1e-5,
+    bf16 1e-2)."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    gen = torch.Generator().manual_seed(sk)
+    shape, n = (2, 3, 8, sk), 2 * 3 * 8 * sk
+    x = (torch.randn(n + 1, generator=gen) * 3).to(dtype).to(cuda_device)
+    x = x[1:].view(shape)
+    if mode == "add":
+        mb = torch.randn(2 * sk + 1, generator=gen).to(cuda_device)
+    else:
+        mb = (torch.rand(2 * sk + 1, generator=gen) < 0.3).to(cuda_device)
+    m = mb[1:].view(2, 1, 1, sk)
+    g = torch.randn(n + 1, generator=gen).to(dtype).to(cuda_device)[1:]
+    g = g.view(shape)
+    y = softmax_fwd_kernel(x, m, 0.5, False, mode)
+    fold = m if mode == "fold" else None
+    dx = softmax_bwd_kernel(g, y, 0.5, fold)
+    torch.cuda.synchronize()
+    assert_close(y, softmax_fwd_plain(x, m, 0.5, False, mode), atol=tol,
+                 rtol=tol)
+    assert_close(dx, softmax_bwd_plain(g, y, 0.5, fold), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
 def test_softmax_entry_on_the_card(cuda_device):
-    """The autograd entry: a boolean mask is pre-folded (B6, no mask
-    tensor), a float (B, 1, 1, Sk) mask takes B7 and gets its cotangent,
-    and the backward launches B8."""
-    x, _ = _softmax_case((2, 4, 64, 64), None, None, torch.bfloat16,
-                         cuda_device)
+    """The autograd entry: a boolean mask with scale > 0 reaches B6 as it
+    is (the pre-fold's route, one byte a key) and its backward B8 with the
+    mask, whose masked keys get a zero gradient; a float (B, 1, 1, Sk)
+    mask takes B7 and gets its cotangent, and the backward launches B8."""
+    x, _, _ = _softmax_case((2, 4, 64, 64), None, None, torch.bfloat16,
+                            cuda_device)
     mask = torch.zeros(2, 1, 1, 64, dtype=torch.bool, device=cuda_device)
     mask[1, ..., 40:] = True
     before = dict(_build.launches)
     xr = x.clone().requires_grad_(True)
     scaled_masked_softmax(xr, mask, 0.125).sum().backward()
+    assert (xr.grad[mask.expand(xr.shape)] == 0).all()
     add = torch.zeros(2, 1, 1, 64, device=cuda_device, requires_grad=True)
     y = scaled_masked_softmax(xr, add, 1.0)
     (y.float() * torch.arange(64, device=cuda_device)).sum().backward()
@@ -859,15 +938,65 @@ def test_layer_norm_fwd_kernel_matches_plain(cuda_device, dtype, rms,
     assert torch.equal(y, again)
 
 
-def test_forward_wrapper_refuses_rows_past_1_mib():
-    """B2 stages a row in the shared memory of at most 8 clustered blocks:
-    a row past 1 MiB is refused before any launch."""
-    w = torch.ones(262145)
-    with pytest.raises(ValueError, match="1 MiB"):
-        layer_norm_forward_kernel(torch.randn(1, 262145), w)
-    with pytest.raises(ValueError, match="1 MiB"):
-        layer_norm_forward_kernel(
-            torch.randn(1, 524289, dtype=torch.bfloat16), torch.ones(524289))
+@pytest.mark.gpu
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("rows,H,dtype", [
+    (3, 262145, torch.float32), (3, 524289, torch.bfloat16),
+    (5, 524288, torch.float16), (2, 1048576, torch.float32)])
+def test_layer_norm_fwd_rows_past_1_mib(cuda_device, rows, H, dtype, rms):
+    """B2 past 1 MiB a row, where a cluster of 8 blocks streams the row
+    three times instead of staging it: one column past 1 MiB in fp32 and
+    bf16 (an H not a multiple of eight: the scalar loads), an aligned
+    fp16 row, and a 4 MiB fp32 row. Within B2's tolerances of the plain
+    version (fp16 one fp16 ulp); a rerun gives the same bits."""
+    gen = torch.Generator().manual_seed(H + rows)
+    x = (torch.randn(rows, H, generator=gen) * 2 + 0.5).to(dtype).to(
+        cuda_device)
+    w = (torch.rand(H, generator=gen) + 0.5).to(cuda_device)
+    b = None if rms else torch.randn(H, generator=gen).to(cuda_device)
+    before = _build.launches["layer_norm_fwd"]
+    y = layer_norm_forward(x, w, b, 1e-5, rms)
+    again = layer_norm_forward_kernel(x, w, b, 1e-5, rms)
+    ref = layer_norm_forward_plain(x, w, b, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert _build.launches["layer_norm_fwd"] == before + 2
+    if dtype == torch.float16:
+        assert y.dtype == dtype and _fp16_ulps(y, ref) <= 1.0
+    else:
+        _check_b2(y, ref, dtype)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("module", [FusedLayerNorm, FusedRMSNorm])
+def test_multi_dim_norm_past_1_mib_on_the_card(cuda_device, module):
+    """A differentiated FusedLayerNorm / FusedRMSNorm with
+    ``normalized_shape=(128, 4096)`` in fp32 (one 2 MiB row after the
+    flattening): B2 forward, the routed plain backward (the row is past
+    B1's H 8192), output and gradients equal to the same module's on the
+    CPU within 1e-5 (gradients: 1e-5 of their largest entry)."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 128, 4096, generator=gen) * 2 + 0.5
+    g = torch.randn(2, 128, 4096, generator=gen)
+    scale = torch.rand(128, 4096, generator=gen) + 0.5
+    res = {}
+    for dev in ("cpu", cuda_device):
+        mod = module((128, 4096), device=dev)
+        with torch.no_grad():
+            mod.scale.copy_(scale)
+        xd = x.to(dev).detach().requires_grad_(True)
+        before = dict(_build.launches)
+        y = mod(xd)
+        y.backward(g.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            moved = {n: _build.launches[n] - before[n] for n in before
+                     if _build.launches[n] != before[n]}
+            assert moved == {"layer_norm_fwd": 1, "layer_norm_bwd_plain": 1}
+        res[str(dev)] = [y, xd.grad] + [p.grad for p in mod.parameters()]
+    for a, r in zip(res[str(cuda_device)], res["cpu"]):
+        assert a.shape == r.shape
+        assert_close(a, r, atol=1e-5 * r.abs().max().item(), rtol=1e-5)
 
 
 @pytest.mark.gpu
@@ -1055,23 +1184,26 @@ def test_fp16_softmax_kernels_match_plain(cuda_device, shape, mshape, mode,
                                           scale, causal, counter):
     """B6/B7 and B8 on fp16 scores against their plain versions: within
     one fp16 ulp of values up to 1 (2^-10); B8 also with fp16 y and an
-    fp32 gradient (the dtypes mix)."""
-    x, m = _softmax_case(shape, mshape, mode, torch.float16, cuda_device)
+    fp32 gradient (the dtypes mix), with the "fold" mask's zeroing."""
+    x, m, mode = _softmax_case(shape, mshape, mode, torch.float16,
+                               cuda_device)
+    fold = m if mode == "fold" else None
     before = dict(_build.launches)
     y = softmax_fwd_kernel(x, m, scale, causal, mode)
     g = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(
         cuda_device)
-    dx = softmax_bwd_kernel(g.half(), y, scale)
-    dx32 = softmax_bwd_kernel(g, y, scale)
+    dx = softmax_bwd_kernel(g.half(), y, scale, fold)
+    dx32 = softmax_bwd_kernel(g, y, scale, fold)
     torch.cuda.synchronize()
     assert _build.launches[counter] == before[counter] + 1
     assert _build.launches["softmax_bwd"] == before["softmax_bwd"] + 2
     assert y.dtype == dx.dtype == torch.float16
     assert_close(y, softmax_fwd_plain(x, m, scale, causal, mode),
                  atol=2.0 ** -10, rtol=2.0 ** -10)
-    assert_close(dx, softmax_bwd_plain(g.half(), y, scale), atol=2.0 ** -10,
-                 rtol=2e-3)
-    assert_close(dx32, softmax_bwd_plain(g, y, scale), atol=1e-5, rtol=1e-5)
+    assert_close(dx, softmax_bwd_plain(g.half(), y, scale, fold),
+                 atol=2.0 ** -10, rtol=2e-3)
+    assert_close(dx32, softmax_bwd_plain(g, y, scale, fold), atol=1e-5,
+                 rtol=1e-5)
 
 
 # (B, H, Sq, Sk, D, causal, key mask, rate, layout): the new forward at

@@ -183,9 +183,24 @@ def test_modules_match_jax_modules(pallas_calls, name, normalized_shape,
     the forward without autograd and, with it, the output and the
     gradients to x and every param against ``jax.vjp`` of the flax module
     (fp32, 1e-4; param gradients 1e-5 of their largest entry)."""
+    _module_parity(name, normalized_shape, affine, (3, 5, 6, 8))
+
+
+@pytest.mark.parametrize("name", ["FusedLayerNorm", "FusedRMSNorm"])
+def test_modules_take_a_row_past_1_mib(pallas_calls, name):
+    """``normalized_shape=(128, 4096)`` in fp32 flattens into one 2 MiB row
+    a sample, past what kernel B2 stages on chip (the card streams it):
+    2 rows, the same checks as :func:`test_modules_match_jax_modules`
+    against the flax module (whose forward is jnp past its Pallas
+    width)."""
+    _module_parity(name, (128, 4096), True, (2, 128, 4096))
+    assert pallas_calls == []
+
+
+def _module_parity(name, normalized_shape, affine, x_shape):
     rng = np.random.RandomState(11)
-    x = (rng.randn(3, 5, 6, 8) * 2.0 + 0.5).astype(np.float32)
-    g = rng.randn(3, 5, 6, 8).astype(np.float32)
+    x = (rng.randn(*x_shape) * 2.0 + 0.5).astype(np.float32)
+    g = rng.randn(*x_shape).astype(np.float32)
     jmod = getattr(jnorm, name)(normalized_shape=normalized_shape,
                                 elementwise_affine=affine)
     variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))

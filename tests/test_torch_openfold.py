@@ -100,11 +100,11 @@ def test_layer_norm_small_shape_impl_rejects_mismatched_shape():
 
 
 # route: (mask kind, with bias, scale) -> what reaches the softmax kernel:
-# the boolean mask pre-folded into x (no mask tensor: B6), or an fp32 tile
-# added ("add") or as a fill indicator ("fill")
+# the boolean mask with the JAX pre-fold's values and gradient ("fold":
+# B6), a boolean fill mask ("fill") or an fp32 tile added ("add")
 SOFTMAX_CASES = {
-    "bool mask + bias (Evoformer)": ("bool", True, 0.25, None),
-    "bool mask, scale 0.25": ("bool", False, 0.25, None),
+    "bool mask + bias (Evoformer)": ("bool", True, 0.25, "fold"),
+    "bool mask, scale 0.25": ("bool", False, 0.25, "fold"),
     "float mask + bias": ("float", True, 0.25, "add"),
     "bool mask, scale -0.5": ("bool", False, -0.5, "fill"),
 }

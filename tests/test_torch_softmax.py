@@ -146,6 +146,37 @@ def test_softmax_routes_match_jax(name, which, shape, mspec, scale, causal,
                      rtol=0)
 
 
+@pytest.mark.parametrize("dtype,scale,causal", [
+    (torch.float32, 1.0, False), (torch.float32, 0.125, False),
+    (torch.float32, 3.0, True), (torch.bfloat16, 1.0, False),
+    (torch.bfloat16, 0.125, False), (torch.bfloat16, 3.0, True),
+    (torch.float16, 1.0, False), (torch.float16, 3.0, True)])
+def test_in_kernel_mask_equals_the_pre_fold_bit_for_bit(dtype, scale,
+                                                        causal):
+    """A boolean key mask with scale > 0 reaches the kernel's plain
+    version as it is (``"fold"``). Its y and dx must equal, bit for bit,
+    those of the route it replaces: ``where(mask, FILL / scale, x)`` by
+    hand, the unmasked softmax, and that ``where``'s backward. Sample 0's
+    keys are all masked, and a (B, 1, 1, Sk) and a (B, 1, Sq, Sk) mask are
+    both read. (fp16 at scale 0.125 takes the fill route: its fill does not
+    fit fp16.)"""
+    shape = (2, 3, 8, 40)
+    x = torch.from_numpy(_rand(shape, 21)).to(dtype)
+    g = torch.from_numpy(_rand(shape, 22)).to(dtype)
+    for mshape in ((2, 1, 1, 40), (2, 1, 8, 40)):
+        mask = torch.from_numpy(_bool_mask(mshape, 23))
+        mask[0] = True
+        xa = x.clone().requires_grad_(True)
+        ya = tsm.scaled_masked_softmax(xa, mask, scale, causal)
+        ya.backward(g)
+        xb = x.clone().requires_grad_(True)
+        yb = tsm._FusedSoftmax.apply(torch.where(mask, -30000.0 / scale, xb),
+                                     None, scale, causal, None)
+        yb.backward(g)
+        assert torch.equal(ya, yb) and torch.equal(xa.grad, xb.grad)
+        assert (xa.grad[mask.expand(shape)] == 0).all()
+
+
 def test_plain_versions_are_the_kernels_arithmetic():
     """softmax_fwd_plain with each mask mode against apex_tpu's reference,
     and softmax_bwd_plain against the JAX backward formula; a version that

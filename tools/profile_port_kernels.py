@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device time of kernels B14 (the paged read) and B2 (the LayerNorm
-forward, rows past 8192 columns) on one CUDA card, and the smoke's
-end-to-end numbers, for one or more trees of the repository, each in a
-process of its own, so that two versions are compared inside one call.
+"""Device time of kernels B14 (the paged read), B2 (the LayerNorm forward,
+rows past 8192 columns) and B6-B8 (the fused softmax) on one CUDA card,
+and the smoke's end-to-end numbers, for one or more trees of the
+repository, each in a process of its own, so that two versions are
+compared inside one call.
 
     python3 tools/profile_port_kernels.py NAME=PATH ... [--order a,b,b,a]
         [--phases]
@@ -16,7 +17,16 @@ times, through the public wrappers:
 - ``paged_prefill_attention`` at every case of ``chip_smoke.paged_cases``
   (inputs from ``chip_smoke.paged_case``, seeds as phase 1 draws them);
 - ``layer_norm_forward_kernel`` at (8192, 12288) bf16 and fp32, (8192,
-  8200) bf16 and (1024, 131072) bf16, with fp32 weight and bias;
+  8200) bf16 and (1024, 131072) bf16, with fp32 weight and bias, and, in a
+  tree that takes rows past 1 MiB, (64, 524288) fp32;
+- the softmax wrappers at BERT-large's S 128 scores (64, 16, 128, 128):
+  B6 bf16 with no mask, with the boolean (64, 1, 1, 128) key mask
+  pre-folded into x and, in a tree that reads that mask in the kernel,
+  with the mask read there; B6 fp32 with no mask; B7 bf16 with an
+  additive fp32 (64, 1, 1, 128) mask; B8 bf16 (and its masked form where
+  the tree has it); and the key mask's two routes, each forward and
+  backward: the pre-fold (``where`` + B6; B8 + the ``where``'s backward)
+  in every tree, the in-kernel mask (B6; masked B8) where the tree has it;
 
 each two ways: ``chip_smoke.time_ms`` (50 calls captured in a CUDA graph,
 one replay timed: L2-warm, as the smoke's kernels line) and
@@ -55,6 +65,8 @@ dev = torch.device("cuda")
 
 _KERNELS = _HEAD + r'''
 from torch.profiler import ProfilerActivity, profile
+from apex_tpu_torch.ops import layer_norm as lnmod
+from apex_tpu_torch.ops import softmax as sm
 from apex_tpu_torch.ops.layer_norm import layer_norm_forward_kernel
 from apex_tpu_torch.ops.paged_attention import paged_prefill_attention
 
@@ -92,6 +104,51 @@ for rws, H, dname in ((8192, 12288, "bfloat16"), (8192, 12288, "float32"),
     rows.append(row("B2", f"({rws}, {H}) {dname}",
                     lambda: layer_norm_forward_kernel(x, w, b, 1e-5, False)))
     del x
+if not hasattr(lnmod, "_FWD_MAX_ROW_BYTES"):   # a tree whose B2 takes it
+    x = (torch.randn(64, 524288, generator=g) * 2 + 0.5).to(dev)
+    w = (torch.rand(524288, generator=g) + 0.5).to(dev)
+    b = torch.randn(524288, generator=g).to(dev)
+    rows.append(row("B2", "(64, 524288) float32",
+                    lambda: layer_norm_forward_kernel(x, w, b, 1e-5, False)))
+    del x, w, b
+B, NH, S = 64, 16, 128
+x = (torch.randn(B, NH, S, S, generator=g) * 3).to(torch.bfloat16).to(dev)
+keys = torch.zeros(B, 1, 1, S, dtype=torch.bool)
+for i in range(B // 2):
+    keys[i, ..., int(torch.randint(S // 4, S, (1,), generator=g)):] = True
+keys[B - 1] = True
+keys = keys.to(dev)
+folded = torch.where(keys, -30000.0, x)
+add = torch.where(keys, -1e4, 0.0).float()
+gr = torch.randn(B, NH, S, S, generator=g).to(torch.bfloat16).to(dev)
+x32 = x.float()
+y = sm.softmax_fwd_kernel(folded, None, 1.0)
+fold = "fold" in sm._MASK_MODES
+cases = [
+    ("B6", "bf16 no mask", lambda: sm.softmax_fwd_kernel(x, None, 1.0)),
+    ("B6", "bf16 pre-folded key mask",
+     lambda: sm.softmax_fwd_kernel(folded, None, 1.0)),
+    ("B6", "fp32 no mask", lambda: sm.softmax_fwd_kernel(x32, None, 1.0)),
+    ("B7", "bf16 additive (64, 1, 1, 128) mask",
+     lambda: sm.softmax_fwd_kernel(x, add, 1.0, False, "add")),
+    ("B8", "bf16", lambda: sm.softmax_bwd_kernel(gr, y, 1.0)),
+    ("key-mask route", "pre-fold forward: where + B6",
+     lambda: sm.softmax_fwd_kernel(torch.where(keys, -30000.0, x), None,
+                                   1.0)),
+    ("key-mask route", "pre-fold backward: B8 + where",
+     lambda: torch.where(keys, 0.0, sm.softmax_bwd_kernel(gr, y, 1.0)))]
+if fold:
+    cases += [
+        ("B6", "bf16 key mask in the kernel",
+         lambda: sm.softmax_fwd_kernel(x, keys, 1.0, False, "fold")),
+        ("B8", "bf16 key mask", lambda: sm.softmax_bwd_kernel(gr, y, 1.0,
+                                                             keys)),
+        ("key-mask route", "in-kernel forward: B6",
+         lambda: sm.softmax_fwd_kernel(x, keys, 1.0, False, "fold")),
+        ("key-mask route", "in-kernel backward: masked B8",
+         lambda: sm.softmax_bwd_kernel(gr, y, 1.0, keys))]
+for kernel, case, fn in cases:
+    rows.append(row(kernel, f"(64, 16, 128, 128) {case}", fn))
 print(json.dumps(rows))
 '''
 

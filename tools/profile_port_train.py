@@ -52,6 +52,18 @@ the fp32 reference formula (``plain``: ``F.layer_norm`` in fp32 for
 LayerNorm), the backward B1 in both. The summaries go to
 ``chiprun_out/profile_port_train_ln_fwd_<bert | gpt>.json``.
 
+    python3 tools/profile_port_train.py [arm options] --trees NAME=PATH ...
+        [--order a,b,b,a]
+
+measures one arm (the options above; one ``--flash-min-seq``) for one or
+more trees of the repository, each run in a process of its own with the
+tree's package first on the path and this tool's measurement, in
+``--order`` (default: each tree once, then again in reverse): one JSON
+line a run with the wall ms and device busy ms per step, the idle share,
+the CUDA kernels launched per step (all, and by group) and the launch
+counters, each also per microbatch where ``--accum`` is given. The runs
+go to ``chiprun_out/profile_port_train_trees.json``.
+
     python3 tools/profile_port_train.py --flash-trees NAME=PATH ...
         [--order a,b,b,a]
 
@@ -264,6 +276,43 @@ def flash_kernels(trees, order, card):
             k: round(v, 4) for k, v in sorted(times.items())}}), flush=True)
 
 
+# one tree's arm, measured in a process of its own (argv: the tree's root,
+# this tool's directory, the arm's options)
+_TRAIN_CHILD = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[2])
+import profile_port_train as ppt
+print(json.dumps(ppt.tree_run(sys.argv[3:])))
+'''
+
+
+def tree_run(argv):
+    """One arm measured with the ``apex_tpu_torch`` first on the path (a
+    tree's): the summary's end-to-end numbers, kernels launched per step
+    and per microbatch."""
+    import torch
+
+    args = _parse(argv)
+    card = port_trees.card_line()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    fms = None if args.model == "gpt" else args.flash_min_seq[0]
+    r = profile_arm(args, fms, card, torch, out)
+    per_mb = args.accum or 1
+    launches = sum(r["launches_per_step"].values())
+    keep = ("card", "wall_ms_per_step", "samples_per_s",
+            "device_busy_ms_per_step", "device_idle_share",
+            "device_ms_per_step", "launches_per_step",
+            "kernel_launch_counters_per_step")
+    res = {k: r[k] for k in keep}
+    res.update(kernels_per_step=launches,
+               kernels_per_microbatch=launches / per_mb,
+               device_busy_ms_per_microbatch=(r["device_busy_ms_per_step"]
+                                              / per_mb))
+    return res
+
+
 def _group(name: str, model: str) -> str:
     for frag, group in _FLASH_GROUPS[model] + _GROUPS:
         if frag in name:
@@ -430,7 +479,7 @@ def _measure(args, flash_min_seq, card, torch, out, step, samples, ln_fwd):
                                  for ms, c, name in top[:25]])
 
 
-def main(argv=None):
+def _parse(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("bert", "gpt"), default="bert")
     ap.add_argument("--seed", type=int, default=0)
@@ -440,6 +489,8 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=None)
     ap.add_argument("--flash-min-seq", type=int, nargs="+", default=[256])
     port_trees.add_tree_args(ap, "--flash-trees")
+    ap.add_argument("--trees", nargs="*", metavar="NAME=PATH",
+                    help="measure the arm once for each tree, in --order")
     ap.add_argument("--ln-fwd", nargs="+", choices=("plain", "b2"),
                     help="measure one arm once per listed differentiated "
                     "LayerNorm forward, in this order")
@@ -451,6 +502,13 @@ def main(argv=None):
         args.seq = 1024 if gpt else 512
     if gpt and args.accum is None:
         args.accum = 4
+    return args
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    args = _parse(argv)
+    gpt = args.model == "gpt"
     import torch
 
     if not torch.cuda.is_available():
@@ -459,6 +517,33 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     card = port_trees.card_line()
+    if args.trees:
+        trees, order = port_trees.trees_and_order(args.trees, args.order)
+        # the arm's own options go to every child; the trees stay here
+        arm = []
+        skip = False
+        for a in argv:
+            if a in ("--trees", "--order"):
+                skip = True
+                continue
+            if skip and not a.startswith("--"):
+                continue
+            skip = False
+            arm.append(a)
+        runs = []
+        for name in order:
+            run = port_trees.run_child(_TRAIN_CHILD, trees[name],
+                                       str(Path(__file__).resolve().parent),
+                                       *arm, timeout=1800)
+            runs.append(dict(tree=name, **run))
+            print(json.dumps({"tree": name, **{
+                k: run[k] for k in (
+                    "card", "wall_ms_per_step", "device_busy_ms_per_step",
+                    "device_busy_ms_per_microbatch", "device_idle_share",
+                    "kernels_per_step", "kernels_per_microbatch",
+                    "kernel_launch_counters_per_step")}}), flush=True)
+        port_trees.save("profile_port_train_trees", runs)
+        return
     if args.flash_trees:
         flash_kernels(*port_trees.trees_and_order(args.flash_trees,
                                                   args.order), card)
