@@ -8,9 +8,10 @@ unless the caller asks for the CPU), casts it in place (parameter objects
 keep their identity, so an optimizer built on them stays valid), and
 turns on the optimizer's fp32 master weights where the level asks for
 them; the masters are made from the already-cast params at the first
-step, in the JAX package's order.
-
-O1 (autocast of listed functions) is not ported yet and raises.
+step, in the JAX package's order. O1 keeps the model in fp32 without
+master weights and with a dynamic scaler; the handle's ``autocast``
+casts the listed functions (:mod:`apex_tpu_torch.amp.autocast`) wherever
+the loss runs under it (``handle.traced(loss_fn)``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
-from apex_tpu_torch.amp import scaler as _scaler
+from apex_tpu_torch.amp import _amp_state
+from apex_tpu_torch.amp.autocast import autocast
 from apex_tpu_torch.amp.handle import AmpHandle
 from apex_tpu_torch.amp.scaler import LossScaler
 from apex_tpu_torch.ops._common import resolve_device
@@ -36,6 +38,12 @@ class Properties:
     master_weights: Optional[bool] = None
     loss_scale: Union[str, float] = 1.0
     enabled: bool = True
+
+    @property
+    def compute_dtype(self):
+        """The whitelist's dtype under O1: the model's cast type, else
+        bfloat16."""
+        return self.cast_model_type or torch.bfloat16
 
 
 class O0:
@@ -123,14 +131,14 @@ def initialize(model, optimizers=None, opt_level: str = "O1",
                keep_fp32_filter: Optional[Callable[[str], bool]] = None,
                device=None):
     """Returns ``(model, optimizers, handle)``; see the module docstring."""
-    _scaler.VERBOSITY["level"] = verbosity
+    _amp_state.set_verbosity(verbosity)
     if opt_level not in opt_levels:
         raise ValueError(f"Unexpected optimization level {opt_level}. "
                          f"Options are 'O0', 'O1', 'O2', 'O3'.")
     props = opt_levels[opt_level](Properties())
     props.enabled = enabled
-    _scaler.maybe_print(f"Selected optimization level {opt_level}")
-    _scaler.maybe_print(opt_levels[opt_level].brief)
+    _amp_state.maybe_print(f"Selected optimization level {opt_level}")
+    _amp_state.maybe_print(opt_levels[opt_level].brief)
     for name, value in (("cast_model_type", cast_model_type),
                         ("patch_torch_functions", patch_torch_functions),
                         ("keep_batchnorm_fp32", keep_batchnorm_fp32),
@@ -144,12 +152,13 @@ def initialize(model, optimizers=None, opt_level: str = "O1",
             setattr(props, name, value)
     model.to(resolve_device(device))
     if not enabled:
+        # as if amp were absent, with the API intact: a unity static scale
+        props.patch_torch_functions = False
         handle = AmpHandle(props, [LossScaler(loss_scale=1.0, loss_id=i)
-                                   for i in range(num_losses)])
+                                   for i in range(num_losses)],
+                           autocast(enabled=False))
+        _amp_state._amp_state.handle = handle
         return model, optimizers, handle
-    if props.patch_torch_functions:
-        raise NotImplementedError("amp O1 (autocast of listed functions) is "
-                                  "not ported yet; use O0, O2 or O3")
     if props.cast_model_type not in (None, torch.float32):
         norm_filter = None
         if props.keep_batchnorm_fp32:
@@ -165,4 +174,8 @@ def initialize(model, optimizers=None, opt_level: str = "O1",
     for opt in ([optimizers] if single else optimizers):
         if opt is not None and props.master_weights:
             opt.set_master_weights(True)
-    return model, optimizers, AmpHandle(props, scalers)
+    handle = AmpHandle(props, scalers,
+                       autocast(compute_dtype=props.compute_dtype,
+                                enabled=props.patch_torch_functions))
+    _amp_state._amp_state.handle = handle
+    return model, optimizers, handle

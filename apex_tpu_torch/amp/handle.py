@@ -1,17 +1,21 @@
-"""The amp handle: scalers, ``scale_loss``, ``update_scale`` and the
-checkpoint surface (counterpart of :mod:`apex_tpu.amp.handle`)."""
+"""The amp handle: scalers, the O1 autocast context, ``scale_loss``,
+``update_scale`` and the checkpoint surface (counterpart of
+:mod:`apex_tpu.amp.handle`)."""
 
 from __future__ import annotations
 
 from typing import List
 
+from apex_tpu_torch.amp.autocast import autocast
 from apex_tpu_torch.amp.scaler import LossScaler, ScalerState
 
 
 class AmpHandle:
-    def __init__(self, properties, scalers: List[LossScaler]):
+    def __init__(self, properties, scalers: List[LossScaler],
+                 cast_ctx: autocast):
         self._properties = properties
         self.scalers = scalers
+        self.autocast = cast_ctx
         # the last state of each scaler, for state_dict()
         self.scaler_states = [s.init() for s in scalers]
 
@@ -28,6 +32,19 @@ class AmpHandle:
 
     def scaler(self, loss_id: int = 0) -> LossScaler:
         return self.scalers[loss_id]
+
+    def traced(self, loss_fn):
+        """``loss_fn`` run under :attr:`autocast` when this opt level
+        patches functions (O1), else unchanged: what a step builder calls
+        its loss through."""
+
+        def traced(*args, **kwargs):
+            if self._properties.patch_torch_functions:
+                with self.autocast:
+                    return loss_fn(*args, **kwargs)
+            return loss_fn(*args, **kwargs)
+
+        return traced
 
     def scale_loss(self, loss, state: ScalerState, loss_id: int = 0):
         """The scaled loss to call ``backward()`` on; its gradients stay

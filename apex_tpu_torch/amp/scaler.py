@@ -14,22 +14,14 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Union
 
+from apex_tpu_torch.amp._amp_state import maybe_print
+
 
 class ScalerState(NamedTuple):
     loss_scale: float
     unskipped: int = 0       # consecutive overflow-free steps
     steps_skipped: int = 0   # lifetime skipped-step count
     hysteresis: int = 1      # overflows left before the scale backs off
-
-
-VERBOSITY = {"level": 1}
-
-
-def maybe_print(msg: str):
-    # stdout, like the reference's plain print(): downstream scripts grep
-    # training output for the overflow line
-    if VERBOSITY["level"] >= 1:
-        print(msg, flush=True)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,9 @@
+"""``multi_tensor_applier`` (counterpart of
+:mod:`apex_tpu.multi_tensor_apply`)."""
+
+from apex_tpu_torch.multi_tensor_apply.multi_tensor_apply import (
+    MultiTensorApply,
+    multi_tensor_applier,
+)
+
+__all__ = ["MultiTensorApply", "multi_tensor_applier"]

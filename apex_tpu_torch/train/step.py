@@ -27,8 +27,10 @@ carries only the step count and the scaler state. ``loss_fn(microbatch,
 generator)`` returns the loss (or ``(loss, aux)`` with ``has_aux``);
 ``generator`` is the step's ``torch.Generator``, from which a model draws
 its dropout seeds, one forward's worth per microbatch (JAX threads a
-dropout key instead). The JAX step's ``donate`` has no counterpart here:
-every update is in place.
+dropout key instead). Handed an ``AmpHandle``, the step calls its loss
+through ``amp.traced``, so under O1 the forward runs under the handle's
+autocast, as the JAX step's does. The JAX step's ``donate`` has no
+counterpart here: every update is in place.
 
 The overflow decision is read on the host once per global step (the
 skip is a Python branch, not an in-graph select); the microbatch loop and
@@ -40,7 +42,6 @@ the accumulation issue no host sync. Not ported: ``ddp``, ``mesh``,
 
 from __future__ import annotations
 
-import inspect
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -49,6 +50,7 @@ from torch.utils import _pytree as pytree
 
 from apex_tpu_torch.amp.handle import AmpHandle
 from apex_tpu_torch.amp.scaler import LossScaler, ScalerState
+from apex_tpu_torch.ops.multi_tensor import all_finite, multi_tensor_l2norm
 from apex_tpu_torch.optimizers._base import FusedOptimizer
 
 
@@ -84,15 +86,6 @@ def _check_batch(batch, accum_steps: int):
                 f"every batch leaf needs a leading microbatch axis of "
                 f"length accum_steps={accum_steps}; got shape {shape}. "
                 f"Reshape [accum*B, ...] data to [accum, B, ...].")
-
-
-def _all_finite(tensors, device) -> torch.Tensor:
-    """Device bool: every element of every fp32 tensor is finite (the
-    amp overflow check, multiplying by 1 in place)."""
-    found = torch.zeros(1, dtype=torch.float32, device=device)
-    torch._amp_foreach_non_finite_check_and_unscale_(
-        tensors, found, torch.ones(1, device=device))
-    return found[0] == 0
 
 
 class TrainStep:
@@ -167,7 +160,7 @@ class TrainStep:
         lr = (None if self.lr_schedule is None
               else self.lr_schedule(state.step))
         # the step's one host read
-        skipped = not bool(_all_finite(grads, self.device))
+        skipped = not bool(all_finite(grads))
         if not skipped:
             self.optimizer.step(grads=grads, lr=lr)
         new_sst = self.scaler.update(state.scaler_state, skipped)
@@ -179,7 +172,8 @@ class TrainStep:
             "step": state.step + 1,
         }
         if self.with_grad_norm:
-            metrics["grad_norm"] = FusedOptimizer.global_grad_norm(grads)
+            metrics["grad_norm"] = multi_tensor_l2norm(None, None,
+                                                       [grads])[0]
         if aux is not None:
             metrics["aux"] = aux
         return TrainState(state.step + 1, new_sst), metrics
@@ -210,15 +204,6 @@ class TrainStep:
         from apex_tpu_torch.train.loop import TrainLoop
 
         return TrainLoop(self, state, **kwargs)
-
-
-def _takes_explicit_grads(optimizer) -> bool:
-    """A port ``Fused*`` optimizer whose ``step`` takes ``grads=``,
-    ``grad_scale=`` and ``lr=`` (the step hands it the fp32 averages)."""
-    if not isinstance(optimizer, FusedOptimizer):
-        return False
-    params = inspect.signature(type(optimizer).step).parameters
-    return all(k in params for k in ("grads", "grad_scale", "lr"))
 
 
 def _unported(name: str, item: str):
@@ -253,9 +238,11 @@ def build_train_step(
         ``torch.Generator`` for dropout seeds.
       optimizer: a port ``Fused*`` optimizer whose ``step`` takes
         ``grads=``, ``grad_scale=`` and ``lr=`` (``FusedAdam``,
-        ``FusedLAMB``); the step differentiates its parameters.
-      amp: an ``AmpHandle`` from ``amp.initialize``, a bare
-        ``LossScaler``, or None (unity static scale).
+        ``FusedLAMB``, ``FusedSGD``, ``FusedAdagrad``, ``FusedNovoGrad``);
+        the step differentiates its parameters.
+      amp: an ``AmpHandle`` from ``amp.initialize`` (its loss scaler and,
+        under O1, its autocast around the loss), a bare ``LossScaler``, or
+        None (unity static scale).
       accum_steps: microbatches per optimizer step; batch leaves must be
         ``[accum_steps, ...]``.
       lr_schedule: optional ``lr_schedule(completed_steps) -> lr``.
@@ -269,11 +256,14 @@ def build_train_step(
                       ("num_heads", num_heads)):
         if val is not None:
             _unported(name, "A.4 item 20")
-    if not _takes_explicit_grads(optimizer):
+    if not isinstance(optimizer, FusedOptimizer):
         raise NotImplementedError(
             f"build_train_step takes the port's Fused* optimizers, whose "
             f"step accepts grads=, grad_scale= and lr= (FusedAdam, "
-            f"FusedLAMB); got {type(optimizer).__name__} (the flat "
+            f"FusedLAMB, FusedSGD, ...); got {type(optimizer).__name__} "
+            f"(the flat "
             f"DistributedFused* optimizers wait for ROADMAP A.4 item 20)")
+    if isinstance(amp, AmpHandle):
+        loss_fn = amp.traced(loss_fn)
     return TrainStep(loss_fn, optimizer, _resolve_scaler(amp, loss_id),
                      accum_steps, has_aux, lr_schedule, with_grad_norm, seed)

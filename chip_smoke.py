@@ -158,6 +158,25 @@ fp32 at 64 residues and 16 clusters; last, a differentiated
 ``FusedLayerNorm`` and ``FusedRMSNorm`` of ``normalized_shape`` (128,
 4096) in fp32 (a 2 MiB row: B2's streamed path) against the CPU.
 
+Phase 8 runs BASELINE ``configs[0]`` and ``configs[2]``, which no port
+kernel carries (plain PyTorch and cuBLAS; every launch counter stays 0).
+``configs[0]``: ``examples/train_mnist.py``'s recipe (the 784-256-10
+``MLP`` on synthetic MNIST-shaped blobs from ``--seed``, batch 128,
+FusedAdam at lr 1e-3, 60 steps through ``build_train_step``, an inf in
+the input at step 10) under ``amp.initialize`` at O0 and then O1: the
+overflow line printed, the step skipped with the params unchanged, O1's
+scale halved, the losses finite and falling, and the card's losses
+against the CPU's (O0 within 1e-4, O1 within 2^-7 of the loss).
+``configs[2]``: ``bench.py:588-598``'s ResNet-50-class set (53 conv, 106
+bn, fc 2048 x 1000; 23.0M parameters in 160 leaves) through 8 chained
+FusedLAMB steps (``multi_tensor_applier``) against 8 steps of
+``bench.py:612-637``'s per-leaf chain, both timed on the card (ms and
+their ratio printed with the card line); then one step each of FusedSGD
+(nesterov), FusedAdagrad, FusedNovoGrad, FusedAdam with bf16 moments
+(stochastic rounding on) and FusedMixedPrecisionLamb (bf16 params), each
+finite, timed and its transient device memory measured, and held against
+the CPU on ``bench.py``'s fast set.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -321,11 +340,13 @@ def device_ms(fn, iters=3):
 
 def kernels_per_call(fn, tries=3):
     """CUDA kernels one call of ``fn`` launches, by ``device_ms``. The
-    profiler now and then records no device activity at all for a window;
-    such a window is taken again, up to ``tries`` times."""
+    profiler now and then records no device activity at all for a window,
+    or drops a call's kernels from it (a count that is not a whole number
+    of kernels a call); such a window is taken again, up to ``tries``
+    times."""
     for _ in range(tries):
         _, n = device_ms(fn)
-        if n > 0:
+        if n > 0 and n == int(n):
             break
     return n
 
@@ -2920,6 +2941,345 @@ def openfold_tier(torch, dev, seed, card, steps=3, e=EVOFORMER):
     return rec
 
 
+# -- phase 8: BASELINE configs[0] and [2]: amp O0/O1, the fused optimizers --
+
+# examples/train_mnist.py's recipe: the 784-256-10 MLP, batch 128, FusedAdam
+# at lr 1e-3, 60 steps, an inf in the input at step 10
+MNIST = dict(sizes=(784, 256, 10), n=4096, batch=128, lr=1e-3, steps=60,
+             inject=10)
+
+
+def synthetic_mnist(n, seed):
+    """Class-separable 784-d Gaussian blobs standing in for MNIST
+    (``examples/train_mnist.py``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(10, 784).astype("float32") * 0.5
+    labels = rng.randint(0, 10, n)
+    images = centers[labels] + rng.randn(n, 784).astype("float32")
+    return images, labels
+
+
+def mnist_train(torch, F, dev, seed, opt_level, cfg=MNIST):
+    """``amp.initialize`` at ``opt_level`` on the MLP (weights from
+    ``seed``), ``build_train_step`` with FusedAdam, ``cfg["steps"]`` steps
+    on ``dev``; the ``cfg["inject"]``-th batch gets an inf. Returns the
+    losses, what the overflow step did, amp's printed lines and the launch
+    counters of the run."""
+    import contextlib
+    import io
+
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.mlp import MLP
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.train import build_train_step
+
+    images, labels = synthetic_mnist(cfg["n"], seed)
+    model = MLP(cfg["sizes"], device="cpu",
+                generator=torch.Generator().manual_seed(seed))
+    opt = FusedAdam(model.parameters(), lr=cfg["lr"])
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        model, opt, handle = amp.initialize(model, opt, opt_level=opt_level,
+                                            device=dev)
+    cdt = handle.properties.cast_model_type or handle.properties.compute_dtype
+
+    def loss_fn(mb, gen):
+        return F.cross_entropy(model(mb["x"].to(cdt)).float(), mb["y"])
+
+    ts = build_train_step(loss_fn, opt, amp=handle)
+    state = ts.init()
+    x_all = torch.from_numpy(images).to(dev)
+    y_all = torch.from_numpy(labels).to(dev)
+    nb, b = cfg["n"] // cfg["batch"], cfg["batch"]
+    losses, rec = [], {}
+    _build.reset_launch_counts()
+    for step in range(cfg["steps"]):
+        i = step % nb
+        x = x_all[i * b:(i + 1) * b].clone()
+        batch = {"x": x[None], "y": y_all[i * b:(i + 1) * b][None]}
+        if step != cfg["inject"]:
+            state, m = ts(state, batch)
+        else:
+            x[0, 0] = float("inf")
+            before = [p.detach().clone() for p in model.parameters()]
+            scale = state.scaler_state.loss_scale
+            adam_steps = opt.param_groups[0]["step"]
+            with contextlib.redirect_stdout(log):
+                state, m = ts(state, batch)
+            rec.update(
+                skipped=m["skipped"], scale_before=scale,
+                scale_after=state.scaler_state.loss_scale,
+                params_unchanged=all(torch.equal(p, q) for p, q in zip(
+                    model.parameters(), before)),
+                adam_step_held=opt.param_groups[0]["step"] == adam_steps)
+        losses.append(float(m["loss"]))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rec.update(losses=losses, log=log.getvalue(),
+               adam_steps=opt.param_groups[0]["step"],
+               launches={k: v for k, v in _build.launches.items() if v})
+    return rec
+
+
+def phase8_mnist(torch, F, dev, seed, card):
+    """BASELINE ``configs[0]``: the MNIST MLP under ``amp.initialize`` at O0
+    and then O1, on the card and on the CPU. At the injected step the step
+    is skipped with the params and Adam's step count unchanged and the
+    overflow line printed; O1's dynamic scale halves (O0's static 1.0
+    stays). Every other loss is finite, the last ten average below the
+    first ten, and the card's losses match the CPU's step by step: O0
+    within 1e-4, O1 within one bf16 ulp of the loss (2^-7 relative: bf16
+    inputs, weights and logits, fp32-summed products). No port kernel
+    runs on this path (every launch counter 0)."""
+    import math
+
+    out = {}
+    for level in ("O0", "O1"):
+        t = time.perf_counter()
+        rec = mnist_train(torch, F, dev, seed, level)
+        rec["wall_s"] = time.perf_counter() - t
+        cpu = mnist_train(torch, F, torch.device("cpu"), seed, level)
+        losses, inj = rec["losses"], MNIST["inject"]
+        check("Gradient overflow." in rec["log"],
+              f"phase 8 {level}: no overflow line in {rec['log']!r}")
+        skip = {k: rec[k] for k in ("skipped", "params_unchanged",
+                                    "adam_step_held")}
+        check(all(skip.values()), f"phase 8 {level}: the overflow step was "
+              f"not skipped cleanly {skip}")
+        want = rec["scale_before"] / (2.0 if level == "O1" else 1.0)
+        check(rec["scale_after"] == want,
+              f"phase 8 {level}: scale {rec['scale_before']} -> "
+              f"{rec['scale_after']}, expected {want}")
+        clean = [x for i, x in enumerate(losses) if i != inj]
+        check(all(math.isfinite(x) for x in clean),
+              f"phase 8 {level}: losses {losses}")
+        first, last = sum(clean[:10]) / 10, sum(clean[-10:]) / 10
+        check(last < first, f"phase 8 {level}: loss not falling "
+              f"({first:.4f} -> {last:.4f})")
+        check(rec["adam_steps"] == MNIST["steps"] - 1,
+              f"phase 8 {level}: {rec['adam_steps']} Adam steps")
+        check(not rec["launches"], f"phase 8 {level}: port kernels "
+              f"{rec['launches']} on a path that has none")
+        diffs = [abs(a - b) for i, (a, b) in enumerate(
+            zip(losses, cpu["losses"])) if i != inj]
+        tol = ([1e-4] * len(diffs) if level == "O0" else
+               [2.0 ** -7 * abs(b) for i, b in enumerate(cpu["losses"])
+                if i != inj])
+        worst = max(range(len(diffs)), key=lambda i: diffs[i] / tol[i])
+        check(diffs[worst] <= tol[worst],
+              f"phase 8 {level}: card vs CPU loss differs by "
+              f"{diffs[worst]:.3g} at a clean step (tol {tol[worst]:.3g})")
+        rec.update(cpu_losses=cpu["losses"], card_vs_cpu_max_abs=max(diffs))
+        out[level] = rec
+        print(f"[phase 8 configs[0] {level}] {card}: MLP {MNIST['sizes']}, "
+              f"batch {MNIST['batch']}, FusedAdam, {MNIST['steps']} steps, "
+              f"inf at step {inj}: skipped, params unchanged, scale "
+              f"{rec['scale_before']} -> {rec['scale_after']} | loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (first/last ten "
+              f"{first:.4f}/{last:.4f}) | card vs CPU max |d loss| "
+              f"{max(diffs):.3g} | wall {rec['wall_s']:.2f} s | "
+              f"{rec['log'].strip().splitlines()[-1]}", flush=True)
+    return out
+
+
+def resnet50_set(torch, dev, seed, fast=False):
+    """``bench.py:588-598``'s ResNet-50-class parameter set: 53 conv
+    leaves (3, 3, 128, 256 or 512), 106 bn leaves (512,) and fc (2048,
+    1000), 23.0M parameters in 160 leaves (``fast``: 5 conv, 10 bn, fc
+    (128, 1000)); gradients 0.01 of the params."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n_conv, n_bn = (5, 10) if fast else (53, 106)
+    leaves = [rng.randn(3, 3, 128, 256 if i % 3 else 512).astype("f4") * .01
+              for i in range(n_conv)]
+    leaves += [rng.randn(512).astype("f4") for _ in range(n_bn)]
+    leaves.append(rng.randn(128 if fast else 2048, 1000).astype("f4") * .01)
+    params = [torch.from_numpy(x).to(dev) for x in leaves]
+    return params, [p * 0.01 for p in params]
+
+
+def per_leaf_lamb(torch, params, grads, m, v, step):
+    """One step of ``bench.py:612-637``'s per-leaf chain, eager PyTorch:
+    the same LAMB as ``FusedLAMB(lr=1e-3)``, the global-norm clip included,
+    one leaf at a time. Replaces the entries of ``params``, ``m``, ``v``."""
+    step += 1
+    gn = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    clip = torch.where(gn > 1.0, 1.0 / gn, torch.ones_like(gn))
+    for i, p in enumerate(params):
+        g = grads[i] * clip
+        m[i] = 0.9 * m[i] + 0.1 * g
+        v[i] = 0.999 * v[i] + 0.001 * g * g
+        upd = (m[i] / (1 - 0.9 ** step)) / (
+            torch.sqrt(v[i] / (1 - 0.999 ** step)) + 1e-6) + 0.01 * p
+        tn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(upd)
+        trust = torch.where((tn > 0) & (un > 0), tn / un, torch.ones_like(tn))
+        params[i] = p - 1e-3 * trust * upd
+    return step
+
+
+# the other optimizers' one-step runs: (name, class, knobs, params dtype)
+PHASE8_OPTIMIZERS = (
+    ("FusedSGD nesterov", "FusedSGD",
+     dict(lr=0.1, momentum=0.9, nesterov=True, weight_decay=1e-4),
+     "float32"),
+    ("FusedAdagrad", "FusedAdagrad", dict(lr=1e-2, weight_decay=1e-4),
+     "float32"),
+    ("FusedNovoGrad", "FusedNovoGrad", dict(lr=1e-2, weight_decay=1e-3),
+     "float32"),
+    ("FusedAdam bf16 moments", "FusedAdam",
+     dict(lr=1e-3, weight_decay=0.01, moments_dtype="bfloat16"), "float32"),
+    ("FusedMixedPrecisionLamb", "FusedMixedPrecisionLamb",
+     dict(lr=1e-3), "bfloat16"),
+)
+
+
+def step_peak_bytes(torch, fn):
+    """Bytes of device memory that one call of ``fn`` allocates beyond what
+    is held before it (its transient peak)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def optimizer_step(torch, name, kw, dtype, dev, seed, fast, steps=1):
+    """``steps`` steps of one optimizer on the parameter set; returns the
+    fp32 params it holds (the masters for 16-bit params) and the
+    optimizer."""
+    from apex_tpu_torch import optimizers
+
+    params, grads = resnet50_set(torch, dev, seed, fast)
+    dt = getattr(torch, dtype)
+    params = [torch.nn.Parameter(p.to(dt)) for p in params]
+    grads = [g.to(dt) for g in grads]
+    opt = getattr(optimizers, name)(params, **kw)
+    for _ in range(steps):
+        opt.step(grads=grads)
+    held = [opt.state[p]["master"] if "master" in opt.state[p] else
+            p.detach() for p in params]
+    return held, opt, params, grads
+
+
+def phase8_optimizers(torch, dev, seed, card, chain=8):
+    """BASELINE ``configs[2]`` on the card: ``chain`` chained FusedLAMB
+    steps (each one ``multi_tensor_applier`` pass of the multi-tensor ops)
+    against the same number of steps of the per-leaf chain, both timed by
+    CUDA events around the host loop (the per-leaf chain is bounded by its
+    launches) and by the profiler's device time; the two arms compute one
+    optimizer (their updates agree within 1e-4 of their norm). Then one
+    step of each other optimizer at the full set (finite, timed) and the
+    card against the CPU at fp32 on ``bench.py``'s fast set: params and
+    masters within 1e-5 relative (+1e-7; reductions in another order),
+    bf16 moments within one bf16 ulp (stochastic rounding draws other
+    bits on each device)."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.optimizers import FusedLAMB
+
+    params, grads = resnet50_set(torch, dev, seed)
+    n = sum(p.numel() for p in params)
+    check((len(params), n) == (160, 23041024),
+          f"phase 8: the parameter set is {len(params)} leaves, {n}")
+    fused_p = [torch.nn.Parameter(p.clone()) for p in params]
+    lamb = FusedLAMB(fused_p, lr=1e-3)
+    eager = dict(p=[p.clone() for p in params],
+                 m=[torch.zeros_like(p) for p in params],
+                 v=[torch.zeros_like(p) for p in params], step=0)
+
+    def fused_chain():
+        for _ in range(chain):
+            lamb.step(grads=grads)
+
+    def eager_chain():
+        for _ in range(chain):
+            eager["step"] = per_leaf_lamb(torch, eager["p"], grads,
+                                          eager["m"], eager["v"],
+                                          eager["step"])
+
+    _build.reset_launch_counts()
+    fused_chain()
+    eager_chain()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launches.items() if v}
+    check(not launches, f"phase 8: port kernels {launches} on a path that "
+          f"has none")
+    du = torch.cat([(a.detach() - p).reshape(-1)
+                    for a, p in zip(fused_p, params)])
+    de = torch.cat([(a - p).reshape(-1) for a, p in zip(eager["p"], params)])
+    rel = ((du - de).norm() / de.norm()).item()
+    check(rel <= 1e-4, f"phase 8: FusedLAMB and the per-leaf chain differ "
+          f"by {rel:.3g} of the update")
+    ms = {"fused": [], "per_leaf": []}
+    busy, kernels = {}, {}
+    for arm in ("fused", "per_leaf", "per_leaf", "fused"):
+        fn = fused_chain if arm == "fused" else eager_chain
+        ms[arm].append(time_ms(fn, iters=3, warmup=1, graph=False))
+    for arm, fn in (("fused", fused_chain), ("per_leaf", eager_chain)):
+        busy[arm], kernels[arm] = device_ms(fn, iters=2)
+    fused_ms = sum(ms["fused"]) / 2
+    eager_ms = sum(ms["per_leaf"]) / 2
+    rec = dict(card=card, leaves=len(params), params=n, chain=chain,
+               ms_per_chain=ms, fused_ms=fused_ms, per_leaf_ms=eager_ms,
+               speedup=eager_ms / fused_ms, device_ms_per_chain=busy,
+               kernels_per_chain=kernels, update_rel_diff=rel)
+    print(f"[phase 8 configs[2]] {card}: {chain} chained FusedLAMB steps "
+          f"(multi_tensor_applier) on the ResNet-50 set ({n} params, "
+          f"{len(params)} leaves) {fused_ms:.3f} ms vs the per-leaf chain "
+          f"{eager_ms:.3f} ms: {eager_ms / fused_ms:.2f}x | runs "
+          f"{ {k: [round(t, 3) for t in v] for k, v in ms.items()} } | "
+          f"device ms {busy['fused']:.3f} vs {busy['per_leaf']:.3f} "
+          f"({kernels['fused']:.0f} vs {kernels['per_leaf']:.0f} kernels) | "
+          f"update rel diff {rel:.2g}", flush=True)
+    del params, grads, fused_p, lamb, eager
+    torch.cuda.empty_cache()
+
+    steps = {}
+    for label, name, kw, dtype in PHASE8_OPTIMIZERS:
+        held, opt, ps, gs = optimizer_step(torch, name, kw, dtype, dev, seed,
+                                           fast=False)
+        check(all(bool(torch.isfinite(h).all()) for h in held),
+              f"phase 8: {label} stepped to non-finite params")
+        t = time_ms(lambda: opt.step(grads=gs), iters=5, warmup=1,
+                    graph=False)
+        peak = step_peak_bytes(torch, lambda: opt.step(grads=gs))
+        card_held, card_opt, cps, _ = optimizer_step(
+            torch, name, kw, dtype, dev, seed, fast=True)
+        cpu_held, cpu_opt, cpu_ps, _ = optimizer_step(
+            torch, name, kw, dtype, torch.device("cpu"), seed, fast=True)
+        worst = 0.0
+        for a, b in zip(card_held, cpu_held):
+            a = a.float().cpu()
+            err = ((a - b.float()).abs() - 1e-5 * b.float().abs()).max()
+            worst = max(worst, err.item())
+        check(worst <= 1e-7, f"phase 8: {label} card vs CPU params differ "
+              f"by {worst:.3g} past 1e-5 relative")
+        if kw.get("moments_dtype") == "bfloat16":
+            for p, q in zip(cps, cpu_ps):
+                for key in ("exp_avg", "exp_avg_sq"):
+                    a = card_opt.state[p][key].float().cpu()
+                    b = cpu_opt.state[q][key].float()
+                    ulp = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
+                    check(bool(((a - b).abs() <= ulp + 1e-30).all()),
+                          f"phase 8: {label} {key} card vs CPU past one "
+                          f"bf16 ulp")
+        steps[label] = dict(ms_per_step=t, card_vs_cpu_excess=worst,
+                            peak_bytes_per_param=peak / n)
+        del held, opt, ps, gs, card_held, card_opt, cps
+        torch.cuda.empty_cache()
+    rec["other_optimizers"] = steps
+    per_step = {k: round(v["ms_per_step"], 3) for k, v in steps.items()}
+    peaks = {k: round(v["peak_bytes_per_param"], 2) for k, v in steps.items()}
+    print(f"[phase 8 optimizers] {card}: one step each on the ResNet-50 set, "
+          f"finite, card vs CPU on the fast set within 1e-5 relative | ms "
+          f"per step {per_step} | transient peak bytes a param {peaks}",
+          flush=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2998,6 +3358,10 @@ def main(argv=None):
                      seed, card)
     wide = timed("phase 7 multi-dim norms past 1 MiB", wide_norms, torch,
                  dev, seed, card)
+    mnist = timed("phase 8 configs[0] amp O0/O1", phase8_mnist, torch, F,
+                  dev, seed, card)
+    optimizers = timed("phase 8 configs[2] fused optimizers",
+                       phase8_optimizers, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the three training phases, B2 and B1 also on the contrib modules'
@@ -3085,7 +3449,7 @@ def main(argv=None):
         flash_tiled=tiled, flash_fwd16=fwd16, engine=runs, train=train,
         train_s128=train128, train_gpt=gpt, contrib_mha=mha,
         norm_microbench=norm_bench, openfold=openfold, wide_norms=wide,
-        checks=checks,
+        amp_mnist=mnist, fused_optimizers=optimizers, checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

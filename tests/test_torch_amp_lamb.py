@@ -55,8 +55,14 @@ def test_o2_casts_all_but_norms_and_turns_on_masters():
     assert net.dense.weight.dtype == torch.bfloat16
     assert net.out_ln.weight.dtype == torch.float32
     assert opt.master_weights and handle.opt_level == "O2"
-    with pytest.raises(NotImplementedError, match="O1"):
-        amp.initialize(_Net(), None, opt_level="O1", device="cpu")
+    # O1 keeps the model fp32, without masters, behind a dynamic scaler
+    net1, opt1 = _Net(), None
+    net1, _, h1 = amp.initialize(net1, opt1, opt_level="O1", verbosity=0,
+                                 device="cpu")
+    assert net1.dense.weight.dtype == torch.float32
+    assert h1.opt_level == "O1" and h1.autocast.enabled
+    assert h1.autocast.compute_dtype == torch.bfloat16
+    assert h1.init_state().loss_scale == 2.0 ** 16
 
 
 def test_scaler_ladder_matches_jax():
@@ -156,7 +162,11 @@ def test_lamb_overflow_skips_and_the_scale_halves():
 
 
 def test_lamb_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        FusedLAMB([nn.Parameter(torch.zeros(2))], moments_dtype="bfloat16")
+    with pytest.raises(ValueError, match="moments_dtype"):
+        FusedLAMB([nn.Parameter(torch.zeros(2))], moments_dtype="float16")
+    p = nn.Parameter(torch.zeros(2))
+    opt = FusedLAMB([p], moments_dtype="bfloat16")
+    opt.step(grads=[torch.ones(2)])
+    assert opt.state[p]["exp_avg_sq"].dtype == torch.bfloat16
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedLAMB([nn.Parameter(torch.zeros(2))], amsgrad=True)

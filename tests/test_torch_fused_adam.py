@@ -103,7 +103,11 @@ def test_knobs_that_raise():
     p = [torch.nn.Parameter(torch.zeros(3))]
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(p, amsgrad=True)
-    with pytest.raises(NotImplementedError, match="moments"):
-        FusedAdam(p, moments_dtype="bfloat16")
+    with pytest.raises(ValueError, match="moments_dtype"):
+        FusedAdam(p, moments_dtype="float16")
+    # the bf16 moment tier is ported: its state is bf16 from the first step
+    opt = FusedAdam(p, moments_dtype="bfloat16")
+    opt.step(grads=[torch.ones(3)])
+    assert opt.state[p[0]]["exp_avg"].dtype == torch.bfloat16
     with pytest.raises(ValueError, match="gradients for"):
         FusedAdam(p).step(grads=[])

@@ -1685,3 +1685,181 @@ def test_sm90_backward_is_bit_identical_run_to_run(
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# -- amp O1, the fp32-output dense product, stochastic rounding (no kernels:
+# plain PyTorch and cuBLAS on card tensors) --------------------------------
+
+def _o1_entry_inputs(dev, dtype):
+    """One call of every amp list entry on card tensors of ``dtype`` (the
+    same calls as the CPU parity test ``tests/test_torch_amp_o1.py``), and
+    the four cases of O1's contract on fp32 tensors."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.fused_dense import fused_dense as fd
+
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, pos=False):
+        t = torch.randn(*shape, generator=g)
+        return (t.abs() + 0.5 if pos else t).to(dev, dtype)
+
+    a, b, v, w = r(4, 3), r(3, 2), r(3), r(4)
+    a3, b3, c = r(2, 4, 3), r(2, 3, 2), r(4, 2)
+    x1, x2, x3 = r(1, 2, 8), r(1, 2, 6, 6), r(1, 2, 5, 5, 5)
+    p, u = r(4, 5, pos=True), torch.tanh(r(4, 5)) * 0.9
+    lab = torch.tensor([0, 3, 1, 4], device=dev)
+    t = (torch.rand(4, 5, generator=g) > 0.5).to(dev, dtype)
+    white = {
+        "matmul": lambda: torch.matmul(a, b), "mm": lambda: torch.mm(a, b),
+        "bmm": lambda: torch.bmm(a3, b3), "mv": lambda: torch.mv(a, v),
+        "addmm": lambda: torch.addmm(c, a, b),
+        "baddbmm": lambda: torch.baddbmm(
+            torch.zeros(2, 4, 2, device=dev, dtype=dtype), a3, b3),
+        "addbmm": lambda: torch.addbmm(c, a3, b3),
+        "addmv": lambda: torch.addmv(w, a, v), "dot": lambda: torch.dot(v, v),
+        "vdot": lambda: torch.vdot(v, v), "inner": lambda: torch.inner(v, v),
+        "outer": lambda: torch.outer(v, w), "ger": lambda: torch.ger(v, w),
+        "tensordot": lambda: torch.tensordot(a, b, 1),
+        "einsum": lambda: torch.einsum("ij,jk->ik", a, b),
+        "linalg.multi_dot": lambda: torch.linalg.multi_dot([a, b, b.t()]),
+        "linear": lambda: F.linear(a, b.t()),
+        "conv1d": lambda: F.conv1d(x1, r(3, 2, 3)),
+        "conv2d": lambda: F.conv2d(x2, r(3, 2, 3, 3)),
+        "conv3d": lambda: F.conv3d(x3, r(3, 2, 3, 3, 3)),
+        "conv_transpose1d": lambda: F.conv_transpose1d(x1, r(2, 3, 3)),
+        "conv_transpose2d": lambda: F.conv_transpose2d(x2, r(2, 3, 3, 3)),
+        "conv_transpose3d": lambda: F.conv_transpose3d(x3,
+                                                       r(2, 3, 3, 3, 3)),
+    }
+    black = {
+        name: (lambda name=name, arg=arg: getattr(torch, name)(arg))
+        for name, arg in (("exp", a), ("exp2", a), ("expm1", a), ("log", p),
+                          ("log1p", p), ("log2", p), ("log10", p),
+                          ("reciprocal", p), ("cosh", a), ("sinh", a),
+                          ("tan", u), ("acos", u), ("asin", u),
+                          ("prod", a), ("rsqrt", p), ("erfinv", u))}
+    black.update({
+        "logaddexp": lambda: torch.logaddexp(a, a),
+        "logaddexp2": lambda: torch.logaddexp2(a, a),
+        "pow": lambda: torch.pow(p, 2.0),
+        "cumsum": lambda: torch.cumsum(a, 0),
+        "cumprod": lambda: torch.cumprod(a, 0),
+        "linalg.norm": lambda: torch.linalg.norm(a),
+        "logsumexp": lambda: torch.logsumexp(a, 0),
+        "softmax": lambda: F.softmax(a, -1),
+        "log_softmax": lambda: F.log_softmax(a, -1),
+        "softplus": lambda: F.softplus(a),
+        "cross_entropy": lambda: F.cross_entropy(p, lab),
+        "binary_cross_entropy_with_logits":
+            lambda: F.binary_cross_entropy_with_logits(p, t),
+    })
+    # the four cases: an operator is not patched, a call is, the
+    # fp32-output product keeps fp32, a bf16 exp goes fp32
+    a32, b32 = a.float(), b.float()
+    four = [lambda: a32 @ b32, lambda: torch.matmul(a32, b32),
+            lambda: fd.matmul_fp32_out(a32, b32),
+            lambda: torch.exp(a32.to(torch.bfloat16))]
+    return white, black, four
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_o1_cast_map_on_card_tensors(cuda_device, in_dtype):
+    """O1's whitelist gives bf16 and its blacklist fp32 on CUDA tensors of
+    either dtype, as on the CPU (explicit tables, not torch.autocast's
+    CUDA lists): fp32 inputs hold the whitelist to its cast, bf16 inputs
+    the blacklist. ``float_power`` computes in float64 whatever its
+    inputs."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp import lists
+
+    white, black, four = _o1_entry_inputs(cuda_device, in_dtype)
+    assert set(white) | {"matmul_fp32_out"} == {
+        a for _, a in lists.WHITELIST}
+    assert set(black) | {"float_power"} == {a for _, a in lists.BLACKLIST}
+    with amp.autocast():
+        for name, fn in white.items():
+            assert fn().dtype == torch.bfloat16, name
+        for name, fn in black.items():
+            assert fn().dtype == torch.float32, name
+        assert torch.float_power(torch.ones(2, device=cuda_device),
+                                 2.0).dtype == torch.float64
+        assert [f().dtype for f in four] == [
+            torch.float32, torch.bfloat16, torch.float32, torch.float32]
+    assert torch.matmul(torch.ones(2, 2, device=cuda_device),
+                        torch.ones(2, 2, device=cuda_device)).dtype == \
+        torch.float32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fused_dense_fp32_output_product_on_card(cuda_device, dtype):
+    """16-bit FusedDense on the card: cuBLAS's product with an fp32 output
+    within 1e-5 relative of the CPU's fp32 product of the same values (the
+    same exact products, summed in another order), the module's output
+    within one ulp of x's dtype of the CPU module's (+1e-5 near 0, the
+    sums' reorder error), and the backward of
+    the fp32-output product against the CPU's autograd (1e-5 relative)."""
+    from apex_tpu_torch.fused_dense import FusedDense
+    from apex_tpu_torch.fused_dense import fused_dense as fd
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 64, 768, generator=g).to(dtype)
+    layer = FusedDense(768, 3072, device="cpu",
+                       generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        layer.bias.copy_(torch.randn(3072, generator=g))
+    w = layer.weight.detach().to(dtype).t()
+    xs = [x.clone().requires_grad_(True),
+          x.to(cuda_device).requires_grad_(True)]
+    ws = [w.clone().requires_grad_(True),
+          w.to(cuda_device).requires_grad_(True)]
+    ys = [fd.matmul_fp32_out(a, b) for a, b in zip(xs, ws)]
+    assert ys[1].dtype == torch.float32
+    assert_close(ys[1], ys[0], atol=1e-5, rtol=1e-5)
+    gy = torch.randn(ys[0].shape, generator=g)
+    for y, dev in zip(ys, ("cpu", cuda_device)):
+        y.backward(gy.to(dev))
+    for a in (xs, ws):
+        assert a[1].grad.dtype == dtype
+        assert_close(a[1].grad.float(), a[0].grad.float(), atol=1e-5,
+                     rtol=1e-2 if dtype == torch.bfloat16 else 1e-3)
+    with torch.no_grad():
+        out_cpu = layer(x).float()
+        out_card = layer.to(cuda_device)(x.to(cuda_device))
+    assert out_card.dtype == dtype
+    out_card = out_card.float().cpu()
+    # one ulp of x's dtype, and near 0 the fp32 sums' own reorder error
+    # (the 1e-5 of the fp32 products above; 1.3e-6 seen at outputs ~1e-5)
+    bad = ((out_card - out_cpu).abs()
+           > torch.finfo(dtype).eps * out_cpu.abs() + 1e-5)
+    b = layer.bias.detach().cpu()
+    assert not bad.any(), (
+        f"{int(bad.sum())} of {bad.numel()} outputs past one ulp: card "
+        f"{out_card[bad][:4].tolist()}, CPU {out_cpu[bad][:4].tolist()}, "
+        f"card fp32 {(ys[1].detach().cpu() + b)[bad][:4].tolist()}, CPU "
+        f"fp32 {(ys[0].detach() + b)[bad][:4].tolist()}")
+
+
+@pytest.mark.gpu
+def test_stochastic_round_mean_on_card(cuda_device):
+    """bf16 stochastic rounding with a card generator: each value goes to
+    one of its two bf16 neighbours, up with the probability of its
+    dropped fraction (a quarter and three quarters of an ulp here, over
+    4M draws each), non-finite values pass through."""
+    from apex_tpu_torch.ops.multi_tensor import stochastic_round
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    n = 1 << 22
+    for frac in (0.25, 0.75):
+        x = torch.full((n,), 1.0 + frac * 2.0 ** -7, device=cuda_device)
+        r = stochastic_round(x, torch.bfloat16, gen).float()
+        assert set(r.unique().tolist()) == {1.0, 1.0 + 2.0 ** -7}
+        assert abs((r > 1.0).float().mean().item() - frac) < 2e-3
+        assert abs(r.mean().item() - x[0].item()) < 2e-5
+    odd = torch.tensor([float("inf"), -float("inf"), float("nan"),
+                        3.4e38], device=cuda_device)
+    r = stochastic_round(odd, torch.bfloat16, gen).float().cpu()
+    assert r[0] == float("inf") and r[1] == -float("inf")
+    assert torch.isnan(r[2]) and r[3] == torch.finfo(torch.bfloat16).max

@@ -24,7 +24,7 @@ from apex_tpu_torch.models.bert import (
     _walk,
     load_jax_params,
 )
-from apex_tpu_torch.optimizers import FusedLAMB
+from apex_tpu_torch.optimizers import FusedLAMB, FusedSGD
 from apex_tpu_torch.train import (
     TrainLoop,
     build_train_step,
@@ -230,6 +230,13 @@ def test_unported_knobs_raise_and_batches_are_checked():
     # the unity static scale: a plain step, metrics on the host
     state, m = ts(ts.init(), {"x": torch.ones(2, 3, 4)})
     assert state.step == 1 and not m["skipped"] and m["loss_scale"] == 1.0
+    # FusedSGD has the same step surface: taken, and it steps
+    sgd = FusedSGD(net.parameters(), lr=0.1, momentum=0.9)
+    before = net.weight.detach().clone()
+    ts = build_train_step(loss_fn, sgd)
+    state, m = ts(ts.init(), {"x": torch.ones(1, 3, 4)})
+    assert state.step == 1 and sgd.param_groups[0]["step"] == 1
+    assert not torch.equal(net.weight, before)
 
 
 def test_aux_lr_schedule_and_accumulation_average():
