@@ -12,7 +12,11 @@ below ``flash_min_seq`` through ``build_train_step`` and ``TrainLoop``
 accumulation on one device), GPT training at S 1024 through the same
 entry point (``flash_attention`` / ``flash_attention_with_lse`` and the
 tiled flash kernels, the GPT training forward and ``lm_loss``, FusedAdam)
-and the contrib ``multihead_attn`` modules. Plain tensor code is
+and the contrib ``multihead_attn`` modules, and data parallelism over
+``torch.distributed`` (``parallel/``: DDP, SyncBatchNorm, LARC, the
+bootstrap; ``build_train_step(ddp=)``) with the ResNet tier (contrib
+``groupbn``, ``cudnn_gbn``, ``bottleneck``; ``models/resnet.py``). Plain
+tensor code is
 PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel under
 ``csrc/``, built with ``nvcc`` at first use
 (:mod:`apex_tpu_torch._build`). Entry points run on the CUDA card unless

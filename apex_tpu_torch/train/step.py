@@ -34,10 +34,20 @@ counterpart here: every update is in place.
 
 The overflow decision is read on the host once per global step (the
 skip is a Python branch, not an in-graph select); the microbatch loop and
-the accumulation issue no host sync. Not ported: ``ddp``, ``mesh``,
-``batch_spec``, ``param_pspec``, ``num_heads`` and the flat
-``DistributedFused*`` optimizers (each raises), and
-``build_reference_loop``.
+the accumulation issue no host sync.
+
+With ``ddp=DistributedDataParallel(...)`` each rank runs the step on its
+own batch: after the microbatch loop,
+``ddp.allreduce_accumulated(acc, accum_steps)`` divides the accumulators
+and reduces them across the ranks (one reduction a global step, in place
+of the local division); the overflow check reads the *reduced*
+gradients, so every rank takes the same branch (a rank-local flag would
+let replicas diverge, or hang in the next collective). The loss metric is
+summed over the ranks and divided by the world size, ``aux`` is gathered
+to ``[world, accum_steps, ...]`` and ``grad_norm`` is the reduced
+gradients'. Not ported: ``mesh``, ``batch_spec``, ``param_pspec``,
+``num_heads`` and the flat ``DistributedFused*`` optimizers (each
+raises), and ``build_reference_loop``.
 """
 
 from __future__ import annotations
@@ -46,12 +56,14 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from apex_tpu_torch.amp.handle import AmpHandle
 from apex_tpu_torch.amp.scaler import LossScaler, ScalerState
 from apex_tpu_torch.ops.multi_tensor import all_finite, multi_tensor_l2norm
 from apex_tpu_torch.optimizers._base import FusedOptimizer
+from apex_tpu_torch.parallel.distributed import DistributedDataParallel
 
 
 class TrainState(NamedTuple):
@@ -96,11 +108,12 @@ class TrainStep:
     (and ``grad_norm``) are device scalars, fetched by
     :class:`apex_tpu_torch.train.TrainLoop` one step late."""
 
-    def __init__(self, loss_fn, optimizer, scaler: LossScaler, accum_steps,
-                 has_aux, lr_schedule, with_grad_norm, seed):
+    def __init__(self, loss_fn, optimizer, scaler: LossScaler, ddp,
+                 accum_steps, has_aux, lr_schedule, with_grad_norm, seed):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.scaler = scaler
+        self.ddp = ddp
         self.accum_steps = int(accum_steps)
         self.has_aux = has_aux
         self.lr_schedule = lr_schedule
@@ -153,9 +166,17 @@ class TrainStep:
         return loss.detach().float(), aux
 
     def _apply(self, state: TrainState, grads, loss_sum, aux):
-        """Average (in place), overflow decision, optimizer update, scaler
-        update, metrics. Returns ``(new_state, metrics)``."""
-        if self.accum_steps > 1:
+        """Average (in place) and, with DDP, reduce across the ranks;
+        overflow decision, optimizer update, scaler update, metrics.
+        Returns ``(new_state, metrics)``."""
+        loss = loss_sum / self.accum_steps
+        if self.ddp is not None:
+            grads = self.ddp.allreduce_accumulated(grads, self.accum_steps)
+            dist.all_reduce(loss)
+            loss = loss / dist.get_world_size()
+            if aux is not None:
+                aux = pytree.tree_map(self._gather, aux)
+        elif self.accum_steps > 1:
             torch._foreach_div_(grads, float(self.accum_steps))
         lr = (None if self.lr_schedule is None
               else self.lr_schedule(state.step))
@@ -165,7 +186,7 @@ class TrainStep:
             self.optimizer.step(grads=grads, lr=lr)
         new_sst = self.scaler.update(state.scaler_state, skipped)
         metrics = {
-            "loss": loss_sum / self.accum_steps,
+            "loss": loss,
             "loss_scale": state.scaler_state.loss_scale,   # the scale used
             "skipped": skipped,
             "steps_skipped": new_sst.steps_skipped,
@@ -177,6 +198,13 @@ class TrainStep:
         if aux is not None:
             metrics["aux"] = aux
         return TrainState(state.step + 1, new_sst), metrics
+
+    def _gather(self, x):
+        """``[world, ...]``: every rank's ``x`` (on the step's device)."""
+        x = torch.as_tensor(x, device=self.device).contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, x)
+        return torch.stack(parts)
 
     def step(self, state: TrainState, batch):
         _check_batch(batch, self.accum_steps)
@@ -243,14 +271,18 @@ def build_train_step(
       amp: an ``AmpHandle`` from ``amp.initialize`` (its loss scaler and,
         under O1, its autocast around the loss), a bare ``LossScaler``, or
         None (unity static scale).
+      ddp: a ``DistributedDataParallel`` whose reduction runs once a
+        global step (``torch.distributed`` initialized; each rank steps
+        on its own batch), or None.
       accum_steps: microbatches per optimizer step; batch leaves must be
         ``[accum_steps, ...]``.
       lr_schedule: optional ``lr_schedule(completed_steps) -> lr``.
       with_grad_norm: include the averaged gradients' global norm.
       seed: seeds the step's generator.
     """
-    if ddp is not None:
-        _unported("ddp", "A.2 item 10")
+    if ddp is not None and not isinstance(ddp, DistributedDataParallel):
+        raise TypeError(f"ddp must be an apex_tpu_torch.parallel."
+                        f"DistributedDataParallel; got {type(ddp).__name__}")
     for name, val in (("mesh", mesh), ("batch_spec", batch_spec),
                       ("param_pspec", param_pspec),
                       ("num_heads", num_heads)):
@@ -265,5 +297,5 @@ def build_train_step(
             f"DistributedFused* optimizers wait for ROADMAP A.4 item 20)")
     if isinstance(amp, AmpHandle):
         loss_fn = amp.traced(loss_fn)
-    return TrainStep(loss_fn, optimizer, _resolve_scaler(amp, loss_id),
+    return TrainStep(loss_fn, optimizer, _resolve_scaler(amp, loss_id), ddp,
                      accum_steps, has_aux, lr_schedule, with_grad_norm, seed)

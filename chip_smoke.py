@@ -177,6 +177,35 @@ their ratio printed with the card line); then one step each of FusedSGD
 finite, timed and its transient device memory measured, and held against
 the CPU on ``bench.py``'s fast set.
 
+Phase 9 runs BASELINE ``configs[4]`` and ``configs[3]`` through the data
+parallel tier (``apex_tpu_torch.parallel``). 9a, in this process, joins a
+world of 1 through the port's ``init_process_group`` (NCCL for CUDA
+tensors, gloo for the CPU side of one check). ``configs[4]``: phase 4's
+BERT-large step through ``build_train_step(..., ddp=
+DistributedDataParallel())``, 3 global steps with phase 4's launch
+counters and no plain route; from the same weights and seed, 2 global
+steps with DDP (bucketed, ``delay_allreduce``, ``allreduce_always_fp32``)
+give the same bits as 2 without it (at world 1 the all-reduce and the
+``predivide / world`` factor change nothing), both in torch's
+deterministic mode (the default fp32 ``F.embedding`` backward of the
+token-type table sums in a varying order, so the step without DDP does
+not reproduce its own bits); wall and device ms a global step with and
+without DDP, and the reduction's device time and share.
+``configs[3]``: ResNet-50 at full width (stages 3-4-6-3, width 64, 1000
+classes), 224 x 224, batch 32 of ``examples/train_resnet.py``'s synthetic
+class-separable images from ``--seed``, amp O2, FusedSGD (lr 0.1,
+momentum 0.9, weight decay 1e-4), ``bn_group`` = world and DDP: 2 + 5
+steps, every loss finite, images/s, step ms and peak memory (cuDNN
+convolutions and plain BatchNorm: no port kernel). Then one fp32 DDP
+step of ResNet tiny on the card against the CPU, within 1e-4 relative.
+9b spawns two processes on the one card over gloo (NCCL refuses two
+ranks on one GPU): gloo's bf16 all-reduce and all-gather on CUDA
+tensors, exact; ResNet tiny (32 x 32, batch 8 a rank, ``bn_group`` 2,
+DDP) and BERT tiny (``build_train_step(ddp=)``, the aux gathered); both
+ranks end with the same bits, and each matches the world-1 step on the
+concatenated batch within 1e-4 (ResNet: of each tensor's step; BERT: of
+each reduced gradient's norm). A ``{"phase9": ...}`` line records it.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -188,11 +217,13 @@ either is printed. Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2205,10 +2236,11 @@ MICROBATCH_LAUNCHES = {"layer_norm_fwd": 50 + 48, "layer_norm_bwd": 50,
 
 
 def bert_train_step(torch, cfg, opt_level, accum, seed, dev,
-                    deterministic=False):
+                    deterministic=False, ddp=None):
     """The library's training entry point on BERT: the model (weights from
     ``seed``), FusedLAMB(lr 1e-4, weight decay 0.01), ``amp.initialize``
-    and ``build_train_step`` over ``pretraining_loss_fn``."""
+    and ``build_train_step`` over ``pretraining_loss_fn`` (with ``ddp``,
+    a ``DistributedDataParallel``, when given)."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.models import BertForPreTraining
     from apex_tpu_torch.optimizers import FusedLAMB
@@ -2219,7 +2251,7 @@ def bert_train_step(torch, cfg, opt_level, accum, seed, dev,
     model, opt, handle = amp.initialize(model, opt, opt_level=opt_level,
                                         verbosity=0, device=dev)
     ts = build_train_step(pretraining_loss_fn(model, deterministic), opt,
-                          amp=handle, accum_steps=accum, seed=seed)
+                          amp=handle, ddp=ddp, accum_steps=accum, seed=seed)
     return model, opt, ts
 
 
@@ -3280,6 +3312,604 @@ def phase8_optimizers(torch, dev, seed, card, chain=8):
     return rec
 
 
+# -- phase 9: BASELINE configs[4] and [3]: data parallelism ------------------
+
+def free_port():
+    """A free TCP port on localhost (for a process group's rendezvous)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def train_state_tensors(model, opt):
+    """Every tensor a train step writes: the parameters, then each one's
+    optimizer state (fp32 masters, moments) in a fixed order."""
+    import torch
+
+    out = [p.detach() for p in model.parameters()]
+    for p in model.parameters():
+        st = opt.state.get(p, {})
+        out += [st[k] for k in sorted(st) if isinstance(st[k], torch.Tensor)]
+    return out
+
+
+@contextlib.contextmanager
+def deterministic(torch, on=True):
+    """torch's deterministic algorithms for the block (warnings of ops
+    without one silenced): the fp32 ``F.embedding`` backward of BERT's
+    token-type table, 8,192 rows into one id a microbatch, sums in a
+    varying order otherwise, so a step does not reproduce its own bits."""
+    if not on:
+        yield
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def phase9_bert(torch, dev, seed, card, steps=3, compare=2):
+    """BASELINE ``configs[4]``: phase 4's BERT-large (S 128, 64 x
+    ``accum_steps`` 4, bf16, remat, amp O2, FusedLAMB) through
+    ``build_train_step(..., ddp=DistributedDataParallel())`` at world 1
+    over NCCL. From the same weights and seed, the first ``compare``
+    global steps with DDP (bucketed, ``delay_allreduce``,
+    ``allreduce_always_fp32``) give the same bits as without it (losses,
+    parameters and optimizer state), both run in torch's deterministic
+    mode (:func:`deterministic`); then, in the default mode, the DDP arm
+    runs to ``steps`` global steps with phase 4's launch counters and no
+    plain route (counted over all ``steps``), and the arms without and
+    with DDP take one more timed step each and one traced by the
+    profiler: wall and device ms a global step, and the reduction's own
+    device time on the step's accumulators."""
+    import math
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import BertConfig
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.train import make_pretraining_batch
+    from apex_tpu_torch.utils.pytree import flatten_buckets
+
+    cfg = BertConfig(dtype=torch.bfloat16, remat=True)
+    B, S, accum = 64, 128, 4
+    batch = make_pretraining_batch(cfg, B, S, seed=seed, device=dev,
+                                   accum_steps=accum)
+    arms = {"no ddp": None, "ddp": DistributedDataParallel(),
+            "ddp delay_allreduce": DistributedDataParallel(
+                delay_allreduce=True),
+            "ddp allreduce_always_fp32": DistributedDataParallel(
+                allreduce_always_fp32=True)}
+    ref, rec = None, {"arms": {}}
+    for name, ddp in arms.items():
+        model, opt, ts = bert_train_step(torch, cfg, "O2", accum, seed, dev,
+                                         ddp=ddp)
+        timed_arm = name in ("no ddp", "ddp")
+        state, losses, times = ts.init(), [], []
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        for i in range(steps if timed_arm else compare):
+            t = time.perf_counter()
+            with deterministic(torch, i < compare):
+                state, m = ts(state, batch)
+                losses.append(m["loss"].item())
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            if i == compare - 1:
+                now = train_state_tensors(model, opt)
+                if ref is None:
+                    ref = (losses[:], [t.clone() for t in now])
+                else:
+                    same = (losses == ref[0] and len(now) == len(ref[1])
+                            and all(torch.equal(a, b)
+                                    for a, b in zip(now, ref[1])))
+                    check(same, f"phase 9 configs[4]: {compare} global steps "
+                          f"with {name} differ from the steps without DDP "
+                          f"(losses {losses} vs {ref[0]})")
+        launches = dict(_build.launches)
+        arm = dict(losses=losses, step_ms=times)
+        check(all(math.isfinite(x) for x in losses),
+              f"phase 9 configs[4] {name}: non-finite loss {losses}")
+        if timed_arm:
+            def one():
+                nonlocal state
+                state, _ = ts(state, batch)
+
+            arm["device_ms"], arm["kernels"] = device_ms(one, iters=1)
+        if name == "ddp":
+            for k, per_mb in MICROBATCH_LAUNCHES.items():
+                check(launches[k] == per_mb * accum * steps,
+                      f"phase 9 configs[4]: {k} launched {launches[k]} "
+                      f"times in {steps} global steps of {accum} "
+                      f"microbatches, expected {per_mb} per microbatch")
+            check_no_route(launches, "phase 9 configs[4]")
+            arm["launches"] = launches
+            # DDP's own bucketing, on shapes only (meta tensors), in its
+            # reverse leaf order
+            rec["buckets"] = len(flatten_buckets(
+                [torch.empty(p.shape, device="meta")
+                 for p in reversed(list(model.parameters()))],
+                ddp.message_size))
+            rec["params"] = sum(p.numel() for p in model.parameters())
+            # the reduction alone on this step's accumulators (divided
+            # already): the flat copies, the all-reduce and the views
+            rec["ddp_device_ms"], rec["ddp_kernels"] = device_ms(
+                lambda: ddp.allreduce_grads(ts._acc), iters=3)
+        rec["arms"][name] = arm
+        del model, opt, ts, state
+        torch.cuda.empty_cache()
+    with_ddp, without = rec["arms"]["ddp"], rec["arms"]["no ddp"]
+    rec.update(
+        card=card, microbatch=B, seq=S, accum_steps=accum,
+        bit_identical=True, step_ms=with_ddp["step_ms"][-1],
+        step_ms_no_ddp=without["step_ms"][-1],
+        ddp_share_device=rec["ddp_device_ms"] / with_ddp["device_ms"],
+        launches_per_microbatch=MICROBATCH_LAUNCHES)
+    print(f"[phase 9 configs[4] DDP world 1] {card}: BERT-large O2 FusedLAMB "
+          f"S {S}, B {B} x accum {accum}, {dist.get_backend()} | global "
+          f"step ms with DDP {', '.join(f'{x:.1f}' for x in with_ddp['step_ms'])}"
+          f", without {', '.join(f'{x:.1f}' for x in without['step_ms'])} "
+          f"(the first {compare} in deterministic mode) | device ms a "
+          f"global step {with_ddp['device_ms']:.2f} with, "
+          f"{without['device_ms']:.2f} without | the reduction "
+          f"{rec['ddp_device_ms']:.3f} device ms in "
+          f"{rec['ddp_kernels']:.0f} kernels, {rec['buckets']} buckets of "
+          f"{rec['params']} params, share {rec['ddp_share_device']:.4f} | "
+          f"bit-identical to the step without DDP over {compare} global "
+          f"steps: bucketed, delay_allreduce, allreduce_always_fp32 | "
+          f"losses {with_ddp['losses']}", flush=True)
+    return rec
+
+
+IMAGENET = dict(batch=32, hw=224, classes=1000, lr=0.1, momentum=0.9,
+                weight_decay=1e-4)
+
+
+def synthetic_imagenet(n, hw, classes, seed):
+    """Class-separable NHWC Gaussian images standing in for ImageNet
+    (``examples/train_resnet.py``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(classes, 1, 1, 3).astype("float32")
+    labels = rng.randint(0, classes, n)
+    images = (centers[labels] + 0.5 * rng.randn(n, hw, hw, 3)).astype("f4")
+    return images, labels
+
+
+def resnet_step(torch, F, cfg, dev, seed, opt_level="O0", ddp=None,
+                fc_std=0.0, sgd=IMAGENET):
+    """ResNet (weights from ``seed``; ``fc`` drawn with ``fc_std`` where
+    it is not 0) with FusedSGD (``examples/train_resnet.py``'s recipe),
+    ``amp.initialize`` at ``opt_level`` and ``build_train_step`` over the
+    mean cross entropy of ``{"x": NHWC images, "y": labels}``."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import ResNet
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.train import build_train_step
+
+    model = ResNet(cfg, device=dev, seed=seed)
+    if fc_std:
+        g = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            model.fc.weight.copy_(fc_std * torch.randn(
+                model.fc.weight.shape, generator=g))
+    opt = FusedSGD(model.parameters(), lr=sgd["lr"],
+                   momentum=sgd["momentum"],
+                   weight_decay=sgd["weight_decay"])
+    model, opt, handle = amp.initialize(model, opt, opt_level=opt_level,
+                                        verbosity=0, device=dev)
+    cdt = handle.properties.cast_model_type or torch.float32
+
+    def loss_fn(mb, gen):
+        return F.cross_entropy(model(mb["x"].to(cdt)).float(), mb["y"])
+
+    return model, build_train_step(loss_fn, opt, amp=handle, ddp=ddp)
+
+
+def phase9_resnet(torch, F, dev, seed, card, steps=5, warmup=2,
+                  cfg=IMAGENET):
+    """BASELINE ``configs[3]``: ResNet-50 at full width (stages 3-4-6-3,
+    width 64, 1000 classes), 224 x 224, batch 32, amp O2, FusedSGD(lr 0.1,
+    momentum 0.9, weight decay 1e-4), ``bn_group`` = the world size and
+    DDP: ``warmup`` + ``steps`` steps, every loss finite; images/s, step
+    ms and peak memory. No port kernel runs on this path (cuDNN
+    convolutions, plain BatchNorm)."""
+    import math
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import ResNetConfig
+    from apex_tpu_torch.parallel import DistributedDataParallel, get_world_size
+
+    world = get_world_size()
+    images, labels = synthetic_imagenet(cfg["batch"], cfg["hw"],
+                                        cfg["classes"], seed)
+    batch = {"x": torch.from_numpy(images).to(dev)[None],
+             "y": torch.from_numpy(labels).to(dev)[None]}
+    t0 = time.perf_counter()
+    model, ts = resnet_step(
+        torch, F, ResNetConfig.resnet50(num_classes=cfg["classes"],
+                                        bn_group=world),
+        dev, seed, "O2", DistributedDataParallel())
+    setup_s = time.perf_counter() - t0
+    state, losses, times = ts.init(), [], []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+        t = time.perf_counter()
+        state, m = ts(state, batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = {k: v for k, v in _build.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses),
+          f"phase 9 configs[3]: non-finite loss {losses}")
+    check(not launches, f"phase 9 configs[3]: port kernels {launches} on a "
+          f"path with none")
+    ms = sorted(times[warmup:])
+    med = ms[len(ms) // 2]
+    rec = dict(card=card, world=world, batch=cfg["batch"], hw=cfg["hw"],
+               n_params=sum(p.numel() for p in model.parameters()),
+               setup_s=setup_s, step_ms=times, step_ms_median=med,
+               images_per_s=cfg["batch"] * 1e3 / med,
+               peak_memory_bytes=peak, losses=losses,
+               skipped=state.scaler_state.steps_skipped)
+    print(f"[phase 9 configs[3] ResNet-50] {card}: {rec['n_params']} params, "
+          f"batch {cfg['batch']} at {cfg['hw']}x{cfg['hw']}, amp O2, FusedSGD, "
+          f"bn_group {world}, DDP | step ms "
+          f"{', '.join(f'{x:.1f}' for x in times)} (median of the last "
+          f"{steps} {med:.1f}) | {rec['images_per_s']:.1f} images/s | peak "
+          f"memory {peak / 2**30:.2f} GiB | losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} | steps skipped "
+          f"{rec['skipped']}", flush=True)
+    del model, ts, state, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+TINY_IMAGES = dict(batch=8, hw=32, classes=10, lr=0.1, momentum=0.9,
+                   weight_decay=1e-4)
+
+
+def resnet_tiny_run(torch, F, dev, seed, bn_group=1, ddp=None, rows=None,
+                    cfg=TINY_IMAGES):
+    """One fp32 step of ResNet tiny (``fc`` drawn, so every layer gets a
+    gradient) on the rows ``rows`` of a batch of ``2 * cfg["batch"]``
+    images from ``seed``: the loss, the parameters and buffers after it
+    (CPU fp32 tensors) and the ones before."""
+    from apex_tpu_torch.models import ResNetConfig
+
+    images, labels = synthetic_imagenet(2 * cfg["batch"], cfg["hw"],
+                                        cfg["classes"], seed)
+    rows = slice(None) if rows is None else rows
+    batch = {"x": torch.from_numpy(images[rows]).to(dev)[None],
+             "y": torch.from_numpy(labels[rows]).to(dev)[None]}
+    model, ts = resnet_step(torch, F, ResNetConfig.tiny(
+        num_classes=cfg["classes"], bn_group=bn_group), dev, seed,
+        ddp=ddp, fc_std=0.05, sgd=cfg)
+
+    def named():
+        out = dict(model.named_parameters())
+        out.update(model.named_buffers())
+        return {n: t.detach().float().cpu().clone() for n, t in out.items()}
+
+    before = named()
+    _, m = ts(ts.init(), batch)
+    return m["loss"].item(), named(), before
+
+
+def rel_err(a, b):
+    """``max |a - b|`` over ``max |b|`` (0 where both are 0)."""
+    scale = b.abs().max().item()
+    diff = (a - b).abs().max().item()
+    return diff / scale if scale else diff
+
+
+def resnet_card_vs_cpu(torch, F, dev, seed, tol=1e-4):
+    """One DDP step of ResNet tiny in fp32 (TF32 off) on the card (NCCL)
+    and on the CPU (gloo) of the same process: the loss and every
+    parameter and running statistic within ``tol`` relative."""
+    from apex_tpu_torch.parallel import DistributedDataParallel
+
+    res = {where: resnet_tiny_run(torch, F, d, seed,
+                                  ddp=DistributedDataParallel())
+           for where, d in (("cuda", dev), ("cpu", torch.device("cpu")))}
+    (lg, pg, _), (lc, pc, _) = res["cuda"], res["cpu"]
+    worst = max(rel_err(pg[n], pc[n]) for n in pc)
+    loss_err = abs(lg - lc) / abs(lc)
+    check(loss_err <= tol and worst <= tol,
+          f"phase 9: ResNet tiny DDP step card vs CPU: loss {lg} vs {lc}, "
+          f"worst tensor {worst:.3g} relative (bound {tol})")
+    print(f"[phase 9 card vs CPU] ResNet tiny fp32 DDP step: loss {lg:.6f} "
+          f"vs {lc:.6f}, parameters and running statistics within "
+          f"{worst:.3g} relative (bound {tol})", flush=True)
+    return dict(loss_card=lg, loss_cpu=lc, worst_rel=worst, tol=tol)
+
+
+BERT_TINY = dict(B=4, S=64, accum=2)
+
+
+def bert_tiny_run(torch, dev, seed, ddp=None, rows=None, world=1,
+                  shape=BERT_TINY):
+    """Two fp32 global steps of BERT tiny (no dropout, every masked
+    position weighted 1, so a rank's loss has the big batch's
+    denominator) through ``build_train_step`` with ``has_aux`` (the
+    per-microbatch loss), this process on ``rows`` of each microbatch of
+    ``world * B`` rows: the reduced gradients each step handed the
+    optimizer, the losses, the gathered aux and the final parameters."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import BertConfig, BertForPreTraining
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.train import (
+        build_train_step,
+        make_pretraining_batch,
+        pretraining_loss_fn,
+    )
+
+    B, S, accum = shape["B"], shape["S"], shape["accum"]
+    cfg = BertConfig.tiny(max_position_embeddings=S)
+    model = BertForPreTraining(cfg, device=dev, seed=seed)
+    opt = FusedLAMB(model.parameters(), lr=1e-3, weight_decay=0.01)
+    model, opt, handle = amp.initialize(model, opt, opt_level="O0",
+                                        verbosity=0, device=dev)
+    loss_of = pretraining_loss_fn(model, deterministic=True)
+
+    def loss_fn(mb, gen):
+        loss = loss_of(mb, gen)
+        return loss, loss.detach()
+
+    seen, step = [], opt.step
+
+    def capture(*a, grads=None, **kw):
+        seen.append([g.detach().float().cpu().clone() for g in grads])
+        return step(*a, grads=grads, **kw)
+
+    opt.step = capture
+    ts = build_train_step(loss_fn, opt, amp=handle, ddp=ddp,
+                          accum_steps=accum, has_aux=True)
+    rows = slice(None) if rows is None else rows
+    state, losses, auxes = ts.init(), [], []
+    for s in range(2):
+        full = make_pretraining_batch(cfg, world * B, S, seed=seed + s,
+                                      device=dev, accum_steps=accum)
+        full["mlm_weights"][:] = 1.0
+        state, m = ts(state, {k: v[:, rows] for k, v in full.items()})
+        losses.append(m["loss"].item())
+        auxes.append(m["aux"].float().cpu())
+    return dict(grads=seen, losses=losses, aux=auxes,
+                params={n: p.detach().float().cpu()
+                        for n, p in model.named_parameters()})
+
+
+def gloo_cuda_ops(torch, dev, rank, world):
+    """gloo on CUDA tensors: a bf16 all-reduce (DDP's, on a bf16 list) and
+    an all-gather, against their exact results."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import DistributedDataParallel
+
+    grads = [torch.full((7,), 0.5 * (rank + 1), dtype=torch.bfloat16,
+                        device=dev),
+             torch.arange(5, dtype=torch.bfloat16, device=dev) * (rank + 1)]
+    out = DistributedDataParallel(gradient_average=False) \
+        .allreduce_grads(grads)
+    total = sum(r + 1 for r in range(world))
+    check(out[0].dtype == torch.bfloat16 and out[0].device == dev,
+          "phase 9b: the bf16 all-reduce changed dtype or device")
+    check(torch.equal(out[0], torch.full_like(out[0], 0.5 * total))
+          and torch.equal(out[1], torch.arange(5, device=dev,
+                                               dtype=torch.bfloat16) * total),
+          f"phase 9b: gloo's bf16 CUDA all-reduce gave {out}")
+    x = torch.full((3,), float(rank), device=dev)
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    check(all(torch.equal(p, torch.full_like(x, float(r)))
+              for r, p in enumerate(parts)),
+          f"phase 9b: gloo's CUDA all-gather gave {parts}")
+    return dict(bf16_all_reduce=True, all_gather=True)
+
+
+def map_tensors(fn, tree):
+    """``tree`` (dicts, lists, tuples) with ``fn`` applied to each leaf
+    that is a tensor or an array."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return fn(tree) if hasattr(tree, "shape") else tree
+
+
+def phase9_worker(rank, world, init_file, seed, queue):
+    """One rank of phase 9b: gloo on ``cuda:0`` beside the other rank."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        from apex_tpu_torch.parallel import (
+            DistributedDataParallel,
+            init_process_group,
+        )
+
+        init_process_group(f"file://{init_file}", world, rank,
+                           backend="gloo")
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        n = TINY_IMAGES["batch"]
+        out = dict(gloo_cuda=gloo_cuda_ops(torch, dev, rank, world))
+        out["resnet"] = resnet_tiny_run(
+            torch, F, dev, seed, bn_group=world,
+            ddp=DistributedDataParallel(),
+            rows=slice(rank * n, (rank + 1) * n))
+        out["bert"] = bert_tiny_run(
+            torch, dev, seed, ddp=DistributedDataParallel(),
+            rows=slice(rank * BERT_TINY["B"], (rank + 1) * BERT_TINY["B"]),
+            world=world)
+        if rank == 0:         # the world-1 steps on the concatenated batch
+            out["resnet_big"] = resnet_tiny_run(torch, F, dev, seed)
+            out["bert_big"] = bert_tiny_run(torch, dev, seed, world=world)
+        # numpy crosses the queue by value (a tensor would by a file
+        # descriptor of this process, gone once it exits)
+        queue.put((rank, "ok", map_tensors(lambda t: t.numpy(), out)))
+    except Exception:           # reported to the parent, which fails
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase9_gloo(torch, seed, card, world=2, timeout_s=600, tol=1e-4):
+    """Phase 9b: ``world`` spawned processes on the one card, over gloo
+    (NCCL refuses two ranks on one GPU): ResNet tiny (32 x 32, batch 8 a
+    rank, ``bn_group`` = world, DDP) and BERT tiny (``build_train_step(
+    ddp=)``, the aux all-gathered). Every rank ends with the same bits;
+    each matches the world-1 step on the concatenated batch (ResNet: loss,
+    parameters and running statistics within ``tol`` of the step's size
+    past 4 ulps of their values;
+    BERT: losses and each step's reduced gradients within ``tol`` of their
+    norm, leaving out gradients that are 0 to rounding)."""
+    import multiprocessing
+    import queue as queue_mod
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_file = str(Path(tmp) / "rendezvous")
+        procs = [ctx.Process(target=phase9_worker,
+                             args=(r, world, init_file, seed, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            for _ in procs:
+                rank, status, out = q.get(timeout=timeout_s)
+                check(status == "ok", f"phase 9b rank {rank} failed:\n{out}")
+                got[rank] = map_tensors(torch.from_numpy, out)
+        except queue_mod.Empty:
+            raise SmokeFailure(f"phase 9b: no result in {timeout_s} s")
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    r0 = got[0]
+    # ResNet: the ranks agree bit for bit, and with the big batch
+    for r in range(1, world):
+        check(got[r]["resnet"][0] == r0["resnet"][0] and all(
+            torch.equal(got[r]["resnet"][1][n], t)
+            for n, t in r0["resnet"][1].items()),
+            f"phase 9b: ResNet rank {r} differs from rank 0")
+        check(all(torch.equal(got[r]["bert"]["params"][n], t)
+                  for n, t in r0["bert"]["params"].items()),
+              f"phase 9b: BERT rank {r} differs from rank 0")
+    loss, after, before = r0["resnet"]
+    big_loss, big_after, _ = r0["resnet_big"]
+    # the difference past 4 fp32 ulps of the tensor's values (a BatchNorm
+    # weight near 1 steps by ~3e-3: an ulp of it is 4e-5 of that step),
+    # as a share of the tensor's step
+    resnet_err = max(
+        max((after[n] - big_after[n]).abs().max().item()
+            - 2.0 ** -21 * big_after[n].abs().max().item(), 0.0)
+        / max((big_after[n] - before[n]).abs().max().item(), 1e-12)
+        for n in after)
+    loss_err = abs(loss - big_loss) / abs(big_loss)
+    check(loss_err <= tol and resnet_err <= tol,
+          f"phase 9b: ResNet tiny at world {world} vs the big batch: loss "
+          f"{loss} vs {big_loss}, worst tensor {resnet_err:.3g} of its step")
+    bert, big = r0["bert"], r0["bert_big"]
+    bert_loss_err = max(abs(a - b) / abs(b)
+                        for a, b in zip(bert["losses"], big["losses"]))
+    grad_err = 0.0
+    for ours, theirs in zip(bert["grads"], big["grads"]):
+        top = max(t.norm().item() for t in theirs)
+        for a, b in zip(ours, theirs):
+            if b.norm().item() > 1e-6 * top:
+                grad_err = max(grad_err, ((a - b).norm() / b.norm()).item())
+    aux_ok = all(a.shape == (world, BERT_TINY["accum"])
+                 and abs(a.mean().item() - l) <= 1e-5 * abs(l)
+                 for a, l in zip(bert["aux"], bert["losses"]))
+    check(bert_loss_err <= tol and grad_err <= tol and aux_ok,
+          f"phase 9b: BERT tiny at world {world} vs the big batch: losses "
+          f"{bert['losses']} vs {big['losses']}, worst gradient "
+          f"{grad_err:.3g} of its norm, aux gathered {aux_ok}")
+    rec = dict(card=card, world=world, backend="gloo", device="cuda:0",
+               resnet_loss=loss, resnet_big_loss=big_loss,
+               resnet_worst_of_step=resnet_err, bert_losses=bert["losses"],
+               bert_big_losses=big["losses"],
+               bert_worst_grad_of_norm=grad_err,
+               gloo_cuda=r0["gloo_cuda"], tol=tol)
+    print(f"[phase 9b gloo world {world} on one card] ranks bit-identical | "
+          f"ResNet tiny bn_group {world} + DDP vs the big batch: loss "
+          f"{loss:.6f} vs {big_loss:.6f}, worst tensor {resnet_err:.3g} of "
+          f"its step past 4 ulps | BERT tiny build_train_step(ddp=) losses "
+          f"{bert['losses']} vs {big['losses']}, worst reduced gradient "
+          f"{grad_err:.3g} of its norm, aux gathered to (world, accum) | "
+          f"gloo on CUDA: bf16 all-reduce and all-gather exact", flush=True)
+    return rec
+
+
+def phase9(torch, F, dev, seed, card, timed):
+    """Phase 9a in this process (NCCL at world 1 for CUDA tensors, gloo
+    for the CPU side of the card-vs-CPU step), then 9b's gloo world on
+    the one card. Prints the ``{"phase9": ...}`` record line."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import get_world_size, init_process_group
+
+    init_process_group(f"tcp://localhost:{free_port()}", world_size=1,
+                       rank=0, backend="cpu:gloo,cuda:nccl")
+    try:
+        check(get_world_size() == 1, "phase 9a: world size is not 1")
+        rec = dict(backend=dist.get_backend())
+        rec["configs4"] = timed("phase 9 configs[4] BERT-large DDP",
+                                phase9_bert, torch, dev, seed, card)
+        rec["configs3"] = timed("phase 9 configs[3] ResNet-50",
+                                phase9_resnet, torch, F, dev, seed, card)
+        rec["card_vs_cpu"] = timed("phase 9 ResNet tiny card vs CPU",
+                                   resnet_card_vs_cpu, torch, F, dev, seed)
+    finally:
+        dist.destroy_process_group()
+    rec["gloo"] = timed("phase 9b gloo world 2", phase9_gloo, torch, seed,
+                        card)
+    c4, c3 = rec["configs4"], rec["configs3"]
+    print(json.dumps({"phase9": dict(
+        card=card, backend=rec["backend"],
+        configs4=dict(bit_identical=c4["bit_identical"],
+                      step_ms=c4["step_ms"],
+                      step_ms_no_ddp=c4["step_ms_no_ddp"],
+                      device_ms=c4["arms"]["ddp"]["device_ms"],
+                      device_ms_no_ddp=c4["arms"]["no ddp"]["device_ms"],
+                      ddp_device_ms=c4["ddp_device_ms"],
+                      ddp_share_device=c4["ddp_share_device"],
+                      buckets=c4["buckets"]),
+        configs3=dict(images_per_s=c3["images_per_s"],
+                      step_ms_median=c3["step_ms_median"],
+                      peak_memory_bytes=c3["peak_memory_bytes"],
+                      losses=c3["losses"]),
+        card_vs_cpu_worst_rel=rec["card_vs_cpu"]["worst_rel"],
+        gloo_world2=dict(
+            resnet_worst_of_step=rec["gloo"]["resnet_worst_of_step"],
+            bert_worst_grad_of_norm=rec["gloo"]["bert_worst_grad_of_norm"]),
+    )}), flush=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3362,10 +3992,11 @@ def main(argv=None):
                   dev, seed, card)
     optimizers = timed("phase 8 configs[2] fused optimizers",
                        phase8_optimizers, torch, dev, seed, card)
+    parallel = phase9(torch, F, dev, seed, card, timed)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
-    # in the three training phases, B2 and B1 also on the contrib modules'
-    # path and in phase 7; B10/B12 on the contrib modules' path)
+    # in the training phases 3-5 and 9, B2 and B1 also on the contrib
+    # modules' path and in phase 7; B10/B12 on the contrib modules' path)
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in ("paged_read", "dequant_gemm")}
     launches.update({k: sum(t["launches"][k] for t in (train, train128, gpt))
@@ -3385,6 +4016,9 @@ def main(argv=None):
             + sum(r["launches"].get(k, 0) for r in wide.values()))
     launches["softmax_fwd"] += openfold["launches"].get("softmax_fwd", 0)
     launches["softmax_bwd"] += openfold["launches"].get("softmax_bwd", 0)
+    for k, v in parallel["configs4"]["arms"]["ddp"]["launches"].items():
+        if k in launches:
+            launches[k] += v
     kernels = [
         kernel_entry("paged_read", "apex_tpu_torch/csrc/paged_read.cu",
                      "apex_tpu/ops/paged_attention_pallas.py:106",
@@ -3449,7 +4083,8 @@ def main(argv=None):
         flash_tiled=tiled, flash_fwd16=fwd16, engine=runs, train=train,
         train_s128=train128, train_gpt=gpt, contrib_mha=mha,
         norm_microbench=norm_bench, openfold=openfold, wide_norms=wide,
-        amp_mnist=mnist, fused_optimizers=optimizers, checks=checks,
+        amp_mnist=mnist, fused_optimizers=optimizers, parallel=parallel,
+        checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

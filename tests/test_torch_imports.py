@@ -1,6 +1,7 @@
 """The port stands alone: no module of apex_tpu_torch (nor chip_smoke.py)
-imports jax, flax or anything of apex_tpu, and the smoke script refuses
-to report a result without a CUDA device."""
+imports jax, flax or anything of apex_tpu, importing them starts no
+process group, and the smoke script refuses to report a result without a
+CUDA device."""
 
 import os
 import re
@@ -19,7 +20,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "apex_tpu"))
-print(len(names), bad)
+import torch.distributed as dist
+print(len(names), dist.is_initialized(), bad)
 """
 
 
@@ -34,8 +36,9 @@ def test_port_imports_no_jax_and_no_apex_tpu():
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    count, bad = res.stdout.strip().split(" ", 1)
-    assert int(count) >= 58          # every module of the package
+    count, group, bad = res.stdout.strip().split(" ", 2)
+    assert int(count) >= 74          # every module of the package
+    assert group == "False"          # importing starts no process group
     assert bad == "[]"
 
 

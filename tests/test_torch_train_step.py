@@ -214,10 +214,11 @@ def test_unported_knobs_raise_and_batches_are_checked():
     def loss_fn(mb, gen):
         return net(mb["x"]).sum()
 
-    for kw in (dict(ddp=object()), dict(mesh=object()),
-               dict(num_heads=2)):
+    for kw in (dict(mesh=object()), dict(num_heads=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_train_step(loss_fn, opt, **kw)
+    with pytest.raises(TypeError, match="DistributedDataParallel"):
+        build_train_step(loss_fn, opt, ddp=object())
     with pytest.raises(NotImplementedError, match="DistributedFused"):
         build_train_step(loss_fn, torch.optim.SGD(net.parameters(), 0.1))
     ts = build_train_step(loss_fn, opt, accum_steps=2)
