@@ -29,16 +29,29 @@ def dropout_seed(generator: torch.Generator) -> int:
     return dropout_seeds(generator, 1)[0]
 
 
+def unfused_dropout(x, rate: float, seed: int):
+    """The stock dropout of ``fused=False``: a keep mask of uniforms from
+    a torch generator on ``x``'s device seeded by ``seed`` (so a
+    recompute replays it), kept values scaled by ``1 / (1 - rate)``."""
+    g = torch.Generator(device=x.device).manual_seed(int(seed))
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class TPDropout(nn.Module):
-    """Fused dropout at one site, its seed given by the caller. The
+    """Dropout at one site, its seed given by the caller: the fused kernel
+    (B3 on the card), or with ``fused=False`` :func:`unfused_dropout`. The
     tensor-parallel fold of the JAX module is not ported (tensor
     parallelism is a later slice)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, fused: bool = True):
         super().__init__()
         self.rate = rate
+        self.fused = fused
 
     def forward(self, x, seed=None, deterministic: bool = True):
         if deterministic or self.rate == 0.0:
             return x
+        if not self.fused:
+            return unfused_dropout(x, self.rate, seed)
         return fused_dropout(x, self.rate, seed)

@@ -16,19 +16,31 @@ Dropout seeds are host ints drawn from the ``torch.Generator`` the caller
 passes, all of them before any checkpointed layer runs (see
 :mod:`apex_tpu_torch.models._dropout`).
 
-Not ported yet: the ``"dots"`` remat policy, tensor and sequence
-parallelism, and ``fused_kernels=False``; each raises.
+``fused_kernels=False`` runs the reference's stock arm instead: a
+LayerNorm in ``cfg.dtype`` over fp32 params, the composed attention with
+an fp32 softmax whose masked keys take -30000, and dropout drawn by a
+torch generator seeded from the site's seed; on the card it launches
+none of the port's kernels. ``remat_policy="dots"`` checkpoints each
+layer keeping the dense products (``aten.mm``/``aten.addmm``, the JAX
+``dots_with_no_batch_dims_saveable``) and recomputing everything else.
+
+Not ported yet: tensor and sequence parallelism; it raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from apex_tpu_torch.models._dropout import TPDropout, dropout_seeds
 from apex_tpu_torch.normalization import FusedLayerNorm
@@ -83,16 +95,31 @@ class BertConfig:
 
 
 def _check_ported(cfg: BertConfig):
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported")
+    if cfg.remat and cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                         f"{cfg.remat_policy!r}")
     if cfg.use_tensor_parallel or cfg.sequence_parallel:
         raise NotImplementedError("BERT under tensor/sequence parallelism "
                                   "is not ported yet")
-    if not cfg.fused_kernels:
-        raise NotImplementedError("fused_kernels=False (stock LayerNorm and "
-                                  "softmax) is not ported; the port's BERT "
-                                  "runs the fused kernels")
+
+
+# the products the "dots" policy keeps: those without batch dimensions
+# (the dense layers); the attention's batched products are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context_fn(policy: str):
+    """``torch.utils.checkpoint``'s ``context_fn`` for a remat policy:
+    None recomputes the whole layer ("full")."""
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    return None
 
 
 class Dense(nn.Linear):
@@ -108,16 +135,48 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=cfg.dtype, param_dtype=float32)``, the
+    stock norm of ``fused_kernels=False``: statistics in fp32, the result
+    in ``dtype``."""
+
+    def __init__(self, hidden, eps, dtype):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(hidden))
+        self.bias = nn.Parameter(torch.zeros(hidden))
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.scale.shape, self.scale,
+                            self.bias, self.eps).to(self.dtype)
+
+
+def norm(cfg, hidden):
+    """The model's LayerNorm: FusedLayerNorm (B2/B1 on the card), or the
+    stock one when ``cfg.fused_kernels`` is off."""
+    if cfg.fused_kernels:
+        return FusedLayerNorm(hidden, eps=cfg.layernorm_eps, device="cpu")
+    return LayerNorm(hidden, cfg.layernorm_eps, cfg.dtype)
+
+
 def gelu(x):
     # flax nn.gelu is the tanh approximation
     return F.gelu(x, approximate="tanh")
 
 
-def _attn_softmax(scores, mask):
-    """The attention softmax of the JAX model's fused path: padding mask
-    type, scale 1 (the scores already carry 1 / sqrt(D))."""
-    return FusedScaleMaskSoftmax(attn_mask_type=AttnMaskType.padding,
-                                 scale=1.0)(scores, mask)
+def _attn_softmax(cfg, scores, mask):
+    """The attention softmax, scale 1 (the scores already carry 1 /
+    sqrt(D)): FusedScaleMaskSoftmax with the padding mask type, or with
+    ``fused_kernels`` off an fp32 softmax with masked keys at -30000."""
+    if cfg.fused_kernels:
+        return FusedScaleMaskSoftmax(attn_mask_type=AttnMaskType.padding,
+                                     scale=1.0)(scores, mask)
+    xf = scores.float()
+    if mask is not None:
+        xf = torch.where(mask, torch.full((), -30000.0, device=xf.device),
+                         xf)
+    return torch.softmax(xf, dim=-1).to(scores.dtype)
 
 
 class BertSelfAttention(nn.Module):
@@ -131,7 +190,7 @@ class BertSelfAttention(nn.Module):
         self.k = Dense(h, h, cfg.dtype)
         self.v = Dense(h, h, cfg.dtype)
         self.out = Dense(h, h, cfg.dtype)
-        self.dropout = TPDropout(cfg.attention_dropout)
+        self.dropout = TPDropout(cfg.attention_dropout, cfg.fused_kernels)
 
     def forward(self, x, key_mask, seed=None, deterministic=True):
         """``key_mask``: (B, S) boolean, True = masked, or None. ``seed``:
@@ -143,7 +202,8 @@ class BertSelfAttention(nn.Module):
         hd = h // nh
         inv_sqrt = 1.0 / (hd ** 0.5)
         q, k, v = self.q(x), self.k(x), self.v(x)
-        if cfg.flash_attention and S >= cfg.flash_min_seq:
+        if (cfg.fused_kernels and cfg.flash_attention
+                and S >= cfg.flash_min_seq):
             drop = 0.0 if deterministic else cfg.attention_dropout
             ctx = flash_attention_bsh(q, k, v, key_mask, nh, False, inv_sqrt,
                                       drop, seed if drop > 0.0 else None)
@@ -159,7 +219,7 @@ class BertSelfAttention(nn.Module):
         # -large have D 64)
         scores = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * inv_sqrt
         mask4d = None if key_mask is None else key_mask[:, None, None, :]
-        probs = self.dropout(_attn_softmax(scores, mask4d), seed,
+        probs = self.dropout(_attn_softmax(cfg, scores, mask4d), seed,
                              deterministic)
         ctx = torch.matmul(probs, heads(v))
         ctx = ctx.transpose(1, 2).reshape(B, S, h)
@@ -172,11 +232,11 @@ class BertLayer(nn.Module):
         self.cfg = cfg
         h, eps = cfg.hidden_size, cfg.layernorm_eps
         self.attention = BertSelfAttention(cfg)
-        self.attention_ln = FusedLayerNorm(h, eps=eps, device="cpu")
+        self.attention_ln = norm(cfg, h)
         self.mlp_in = Dense(h, cfg.intermediate_size, cfg.dtype)
         self.mlp_out = Dense(cfg.intermediate_size, h, cfg.dtype)
-        self.output_ln = FusedLayerNorm(h, eps=eps, device="cpu")
-        self.dropout = TPDropout(cfg.hidden_dropout)
+        self.output_ln = norm(cfg, h)
+        self.dropout = TPDropout(cfg.hidden_dropout, cfg.fused_kernels)
 
     def forward(self, x, key_mask, seeds=(None, None, None),
                 deterministic=True):
@@ -213,8 +273,8 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = nn.Parameter(
             torch.empty(cfg.max_position_embeddings, h))
         self.token_type_embeddings = Embed(cfg.type_vocab_size, h)
-        self.ln = FusedLayerNorm(h, eps=cfg.layernorm_eps, device="cpu")
-        self.dropout = TPDropout(cfg.hidden_dropout)
+        self.ln = norm(cfg, h)
+        self.dropout = TPDropout(cfg.hidden_dropout, cfg.fused_kernels)
 
     def forward(self, input_ids, token_type_ids, seed=None,
                 deterministic=True):
@@ -265,6 +325,10 @@ class BertModel(nn.Module):
         # (B, S) boolean, True = masked (the reference convention)
         key_mask = None if attention_mask is None else attention_mask == 0
         remat = cfg.remat and torch.is_grad_enabled()
+        kw = {}
+        context_fn = remat_context_fn(cfg.remat_policy)
+        if context_fn is not None:
+            kw["context_fn"] = context_fn
         for i, layer in enumerate(self.layers):
             layer_seeds = tuple(seeds[1 + 3 * i: 4 + 3 * i])
             if remat:
@@ -272,7 +336,7 @@ class BertModel(nn.Module):
                 # needs preserving across the recompute
                 x = checkpoint(layer, x, key_mask, layer_seeds,
                                deterministic, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False, **kw)
             else:
                 x = layer(x, key_mask, layer_seeds, deterministic)
         pooled = torch.tanh(self.pooler(x[:, 0]))
@@ -297,7 +361,7 @@ class BertForPreTraining(nn.Module):
         self.bert = BertModel(cfg)
         h = cfg.hidden_size
         self.mlm_transform = Dense(h, h, cfg.dtype)
-        self.mlm_ln = FusedLayerNorm(h, eps=cfg.layernorm_eps, device="cpu")
+        self.mlm_ln = norm(cfg, h)
         self.mlm_decoder = Dense(h, cfg.vocab_size, cfg.dtype)
         self.nsp = Dense(h, 2, cfg.dtype)
         gen = torch.Generator().manual_seed(seed)

@@ -24,10 +24,17 @@ context), both on kernel B14 on the card. With
 The other products (the fp dense layers, the tied LM head) are plain
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
+``fused_kernels=False`` runs the reference's stock arm: the stock
+LayerNorm, the composed causal ``mha_reference`` and unfused dropout
+(none of the port's kernels on the card). A model built with
+``weight_quantization`` trains too: the int8/fp8 kernels stay frozen
+buffers, their fp32 scales and biases are trainable parameters, and
+``dequant_matmul``'s backward gives both their gradients and the
+input's.
+
 Not ported yet, each raising in the training forward: MoE blocks
-(``num_experts > 0``), ring and Ulysses context parallelism,
-``fused_kernels=False`` and training over quantized weights. Parameter
-names follow
+(``num_experts > 0``) and ring and Ulysses context parallelism.
+Parameter names follow
 the flax tree (``wte``, ``wpe``, ``h_{i}.ln_1``/``attn_q``/..., ``ln_f``);
 dense weights use torch's ``(out, in)`` layout, quantized kernels keep
 the JAX ``(in, out)`` layout the dequant-GEMM reads.
@@ -46,11 +53,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.models._dropout import TPDropout, dropout_seeds
-from apex_tpu_torch.models.bert import Dense
-from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.models.bert import Dense, norm
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.dequant_gemm import dequant_matmul
-from apex_tpu_torch.ops.flash_attention import flash_attention_bsh
+from apex_tpu_torch.ops.flash_attention import (
+    flash_attention_bsh,
+    mha_reference,
+)
 from apex_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_prefill_attention,
@@ -155,14 +164,17 @@ def quantize_gpt_params(params, mode):
 
 class QuantLinear(nn.Module):
     """Dense layer over quantized weights (the JAX ``QuantDense``): an
-    int8/fp8 ``kernel`` ``(in, out)``, its fp32 per-output-channel
-    ``scale`` and an fp32 ``bias``; the product is the dequant-GEMM."""
+    int8/fp8 ``kernel`` ``(in, out)`` (a frozen buffer: the JAX gradient
+    of an integer leaf is float0), its fp32 per-output-channel ``scale``
+    and an fp32 ``bias`` (parameters, trainable with ``requires_grad``);
+    the product is the dequant-GEMM."""
 
-    def __init__(self, kernel, scale, bias, dtype=torch.float32):
+    def __init__(self, kernel, scale, bias, dtype=torch.float32,
+                 requires_grad: bool = False):
         super().__init__()
         self.register_buffer("kernel", kernel)
-        self.register_buffer("scale", scale)
-        self.bias = nn.Parameter(bias, requires_grad=False)
+        self.scale = nn.Parameter(scale, requires_grad=requires_grad)
+        self.bias = nn.Parameter(bias, requires_grad=requires_grad)
         self.dtype = dtype
 
     def forward(self, x):
@@ -206,36 +218,28 @@ def _check_trainable(cfg: GPTConfig):
         raise NotImplementedError(
             f"attention_backend={cfg.attention_backend!r}: ring and Ulysses "
             f"context parallelism are not ported yet (ROADMAP A.4 item 20)")
-    if not cfg.fused_kernels:
-        raise NotImplementedError("fused_kernels=False (stock LayerNorm and "
-                                  "composed attention) is not ported; the "
-                                  "port's GPT runs the fused kernels "
-                                  "(ROADMAP A.3, GPT training note)")
-    if cfg.weight_quantization is not None:
-        raise NotImplementedError(
-            "training over quantized weights is not ported (ROADMAP A.3, "
-            "GPT training note); quantized weights are a serving option")
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN block: attention (the flash kernels in training, the paged
+    """Pre-LN block: attention (the flash kernels in training, or the
+    composed ``mha_reference`` with ``fused_kernels`` off; the paged
     cache in serving), then the GELU MLP."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         h = cfg.hidden_size
         self.cfg = cfg
-        self.ln_1 = FusedLayerNorm(h, eps=cfg.layernorm_eps, device="cpu")
+        self.ln_1 = norm(cfg, h)
         # flax nn.Dense(dtype=cfg.dtype): fp32-stored params, the product
         # in cfg.dtype
         self.attn_q = Dense(h, h, cfg.dtype)
         self.attn_k = Dense(h, h, cfg.dtype)
         self.attn_v = Dense(h, h, cfg.dtype)
         self.attn_out = Dense(h, h, cfg.dtype)
-        self.ln_2 = FusedLayerNorm(h, eps=cfg.layernorm_eps, device="cpu")
+        self.ln_2 = norm(cfg, h)
         self.mlp_in = Dense(h, 4 * h, cfg.dtype)
         self.mlp_out = Dense(4 * h, h, cfg.dtype)
-        self.dropout = TPDropout(cfg.dropout)
+        self.dropout = TPDropout(cfg.dropout, cfg.fused_kernels)
 
     def forward_train(self, x, seeds=(None, None, None),
                       deterministic: bool = True):
@@ -251,8 +255,19 @@ class GPTBlock(nn.Module):
         k = self.attn_k(y).to(dt)
         v = self.attn_v(y).to(dt)
         drop = 0.0 if deterministic else cfg.dropout
-        ctx = flash_attention_bsh(q, k, v, None, nh, True, 1.0 / (hd ** 0.5),
-                                  drop, seeds[0] if drop > 0.0 else None)
+        seed = seeds[0] if drop > 0.0 else None
+        if cfg.fused_kernels:
+            ctx = flash_attention_bsh(q, k, v, None, nh, True,
+                                      1.0 / (hd ** 0.5), drop, seed)
+        else:
+            B, S = q.shape[:2]
+
+            def heads(t):
+                return t.reshape(B, S, nh, hd).transpose(1, 2)
+
+            ctx = mha_reference(heads(q), heads(k), heads(v), None, True,
+                                1.0 / (hd ** 0.5), drop, seed)
+            ctx = ctx.to(dt).transpose(1, 2).reshape(B, S, nh * hd)
         attn = self.attn_out(ctx.to(dt)).to(dt)
         x = x + self.dropout(attn, seeds[1], deterministic)
         y = F.gelu(self.mlp_in(self.ln_2(x)).to(dt), approximate="tanh")
@@ -287,9 +302,8 @@ class GPTModel(nn.Module):
         self.wpe = nn.Parameter(torch.empty(cfg.max_position_embeddings,
                                             cfg.hidden_size))
         self.h = nn.ModuleList(GPTBlock(cfg) for _ in range(cfg.num_layers))
-        self.ln_f = FusedLayerNorm(cfg.hidden_size, eps=cfg.layernorm_eps,
-                                   device="cpu")
-        self.dropout = TPDropout(cfg.dropout)
+        self.ln_f = norm(cfg, cfg.hidden_size)
+        self.dropout = TPDropout(cfg.dropout, cfg.fused_kernels)
 
     def num_dropout_seeds(self) -> int:
         """One for the embeddings, three per block."""
@@ -442,7 +456,8 @@ def _quantize_blocks(model: GPTLMHeadModel, mode) -> None:
             lin = getattr(block, name)
             q, s = quantize_dense_kernel(lin.weight.detach().t(), mode)
             setattr(block, name, QuantLinear(
-                q, s, lin.bias.detach().clone(), dtype=model.cfg.dtype))
+                q, s, lin.bias.detach().clone(), dtype=model.cfg.dtype,
+                requires_grad=lin.bias.requires_grad))
 
 
 def quantize_gpt_model(model: GPTLMHeadModel, mode) -> GPTLMHeadModel:
@@ -494,7 +509,7 @@ def load_jax_params(params_np, cfg: GPTConfig, device=None,
     ``scale`` leaf is a quantized tree: the model then reads it through
     :class:`QuantLinear` with ``cfg.weight_quantization`` set from the
     kernel dtype. ``trainable=True`` leaves the parameters trainable
-    (the training forward); a quantized tree is serving-only."""
+    (the training forward; of a quantized tree, every float leaf)."""
     tree = params_np.get("params", params_np)
     tree = tree.get("transformer", tree)
     quant = "scale" in tree["h_0"]["attn_q"]
@@ -520,7 +535,8 @@ def load_jax_params(params_np, cfg: GPTConfig, device=None,
                 if quant:
                     setattr(block, name, QuantLinear(
                         _to_tensor(rec["kernel"]), _to_tensor(rec["scale"]),
-                        _to_tensor(rec["bias"]), dtype=cfg.dtype))
+                        _to_tensor(rec["bias"]), dtype=cfg.dtype,
+                        requires_grad=trainable))
                 else:
                     lin.weight.copy_(_to_tensor(rec["kernel"]).t())
         t.ln_f.scale.copy_(_to_tensor(tree["ln_f"]["scale"]))

@@ -10,7 +10,8 @@ dequantizes weight tiles in shared memory so the full-precision weights
 never exist in device memory: up to ``M0`` rows it streams the weights
 (a 16-row tile, K split over a cluster until two blocks sit on every
 SM), past it it runs a register-tiled fp32 GEMM; on CPU tensors it runs
-:func:`dequant_matmul_plain`.
+:func:`dequant_matmul_plain`. Its backward (training over quantized
+weights) is plain ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -72,15 +73,38 @@ def dequant_gemm(x2d, w_q, scale):
     return out
 
 
+class _DequantMatmul(torch.autograd.Function):
+    """``(M, K) @ dequant((K, N))``: the forward on B15 (the plain chain
+    on the CPU); the backward as plain products, as the JAX package leaves
+    it to XLA's autodiff: ``dx = (dy * scale) @ w_q^T`` and ``dscale =
+    sum_m dy * (x @ w_q)``. The quantized kernel takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x2d, w_q, scale):
+        ctx.save_for_backward(x2d, w_q, scale)
+        if x2d.device.type == "cpu":
+            return dequant_matmul_plain(x2d, w_q, scale)
+        return dequant_gemm(x2d, w_q, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w_q, scale = ctx.saved_tensors
+        w = w_q.float()
+        g = g.float()
+        dx = dscale = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g * scale.float()[None, :], w.t()).to(x2d.dtype)
+        if ctx.needs_input_grad[2]:
+            dscale = (g * torch.matmul(x2d.float(), w)).sum(0).to(scale.dtype)
+        return dx, None, dscale
+
+
 def dequant_matmul(x, w_q, scale):
     """Quantized-weight matmul ``(..., K) @ dequant((K, N)) -> (..., N)``
-    fp32. CUDA tensors run kernel B15; CPU tensors the plain chain."""
+    fp32, differentiable in ``x`` and ``scale``. CUDA tensors run kernel
+    B15; CPU tensors the plain chain."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     N = w_q.shape[1]
-    x2d = x.reshape(-1, K)
-    if x.device.type == "cpu":
-        out = dequant_matmul_plain(x2d, w_q, scale)
-    else:
-        out = dequant_gemm(x2d, w_q, scale)
+    out = _DequantMatmul.apply(x.reshape(-1, K), w_q, scale)
     return out.reshape(*lead, N)

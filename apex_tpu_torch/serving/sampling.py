@@ -12,6 +12,17 @@ drawn on the host, so the same generator gives the same token on every
 device for the same logits.
 
 An all-greedy batch skips the sort/filter chain for a plain argmax.
+
+:func:`spec_verify_tokens` is the speculative-decoding accept rule
+(Leviathan et al.) over a drafted span: greedy lanes accept a draft iff
+it is the position's argmax; sampled lanes accept draft ``d`` with
+probability ``p(d)`` under the filtered target distribution and resample
+a rejection from ``p`` with ``d`` removed, which preserves the output
+distribution. A token index draws from three independent streams of
+:func:`token_generator` (:func:`spec_uniforms`): stream 0, the one the
+non-speculative token at that index draws from, for the full (bonus)
+sample; 1 for the accept uniform; 2 for the rejection resample. So a
+lane with no proposals emits the non-speculative engine's token.
 """
 
 from __future__ import annotations
@@ -48,18 +59,32 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def token_generator(seed: int, arrival: int, index: int) -> torch.Generator:
+def token_generator(seed: int, arrival: int, index: int,
+                    stream: int = 0) -> torch.Generator:
     """The CPU generator token ``index`` of request ``arrival`` draws
-    from: seeded by a hash of (engine seed, arrival, index)."""
+    from in ``stream``: seeded by a hash of (engine seed, arrival, index)
+    and, past stream 0, the stream (0: the token's sample; 1 and 2: the
+    speculative accept uniform and rejection resample)."""
     h = _splitmix64(int(seed) & _MASK64)
     h = _splitmix64(h ^ (int(arrival) & _MASK64))
     h = _splitmix64(h ^ (int(index) & _MASK64))
+    if stream:
+        h = _splitmix64(h ^ (int(stream) & _MASK64))
     return torch.Generator().manual_seed(h >> 1)
 
 
 def uniforms(generators) -> torch.Tensor:
     """One fp32 uniform in [0, 1) per generator, as a CPU ``[B]``."""
     return torch.cat([torch.rand(1, generator=g) for g in generators])
+
+
+def spec_uniforms(seed: int, arrival: int, first_index: int,
+                  positions: int) -> torch.Tensor:
+    """``[positions, 3]`` uniforms of token indices ``first_index ..``:
+    column ``s`` from stream ``s`` of :func:`token_generator`."""
+    return uniforms([token_generator(seed, arrival, first_index + p, s)
+                     for p in range(positions)
+                     for s in range(3)]).view(positions, 3)
 
 
 def _filtered_sorted_logits(logits, temperature, top_k, top_p):
@@ -95,14 +120,82 @@ def sample_with_uniforms(logits, u, temperature, top_k, top_p,
         return greedy
     filtered, order, _ = _filtered_sorted_logits(logits, temperature, top_k,
                                                  top_p)
+    return torch.where(temperature > 0.0, _pick(filtered, order, u), greedy)
+
+
+def _pick(filtered, order, u):
+    """Inverse-CDF draw of one vocabulary id per row of the sorted
+    ``filtered`` logits (killed ranks at ``-inf``) from uniforms ``u``;
+    a draw past the last kept rank (rounding) takes that rank."""
     probs = torch.softmax(filtered, dim=-1)           # killed ranks -> 0
     cdf = torch.cumsum(probs, dim=-1)
     target = (u.float() * cdf[:, -1])[:, None]
     pos = torch.searchsorted(cdf, target, right=True)[:, 0]
-    n_keep = torch.isfinite(filtered).sum(dim=-1)
-    pos = torch.minimum(pos, n_keep - 1)
-    sampled = torch.gather(order, 1, pos[:, None])[:, 0]
-    return torch.where(temperature > 0.0, sampled, greedy)
+    rank = torch.arange(filtered.shape[-1], device=filtered.device)
+    last = torch.where(torch.isfinite(filtered), rank, 0).amax(dim=-1)
+    pos = torch.minimum(pos, last)
+    return torch.gather(order, 1, pos[:, None])[:, 0]
+
+
+def spec_verify_tokens(logits, drafts, draft_lens, u, temperature, top_k,
+                       top_p, any_sampled: bool):
+    """The accept/correct rule over every lane's drafted span.
+
+    ``logits`` ``[B, P, V]``: position ``p`` scores the lane's token
+    index ``gen_count + p`` given the carried token and drafts ``0 ..
+    p - 1`` (``P = S + 1``). ``drafts`` ``[B, S]``, ``draft_lens`` ``[B]``
+    valid proposals a lane; ``u`` ``[B, P, 3]`` the lanes' uniforms
+    (:func:`spec_uniforms`; read only where a lane samples);
+    ``temperature``/``top_k``/``top_p`` ``[B]``; ``any_sampled`` the
+    host's knowledge that some lane samples. Returns ``(emitted,
+    n_emit)``: lane ``b``'s first ``n_emit[b]`` entries of ``[B, P]`` are
+    its accepted drafts, then the correction (first rejection) or bonus
+    (every draft accepted) token; EOS and budget truncation are the
+    caller's."""
+    B, P, V = logits.shape
+    S = P - 1
+    dev = logits.device
+    lg = logits.float()
+    greedy = torch.argmax(lg, dim=-1)                           # [B, P]
+    # position S only ever scores the bonus token: its "draft" is never
+    # consulted (n_acc <= draft_lens <= S)
+    drafts_pad = torch.cat([drafts.long(),
+                            torch.zeros((B, 1), dtype=torch.long,
+                                        device=dev)], dim=1)
+    match = drafts_pad[:, :S] == greedy[:, :S]
+    if not any_sampled:
+        accept, corr, full = match, greedy, greedy
+    else:
+        flat = lg.reshape(B * P, V)
+        filtered, order, _ = _filtered_sorted_logits(
+            flat, temperature.repeat_interleave(P),
+            top_k.repeat_interleave(P), top_p.repeat_interleave(P))
+        probs = torch.softmax(filtered, dim=-1)
+        hit = order == drafts_pad.reshape(B * P)[:, None]   # the draft's rank
+        p_draft = torch.where(hit, probs, torch.zeros_like(probs)).sum(-1)
+        uf = u.reshape(B * P, 3).to(dev).float()
+        accept_s = (uf[:, 1] < p_draft).reshape(B, P)[:, :S]
+        # the rejection residual: the filtered distribution without the
+        # draft (max(p - q, 0) renormalized, q a point mass)
+        resid = torch.where(hit, torch.full_like(filtered, float("-inf")),
+                            filtered)
+        corr_s = _pick(resid, order, uf[:, 2]).reshape(B, P)
+        full_s = _pick(filtered, order, uf[:, 0]).reshape(B, P)
+        sampled = (temperature > 0.0)[:, None]
+        accept = torch.where(sampled, accept_s, match)
+        corr = torch.where(sampled, corr_s, greedy)
+        full = torch.where(sampled, full_s, greedy)
+    valid = (torch.arange(S, device=dev)[None]
+             < draft_lens.to(dev).long()[:, None])
+    chain = torch.cumprod((accept & valid).long(), dim=1)
+    n_acc = chain.sum(dim=1)                                    # [B]
+    at = n_acc[:, None]
+    final = torch.where(n_acc == draft_lens.to(dev).long(),
+                        torch.gather(full, 1, at)[:, 0],
+                        torch.gather(corr, 1, at)[:, 0])
+    ii = torch.arange(P, device=dev)[None]
+    emitted = torch.where(ii < at, drafts_pad, final[:, None])
+    return emitted, n_acc + 1
 
 
 def sample_tokens(logits, generator, temperature, top_k, top_p):

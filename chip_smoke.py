@@ -206,6 +206,43 @@ ranks end with the same bits, and each matches the world-1 step on the
 concatenated batch within 1e-4 (ResNet: of each tensor's step; BERT: of
 each reduced gradient's norm). A ``{"phase9": ...}`` line records it.
 
+Phase 10 serves at GPT-2 small's full width with phase 2's engine
+geometry (8 lanes, blocks of 16, chunks of 128, ``decode_steps`` 8),
+weights from ``--seed``. 10a, prefix caching: 16 greedy requests behind
+one 512-token prompt (32 blocks, 4 whole chunks), each with its own tail
+of 64-256 tokens and 32 new tokens, the first alone until it decodes;
+served with caching off, on, and on through a 160-block pool that must
+evict: the tokens of the three identical, the allocator's integrity
+check clean, the prefix hits, prefill tokens and chunks saved, wall
+times and B14 launches printed. 10b, speculative decoding: 8 greedy
+requests, each a 32-token phrase repeated 4 times, 64 new tokens, with
+``spec_tokens`` 4 and the n-gram drafter against the engine without
+speculation, on fp32 and then int8 weights; then a ``GPTDrafter`` (2
+layers at GPT-2 small's width, window 32) on 4 requests of 16 tokens,
+its own launches counted (the flash forward; its LayerNorms run without
+autograd and take ``F.layer_norm``, as the serving forward's do). The
+tokens must be
+the non-speculative engine's. A divergence passes only as a near-tie of
+the two routes of B14 (the decode read and the verify's multi-query
+read): the top-2 gap of both routes' logits at the first divergent token
+under 1e-5 of the logits' largest magnitude, at most once in the phase.
+Acceptance, tokens a lane a verify, verify forwards, rolled-back blocks,
+B14 and B15 launches a verify forward (12 and 72) and decode tokens/s
+with and without speculation are printed. No arm routes a call to a
+plain version.
+
+Phase 11 runs the model options past the fused paths. First one O0
+fp32 global step of each at tiny size on the card against the CPU
+(:func:`compare_card_cpu`'s tolerances): BERT ``fused_kernels=False``
+and ``remat_policy="dots"``, GPT ``fused_kernels=False`` and int8
+weights. Then BERT-large at phase 4's shape, 2 global steps an arm:
+``fused_kernels=False`` launching none of the port's kernels, and
+``remat_policy="dots"`` against ``"full"`` in torch's deterministic mode,
+bit-identical losses, step ms and peak memory of both; GPT-2 small (bf16,
+O2, FusedAdam, S 1024, B 4) for 2 steps with ``fused_kernels=False`` (no
+port kernel) and over int8 weights (B15 on the 72 quantized products of
+a forward and again in its recompute). Every loss finite.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -350,11 +387,15 @@ def queued_ms(fn, iters=20, warmup=3):
     return ms
 
 
-def device_ms(fn, iters=3):
-    """Device time of one call of ``fn`` and its kernel launches:
-    ``torch.profiler`` tracing the device over ``iters`` calls after one
-    warm-up, the kernels' device time summed (host time left out: for
-    calls whose host loop is slower than the device)."""
+LAUNCH_APIS = ("LaunchKernel", "Memcpy", "Memset")
+
+
+def profile_window(fn, iters=3):
+    """``torch.profiler`` tracing the device over ``iters`` calls of
+    ``fn`` after one warm-up: (device ms summed over the window, device
+    activities, host launches). The profiler records each launch twice:
+    the host's API call (``cudaLaunchKernel*``, ``cuLaunchKernel*``,
+    ``cudaMemcpy*``, ``cudaMemset*``) and the device's activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -364,22 +405,37 @@ def device_ms(fn, iters=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in events) / 1e3 / iters,
-            sum(e.count for e in events) / iters)
+    events = prof.key_averages()
+    device = [e for e in events if e.self_device_time_total > 0]
+    host = sum(e.count for e in events if e.self_device_time_total == 0
+               and any(a in e.key for a in LAUNCH_APIS))
+    return (sum(e.self_device_time_total for e in device) / 1e3,
+            sum(e.count for e in device), host)
 
 
-def kernels_per_call(fn, tries=3):
-    """CUDA kernels one call of ``fn`` launches, by ``device_ms``. The
-    profiler now and then records no device activity at all for a window,
-    or drops a call's kernels from it (a count that is not a whole number
-    of kernels a call); such a window is taken again, up to ``tries``
-    times."""
+def device_ms(fn, iters=3):
+    """Device time of one call of ``fn`` and its kernel launches, by
+    ``profile_window`` (the kernels' device time summed, host time left
+    out: for calls whose host loop is slower than the device)."""
+    ms, n, _ = profile_window(fn, iters)
+    return ms / iters, n / iters
+
+
+def kernels_per_call(fn, tries=5, iters=3):
+    """CUDA kernels and copies one call of ``fn`` launches, by
+    ``profile_window``. The device's records go missing now and then, a
+    whole window's or some calls' (``tools/profiler_counts.py`` on the
+    H100: 3 of 1,120 windows with no device record, every host record
+    there), so a window is taken again, up to ``tries`` times, until the
+    host's and the device's counts agree. If none does, the larger count
+    of the last window is returned: the host's where device records were
+    dropped, the device's where a kernel was launched by an API outside
+    ``LAUNCH_APIS``."""
     for _ in range(tries):
-        _, n = device_ms(fn)
-        if n > 0 and n == int(n):
+        _, device, host = profile_window(fn, iters)
+        if device == host:
             break
-    return n
+    return max(device, host) / iters
 
 
 def kernel_names(fn, calls=10):
@@ -520,6 +576,8 @@ def paged_cases(torch):
         ("prefill bf16", 1, 128, [1000], bf16, bf16, 2e-2),
         ("prefill int8 pool", 1, 128, [1000], f32, int8, 1e-4),
         ("prefill fp8 pool", 1, 128, [1000], f32, fp8, 1e-4),
+        # the speculative verify: 8 lanes, spec_tokens 4 + the carried one
+        ("verify fp32, C 5, 8 live lanes", 8, 5, live_ctx, f32, f32, 1e-4),
     ]
 
 
@@ -621,53 +679,57 @@ def phase1_dequant(torch, dev, seed):
 
     rows = []
     g = torch.Generator().manual_seed(seed)
+    pairs = ((768, 768), (768, 3072), (3072, 768))
+    # M 40: the verify forward's 8 lanes x (spec_tokens 4 + 1), with
+    # 768 x 2304, the width of a fused qkv product, beside the port's own
+    shapes = [(M, K, N) for M in (1, 8, 64, 128) for K, N in pairs] + [
+        (40, K, N) for K, N in ((768, 2304),) + pairs]
     for mode in ("int8", "fp8"):
-        for M in (1, 8, 64, 128):
-            for K, N in ((768, 768), (768, 3072), (3072, 768)):
-                w_q, s = quantize_dense_kernel(
-                    torch.randn(K, N, generator=g) * 0.02, mode)
-                x = torch.randn(M, K, generator=g)
-                w_q, s, x = w_q.to(dev), s.to(dev), x.to(dev)
-                out = dequant_matmul(x, w_q, s)
-                again = dequant_matmul(x, w_q, s)
-                ref = dequant_matmul_plain(x, w_q, s)
-                torch.cuda.synchronize()
-                err = (out - ref).abs()
-                max_abs = err.max().item()
-                max_rel = (err / ref.abs().clamp(min=1e-3)).max().item()
-                check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4),
-                      f"dequant_gemm {mode} {M}x{K}x{N}: max abs err "
-                      f"{max_abs}")
-                check(torch.equal(out, again), f"dequant_gemm {mode} "
-                      f"{M}x{K}x{N}: a rerun changed the bits")
-                per_call = kernels_per_call(
-                    lambda: dequant_matmul(x, w_q, s))
-                check(per_call == 1, f"dequant_gemm {mode} {M}x{K}x{N}: "
-                      f"{per_call} CUDA kernels a call, not 1")
-                w = w_q.float() * s[None]
-                nbytes = 4 * M * K + w_q.numel() * w_q.element_size() \
-                    + 4 * N + 4 * M * N
-                b_ms, b_by = bound(nbytes, 2 * M * K * N)
-                row = dict(
-                    case=f"{mode} M={M} K={K} N={N}", mode=mode, M=M, K=K,
-                    N=N, max_abs_err=max_abs, max_rel_err=max_rel,
-                    tol=1e-4, kernels_per_call=per_call,
-                    regime="streaming" if M <= M0 else "tiled",
-                    plan=dequant_plan(M, K, N),
-                    ms=time_ms(lambda: dequant_matmul(x, w_q, s)),
-                    plain_ms=time_ms(lambda: dequant_matmul_plain(x, w_q,
-                                                                  s)),
-                    library_ms=time_ms(lambda: torch.matmul(x, w)),
-                    bytes=nbytes, flops=2 * M * K * N, bound_ms=b_ms,
-                    bound_by=b_by)
-                rows.append(row)
-                print(f"[B15 dequant_gemm] {row['case']} ({row['regime']}, "
-                      f"rows/splits/stages {row['plan']}, {per_call} "
-                      f"kernel a call): max_abs_err "
-                      f"{max_abs:.3g} max_rel_err {max_rel:.3g} | ms "
-                      f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-                      f"library_ms {row['library_ms']:.4f} bound_ms "
-                      f"{b_ms:.4f} ({b_by})", flush=True)
+        for M, K, N in shapes:
+            w_q, s = quantize_dense_kernel(
+                torch.randn(K, N, generator=g) * 0.02, mode)
+            x = torch.randn(M, K, generator=g)
+            w_q, s, x = w_q.to(dev), s.to(dev), x.to(dev)
+            out = dequant_matmul(x, w_q, s)
+            again = dequant_matmul(x, w_q, s)
+            ref = dequant_matmul_plain(x, w_q, s)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            max_abs = err.max().item()
+            max_rel = (err / ref.abs().clamp(min=1e-3)).max().item()
+            check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4),
+                  f"dequant_gemm {mode} {M}x{K}x{N}: max abs err "
+                  f"{max_abs}")
+            check(torch.equal(out, again), f"dequant_gemm {mode} "
+                  f"{M}x{K}x{N}: a rerun changed the bits")
+            per_call = kernels_per_call(
+                lambda: dequant_matmul(x, w_q, s))
+            check(per_call == 1, f"dequant_gemm {mode} {M}x{K}x{N}: "
+                  f"{per_call} CUDA kernels a call, not 1")
+            w = w_q.float() * s[None]
+            nbytes = 4 * M * K + w_q.numel() * w_q.element_size() \
+                + 4 * N + 4 * M * N
+            b_ms, b_by = bound(nbytes, 2 * M * K * N)
+            row = dict(
+                case=f"{mode} M={M} K={K} N={N}", mode=mode, M=M, K=K,
+                N=N, max_abs_err=max_abs, max_rel_err=max_rel,
+                tol=1e-4, kernels_per_call=per_call,
+                regime="streaming" if M <= M0 else "tiled",
+                plan=dequant_plan(M, K, N),
+                ms=time_ms(lambda: dequant_matmul(x, w_q, s)),
+                plain_ms=time_ms(lambda: dequant_matmul_plain(x, w_q,
+                                                              s)),
+                library_ms=time_ms(lambda: torch.matmul(x, w)),
+                bytes=nbytes, flops=2 * M * K * N, bound_ms=b_ms,
+                bound_by=b_by)
+            rows.append(row)
+            print(f"[B15 dequant_gemm] {row['case']} ({row['regime']}, "
+                  f"rows/splits/stages {row['plan']}, {per_call} "
+                  f"kernel a call): max_abs_err "
+                  f"{max_abs:.3g} max_rel_err {max_rel:.3g} | ms "
+                  f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                  f"library_ms {row['library_ms']:.4f} bound_ms "
+                  f"{b_ms:.4f} ({b_by})", flush=True)
     return rows
 
 
@@ -3910,6 +3972,597 @@ def phase9(torch, F, dev, seed, card, timed):
     return rec
 
 
+# -- phase 10: prefix caching and speculative decoding at GPT-2 small width -
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def drive(torch, model, config, reqs, dev, label, drafter=None, first=0):
+    """Serve ``reqs`` through one engine: the first ``first`` requests
+    alone until they have started decoding, then the rest. Prefill ticks
+    and decode (drafting, dispatch and drain) are timed on the host clock
+    around synchronized work; the launch counters are set to 0 just
+    before and read just after. Every request must finish its budget
+    with in-vocabulary tokens, the allocator must balance and pass its
+    integrity check, and no call may be routed to a plain version."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.serving import InferenceEngine
+
+    eng = InferenceEngine(model, config, drafter=drafter, device=dev)
+    spent = {"prefill": 0.0, "decode": 0.0}
+    lanes = [0]
+    dispatch = eng._dispatch_decode
+
+    def count_lanes(active):
+        lanes[0] += len(active)
+        return dispatch(active)
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            sync(torch, dev)
+            spent[name] += time.perf_counter() - t
+            return r
+        return wrapper
+
+    eng._prefill_tick = timed("prefill", eng._prefill_tick)
+    eng._dispatch_decode = timed("decode", count_lanes)
+    eng._drain_decode = timed("decode", eng._drain_decode)
+    if config.spec_tokens:
+        eng._build_draft_plan = timed("decode", eng._build_draft_plan)
+    sync(torch, dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs[:first]:
+        eng.add_request(r)
+    while first and not all(s is not None and s.started
+                            for s in eng.slots[:first]):
+        eng.step()
+    for r in reqs[first:]:
+        eng.add_request(r)
+    out = eng.run(return_status=True)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    s = eng.stats()
+    for r in reqs:
+        res = out.get(r.uid)
+        check(res is not None and res.status == "finished"
+              and len(res.tokens) == r.max_new_tokens,
+              f"{label}: request {r.uid} did not finish its budget")
+        check(all(0 <= t < model.cfg.vocab_size for t in res.tokens),
+              f"{label}: request {r.uid} emitted an out-of-vocab token")
+    check(eng.allocator.num_used == 0, f"{label}: blocks leaked")
+    eng.check_allocator_integrity()
+    check_no_route(launches, label)
+    stats = {k: v for k, v in s.items() if k != "kernel_launches"}
+    return dict(label=label, wall_s=wall, prefill_s=spent["prefill"],
+                decode_s=spent["decode"],
+                decode_tokens_per_s=s["num_tokens_decoded"]
+                / max(spent["decode"], 1e-9), lanes_dispatched=lanes[0],
+                launches=launches, stats=stats,
+                tokens={u: r.tokens for u, r in out.items()})
+
+
+def shared_prompt_traffic(seed, vocab, n=16, system=512, tail=(64, 257),
+                          new=32):
+    """``n`` greedy requests behind one ``system``-token prompt, each with
+    its own tail, ``new`` tokens each."""
+    import numpy as np
+
+    from apex_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed)
+    head = [int(t) for t in rng.randint(0, vocab, system)]
+    return [Request(f"p{i}", head + [int(t) for t in rng.randint(
+        0, vocab, int(rng.randint(*tail)))], max_new_tokens=new)
+        for i in range(n)]
+
+
+def phase10_prefix(torch, model, config, dev, seed, card, small_pool=160):
+    """10a: the shared-prompt traffic with prefix caching off and on (the
+    first request alone until it decodes, so its prompt blocks are
+    registered when the rest arrive), then on through a pool of
+    ``small_pool`` blocks, where finished requests' cached blocks must be
+    evicted. Tokens identical in all three (the prompt is chunk-aligned:
+    every chunk starts where it would without the cache)."""
+    reqs = shared_prompt_traffic(seed + 10, model.cfg.vocab_size)
+    runs = {}
+    for name, kw in (("off", {}), ("on", dict(enable_prefix_caching=True)),
+                     ("small pool", dict(enable_prefix_caching=True,
+                                         num_blocks=small_pool))):
+        runs[name] = drive(torch, model, dataclasses.replace(config, **kw),
+                           reqs, dev, f"phase 10a caching {name}", first=1)
+    off, on, small = runs["off"], runs["on"], runs["small pool"]
+    check(on["tokens"] == off["tokens"],
+          "phase 10a: tokens with prefix caching differ from without")
+    check(small["tokens"] == off["tokens"],
+          "phase 10a: tokens through the small pool differ")
+    system_blocks = 512 // config.block_size
+    check(on["stats"]["prefix_hit_blocks"]
+          >= (len(reqs) - 1) * system_blocks,
+          f"phase 10a: {on['stats']['prefix_hit_blocks']} prefix hits, "
+          f"expected >= {(len(reqs) - 1) * system_blocks}")
+    check(small["stats"]["num_cache_evictions"] > 0,
+          "phase 10a: the small pool evicted nothing")
+    for name in ("off", "on"):
+        check(runs[name]["launches"]["paged_read"] > 0,
+              f"phase 10a {name}: paged_read never launched")
+    rec = dict(
+        card=card, requests=len(reqs),
+        prompt_tokens=[len(r.prompt) for r in reqs],
+        prefix_hit_blocks=on["stats"]["prefix_hit_blocks"],
+        prefix_lookup_blocks=on["stats"]["prefix_lookup_blocks"],
+        prefill_tokens_off=off["stats"]["num_prefill_tokens"],
+        prefill_tokens_on=on["stats"]["num_prefill_tokens"],
+        prefill_tokens_saved=off["stats"]["num_prefill_tokens"]
+        - on["stats"]["num_prefill_tokens"],
+        prefill_chunks_off=off["stats"]["num_prefill_chunks"],
+        prefill_chunks_on=on["stats"]["num_prefill_chunks"],
+        wall_s_off=off["wall_s"], wall_s_on=on["wall_s"],
+        wall_s_small_pool=small["wall_s"],
+        prefill_s_off=off["prefill_s"], prefill_s_on=on["prefill_s"],
+        paged_read_off=off["launches"]["paged_read"],
+        paged_read_on=on["launches"]["paged_read"],
+        small_pool=small_pool,
+        small_pool_evictions=small["stats"]["num_cache_evictions"],
+        small_pool_preemptions=small["stats"]["num_preemptions"],
+        small_pool_cow=small["stats"]["num_cow_copies"],
+        runs={k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+              for k, v in runs.items()})
+    print(f"[phase 10a prefix caching] {card}: {len(reqs)} requests behind "
+          f"a 512-token prompt | hit {rec['prefix_hit_blocks']} of "
+          f"{rec['prefix_lookup_blocks']} looked-up blocks | prefill "
+          f"tokens {rec['prefill_tokens_off']} -> "
+          f"{rec['prefill_tokens_on']} (saved "
+          f"{rec['prefill_tokens_saved']}), chunks "
+          f"{rec['prefill_chunks_off']} -> {rec['prefill_chunks_on']} | "
+          f"wall {off['wall_s']:.3f} -> {on['wall_s']:.3f} s (prefill "
+          f"{off['prefill_s']:.3f} -> {on['prefill_s']:.3f} s) | B14 "
+          f"launches {rec['paged_read_off']} -> {rec['paged_read_on']} | "
+          f"{small_pool}-block pool: {rec['small_pool_evictions']} "
+          f"evictions, {rec['small_pool_preemptions']} preemptions, "
+          f"tokens identical, integrity clean", flush=True)
+    return rec
+
+
+def phrase_traffic(seed, vocab, n=8, phrase=32, repeats=4, new=64):
+    """``n`` greedy requests, each a 32-token phrase of its own repeated
+    ``repeats`` times, ``new`` tokens each."""
+    import numpy as np
+
+    from apex_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed)
+    return [Request(f"s{i}", [int(t) for t in
+                              rng.randint(0, vocab, phrase)] * repeats,
+                    max_new_tokens=new) for i in range(n)]
+
+
+def route_gaps(torch, model, context, config, dev):
+    """The logits that predict the token after ``context`` by both of
+    B14's routes over one cache: the decode read (one query) and the
+    verify read (the query in a ``[1, spec_tokens + 1]`` chunk).
+    Returns ``(top-2 gap decode, top-2 gap verify, |logits| max)``."""
+    from apex_tpu_torch.serving import KVCache, device_block_table
+    from apex_tpu_torch.serving.kv_cache import blocks_needed
+
+    cfg = model.cfg
+    bs, C = config.block_size, config.chunk
+    n = len(context)
+    M = blocks_needed(config.max_seq_len, bs)
+    cache = KVCache.create(cfg.num_layers, M, bs, cfg.num_heads,
+                           cfg.hidden_size // cfg.num_heads, device=dev)
+    tbl = device_block_table([list(range(M))], M, dev)
+
+    def fwd(ids, pos, seq_len, write_start):
+        with torch.no_grad():
+            logits, _ = model(torch.tensor([ids], device=dev), cache, tbl,
+                              torch.tensor([pos], device=dev),
+                              torch.tensor([seq_len], device=dev),
+                              write_start=torch.tensor([write_start],
+                                                       device=dev))
+        return logits[0].float()
+
+    for s in range(0, n - 1, C):
+        e = min(s + C, n - 1)
+        ids = context[s:e] + [0] * (C - (e - s))
+        fwd(ids, list(range(s, s + C)), e, s)
+    dec = fwd([context[-1]], [n - 1], n, n - 1)[0]
+    P = config.spec_tokens + 1
+    ver = fwd([context[-1]] + [0] * (P - 1), list(range(n - 1, n - 1 + P)),
+              n, n - 1)[0]
+
+    def gap(x):
+        top = torch.topk(x, 2).values
+        return (top[0] - top[1]).item()
+
+    return gap(dec), gap(ver), max(dec.abs().max().item(),
+                                   ver.abs().max().item())
+
+
+def compare_greedy(torch, model, reqs, ref, spec, config, dev, label,
+                   divergences):
+    """Hold speculative greedy tokens to the non-speculative engine's.
+    A divergence passes only as a near-tie: both routes' top-2 logit gap
+    at the first divergent position under 1e-5 of the logits' absolute
+    maximum, at most once in the phase (``divergences`` collects them)."""
+    for r in reqs:
+        a, b = ref[r.uid], spec[r.uid]
+        if a == b:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        g_dec, g_ver, amax = route_gaps(torch, model, list(r.prompt) + a[:j],
+                                        config, dev)
+        rec = dict(arm=label, uid=r.uid, position=j, ref=a[j], spec=b[j],
+                   gap_decode=g_dec, gap_verify=g_ver, logits_absmax=amax)
+        divergences.append(rec)
+        print(f"[phase 10b divergence] {rec}", flush=True)
+        check(max(g_dec, g_ver) < 1e-5 * amax,
+              f"{label}: request {r.uid} diverges at token {j} with top-2 "
+              f"gaps {g_dec:.3g} (decode) / {g_ver:.3g} (verify) against "
+              f"1e-5 of {amax:.3g}")
+        check(len(divergences) <= 1,
+              f"phase 10b: {len(divergences)} divergences, at most 1 allowed")
+
+
+class CountingDrafter:
+    """A drafter wrapper that adds up the kernel launches its proposals
+    make (the deltas of the launch counters around each call)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.launches = {}
+
+    def propose(self, history, max_tokens):
+        from apex_tpu_torch import _build
+
+        before = dict(_build.launches)
+        out = self.inner.propose(history, max_tokens)
+        for k, v in _build.launches.items():
+            if v != before[k]:
+                self.launches[k] = self.launches.get(k, 0) + v - before[k]
+        return out
+
+
+def phase10_spec(torch, model, config, dev, seed, card, drafter_cfg,
+                 drafter_window=32):
+    """10b: the repeated-phrase traffic with ``spec_tokens`` 4 and the
+    n-gram drafter against the non-speculative engine
+    (``decode_steps`` 8), fp32 and int8 weights; then a GPTDrafter arm
+    (``drafter_cfg``, window ``drafter_window``) on 4 requests of 16
+    tokens."""
+    from apex_tpu_torch.models import GPTLMHeadModel
+    from apex_tpu_torch.models.gpt import quantize_gpt_model
+    from apex_tpu_torch.serving import GPTDrafter, NgramDrafter
+
+    L = model.cfg.num_layers
+    reqs = phrase_traffic(seed + 20, model.cfg.vocab_size)
+    divergences = []
+    arms = {}
+    for mode in (None, "int8"):
+        base = dataclasses.replace(config, weight_quantization=mode)
+        tag = mode or "fp32"
+        ref = drive(torch, model, base, reqs, dev, f"phase 10b {tag} K=8")
+        spec = drive(torch, model, dataclasses.replace(base, spec_tokens=4),
+                     reqs, dev, f"phase 10b {tag} spec 4",
+                     drafter=NgramDrafter())
+        compare_greedy(torch, quantize_gpt_model(model, mode), reqs,
+                       ref["tokens"], spec["tokens"], base, dev,
+                       f"phase 10b {tag}", divergences)
+        s = spec["stats"]
+        verify = s["num_decode_dispatches"]
+        chunks = s["num_prefill_chunks"]
+        per_verify = {
+            "paged_read": (spec["launches"]["paged_read"] - L * chunks)
+            / verify,
+            "dequant_gemm": (spec["launches"]["dequant_gemm"]
+                             - 6 * L * chunks) / verify if mode else 0}
+        check(per_verify["paged_read"] == L,
+              f"phase 10b {tag}: {per_verify['paged_read']} B14 launches a "
+              f"verify forward, expected {L}")
+        if mode is not None:
+            check(per_verify["dequant_gemm"] == 6 * L,
+                  f"phase 10b {tag}: {per_verify['dequant_gemm']} B15 "
+                  f"launches a verify forward, expected {6 * L}")
+        arms[tag] = dict(
+            acceptance_rate=s["draft_acceptance_rate"],
+            draft_tokens=s["num_draft_tokens"],
+            accepted_tokens=s["num_accepted_tokens"],
+            tokens_per_lane_verify=s["num_tokens_decoded"]
+            / spec["lanes_dispatched"],
+            verify_forwards=verify,
+            rolled_back_blocks=s["num_spec_blocks_rolled_back"],
+            launches_per_verify=per_verify,
+            decode_tokens_per_s_spec=spec["decode_tokens_per_s"],
+            decode_tokens_per_s_k8=ref["decode_tokens_per_s"],
+            decode_forwards_k8=ref["stats"]["num_decode_dispatches"]
+            * config.decode_steps,
+            wall_s_spec=spec["wall_s"], wall_s_k8=ref["wall_s"],
+            launches_spec=spec["launches"])
+        a = arms[tag]
+        print(f"[phase 10b speculative {tag} weights] {card}: acceptance "
+              f"{a['acceptance_rate']:.3f} ({a['accepted_tokens']} of "
+              f"{a['draft_tokens']}) | {a['tokens_per_lane_verify']:.2f} "
+              f"tokens a lane a verify, {verify} verify forwards (K=8: "
+              f"{a['decode_forwards_k8']} decode forwards) | rolled back "
+              f"{a['rolled_back_blocks']} blocks | launches a verify "
+              f"forward {per_verify} | decode "
+              f"{a['decode_tokens_per_s_spec']:.1f} tok/s vs "
+              f"{a['decode_tokens_per_s_k8']:.1f} at K=8 | wall "
+              f"{a['wall_s_spec']:.3f} vs {a['wall_s_k8']:.3f} s",
+              flush=True)
+    # a small-GPT drafter: its window forwards run the flash forward and B2
+    draft_model = GPTLMHeadModel(drafter_cfg, device=dev, seed=seed + 1)
+    drafter = CountingDrafter(GPTDrafter(draft_model, window=drafter_window))
+    small = [type(r)(f"g{i}", list(r.prompt[:16]), max_new_tokens=16)
+             for i, r in enumerate(reqs[:4])]
+    ref = drive(torch, model, config, small, dev, "phase 10b GPTDrafter K=8")
+    spec = drive(torch, model, dataclasses.replace(config, spec_tokens=4),
+                 small, dev, "phase 10b GPTDrafter spec 4", drafter=drafter)
+    compare_greedy(torch, model, small, ref["tokens"], spec["tokens"],
+                   config, dev, "phase 10b GPTDrafter", divergences)
+    d = drafter.launches
+    flash = sum(v for k, v in d.items() if k.startswith("flash_fwd"))
+    # its LayerNorms run without autograd, so they take F.layer_norm as
+    # every serving forward does: the flash forward is its kernel
+    check(flash >= drafter_cfg.num_layers * spec["stats"][
+        "num_draft_tokens"], f"phase 10b: the GPTDrafter's forwards "
+          f"launched {d}")
+    check_no_route(d, "phase 10b GPTDrafter")
+    s = spec["stats"]
+    arms["gpt_drafter"] = dict(
+        acceptance_rate=s["draft_acceptance_rate"],
+        draft_tokens=s["num_draft_tokens"],
+        verify_forwards=s["num_decode_dispatches"],
+        drafter_launches=d, wall_s_spec=spec["wall_s"],
+        wall_s_k8=ref["wall_s"])
+    print(f"[phase 10b GPTDrafter] {card}: {drafter_cfg.num_layers}-layer "
+          f"GPT at width {drafter_cfg.hidden_size}, window {drafter_window}"
+          f" | acceptance {s['draft_acceptance_rate']:.3f} of "
+          f"{s['num_draft_tokens']} drafts | drafter launches {d} | wall "
+          f"{spec['wall_s']:.3f} vs {ref['wall_s']:.3f} s at K=8",
+          flush=True)
+    return dict(card=card, arms=arms, divergences=divergences,
+                launches={k: sum(v[k] for v in (a["launches_spec"]
+                                                for a in arms.values()
+                                                if "launches_spec" in a))
+                          for k in ("paged_read", "dequant_gemm")})
+
+
+def phase10(torch, dev, seed, card):
+    """Phase 10 at GPT-2 small's full width with phase 2's engine
+    geometry: 10a prefix caching, 10b speculative decoding."""
+    from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from apex_tpu_torch.serving import EngineConfig
+
+    cfg = GPTConfig.gpt2_small()
+    model = GPTLMHeadModel(cfg, device=dev, seed=seed)
+    config = EngineConfig(max_batch=8, block_size=16, num_blocks=512,
+                          max_seq_len=1024, prefill_chunk=128,
+                          decode_steps=8, seed=seed)
+    rec = dict(prefix=phase10_prefix(torch, model, config, dev, seed, card),
+               spec=phase10_spec(torch, model, config, dev, seed, card,
+                                 GPTConfig.gpt2_small(num_layers=2)))
+    del model
+    torch.cuda.empty_cache()
+    p, sp = rec["prefix"], rec["spec"]
+    print(json.dumps({"phase10": dict(
+        card=card, prefix={k: p[k] for k in (
+            "prefix_hit_blocks", "prefix_lookup_blocks",
+            "prefill_tokens_saved", "prefill_chunks_off",
+            "prefill_chunks_on", "wall_s_off", "wall_s_on",
+            "small_pool_evictions")},
+        spec={arm: {k: v for k, v in a.items() if k != "launches_spec"}
+              for arm, a in sp["arms"].items()},
+        divergences=sp["divergences"])}), flush=True)
+    return rec
+
+
+# -- phase 11: the model options past the fused paths ------------------------
+
+PORT_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "dropout", "flash_fwd",
+                "flash_bwd", "softmax_fwd", "softmax_fwd4", "softmax_bwd",
+                "flash_fwd_tiled", "flash_bwd_dq_tiled",
+                "flash_bwd_dkv_tiled", "flash_fwd_single",
+                "flash_bwd_single", "keep_mask", "dequant_gemm",
+                "paged_read")
+
+
+def train_arm(torch, dev, label, build, batch, steps):
+    """``steps`` global steps of ``build()``'s train step through
+    ``TrainLoop``, from a fresh model: losses, step ms, peak memory, and
+    the launches of the timed steps (counters set to 0 just before)."""
+    import math
+
+    from apex_tpu_torch import _build
+
+    model, opt, ts = build()
+    loop = ts.loop(ts.init())
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    metrics, times = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        m = loop.step(batch)
+        sync(torch, dev)
+        times.append((time.perf_counter() - t) * 1e3)
+        metrics += [m] if m is not None else []
+    metrics.append(loop.drain())
+    launches = dict(_build.launches)
+    losses = [m["loss"] for m in metrics]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{label}: losses {losses}")
+    check_no_route(launches, label)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    del model, opt, ts, loop
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(label=label, losses=losses, step_ms=times,
+                peak_memory_bytes=peak, launches=launches)
+
+
+def phase11_bert(torch, dev, seed, card, cfg_kw=None, steps=2, B=64,
+                 S=128, accum=4):
+    """BERT-large at phase 4's shape (bf16, remat, O2, FusedLAMB, S 128,
+    B 64 x accum 4): ``fused_kernels=False`` launches none of the port's
+    kernels; ``remat_policy="dots"`` gives the bits of ``"full"`` in
+    torch's deterministic mode, with less recompute."""
+    from apex_tpu_torch.models import BertConfig
+    from apex_tpu_torch.train import make_pretraining_batch
+
+    kw = cfg_kw or {}
+    arms = {}
+    for name, opt_kw, det in (("stock", dict(fused_kernels=False), False),
+                              ("full", dict(remat_policy="full"), True),
+                              ("dots", dict(remat_policy="dots"), True)):
+        cfg = BertConfig(dtype=torch.bfloat16, remat=True, **kw, **opt_kw)
+        batch = make_pretraining_batch(cfg, B, S, seed=seed, device=dev,
+                                       accum_steps=accum)
+        with deterministic(torch, det):
+            arms[name] = train_arm(
+                torch, dev, f"phase 11 BERT {name}",
+                lambda: bert_train_step(torch, cfg, "O2", accum, seed, dev,
+                                        deterministic=False),
+                batch, steps)
+    stock = arms["stock"]
+    check(not any(stock["launches"][k] for k in PORT_KERNELS),
+          f"phase 11 BERT stock: port kernels launched {stock['launches']}")
+    check(arms["dots"]["losses"] == arms["full"]["losses"],
+          f"phase 11 BERT: dots losses {arms['dots']['losses']} differ "
+          f"from full {arms['full']['losses']}")
+    for k in ("layer_norm_fwd", "dropout", "softmax_fwd"):
+        check(arms["dots"]["launches"][k] == arms["full"]["launches"][k],
+              f"phase 11 BERT: {k} launched {arms['dots']['launches'][k]} "
+              f"times under dots, {arms['full']['launches'][k]} under full")
+    for name, a in arms.items():
+        print(f"[phase 11 BERT-large S 128 {name}] {card}: losses "
+              f"{a['losses']} | global step ms "
+              f"{', '.join(f'{x:.1f}' for x in a['step_ms'])} | peak "
+              f"memory {a['peak_memory_bytes'] / 2**30:.2f} GiB | launches "
+              f"{ {k: v for k, v in a['launches'].items() if v} }",
+              flush=True)
+    return arms
+
+
+def phase11_gpt(torch, dev, seed, card, cfg_kw=None, steps=2, B=4,
+                S=1024):
+    """GPT-2 small (bf16, remat, dropout 0.1, O2, FusedAdam) at S 1024, B
+    4: ``fused_kernels=False`` launches none of the port's kernels; over
+    int8 weights B15 runs the six quantized products of every block, in
+    the forward and again in its recompute."""
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.train import make_lm_batch
+
+    arms = {}
+    for name, kw in (("stock", dict(fused_kernels=False)),
+                     ("int8", dict(weight_quantization="int8"))):
+        cfg = GPTConfig(dtype=torch.bfloat16, remat=True, **kw,
+                        **(cfg_kw or {}))
+        batch = make_lm_batch(cfg, B, S, seed=seed, device=dev,
+                              accum_steps=1)
+        arms[name] = train_arm(
+            torch, dev, f"phase 11 GPT {name}",
+            lambda: gpt_train_step(torch, cfg, "O2", 1, seed, dev), batch,
+            steps)
+    check(not any(arms["stock"]["launches"][k] for k in PORT_KERNELS),
+          f"phase 11 GPT stock: port kernels launched "
+          f"{arms['stock']['launches']}")
+    L = GPTConfig(**(cfg_kw or {})).num_layers
+    q = arms["int8"]["launches"]["dequant_gemm"]
+    check(q == 2 * 6 * L * steps,
+          f"phase 11 GPT int8: {q} B15 launches in {steps} steps, expected "
+          f"{2 * 6 * L} a step (forward and recompute)")
+    for name, a in arms.items():
+        print(f"[phase 11 GPT-2 small S {S} B {B} {name}] {card}: losses "
+              f"{a['losses']} | step ms "
+              f"{', '.join(f'{x:.1f}' for x in a['step_ms'])} | peak "
+              f"memory {a['peak_memory_bytes'] / 2**30:.2f} GiB | launches "
+              f"{ {k: v for k, v in a['launches'].items() if v} }",
+              flush=True)
+    return arms
+
+
+def option_card_vs_cpu(torch, dev, seed, model_name, cfg):
+    """One O0 fp32 global step of a tiny model with the option on the
+    card and on the port's CPU path, held as :func:`compare_card_cpu`
+    says (phase 4's tolerances)."""
+    from apex_tpu_torch.train import make_lm_batch, make_pretraining_batch
+
+    res = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        if model_name == "bert":
+            model, opt, ts = bert_train_step(torch, cfg, "O0", 2, seed, d)
+            batch = make_pretraining_batch(cfg, 2, 64, seed=seed, device=d,
+                                           accum_steps=2)
+            batch["attention_mask"][:, 1, 32:] = 0
+        else:
+            model, opt, ts = gpt_train_step(torch, cfg, "O0", 2, seed, d)
+            batch = make_lm_batch(cfg, 2, 64, seed=seed, device=d,
+                                  accum_steps=2)
+        names = [n for n, _ in model.named_parameters()]
+        before = {n: p.detach().float().cpu().clone()
+                  for n, p in model.named_parameters()}
+        seen = {}
+        step = opt.step
+
+        def capture(*a, grads=None, **kw):
+            seen.update({n: g.detach().float().cpu().clone()
+                         for n, g in zip(names, grads)})
+            return step(*a, grads=grads, **kw)
+
+        opt.step = capture
+        _, metrics = ts(ts.init(), batch)
+        check(not metrics["skipped"], f"card-vs-CPU {model_name} step "
+              f"({where}) overflowed")
+        res[where] = (metrics["loss"].item(), before, seen,
+                      {n: p.detach().float().cpu()
+                       for n, p in model.named_parameters()})
+        del model, opt, ts
+    return res
+
+
+def phase11(torch, dev, seed, card, bert_kw=None):
+    from apex_tpu_torch.models import BertConfig, GPTConfig
+
+    checks = {}
+    for label, name, cfg in (
+            ("BERT fused_kernels=False", "bert",
+             BertConfig.tiny(fused_kernels=False, hidden_dropout=0.0,
+                             attention_dropout=0.0)),
+            ("BERT remat_policy=dots", "bert",
+             BertConfig.tiny(remat_policy="dots", hidden_dropout=0.0,
+                             attention_dropout=0.0)),
+            ("GPT fused_kernels=False", "gpt",
+             GPTConfig.tiny(fused_kernels=False, dropout=0.0)),
+            ("GPT int8 weights", "gpt",
+             GPTConfig.tiny(weight_quantization="int8", dropout=0.0))):
+        res = option_card_vs_cpu(torch, dev, seed, name, cfg)
+        checks[label] = compare_card_cpu(
+            res, f"phase 11 {label}, one O0 fp32 global step (tiny, B 2, "
+            f"S 64, accum 2)")
+    rec = dict(card_vs_cpu=checks,
+               bert=phase11_bert(torch, dev, seed, card, bert_kw),
+               gpt=phase11_gpt(torch, dev, seed, card))
+    print(json.dumps({"phase11": dict(
+        card=card,
+        card_vs_cpu={k: dict(loss_rel=v["loss_rel_diff"],
+                             worst_grad=max(v["grad_rel_diff"].values()),
+                             step_rel=v["step_rel_diff"])
+                     for k, v in checks.items()},
+        **{f"{m} {arm}": dict(losses=a["losses"], step_ms=a["step_ms"],
+                              peak_memory_bytes=a["peak_memory_bytes"])
+           for m in ("bert", "gpt") for arm, a in rec[m].items()})}),
+        flush=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3922,6 +4575,10 @@ def kernel_entry(name, source, replaces, rows, main, launches):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after the build "
+                    "(10, 11), for iterating on one; prints no kernels or "
+                    "ok line")
     args = ap.parse_args(argv)
     if not (ROOT / "apex_tpu_torch" / "csrc").is_dir():
         raise SmokeFailure("apex_tpu_torch is not beside chip_smoke.py: "
@@ -3956,6 +4613,21 @@ def main(argv=None):
         return out
 
     seed = args.seed
+    if args.only is not None:
+        only = set(args.only.split(","))
+        out = {}
+        if "10" in only:
+            out["phase10"] = timed("phase 10", phase10, torch, dev, seed,
+                                   card)
+        if "11" in only:
+            out["phase11"] = timed("phase 11", phase11, torch, dev, seed,
+                                   card)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_only.json").write_text(json.dumps(
+            dict(card=card, build_s=build_s, phase_s=phase_s, **out),
+            indent=1, default=str))
+        return 0
     paged_rows = timed("phase 1 B14", phase1_paged, torch, F, dev, seed)
     dq_rows = timed("phase 1 B15", phase1_dequant, torch, dev, seed)
     ln_rows = timed("phase 1 B1", phase1_layer_norm, torch, dev, seed)
@@ -3993,11 +4665,15 @@ def main(argv=None):
     optimizers = timed("phase 8 configs[2] fused optimizers",
                        phase8_optimizers, torch, dev, seed, card)
     parallel = phase9(torch, F, dev, seed, card, timed)
+    serving = timed("phase 10", phase10, torch, dev, seed, card)
+    options = timed("phase 11", phase11, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the training phases 3-5 and 9, B2 and B1 also on the contrib
     # modules' path and in phase 7; B10/B12 on the contrib modules' path)
     launches = {k: sum(r["launches"][k] for r in runs.values())
+                + serving["spec"]["launches"][k]
+                + serving["prefix"]["runs"]["on"]["launches"][k]
                 for k in ("paged_read", "dequant_gemm")}
     launches.update({k: sum(t["launches"][k] for t in (train, train128, gpt))
                      for k in ("dropout", "flash_fwd",
@@ -4019,6 +4695,12 @@ def main(argv=None):
     for k, v in parallel["configs4"]["arms"]["ddp"]["launches"].items():
         if k in launches:
             launches[k] += v
+    # phase 11: the dots-remat BERT runs B1-B3 and B6/B8, the int8 GPT B15
+    # (the stock arms launch none)
+    for arm in (options["bert"]["dots"], options["gpt"]["int8"]):
+        for k, v in arm["launches"].items():
+            if k in launches:
+                launches[k] += v
     kernels = [
         kernel_entry("paged_read", "apex_tpu_torch/csrc/paged_read.cu",
                      "apex_tpu/ops/paged_attention_pallas.py:106",
@@ -4084,7 +4766,7 @@ def main(argv=None):
         train_s128=train128, train_gpt=gpt, contrib_mha=mha,
         norm_microbench=norm_bench, openfold=openfold, wide_norms=wide,
         amp_mnist=mnist, fused_optimizers=optimizers, parallel=parallel,
-        checks=checks,
+        serving_prefix_spec=serving, model_options=options, checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

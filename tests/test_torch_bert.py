@@ -225,15 +225,16 @@ def test_launch_counts_of_one_training_step(monkeypatch):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="dots"):
-        BertForPreTraining(BertConfig.tiny(remat_policy="dots", **_KW),
-                           device="cpu")
     with pytest.raises(NotImplementedError, match="parallel"):
         BertForPreTraining(BertConfig.tiny(use_tensor_parallel=True, **_KW),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="fused_kernels"):
-        BertForPreTraining(BertConfig.tiny(fused_kernels=False, **_KW),
-                           device="cpu")
+    # the "dots" remat policy and the stock arm are ported now: both run
+    # (tests/test_torch_model_options.py holds them to the JAX model)
+    for kw in (dict(remat_policy="dots"), dict(fused_kernels=False)):
+        model = BertForPreTraining(BertConfig.tiny(**kw, **_KW),
+                                   device="cpu")
+        mlm, _ = model(torch.zeros((1, 64), dtype=torch.long))
+        assert torch.isfinite(mlm).all()
     model = BertForPreTraining(BertConfig.tiny(**_KW), device="cpu")
     # S 64 < flash_min_seq: the composed path, ported now
     mlm, nsp = model(torch.zeros((1, 64), dtype=torch.long))

@@ -133,15 +133,17 @@ def test_lm_loss_matches_jax():
 def test_unported_training_options_raise():
     ids = torch.zeros(1, 8, dtype=torch.int64)
     for kw in (dict(num_experts=4), dict(attention_backend="ring"),
-               dict(attention_backend="ulysses"),
-               dict(fused_kernels=False)):
+               dict(attention_backend="ulysses")):
         model = GPTLMHeadModel(GPTConfig.tiny(**kw), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model(ids)
-    model = GPTLMHeadModel(GPTConfig.tiny(weight_quantization="int8"),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(ids)
+    # the stock arm and training over quantized weights are ported now:
+    # both run (tests/test_torch_model_options.py holds them to JAX)
+    for kw in (dict(fused_kernels=False), dict(weight_quantization="int8")):
+        model = GPTLMHeadModel(GPTConfig.tiny(**kw), device="cpu",
+                               trainable=True)
+        lm_loss(model(ids), ids).backward()
+        assert all(p.grad is not None for p in model.parameters())
     model = GPTLMHeadModel(GPTConfig.tiny(max_position_embeddings=16),
                            device="cpu", trainable=True)
     assert all(p.requires_grad for p in model.parameters())
