@@ -42,7 +42,8 @@ launches = {"paged_read": 0, "dequant_gemm": 0, "layer_norm_fwd": 0,
             "softmax_bwd": 0, "flash_fwd_tiled": 0, "flash_bwd_dq_tiled": 0,
             "flash_bwd_dkv_tiled": 0, "flash_fwd_single": 0,
             "flash_bwd_single": 0, "keep_mask": 0, "flash_plain": 0,
-            "layer_norm_bwd_plain": 0, "paged_read_plain": 0}
+            "layer_norm_bwd_plain": 0, "paged_read_plain": 0,
+            "kv_quant_write": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -152,6 +153,9 @@ _SIGNATURES = {
                                                        _F, _I, _VP],
     # out, n, seed, threshold, stream
     "flash_keep_mask": [_VP, _LL, _U, _U, _VP],
+    # k_vals, v_vals, k_pool, v_pool, k_scale, v_scale, page, off, b, s,
+    # pos, n, S, H, D, layer, N, bs, in_dtype, pool_mode, stream
+    "kv_quant_write": [_VP] * 11 + [_LL] + [_I] * 8 + [_VP],
     # x, mask, y, rows, Sk, H, Sq, sb, sh, sq, dtype, scale, mask_mode,
     # fill, causal, stream
     "softmax_fwd": [_VP] * 3 + [_LL, _I, _I, _I, _LL, _LL, _LL, _I, _F, _I,

@@ -184,7 +184,8 @@ class QuantLinear(nn.Module):
 
 def _cached_attention(cfg, q, k, v, kv_cache, layer, block_tables,
                       cache_positions, seq_lens, coords):
-    """Write the chunk's K/V at ``coords``, then attend through the
+    """Write the chunk's K/V at ``coords`` (quantized, keyed by the
+    positions they carry, into int8/fp8 pools), then attend through the
     block table: ``S == 1`` is the decode read, ``S > 1`` the chunked
     prefill (or verify) read. Flat ``(B, S, h)`` in and out."""
     from apex_tpu_torch.serving.kv_cache import write_kv
@@ -369,6 +370,9 @@ class GPTModel(nn.Module):
         valid = cache_positions < seq_lens[:, None]
         if write_start is not None:
             valid = valid & (cache_positions >= write_start[:, None])
+        # one host sync a forward, shared by every layer's write; the
+        # coordinates carry each row's absolute position (the quantized
+        # write's rounding key)
         coords = write_coords(block_tables, cache_positions, valid,
                               kv_cache.num_blocks, kv_cache.block_size)
         for i, block in enumerate(self.h):

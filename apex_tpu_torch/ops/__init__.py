@@ -20,6 +20,7 @@ from apex_tpu_torch.ops.flash_attention import (
     mha_reference,
     mha_with_mask_reference,
 )
+from apex_tpu_torch.ops.kv_quant import kv_quant_write, kv_quant_write_plain
 from apex_tpu_torch.ops.layer_norm import (
     fused_layer_norm,
     fused_layer_norm_affine,
@@ -61,6 +62,8 @@ __all__ = [
     "fused_rms_norm",
     "fused_rms_norm_affine",
     "keep_threshold",
+    "kv_quant_write",
+    "kv_quant_write_plain",
     "layer_norm_backward",
     "layer_norm_backward_plain",
     "layer_norm_forward",

@@ -65,9 +65,11 @@ def mix_seed(seed: int, n: int) -> int:
 
 # Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 # 3", SC'11; the Random123 constants). The CUDA kernels carry the same
-# generator in csrc/philox.cuh; both key it as counter = (element index
-# // 4, 0, 0), key = (seed, 0), and element i takes word i % 4 of its
-# counter's output, so a kernel and its plain version draw identical bits.
+# generator in csrc/philox.cuh; the dropout streams key it as counter =
+# (element index // 4, 0, 0), key = (seed, 0), and element i takes word
+# i % 4 of its counter's output, so a kernel and its plain version draw
+# identical bits. The quantized KV write puts a token position in the
+# counter's second word and a stream in the key's (philox_words).
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -107,3 +109,13 @@ def philox_bits(seed: int, offset: int, n: int, device="cpu"):
     flat = torch.stack(words, dim=1).reshape(-1)
     start = offset - 4 * g0
     return flat[start:start + n]
+
+
+def philox_words(c0, c1, k0: int, k1: int):
+    """The four uint32 words (int64 in [0, 2^32), stacked on a new last
+    dim) of counter ``(c0, c1, 0, 0)`` under key ``(k0, k1)``: ``c0`` and
+    ``c1`` are broadcastable int64 tensors of uint32 words."""
+    c0, c1 = torch.broadcast_tensors(c0 & _MASK32, c1 & _MASK32)
+    zero = torch.zeros_like(c0)
+    return torch.stack(philox4x32_10(c0, c1, zero, zero, k0 & _MASK32,
+                                     k1 & _MASK32), dim=-1)

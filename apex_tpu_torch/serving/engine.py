@@ -1,6 +1,5 @@
 """Continuous-batching inference engine for the port's GPT
-(counterpart of :mod:`apex_tpu.serving.engine`, reduced to the core
-scheduler).
+(counterpart of :mod:`apex_tpu.serving.engine`).
 
 Usage::
 
@@ -8,15 +7,15 @@ Usage::
     engine.add_request(Request("a", prompt, max_new_tokens=32))
     outputs = engine.run()          # {"a": [tok, tok, ...]}
 
-The scheduler keeps the JAX engine's structure: FIFO admission on
-current need (the prompt's uncached blocks plus the first decode write),
-one ``[1, prefill_chunk]`` prefill chunk per tick, a K-step decode
-dispatch over every started lane (``-1`` sentinels, budget and EOS
-freezing through ``write_start``), youngest-lane preemption with
-recompute when the pool runs dry, and a drain deferred to the next tick.
-Token ``j`` of the request that arrived ``a``-th draws from
-``token_generator(seed, a, j)``, so outputs do not depend on
-``decode_steps``, lane placement or preemption.
+The scheduler keeps the JAX engine's structure: admission on current
+need (the prompt's uncached blocks plus the first decode write), one
+``[1, prefill_chunk]`` prefill chunk per tick, a K-step decode dispatch
+over every started lane (``-1`` sentinels, budget and EOS freezing
+through ``write_start``), preemption with recompute when the pool runs
+dry, and a drain deferred to the next tick. Token ``j`` of the request
+that arrived ``a``-th draws from ``token_generator(seed, a, j)``, so
+outputs do not depend on ``decode_steps``, lane placement, preemption,
+priorities or tenants.
 
 ``enable_prefix_caching`` shares block-aligned prompt prefixes through
 the allocator's chain-hash index: admission takes the longest cached
@@ -30,19 +29,46 @@ ONE ``[max_batch, spec_tokens + 1]`` forward through the paged cache
 scores every candidate, and :func:`~apex_tpu_torch.serving.sampling.
 spec_verify_tokens` emits 1 to ``spec_tokens + 1`` tokens a lane; the
 span's blocks are reserved for the worst case and those rejection
-strands go back at the drain (``BlockAllocator.trim_to``). An exception
-raised by the drafter propagates.
+strands go back at the drain (``BlockAllocator.trim_to``). With
+``spec_adapt`` an acceptance EWMA walks the per-plan draft cap down and
+back up. An exception raised by the drafter propagates.
 
-Not ported yet: adaptive speculation, drafter quarantine, tenancy and
-quotas, the degradation ladder, faults and retries, deadlines and
-aborts, snapshot/restore, spill, observability and the mesh.
+``kv_quantization`` ("int8" or "fp8") stores the KV pool quantized with
+per-row scales: the write quantizes (:mod:`apex_tpu_torch.ops.kv_quant`,
+position-keyed rounding, so outputs stay schedule-invariant within a
+mode), the attention read dequantizes, and a quantized block charges the
+tenant ledger its reduced bytes (``block_weight``).
+
+Overload and tenancy: the waiting queue is bounded (``max_waiting``:
+:class:`QueueFullError`, or ``try_add`` returns False); requests carry
+a ``priority`` class (0 most urgent; strict priority between classes,
+preemption takes the lowest class, then the youngest) and a ``tenant``
+(weighted deficit round robin across tenants within a class,
+:class:`TenantQuota` limits on waiting entries, resident block charge
+and token rate, a shed over quota ending ``"throttled"``); a
+``deadline_s`` ends a request ``"timeout"``, and an admit-time
+feasibility gate ends one whose deadline cannot cover a contention-free
+service estimate ``"rejected"``; :meth:`InferenceEngine.abort` ends one
+``"cancelled"``; :meth:`InferenceEngine.pop_stream_events` streams
+``(uid, token, is_last)``. Under sustained pressure (queue or free-block
+watermarks) a degradation ladder suspends speculation, then flushes the
+prefix cache every tick, then pauses the classes at or past
+``degrade_admit_priority``, and climbs back once pressure clears.
+Deadlines, the token-rate estimator and the service EWMAs read the
+engine's clock (``clock=``, ``time.monotonic`` by default).
+
+Not ported yet: drafter quarantine, faults and retries, snapshot/restore
+(A.3 item 15), the spill tier (item 16), observability (item 17) and the
+mesh (item 18).
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import math
+import time
+from collections import deque
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +82,8 @@ from apex_tpu_torch.models.gpt import (
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.serving.drafter import NgramDrafter
 from apex_tpu_torch.serving.kv_cache import (
+    DEFAULT_TENANT,
+    KV_QUANT_MODES,
     BlockAllocator,
     CacheOutOfBlocks,
     KVCache,
@@ -63,6 +91,7 @@ from apex_tpu_torch.serving.kv_cache import (
     copy_block,
     device_block_table,
     hash_block_tokens,
+    kv_block_bytes,
     seq_block_hashes,
 )
 from apex_tpu_torch.serving.sampling import (
@@ -74,29 +103,102 @@ from apex_tpu_torch.serving.sampling import (
     uniforms,
 )
 
+# new-observation weight of the service-time EWMAs (the feasibility
+# gate) and of the speculation acceptance EWMA (spec_adapt)
+_EWMA_ALPHA = 0.25
+# degradation-ladder rungs (cumulative): 1 = speculation suspended,
+# 2 = + prefix cache flushed every tick, 3 = + the lower classes'
+# admission paused
+_LADDER_TOP = 3
+# while the spec_adapt cap sits at 0, every Nth decode phase runs a
+# 1-token probe, so acceptance is measured again and the cap can climb
+_SPEC_PROBE_EVERY = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantQuota:
+    """Per-tenant bounds (``EngineConfig.tenant_quotas``), each optional:
+
+    - ``max_waiting``: waiting entries the tenant may hold; the door
+      sheds past it (``"throttled"``).
+    - ``max_resident_blocks``: ceiling of the tenant's fractional
+      resident-block charge (``BlockAllocator.tenant_charge``, in
+      ``block_weight`` units). The door sheds a request whose worst case
+      exceeds it, admission skips the tenant while over it, and decode
+      growth past it preempts the tenant's own youngest other lane.
+    - ``tokens_per_s``: the door sheds while the tenant's decayed token
+      rate (``tenant_rate_tau_s``) exceeds it.
+    """
+
+    max_waiting: Optional[int] = None
+    max_resident_blocks: Optional[int] = None
+    tokens_per_s: Optional[float] = None
+
+    def validate(self, tenant: str) -> None:
+        if self.max_waiting is not None and self.max_waiting < 1:
+            raise ValueError(
+                f"tenant {tenant!r}: max_waiting must be >= 1 (or None), "
+                f"got {self.max_waiting}")
+        if (self.max_resident_blocks is not None
+                and self.max_resident_blocks < 1):
+            raise ValueError(
+                f"tenant {tenant!r}: max_resident_blocks must be >= 1 "
+                f"(or None), got {self.max_resident_blocks}")
+        if self.tokens_per_s is not None and self.tokens_per_s <= 0:
+            raise ValueError(
+                f"tenant {tenant!r}: tokens_per_s must be > 0 (or "
+                f"None), got {self.tokens_per_s}")
+
 
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One generation request: runs until EOS (if ``eos_token_id`` is
-    set) or ``max_new_tokens``. ``status`` is written by the engine when
-    the request leaves it."""
+    set) or ``max_new_tokens``, or leaves early: past ``deadline_s``
+    seconds of the engine's clock from ``add_request`` (``"timeout"``),
+    shed by the feasibility gate (``"rejected"``) or a tenant quota
+    (``"throttled"``), or aborted (``"cancelled"``); tokens already
+    emitted are kept. ``priority`` (0 most urgent) and ``tenant`` only
+    schedule: sampling is arrival-keyed. ``status`` is written by the
+    engine when the request leaves it."""
 
     uid: str
     prompt: Sequence[int]
     max_new_tokens: int = 16
     sampling: SamplingParams = SamplingParams()
     eos_token_id: Optional[int] = None
+    deadline_s: Optional[float] = None
+    priority: int = 0
+    tenant: str = DEFAULT_TENANT
     status: Optional[str] = dataclasses.field(default=None, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
 class RequestResult:
+    """One entry of ``run(return_status=True)``: the emitted tokens and
+    the terminal status ("finished", "timeout", "rejected", "throttled"
+    or "cancelled")."""
+
     tokens: List[int]
     status: str
 
 
+class QueueFullError(RuntimeError):
+    """``add_request`` refused: the waiting queue holds ``max_waiting``
+    entries. The request never entered the engine (no status)."""
+
+
+class TenantThrottledError(RuntimeError):
+    """``add_request`` refused by the tenant's :class:`TenantQuota`; the
+    request ends ``"throttled"`` with no tokens, drained by ``run()``."""
+
+
 class EngineStalledError(RuntimeError):
-    """``has_work`` is true but a full ``step()`` made no progress."""
+    """``has_work`` is true but a full ``step()`` made no progress;
+    ``engine_stats`` holds ``stats()`` at the stall."""
+
+    def __init__(self, message: str, stats: Dict[str, object]):
+        super().__init__(f"{message} (stats: {stats})")
+        self.engine_stats = stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,11 +214,41 @@ class EngineConfig:
     # finished requests' registered blocks stay cached, not freed
     enable_prefix_caching: bool = False
     kv_dtype: Optional[torch.dtype] = None    # None = fp32
+    # None | "int8" | "fp8": quantized KV blocks with per-row scales
+    kv_quantization: Optional[str] = None
     weight_quantization: Optional[str] = None  # None | "int8" | "fp8"
     # > 0: draft-and-verify decoding with up to this many proposals a
     # lane (decode_steps is then unused: the verify forward is the
     # dispatch)
     spec_tokens: int = 0
+    # -- overload --------------------------------------------------------
+    # bound on the waiting queue (None: unbounded); preemption requeues
+    # pass it (by at most max_batch)
+    max_waiting: Optional[int] = None
+    # the ladder's pressure: queue depth >= queue_high_watermark, or
+    # (free + cached) / num_blocks <= free_block_low_watermark; a rung
+    # down after degrade_patience pressure ticks in a row, a rung up
+    # after as many clear ones; rung 3 pauses classes >=
+    # degrade_admit_priority. Both watermarks None: ladder off
+    queue_high_watermark: Optional[int] = None
+    free_block_low_watermark: Optional[float] = None
+    degrade_patience: int = 2
+    degrade_admit_priority: int = 1
+    # -- tenancy -----------------------------------------------------------
+    # DRR weight per tenant (unlisted: 1); each walk visit credits weight
+    # x drr_quantum tokens, a request costs len(prompt) + max_new_tokens
+    # once
+    tenant_weights: Optional[Mapping[str, int]] = None
+    tenant_quotas: Optional[Mapping[str, TenantQuota]] = None
+    drr_quantum: int = 64
+    # time constant of the per-tenant token-rate estimator (seconds)
+    tenant_rate_tau_s: float = 1.0
+    # -- adaptive speculation ------------------------------------------------
+    # an acceptance EWMA shrinks the draft cap by one below
+    # spec_accept_low and restores it by one above spec_accept_high
+    spec_adapt: bool = False
+    spec_accept_low: float = 0.5
+    spec_accept_high: float = 0.8
     seed: int = 0
 
     @property
@@ -139,6 +271,10 @@ class EngineConfig:
         if self.decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, got "
                              f"{self.decode_steps}")
+        if self.kv_quantization not in KV_QUANT_MODES:
+            raise ValueError(
+                f"kv_quantization must be one of {KV_QUANT_MODES}, "
+                f"got {self.kv_quantization!r}")
         if self.weight_quantization not in WEIGHT_QUANT_MODES:
             raise ValueError(
                 f"weight_quantization must be one of "
@@ -146,6 +282,66 @@ class EngineConfig:
         if self.spec_tokens < 0:
             raise ValueError(
                 f"spec_tokens must be >= 0, got {self.spec_tokens}")
+        if self.max_waiting is not None and self.max_waiting < 1:
+            raise ValueError(
+                f"max_waiting must be >= 1 (or None for unbounded), "
+                f"got {self.max_waiting}")
+        if (self.queue_high_watermark is not None
+                and self.queue_high_watermark < 1):
+            raise ValueError(
+                f"queue_high_watermark must be >= 1, got "
+                f"{self.queue_high_watermark}")
+        if (self.queue_high_watermark is not None
+                and self.max_waiting is not None
+                and self.queue_high_watermark
+                > self.max_waiting + self.max_batch):
+            # the queue never exceeds max_waiting + max_batch: a higher
+            # watermark would leave the ladder's queue signal inert
+            raise ValueError(
+                f"queue_high_watermark ({self.queue_high_watermark}) is "
+                f"unreachable: the queue never exceeds max_waiting + "
+                f"max_batch ({self.max_waiting} + {self.max_batch})")
+        if (self.free_block_low_watermark is not None
+                and not 0.0 < self.free_block_low_watermark <= 1.0):
+            raise ValueError(
+                f"free_block_low_watermark must be in (0, 1], got "
+                f"{self.free_block_low_watermark}")
+        if self.degrade_patience < 1:
+            raise ValueError(
+                f"degrade_patience must be >= 1, got "
+                f"{self.degrade_patience}")
+        if self.degrade_admit_priority < 1:
+            raise ValueError(
+                f"degrade_admit_priority must be >= 1 (0 would pause "
+                f"every class), got {self.degrade_admit_priority}")
+        if self.tenant_weights is not None:
+            for t, w in self.tenant_weights.items():
+                if int(w) < 1:
+                    raise ValueError(
+                        f"tenant_weights[{t!r}] must be >= 1, got {w}")
+        if self.tenant_quotas is not None:
+            for t, q in self.tenant_quotas.items():
+                if not isinstance(q, TenantQuota):
+                    raise ValueError(
+                        f"tenant_quotas[{t!r}] must be a TenantQuota, "
+                        f"got {type(q).__name__}")
+                q.validate(t)
+        if self.drr_quantum < 1:
+            raise ValueError(
+                f"drr_quantum must be >= 1, got {self.drr_quantum}")
+        if self.tenant_rate_tau_s <= 0:
+            raise ValueError(
+                f"tenant_rate_tau_s must be > 0, got "
+                f"{self.tenant_rate_tau_s}")
+        if self.spec_adapt and self.spec_tokens < 1:
+            raise ValueError(
+                "spec_adapt requires spec_tokens >= 1 (there is no "
+                "draft cap to adapt at spec_tokens == 0)")
+        if not 0.0 <= self.spec_accept_low <= self.spec_accept_high <= 1.0:
+            raise ValueError(
+                f"spec acceptance thresholds must satisfy 0 <= low <= "
+                f"high <= 1, got low={self.spec_accept_low} "
+                f"high={self.spec_accept_high}")
 
 
 @dataclasses.dataclass
@@ -153,12 +349,238 @@ class _QueueEntry:
     """A waiting (or preempted) request. ``generated`` carries tokens
     already emitted, so re-admission re-prefills ``prompt +
     generated[:-1]`` and resumes from ``generated[-1]``; ``arrival``
-    keys the request's sampling and survives preemption."""
+    keys the request's sampling and survives preemption. ``enq_t`` /
+    ``enq_tick`` stamp when it (re-)entered the queue (the wait
+    statistics); ``drr_charged``: its DRR cost was paid (preemption
+    requeues re-admit free, ahead of uncharged work)."""
 
     request: Request
-    arrival: int
+    arrival: int = 0
     generated: List[int] = dataclasses.field(default_factory=list)
     hashes: Optional[List[str]] = None   # the full blocks' chain hashes
+    enq_t: float = 0.0
+    enq_tick: int = 0
+    drr_charged: bool = False
+
+
+class _ClassQueue:
+    """One priority class: per-tenant FIFO deques and the class's DRR
+    walk state (``ring``: tenants with waiting entries in first-enqueue
+    order; ``cursor``: the walk's ring position; ``credited``: whether
+    the cursor tenant got its quantum this visit; ``deficits``). A
+    tenant whose deque drains leaves the ring and forfeits its
+    deficit."""
+
+    __slots__ = ("queues", "ring", "cursor", "credited", "deficits")
+
+    def __init__(self):
+        self.queues: Dict[str, deque] = {}
+        self.ring: List[str] = []
+        self.cursor: int = 0
+        self.credited: bool = False
+        self.deficits: Dict[str, float] = {}
+
+    def remove_tenant(self, tenant: str) -> None:
+        i = self.ring.index(tenant)
+        self.ring.pop(i)
+        del self.queues[tenant]
+        self.deficits.pop(tenant, None)
+        if not self.ring:
+            self.cursor, self.credited = 0, False
+            return
+        if i < self.cursor:
+            self.cursor -= 1
+        elif i == self.cursor:
+            # the cursor now points at the next tenant: a fresh visit
+            self.credited = False
+            if self.cursor >= len(self.ring):
+                self.cursor = 0
+
+
+class _WaitingQueue:
+    """Strict priority between classes (ascending, 0 most urgent),
+    weighted deficit round robin across tenants within a class.
+    ``append`` enqueues at the tail of the request's (class, tenant)
+    FIFO, ``appendleft`` (preemption requeues) at its head. Entries whose
+    DRR cost was paid are served ahead of the walk without touching it,
+    so one tenant reduces to per-class FIFO with front requeues.
+    Iteration is class by class, ring order, FIFO within a tenant."""
+
+    def __init__(self, weights: Optional[Mapping[str, int]] = None,
+                 quantum: int = 64):
+        self._classes: Dict[int, _ClassQueue] = {}
+        self._weights = dict(weights or {})
+        self._quantum = max(1, int(quantum))
+        self._tenant_depth: Dict[str, int] = {}
+
+    @staticmethod
+    def _cost(entry: _QueueEntry) -> int:
+        """The DRR cost of admitting an entry: its committed token
+        budget, charged once a request lifetime."""
+        if entry.drr_charged:
+            return 0
+        return len(entry.request.prompt) + entry.request.max_new_tokens
+
+    def _weight(self, tenant: str) -> int:
+        return max(1, int(self._weights.get(tenant, 1)))
+
+    def tenant_depth(self, tenant: str) -> int:
+        """Waiting entries of ``tenant`` in every class."""
+        return self._tenant_depth.get(tenant, 0)
+
+    def _classes_ascending(self, below: Optional[int]):
+        for p in sorted(self._classes):
+            if below is not None and p >= below:
+                return
+            yield self._classes[p]
+
+    def _note_removed(self, cq: _ClassQueue, tenant: str) -> None:
+        self._tenant_depth[tenant] -= 1
+        if not self._tenant_depth[tenant]:
+            del self._tenant_depth[tenant]
+        if not cq.queues[tenant]:
+            cq.remove_tenant(tenant)
+
+    def append(self, entry: _QueueEntry) -> None:
+        self._enqueue(entry, left=False)
+
+    def appendleft(self, entry: _QueueEntry) -> None:
+        self._enqueue(entry, left=True)
+
+    def _enqueue(self, entry: _QueueEntry, left: bool) -> None:
+        cq = self._classes.setdefault(entry.request.priority,
+                                      _ClassQueue())
+        t = entry.request.tenant
+        q = cq.queues.get(t)
+        if q is None:
+            q = cq.queues[t] = deque()
+            cq.ring.append(t)           # new tenants join at the tail
+            cq.deficits.setdefault(t, 0.0)
+        (q.appendleft if left else q.append)(entry)
+        self._tenant_depth[t] = self._tenant_depth.get(t, 0) + 1
+
+    def _walk(self, cq: _ClassQueue, skip, mutate: bool):
+        """The entry the class would admit next: ``mutate=False`` peeks,
+        ``True`` pops it and commits the walk. ``skip`` tenants are
+        passed without credit. None when nothing is servable."""
+        skip = skip or ()
+        n = len(cq.ring)
+        # phase 1: charged heads (requeues) serve out of band, ring order
+        # from the cursor, the walk state untouched
+        for k in range(n):
+            t = cq.ring[(cq.cursor + k) % n]
+            if t in skip:
+                continue
+            q = cq.queues[t]
+            if q and q[0].drr_charged:
+                if not mutate:
+                    return q[0]
+                e = q.popleft()
+                self._note_removed(cq, t)
+                return e
+        # phase 2: the weighted DRR walk
+        candidates = [t for t in cq.ring if t not in skip]
+        if not candidates:
+            return None
+        deficits = cq.deficits if mutate else dict(cq.deficits)
+        cursor, credited = cq.cursor, cq.credited
+        # termination bound (a bug guard): each credit costs two
+        # iterations (the credit, then the advance after the re-check)
+        max_cost = max(self._cost(cq.queues[t][0]) for t in candidates)
+        limit = 2 * len(cq.ring) * (max_cost // self._quantum + 2) + 16
+        for _ in range(limit):
+            t = cq.ring[cursor]
+            if t in skip:
+                cursor = (cursor + 1) % len(cq.ring)
+                credited = False
+                continue
+            head = cq.queues[t][0]
+            cost = self._cost(head)
+            if deficits[t] >= cost:
+                if not mutate:
+                    return head
+                e = cq.queues[t].popleft()
+                deficits[t] -= cost
+                e.drr_charged = True
+                # the cursor stays on the serving tenant while its
+                # deficit lasts
+                cq.cursor, cq.credited = cursor, credited
+                self._note_removed(cq, t)
+                return e
+            if not credited:
+                deficits[t] += self._quantum * self._weight(t)
+                credited = True
+                continue
+            cursor = (cursor + 1) % len(cq.ring)
+            credited = False
+        raise RuntimeError(
+            "DRR walk failed to terminate — invariant bug "
+            f"(ring={cq.ring}, deficits={deficits})")
+
+    def head(self, below: Optional[int] = None,
+             skip=None) -> Optional[_QueueEntry]:
+        """The next admissible entry, or None. ``below`` restricts to
+        classes under it (the ladder's pause); ``skip`` tenants are
+        passed over (quota holds), and a class whose every tenant is
+        skipped falls through to the next."""
+        for cq in self._classes_ascending(below):
+            e = self._walk(cq, skip, mutate=False)
+            if e is not None:
+                return e
+        return None
+
+    def popleft(self, below: Optional[int] = None,
+                skip=None) -> _QueueEntry:
+        """Pop exactly the entry :meth:`head` (same arguments)
+        returns."""
+        for p in sorted(self._classes):
+            if below is not None and p >= below:
+                break
+            cq = self._classes[p]
+            e = self._walk(cq, skip, mutate=True)
+            if e is not None:
+                if not cq.ring:
+                    del self._classes[p]
+                return e
+        raise IndexError("pop from an empty waiting queue")
+
+    def has_priority_below(self, limit: int) -> bool:
+        return any(True for _ in self._classes_ascending(limit))
+
+    def expel(self, pred) -> List[_QueueEntry]:
+        """Remove and return (in iteration order) every entry matching
+        ``pred``, keeping the survivors' order and walk state: the
+        deadline and abort sweep."""
+        removed: List[_QueueEntry] = []
+        for p in sorted(self._classes):
+            cq = self._classes[p]
+            for t in list(cq.ring):
+                q = cq.queues[t]
+                kept: deque = deque()
+                while q:
+                    e = q.popleft()
+                    if pred(e):
+                        removed.append(e)
+                        self._tenant_depth[t] -= 1
+                        if not self._tenant_depth[t]:
+                            del self._tenant_depth[t]
+                    else:
+                        kept.append(e)
+                cq.queues[t] = kept
+                if not kept:
+                    cq.remove_tenant(t)
+            if not cq.ring:
+                del self._classes[p]
+        return removed
+
+    def __iter__(self):
+        for p in sorted(self._classes):
+            cq = self._classes[p]
+            for t in cq.ring:
+                yield from cq.queues[t]
+
+    def __len__(self) -> int:
+        return sum(self._tenant_depth.values())
 
 
 @dataclasses.dataclass
@@ -189,12 +611,16 @@ class InferenceEngine:
     the caller asks for another; the model is moved there). With
     ``config.weight_quantization`` set the engine serves a quantized
     copy of the model. ``drafter`` proposes the speculative tokens when
-    ``config.spec_tokens > 0`` (default :class:`NgramDrafter`)."""
+    ``config.spec_tokens > 0`` (default :class:`NgramDrafter`).
+    ``clock`` (a function returning seconds, ``time.monotonic`` by
+    default) is what deadlines, the tenant token rates and the service
+    EWMAs read."""
 
     def __init__(self, model, config: EngineConfig, *, drafter=None,
-                 device=None):
+                 clock=None, device=None):
         self.device = resolve_device(device)
         self.config = config
+        self._clock = time.monotonic if clock is None else clock
         if config.spec_tokens > 0:
             self.drafter = NgramDrafter() if drafter is None else drafter
         elif drafter is not None:
@@ -218,16 +644,32 @@ class InferenceEngine:
                 f"max_position_embeddings ({cfg.max_position_embeddings})")
         self.max_blocks_per_seq = blocks_needed(config.max_seq_len,
                                                 config.block_size)
+        head_dim = cfg.hidden_size // cfg.num_heads
         self.cache = KVCache.create(
             cfg.num_layers, config.num_blocks, config.block_size,
-            cfg.num_heads, cfg.hidden_size // cfg.num_heads,
-            dtype=config.kv_dtype, device=self.device)
-        self.allocator = BlockAllocator(config.num_blocks)
+            cfg.num_heads, head_dim, dtype=config.kv_dtype,
+            quantization=config.kv_quantization, device=self.device)
+        # the tenant ledger's charge unit: a quantized block charges its
+        # bytes over the full-precision block's, so max_resident_blocks
+        # counts full-precision block equivalents
+        self._block_weight = 1.0
+        if config.kv_quantization is not None:
+            self._block_weight = (
+                kv_block_bytes(cfg.num_layers, config.block_size,
+                               cfg.num_heads, head_dim,
+                               quantization=config.kv_quantization)
+                / kv_block_bytes(cfg.num_layers, config.block_size,
+                                 cfg.num_heads, head_dim,
+                                 dtype=config.kv_dtype))
+        self.allocator = BlockAllocator(config.num_blocks,
+                                        block_weight=self._block_weight)
         self.slots: List[Optional[_Slot]] = [None] * config.max_batch
-        self.waiting: collections.deque = collections.deque()
-        self._live_uids: set = set()
+        self.waiting = _WaitingQueue(weights=config.tenant_weights,
+                                     quantum=config.drr_quantum)
+        self._live_uids: set = set()    # every uid waiting or resident
         self.finished: Dict[str, List[int]] = {}
         self.statuses: Dict[str, str] = {}
+        self._deadline: Dict[str, float] = {}   # uid -> absolute deadline
         self._arrival_count = 0
         self._admit_count = 0
         self._num_ticks = 0
@@ -244,6 +686,50 @@ class InferenceEngine:
         self._num_draft_tokens = 0
         self._num_accepted_tokens = 0
         self._num_spec_blocks_rolled_back = 0
+        # -- overload --------------------------------------------------------
+        self._num_timeouts = 0
+        self._queue_depth_peak = 0
+        self._queue_wait_count = 0
+        self._queue_wait_ticks_sum = 0
+        self._queue_wait_ticks_max = 0
+        self._queue_wait_s_sum = 0.0
+        self._queue_wait_s_max = 0.0
+        self._num_rejected_queue_full = 0
+        self._num_rejected_infeasible = 0
+        # the feasibility gate's service-time EWMAs (None: not observed,
+        # the gate is open)
+        self._ewma_prefill_s: Optional[float] = None
+        self._ewma_decode_s: Optional[float] = None
+        # the degradation ladder: rung, the streaks of its hysteresis,
+        # transitions
+        self._degradation_level = 0
+        self._pressure_streak = 0
+        self._clear_streak = 0
+        self._num_degrade_steps_down = 0
+        self._num_degrade_steps_up = 0
+        self._num_degrade_flushed_blocks = 0
+        # -- tenancy ---------------------------------------------------------
+        self._num_throttled = 0
+        self._num_cancelled = 0
+        # every tenant seen (listed tenants stay, others drop out when
+        # idle), delivered tokens, the decayed token rate and its time,
+        # terminal statuses, quota preemptions
+        self._tenant_seen: set = {DEFAULT_TENANT}
+        self._tenant_tokens: Dict[str, int] = {}
+        self._tenant_rate: Dict[str, float] = {}
+        self._tenant_rate_t: Dict[str, float] = {}
+        self._tenant_status: Dict[str, Dict[str, int]] = {}
+        self._tenant_preemptions: Dict[str, int] = {}
+        # streaming: (uid, token, is_last) as tokens reach the host; every
+        # terminal transition appends (uid, -1, True)
+        self._stream: deque = deque()
+        # spec_adapt: the per-plan draft cap, its acceptance EWMA, the
+        # probe countdown while the cap is 0
+        self._spec_cap = config.spec_tokens
+        self._spec_accept_ewma: Optional[float] = None
+        self._spec_probe_countdown = _SPEC_PROBE_EVERY
+        self._num_spec_cap_shrinks = 0
+        self._num_spec_cap_restores = 0
         # the in-flight decode: (device [B, K] tokens, lanes, {lane: uid}),
         # fetched at the next tick's drain
         self._pending = None
@@ -252,29 +738,116 @@ class InferenceEngine:
     # -- client surface ------------------------------------------------------
 
     def add_request(self, request: Request) -> int:
-        """Validate and enqueue; returns the request's arrival index (its
-        sampling identity)."""
+        """Validate, check the tenant's quota and the queue bound, and
+        enqueue; returns the request's arrival index (its sampling
+        identity). Raises :class:`TenantThrottledError` (the request
+        ends ``"throttled"``) or :class:`QueueFullError` (it never
+        entered)."""
         n = len(request.prompt)
         if n == 0:
             raise ValueError(f"request {request.uid!r}: empty prompt")
         if request.max_new_tokens < 1:
-            raise ValueError(f"request {request.uid!r}: max_new_tokens "
-                             f"must be >= 1 (got {request.max_new_tokens})")
+            raise ValueError(
+                f"request {request.uid!r}: max_new_tokens must be >= 1 "
+                f"(got {request.max_new_tokens}); prefill always samples "
+                "the first token")
         if n + request.max_new_tokens > self.config.max_seq_len:
             raise ValueError(
                 f"request {request.uid!r}: prompt + max_new_tokens "
                 f"({n} + {request.max_new_tokens}) exceeds max_seq_len "
                 f"({self.config.max_seq_len})")
+        if request.deadline_s is not None and request.deadline_s <= 0:
+            raise ValueError(
+                f"request {request.uid!r}: deadline_s must be positive "
+                f"(got {request.deadline_s})")
+        if request.priority < 0:
+            raise ValueError(
+                f"request {request.uid!r}: priority must be >= 0 "
+                f"(got {request.priority}); 0 is the most urgent class")
+        if not isinstance(request.tenant, str) or not request.tenant:
+            raise ValueError(
+                f"request {request.uid!r}: tenant must be a non-empty "
+                f"string (got {request.tenant!r})")
         request.sampling.validate()
-        if request.uid in self._live_uids or request.uid in self.statuses:
-            raise ValueError(f"request uid {request.uid!r} is already in "
-                             "this engine; drain it (run()) first")
+        uid = request.uid
+        if uid in self._live_uids:
+            raise ValueError(
+                f"request uid {uid!r} is already waiting or resident in "
+                "this engine; drain it (run()) or pick a distinct uid")
+        if uid in self.statuses:
+            raise ValueError(
+                f"request uid {uid!r} has a terminal result "
+                f"({self.statuses[uid]!r}) awaiting drain; run() before "
+                "reusing the uid, or pick a distinct one")
         object.__setattr__(request, "status", None)
-        self._live_uids.add(request.uid)
+        self._tenant_seen.add(request.tenant)
+        reason = self._door_throttle_reason(request)
+        if reason is not None:
+            self.finished[uid] = []
+            self._set_status(request, "throttled")
+            self._num_throttled += 1
+            raise TenantThrottledError(
+                f"request {uid!r} throttled: tenant "
+                f"{request.tenant!r} {reason}")
+        if (self.config.max_waiting is not None
+                and len(self.waiting) >= self.config.max_waiting):
+            self._num_rejected_queue_full += 1
+            raise QueueFullError(
+                f"request {uid!r} rejected: waiting queue is at "
+                f"max_waiting ({self.config.max_waiting})")
+        self._live_uids.add(uid)
+        if request.deadline_s is not None:
+            self._deadline[uid] = self._clock() + request.deadline_s
+        enq_t = self._clock()
         arrival = self._arrival_count
-        self.waiting.append(_QueueEntry(request=request, arrival=arrival))
+        self.waiting.append(_QueueEntry(request=request, arrival=arrival,
+                                        enq_t=enq_t,
+                                        enq_tick=self._num_ticks))
         self._arrival_count += 1
+        self._queue_depth_peak = max(self._queue_depth_peak,
+                                     len(self.waiting))
         return arrival
+
+    def try_add(self, request: Request) -> bool:
+        """:meth:`add_request` returning False where the queue bound or
+        a tenant quota sheds the request (validation errors still
+        raise)."""
+        try:
+            self.add_request(request)
+        except (QueueFullError, TenantThrottledError):
+            return False
+        return True
+
+    def abort(self, uid: str) -> bool:
+        """Cancel a waiting or resident request: its queue entry or lane
+        and blocks are released now and it ends ``"cancelled"`` with the
+        tokens it emitted. A dispatch in flight over its lane is
+        discarded at the drain (matched by uid). False for a uid the
+        engine does not hold."""
+        if uid not in self._live_uids:
+            return False
+        removed = self.waiting.expel(lambda e: e.request.uid == uid)
+        if removed:
+            entry = removed[0]
+            self.finished[uid] = list(entry.generated)
+            self._set_status(entry.request, "cancelled")
+            self._num_cancelled += 1
+            return True
+        for i, slot in enumerate(self.slots):
+            if slot is not None and slot.request.uid == uid:
+                self._finish(i, status="cancelled")
+                self._num_cancelled += 1
+                return True
+        return False
+
+    def pop_stream_events(self) -> List[Tuple[str, int, bool]]:
+        """Drain the stream: ``(uid, token, is_last)`` in emission order
+        (a prefill's first token when it is sampled, decode tokens at
+        the drain), and one ``(uid, -1, True)`` at every terminal
+        transition. ``run()`` drops what was not popped."""
+        out = list(self._stream)
+        self._stream.clear()
+        return out
 
     @property
     def has_work(self) -> bool:
@@ -283,33 +856,49 @@ class InferenceEngine:
 
     def run(self, return_status: bool = False):
         """Step until every request is terminal. Returns ``{uid:
-        tokens}``, or ``{uid: RequestResult}`` with ``return_status``."""
+        tokens}``, or ``{uid: RequestResult}`` with ``return_status``.
+        Raises :class:`EngineStalledError` when a full step makes no
+        progress while work remains."""
         while self.has_work:
             if not self.step():
                 raise EngineStalledError(
-                    f"engine has work but a full step made no progress "
-                    f"(stats: {self.stats()})")
+                    "engine has work but a full step made no progress",
+                    self.stats())
         out, self.finished = self.finished, {}
         statuses, self.statuses = self.statuses, {}
+        self._stream.clear()
         if return_status:
-            return {uid: RequestResult(tokens=toks, status=statuses[uid])
+            return {uid: RequestResult(tokens=toks,
+                                       status=statuses.get(uid, "finished"))
                     for uid, toks in out.items()}
         return out
 
     def step(self) -> bool:
-        """One tick: admit, one prefill chunk, drain the previous decode,
-        admit into lanes the drain freed, then dispatch one K-step decode
-        over every started lane. Returns whether anything progressed."""
+        """One tick: the ladder, expire deadlines, admit, one prefill
+        chunk, drain the previous decode, expire and admit again, then
+        dispatch one K-step decode over every started lane. Returns
+        whether anything progressed."""
         self._num_ticks += 1
+        pre_shed = self._num_rejected_infeasible
+        stepped = self._update_ladder()
+        # waiting entries and mid-prefill lanes expire up front; started
+        # lanes only with no dispatch in flight over them
+        expired = self._expire_deadlines(
+            include_started=self._pending is None)
         admitted = self._admit()
         chunked = self._prefill_tick()
         synced = self._drain_decode()
-        if synced:
+        expired += self._expire_deadlines(include_started=True)
+        if synced or expired:
             admitted += self._admit()
-        made = bool(admitted or chunked or synced)
+        self._queue_depth_peak = max(self._queue_depth_peak,
+                                     len(self.waiting))
+        shed = self._num_rejected_infeasible - pre_shed
+        made = bool(admitted or chunked or synced or expired or stepped
+                    or shed)
         if all(s is None for s in self.slots):
             if self.waiting and not made:
-                entry = self.waiting[0]
+                entry = self.waiting.head()
                 need = blocks_needed(len(entry.request.prompt) + 1,
                                      self.config.block_size)
                 raise CacheOutOfBlocks(
@@ -337,21 +926,40 @@ class InferenceEngine:
             return 0
         return len(self.allocator.lookup_prefix(hashes))
 
+    @property
+    def block_weight(self) -> float:
+        """The ledger's charge a block (1.0 at full precision)."""
+        return float(self._block_weight)
+
+    def tenant_charge(self, tenant: str) -> float:
+        """The tenant's resident-block charge (``block_weight`` units)."""
+        return self.allocator.tenant_charge(tenant)
+
     def check_allocator_integrity(self) -> None:
-        """The allocator's invariants, and its refcounts exactly the
-        number of resident lanes holding each block."""
+        """The allocator's invariants, and its refcounts (and their
+        tenant split) exactly the resident lanes holding each block."""
         expected: Dict[int, int] = {}
+        expected_tenants: Dict[int, Dict[str, int]] = {}
         for slot in self.slots:
-            if slot is not None:
-                for b in slot.blocks:
-                    expected[b] = expected.get(b, 0) + 1
-        self.allocator.check_integrity(expected_refcounts=expected)
+            if slot is None:
+                continue
+            t = slot.request.tenant
+            for b in slot.blocks:
+                expected[b] = expected.get(b, 0) + 1
+                per = expected_tenants.setdefault(b, {})
+                per[t] = per.get(t, 0) + 1
+        self.allocator.check_integrity(
+            expected_refcounts=expected,
+            expected_tenant_refs=expected_tenants)
 
     def stats(self) -> Dict[str, object]:
         alloc = self.allocator
         lookups = self._prefix_lookup_blocks
         drafted = self._num_draft_tokens
+        waits = self._queue_wait_count
         return {
+            "kv_quantization": self.config.kv_quantization,
+            "weight_quantization": self.config.weight_quantization,
             "num_ticks": self._num_ticks,
             "num_prefills": self._num_prefills,
             "num_prefill_chunks": self._num_prefill_chunks,
@@ -359,6 +967,8 @@ class InferenceEngine:
             "num_decode_dispatches": self._num_decode_dispatches,
             "num_tokens_decoded": self._num_tokens_decoded,
             "num_preemptions": self._num_preemptions,
+            "active_slots": sum(s is not None for s in self.slots),
+            "waiting": len(self.waiting),
             "queue_depth": len(self.waiting),
             # prefix caching: blocks served from the index at admission
             # out of the full prompt blocks looked up, copy-on-write
@@ -374,19 +984,220 @@ class InferenceEngine:
             "prefix_cache_hit_rate": (self._prefix_hit_blocks / lookups
                                       if lookups else 0.0),
             "prompt_blocks_allocated": self._prompt_blocks_allocated,
-            # speculative decoding: proposals verified, proposals
-            # accepted, and span blocks returned by the rollback
+            # overload: deadlines, queue depth and wait, sheds, the
+            # service EWMAs and the ladder
+            "num_timeouts": self._num_timeouts,
+            "queue_depth_peak": self._queue_depth_peak,
+            "queue_wait_mean_ticks": (self._queue_wait_ticks_sum / waits
+                                      if waits else 0.0),
+            "queue_wait_max_ticks": self._queue_wait_ticks_max,
+            "queue_wait_mean_s": (self._queue_wait_s_sum / waits
+                                  if waits else 0.0),
+            "queue_wait_max_s": self._queue_wait_s_max,
+            "num_rejected_queue_full": self._num_rejected_queue_full,
+            "num_rejected_infeasible": self._num_rejected_infeasible,
+            "ewma_prefill_dispatch_s": float(self._ewma_prefill_s or 0.0),
+            "ewma_decode_dispatch_s": float(self._ewma_decode_s or 0.0),
+            "degradation_level": self._degradation_level,
+            "num_degrade_steps_down": self._num_degrade_steps_down,
+            "num_degrade_steps_up": self._num_degrade_steps_up,
+            "num_degrade_flushed_blocks": self._num_degrade_flushed_blocks,
+            "admission_paused": int(
+                self._admission_priority_limit() is not None),
+            # speculative decoding: proposals verified and accepted, span
+            # blocks returned by the rollback, and spec_adapt's cap
             "num_draft_tokens": drafted,
             "num_accepted_tokens": self._num_accepted_tokens,
             "draft_acceptance_rate": (self._num_accepted_tokens / drafted
                                       if drafted else 0.0),
             "num_spec_blocks_rolled_back":
                 self._num_spec_blocks_rolled_back,
+            "speculation_active": int(self.config.spec_tokens > 0
+                                      and self._degradation_level < 1),
+            "spec_cap": self._spec_cap,
+            "spec_accept_ewma": float(self._spec_accept_ewma or 0.0),
+            "num_spec_cap_shrinks": self._num_spec_cap_shrinks,
+            "num_spec_cap_restores": self._num_spec_cap_restores,
+            # tenancy: sheds, cancellations, the stream backlog, the ledger
+            "num_throttled": self._num_throttled,
+            "num_cancelled": self._num_cancelled,
+            "stream_backlog": len(self._stream),
+            "tenants": self._tenant_section(),
             "weight_bytes": self._weight_bytes,
+            "kv_pool_bytes": self.cache.nbytes,
             # the serving path's kernels (the counters also hold training's)
             "kernel_launches": {k: _build.launches[k]
-                                for k in ("paged_read", "dequant_gemm")},
+                                for k in ("paged_read", "dequant_gemm",
+                                          "kv_quant_write")},
         }
+
+    def _tenant_section(self) -> Dict[str, Dict[str, object]]:
+        """``stats()["tenants"]``: a row a tenant seen (or holding
+        blocks): delivered tokens, the decayed rate, queue and residency
+        footprint, the eviction and flush attribution, quota
+        preemptions, terminal statuses."""
+        alloc_ts = self.allocator.tenant_stats()
+        out: Dict[str, Dict[str, object]] = {}
+        for t in sorted(self._tenant_seen | set(alloc_ts)):
+            a = alloc_ts.get(t, {})
+            out[t] = {
+                "tokens": self._tenant_tokens.get(t, 0),
+                "rate_tokens_per_s": round(self._tenant_rate_now(t), 6),
+                "waiting": self.waiting.tenant_depth(t),
+                "resident_slots": sum(
+                    1 for s in self.slots
+                    if s is not None and s.request.tenant == t),
+                "resident_block_charge":
+                    a.get("resident_block_charge", 0.0),
+                "cached_blocks": a.get("cached_blocks", 0),
+                "evicted_blocks": a.get("evicted_blocks", 0),
+                "flushed_blocks": a.get("flushed_blocks", 0),
+                "quota_preemptions": self._tenant_preemptions.get(t, 0),
+                "statuses": dict(self._tenant_status.get(t, {})),
+            }
+        return out
+
+    # -- the tenant ledger ---------------------------------------------------
+
+    def _tenant_quota(self, tenant: str) -> Optional[TenantQuota]:
+        quotas = self.config.tenant_quotas
+        return None if quotas is None else quotas.get(tenant)
+
+    def _tenant_rate_now(self, tenant: str) -> float:
+        """The tenant's token rate decayed to now."""
+        r = self._tenant_rate.get(tenant, 0.0)
+        if r == 0.0:
+            return 0.0
+        dt = max(0.0, self._clock() - self._tenant_rate_t[tenant])
+        return r * math.exp(-dt / self.config.tenant_rate_tau_s)
+
+    def _note_tenant_tokens(self, tenant: str, n: int) -> None:
+        """Count ``n`` delivered tokens: the total and the decayed rate
+        (each token adds ``1 / tau``, so a steady rate R settles at R)."""
+        self._tenant_tokens[tenant] = \
+            self._tenant_tokens.get(tenant, 0) + n
+        now = self._clock()
+        tau = self.config.tenant_rate_tau_s
+        r = self._tenant_rate.get(tenant, 0.0)
+        if r:
+            dt = max(0.0, now - self._tenant_rate_t[tenant])
+            r *= math.exp(-dt / tau)
+        self._tenant_rate[tenant] = r + n / tau
+        self._tenant_rate_t[tenant] = now
+
+    def _door_throttle_reason(self, request: Request) -> Optional[str]:
+        """Why the tenant's quota sheds this submission, or None; read
+        before the request touches the queue or the pool."""
+        q = self._tenant_quota(request.tenant)
+        if q is None:
+            return None
+        if q.max_resident_blocks is not None:
+            # its worst case in block_weight units
+            worst = self._block_weight * blocks_needed(
+                len(request.prompt) + request.max_new_tokens,
+                self.config.block_size)
+            if worst > q.max_resident_blocks + 1e-9:
+                return (f"needs up to {worst:g} block-units but is "
+                        f"capped at max_resident_blocks="
+                        f"{q.max_resident_blocks} (it could never run)")
+        if (q.max_waiting is not None
+                and self.waiting.tenant_depth(request.tenant)
+                >= q.max_waiting):
+            return (f"already holds {q.max_waiting} waiting entries "
+                    f"(max_waiting)")
+        if q.tokens_per_s is not None:
+            rate = self._tenant_rate_now(request.tenant)
+            if rate > q.tokens_per_s:
+                return (f"is over its token-rate budget "
+                        f"({rate:.1f} > {q.tokens_per_s} tokens/s)")
+        return None
+
+    def _tenant_has_resident(self, tenant: str) -> bool:
+        return any(s is not None and s.request.tenant == tenant
+                   for s in self.slots)
+
+    def _tenant_is_listed(self, tenant: str) -> bool:
+        return (tenant == DEFAULT_TENANT
+                or tenant in (self.config.tenant_weights or {})
+                or tenant in (self.config.tenant_quotas or {}))
+
+    def _prune_tenant_if_idle(self, tenant: str) -> None:
+        """Drop an unlisted tenant's ledger rows once it holds nothing
+        waiting or resident, so fresh tenant ids cannot grow them without
+        bound."""
+        if self._tenant_is_listed(tenant):
+            return
+        if (self.waiting.tenant_depth(tenant)
+                or self._tenant_has_resident(tenant)):
+            return
+        self._tenant_seen.discard(tenant)
+        self._tenant_tokens.pop(tenant, None)
+        self._tenant_rate.pop(tenant, None)
+        self._tenant_rate_t.pop(tenant, None)
+        self._tenant_status.pop(tenant, None)
+        self._tenant_preemptions.pop(tenant, None)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def _set_status(self, request: Request, status: str) -> None:
+        """Every terminal transition: the drainable status, the request's
+        own field, the deadline and live sets, the tenant's tally and the
+        stream's terminal event."""
+        self.statuses[request.uid] = status
+        object.__setattr__(request, "status", status)
+        self._deadline.pop(request.uid, None)
+        self._live_uids.discard(request.uid)
+        tally = self._tenant_status.setdefault(request.tenant, {})
+        tally[status] = tally.get(status, 0) + 1
+        self._stream.append((request.uid, -1, True))
+        self._prune_tenant_if_idle(request.tenant)
+
+    def _yield_key(self, idx: int):
+        """Preemption order: the lowest class first (largest value), then
+        the youngest; ``max()`` picks the victim."""
+        slot = self.slots[idx]
+        return (slot.request.priority, slot.admit_seq, idx)
+
+    @staticmethod
+    def _resume_tokens(slot: _Slot) -> List[int]:
+        """The tokens a request carries out of its lane: a started lane's
+        ``generated``, else its queue entry's history."""
+        return (list(slot.generated) if slot.started
+                else list(slot.entry.generated))
+
+    def _expire_deadlines(self, include_started: bool) -> int:
+        """End every request past its deadline ``"timeout"`` with its
+        tokens: waiting entries and mid-prefill lanes at any time,
+        started lanes only when ``include_started`` (no dispatch in
+        flight over them)."""
+        if not self._deadline:
+            return 0
+        now = self._clock()
+        due = {uid for uid, dl in self._deadline.items() if now >= dl}
+        if not due:
+            return 0
+        expired = 0
+        if self.waiting:
+            for entry in self.waiting.expel(
+                    lambda e: e.request.uid in due):
+                self.finished[entry.request.uid] = list(entry.generated)
+                self._set_status(entry.request, "timeout")
+                self._num_timeouts += 1
+                expired += 1
+        for i, slot in enumerate(self.slots):
+            if slot is None or (slot.started and not include_started):
+                continue
+            if slot.request.uid in due:
+                self._finish(i, status="timeout")
+                self._num_timeouts += 1
+                expired += 1
+        return expired
+
+    @staticmethod
+    def _ewma_update(prev: Optional[float], dt: float) -> float:
+        dt = max(0.0, float(dt))
+        return dt if prev is None else (1.0 - _EWMA_ALPHA) * prev \
+            + _EWMA_ALPHA * dt
 
     # -- scheduling ----------------------------------------------------------
 
@@ -397,60 +1208,152 @@ class InferenceEngine:
     def _invalidate_lanes(self) -> None:
         self._dev_tables = None
 
+    def _admission_priority_limit(self) -> Optional[int]:
+        """Rung 3's pause: classes >= ``degrade_admit_priority`` wait,
+        unless nothing more urgent is resident or waiting (an otherwise
+        idle engine serves what it has)."""
+        if self._degradation_level < 3:
+            return None
+        limit = self.config.degrade_admit_priority
+        if (any(s is not None for s in self.slots)
+                or self.waiting.has_priority_below(limit)):
+            return limit
+        return None
+
+    def _estimate_service_s(self, prompt_tail: int, remaining: int,
+                            skips_prefill: bool = False) -> Optional[float]:
+        """A contention-free lower bound on serving a request: its
+        uncached prompt's chunks at the prefill EWMA plus its decode
+        dispatches at the decode EWMA (one token a dispatch speculating,
+        ``decode_steps`` otherwise). None before any observation."""
+        pf, dc = self._ewma_prefill_s, self._ewma_decode_s
+        if pf is None and dc is None:
+            return None
+        if skips_prefill and prompt_tail <= 0:
+            chunks = 0
+        else:
+            chunks = max(1, -(-max(prompt_tail, 0) // self.config.chunk))
+        per = 1 if self.config.spec_tokens > 0 else self.config.decode_steps
+        dispatches = -(-max(remaining, 0) // per)
+        return chunks * (pf or 0.0) + dispatches * (dc or 0.0)
+
+    def _shed_if_infeasible(self, entry: _QueueEntry, uncached_tail: int,
+                            below: Optional[int], skip=None) -> bool:
+        """The feasibility gate: a head whose deadline cannot cover the
+        service estimate ends ``"rejected"`` before it takes blocks."""
+        req = entry.request
+        dl = self._deadline.get(req.uid)
+        if dl is None:
+            return False
+        remaining = req.max_new_tokens - len(entry.generated)
+        if not entry.generated:
+            remaining -= 1      # the final prefill chunk emits one
+        est = self._estimate_service_s(
+            uncached_tail, remaining,
+            skips_prefill=bool(entry.generated) and uncached_tail <= 0)
+        if est is None or self._clock() + est <= dl:
+            return False
+        self.waiting.popleft(below=below, skip=skip)  # exactly this entry
+        self.finished[req.uid] = list(entry.generated)
+        self._set_status(req, "rejected")
+        self._num_rejected_infeasible += 1
+        return True
+
+    def _note_admitted_wait(self, entry: _QueueEntry) -> None:
+        wait_ticks = self._num_ticks - entry.enq_tick
+        wait_s = max(0.0, self._clock() - entry.enq_t)
+        self._queue_wait_count += 1
+        self._queue_wait_ticks_sum += wait_ticks
+        self._queue_wait_ticks_max = max(self._queue_wait_ticks_max,
+                                         wait_ticks)
+        self._queue_wait_s_sum += wait_s
+        self._queue_wait_s_max = max(self._queue_wait_s_max, wait_s)
+
     def _admit(self) -> int:
         """Move waiting requests into free lanes while the pool covers
         their current need: the blocks through the first decode write
-        (position L), less the longest cached block-aligned prefix, which
-        is shared by reference (prefix caching). A head that does not fit
+        (position L), less the longest cached block-aligned prefix,
+        which is shared by reference. Candidates come class by class,
+        weighted DRR across tenants within a class; the feasibility gate
+        sheds an infeasible head; a head whose tenant would pass its
+        ``max_resident_blocks`` is held (the tenant is skipped this pass,
+        other tenants flow past); a head that does not fit the pool
         blocks the queue."""
         bs = self.config.block_size
         alloc = self.allocator
         admitted = 0
+        below = self._admission_priority_limit()
+        skip: set = set()
         for idx in range(self.config.max_batch):
             if self.slots[idx] is not None:
                 continue
-            if not self.waiting:
+            while True:
+                entry = self.waiting.head(below=below, skip=skip)
+                if entry is None:
+                    return admitted
+                seq = list(entry.request.prompt)
+                if entry.generated:
+                    seq += entry.generated[:-1]     # resume: re-cache history
+                L = len(seq)
+                matched: List[int] = []
+                hashes: List[str] = []
+                if self.config.enable_prefix_caching:
+                    if entry.hashes is None:
+                        entry.hashes = seq_block_hashes(seq, bs)
+                    hashes = entry.hashes
+                    matched = alloc.lookup_prefix(hashes)
+                m_tok = len(matched) * bs
+                if self._shed_if_infeasible(entry, L - m_tok, below, skip):
+                    continue
+                tail = blocks_needed(L, bs) - len(matched)
+                need = blocks_needed(L + 1, bs) - len(matched)
+                tenant = entry.request.tenant
+                q = self._tenant_quota(tenant)
+                if q is not None and q.max_resident_blocks is not None:
+                    # new private blocks charge one unit each, a matched
+                    # block a 1 / (refs + 1) share
+                    extra = self._block_weight * (need + sum(
+                        1.0 / (alloc.refcount(b) + 1) for b in matched))
+                    if (alloc.tenant_charge(tenant) + extra
+                            > q.max_resident_blocks + 1e-9):
+                        if not self._tenant_has_resident(tenant):
+                            # nothing of the tenant's will free a block
+                            self.waiting.popleft(below=below, skip=skip)
+                            self.finished[entry.request.uid] = \
+                                list(entry.generated)
+                            self._set_status(entry.request, "throttled")
+                            self._num_throttled += 1
+                            continue
+                        skip.add(tenant)
+                        continue
+                # cached blocks this admission revives stop being evictable
+                reviving = sum(1 for b in matched if alloc.refcount(b) == 0)
+                if need > alloc.num_free + alloc.num_cached - reviving:
+                    return admitted         # head-of-line blocking
+                alloc.acquire(matched, tenant=tenant)
+                self.waiting.popleft(below=below, skip=skip)
+                self._note_admitted_wait(entry)
+                blocks = matched + (alloc.alloc(tail, tenant=tenant)
+                                    if tail else [])
+                self._prefix_lookup_blocks += len(hashes)
+                self._prefix_hit_blocks += len(matched)
+                self._prompt_blocks_allocated += tail
+                self._admit_count += 1
+                slot = _Slot(
+                    entry=entry, admit_seq=self._admit_count, tokens=seq,
+                    prefill_len=L, prefill_pos=m_tok, context_len=m_tok,
+                    blocks=blocks, block_hashes=list(hashes),
+                    num_registered=len(matched), generated=[],
+                    last_token=0, started=False)
+                if entry.generated and m_tok == L:
+                    # resumed and fully cached: nothing to recompute
+                    slot.generated = list(entry.generated)
+                    slot.last_token = slot.generated[-1]
+                    slot.started = True
+                self.slots[idx] = slot
+                self._invalidate_lanes()
+                admitted += 1
                 break
-            entry = self.waiting[0]
-            seq = list(entry.request.prompt)
-            if entry.generated:
-                seq += entry.generated[:-1]     # resume: re-cache history
-            L = len(seq)
-            matched: List[int] = []
-            hashes: List[str] = []
-            if self.config.enable_prefix_caching:
-                if entry.hashes is None:
-                    entry.hashes = seq_block_hashes(seq, bs)
-                hashes = entry.hashes
-                matched = alloc.lookup_prefix(hashes)
-            m_tok = len(matched) * bs
-            tail = blocks_needed(L, bs) - len(matched)
-            need = blocks_needed(L + 1, bs) - len(matched)
-            # cached blocks this admission revives stop being evictable
-            reviving = sum(1 for b in matched if alloc.refcount(b) == 0)
-            if need > alloc.num_free + alloc.num_cached - reviving:
-                break
-            alloc.acquire(matched)
-            self.waiting.popleft()
-            blocks = matched + (alloc.alloc(tail) if tail else [])
-            self._prefix_lookup_blocks += len(hashes)
-            self._prefix_hit_blocks += len(matched)
-            self._prompt_blocks_allocated += tail
-            self._admit_count += 1
-            slot = _Slot(
-                entry=entry, admit_seq=self._admit_count, tokens=seq,
-                prefill_len=L, prefill_pos=m_tok, context_len=m_tok,
-                blocks=blocks, block_hashes=list(hashes),
-                num_registered=len(matched), generated=[], last_token=0,
-                started=False)
-            if entry.generated and m_tok == L:
-                # resumed and fully cached: nothing to recompute
-                slot.generated = list(entry.generated)
-                slot.last_token = slot.generated[-1]
-                slot.started = True
-            self.slots[idx] = slot
-            self._invalidate_lanes()
-            admitted += 1
         return admitted
 
     def _register_full_blocks(self, slot: _Slot) -> None:
@@ -467,7 +1370,8 @@ class InferenceEngine:
                 slot.block_hashes.append(hash_block_tokens(
                     prev, slot.tokens[j * bs: (j + 1) * bs]))
             self.allocator.register_prefix(slot.block_hashes[j],
-                                           slot.blocks[j])
+                                           slot.blocks[j],
+                                           tenant=slot.request.tenant)
             slot.num_registered += 1
 
     def _prefill_tick(self) -> bool:
@@ -475,7 +1379,8 @@ class InferenceEngine:
         mid-prompt; the final chunk samples the first token from the
         prompt's last position (token index 0 of the request). A prompt
         cached whole runs one pass with its writes suppressed
-        (``write_start`` = L) for the last position's logits."""
+        (``write_start`` = L) for the last position's logits. The
+        prefill EWMA times the chunk."""
         cand = [(s.admit_seq, i) for i, s in enumerate(self.slots)
                 if s is not None and not s.started]
         if not cand:
@@ -494,6 +1399,7 @@ class InferenceEngine:
         table = np.full((1, self.max_blocks_per_seq), -1, np.int32)
         table[0, : len(slot.blocks)] = slot.blocks
         dev = self.device
+        t0 = self._clock()
         with torch.no_grad():
             logits, _ = self.model(
                 torch.from_numpy(ids).to(dev), self.cache,
@@ -502,6 +1408,21 @@ class InferenceEngine:
                 torch.tensor([end], dtype=torch.int64, device=dev),
                 write_start=torch.tensor([slot.prefill_pos],
                                          dtype=torch.int64, device=dev))
+        tok = None
+        if end == L and not slot.entry.generated:
+            sp = slot.request.sampling
+            with torch.no_grad():
+                tok = int(sample_with_uniforms(
+                    logits[:, (L - 1) - start],
+                    uniforms([token_generator(self.config.seed,
+                                              slot.entry.arrival, 0)]).to(
+                        dev),
+                    torch.tensor([sp.temperature], device=dev),
+                    torch.tensor([sp.top_k], device=dev),
+                    torch.tensor([sp.top_p], device=dev),
+                    sp.temperature > 0)[0])
+        self._ewma_prefill_s = self._ewma_update(self._ewma_prefill_s,
+                                                 self._clock() - t0)
         self._num_prefill_chunks += 1
         self._num_prefill_tokens += end - start
         slot.prefill_pos = end
@@ -517,49 +1438,83 @@ class InferenceEngine:
             slot.generated = list(slot.entry.generated)
             slot.last_token = slot.generated[-1]
             return True
-        sp = slot.request.sampling
-        with torch.no_grad():
-            tok = sample_with_uniforms(
-                logits[:, (L - 1) - start],
-                uniforms([token_generator(self.config.seed,
-                                          slot.entry.arrival, 0)]).to(dev),
-                torch.tensor([sp.temperature], device=dev),
-                torch.tensor([sp.top_k], device=dev),
-                torch.tensor([sp.top_p], device=dev),
-                sp.temperature > 0)
-        self._record_token(idx, int(tok[0]))
+        self._record_token(idx, tok)
         return True
 
     def _preempt_for(self, requester: int) -> bool:
-        """Free the youngest lane (largest admit order); its request
-        re-queues at the front carrying its generated tokens. False when
-        the requester is the only lane."""
+        """Free the lowest-class, youngest lane (:meth:`_yield_key`); its
+        request re-queues at the front of its class carrying its
+        generated tokens. False when the requester is the only lane."""
         cand = [i for i, s in enumerate(self.slots) if s is not None]
         if len(cand) <= 1:
             return False
-        idx = max(cand, key=lambda i: (self.slots[i].admit_seq, i))
+        return self._preempt_slot(max(cand, key=self._yield_key))
+
+    def _preempt_tenant_lane(self, tenant: str, requester: int) -> bool:
+        """A lane growing past its tenant's ``max_resident_blocks``
+        preempts the tenant's own lowest-class, youngest other lane whose
+        release lowers the tenant's charge (it holds a private block or
+        one another tenant shares). False when there is none."""
+        alloc = self.allocator
+
+        def reduces(slot: _Slot) -> bool:
+            return any(alloc.refcount(b) == 1
+                       or alloc.tenant_refcount(b, tenant)
+                       < alloc.refcount(b)
+                       for b in slot.blocks)
+
+        cand = [i for i, s in enumerate(self.slots)
+                if s is not None and i != requester
+                and s.request.tenant == tenant and reduces(s)]
+        if not cand:
+            return False
+        idx = max(cand, key=self._yield_key)
+        tally = self._tenant_preemptions
+        tally[tenant] = tally.get(tenant, 0) + 1
+        return self._preempt_slot(idx)
+
+    def _preempt_slot(self, idx: int) -> bool:
         slot = self.slots[idx]
-        gen = (list(slot.generated) if slot.started
-               else list(slot.entry.generated))
-        self.allocator.free(list(reversed(slot.blocks)))
+        gen = self._resume_tokens(slot)
+        # deepest first, as _finish
+        self.allocator.free(list(reversed(slot.blocks)),
+                            tenant=slot.request.tenant)
         self.waiting.appendleft(_QueueEntry(
             request=slot.request, arrival=slot.entry.arrival,
-            generated=gen))
+            generated=gen, enq_t=self._clock(), enq_tick=self._num_ticks,
+            drr_charged=True))
+        self._queue_depth_peak = max(self._queue_depth_peak,
+                                     len(self.waiting))
         self.slots[idx] = None
         self._invalidate_lanes()
         self._num_preemptions += 1
         return True
 
     def _build_draft_plan(self, active: List[int]) -> None:
-        """Ask the drafter for up to ``min(spec_tokens, remaining - 1)``
-        proposals a decoding lane (so the verify never emits past the
-        budget), cut at the first token outside the vocabulary."""
+        """Ask the drafter for up to ``min(cap, remaining - 1)`` proposals
+        a decoding lane (so the verify never emits past the budget), cut
+        at the first token outside the vocabulary. The cap is
+        ``spec_tokens``, or ``spec_adapt``'s; at ladder rung 1 and up the
+        plan is empty (a zero-proposal verify is one decode step)."""
+        self._draft_plan = {}
+        if self._degradation_level >= 1:
+            return
+        S = self.config.spec_tokens
+        if self.config.spec_adapt:
+            S = min(S, self._spec_cap)
+            if S == 0:
+                # capped out: every _SPEC_PROBE_EVERY-th plan is a probe
+                self._spec_probe_countdown -= 1
+                if self._spec_probe_countdown > 0:
+                    return
+                self._spec_probe_countdown = _SPEC_PROBE_EVERY
+                S = 1
         vocab = self.model.cfg.vocab_size
         plan: Dict[int, List[int]] = {}
         for i in active:
             slot = self.slots[i]
-            cap = min(self.config.spec_tokens,
-                      slot.request.max_new_tokens - len(slot.generated) - 1)
+            cap = min(S, slot.request.max_new_tokens
+                      - len(slot.generated) - 1)
             if cap < 1:
                 continue
             history = list(slot.request.prompt) + slot.generated
@@ -577,9 +1532,11 @@ class InferenceEngine:
         """Every started lane is about to write K/V at ``context_len ..
         context_len + span - 1`` (span: ``decode_steps`` capped by its
         remaining budget, or speculating, the carried token plus its
-        proposals): allocate the missing blocks up front, preempting the
-        youngest lane when the pool is dry, and copy any covering block
-        shared with another sequence to a private one (copy-on-write)."""
+        proposals): allocate the missing blocks up front (a lane past
+        its tenant's block quota first preempts the tenant's own
+        youngest other lane; a dry pool preempts the lowest-class,
+        youngest lane), and copy any covering block shared with another
+        sequence to a private one (copy-on-write)."""
         bs = self.config.block_size
         K = self.config.decode_steps
         order = sorted((s.admit_seq, i) for i, s in enumerate(self.slots)
@@ -587,6 +1544,7 @@ class InferenceEngine:
         for _, i in order:
             while self.slots[i] is not None:
                 slot = self.slots[i]
+                tenant = slot.request.tenant
                 if self.config.spec_tokens > 0:
                     span = 1 + len(self._draft_plan.get(i, ()))
                 else:
@@ -595,8 +1553,17 @@ class InferenceEngine:
                 grow = blocks_needed(slot.context_len + span, bs) \
                     - len(slot.blocks)
                 if grow > 0:
+                    q = self._tenant_quota(tenant)
+                    if (q is not None
+                            and q.max_resident_blocks is not None
+                            and self.allocator.tenant_charge(tenant)
+                            + grow * self._block_weight
+                            > q.max_resident_blocks + 1e-9
+                            and self._preempt_tenant_lane(tenant, i)):
+                        continue    # the freed charge may cover it now
                     try:
-                        slot.blocks.extend(self.allocator.alloc(grow))
+                        slot.blocks.extend(self.allocator.alloc(
+                            grow, tenant=tenant))
                         self._invalidate_lanes()
                     except CacheOutOfBlocks:
                         if not self._preempt_for(i):
@@ -615,7 +1582,7 @@ class InferenceEngine:
                 if j is None:
                     break
                 try:
-                    nb = self.allocator.alloc(1)[0]
+                    nb = self.allocator.alloc(1, tenant=tenant)[0]
                 except CacheOutOfBlocks:
                     if not self._preempt_for(i):
                         raise CacheOutOfBlocks(
@@ -625,7 +1592,7 @@ class InferenceEngine:
                     continue
                 b = slot.blocks[j]
                 copy_block(self.cache, b, nb)
-                self.allocator.free([b])
+                self.allocator.free([b], tenant=tenant)
                 slot.blocks[j] = nb
                 self._invalidate_lanes()
                 # the copy diverges from the indexed contents once it is
@@ -778,18 +1745,25 @@ class InferenceEngine:
     def _drain_decode(self) -> bool:
         """Fetch the in-flight dispatch's tokens and replay them through
         the per-token bookkeeping (cache-token append, block
-        registration, EOS/budget finish). Speculating, an emitted token
-        equal to the lane's proposal at its index is an accepted draft,
-        and the span blocks the rejection stranded go back to the pool
-        (``trim_to``)."""
+        registration, EOS/budget finish); a lane aborted (or refilled)
+        while the dispatch was in flight is skipped by its uid. The
+        decode EWMA times the fetch. Speculating, an emitted token equal
+        to the lane's proposal at its index is an accepted draft, the
+        span blocks the rejection stranded go back to the pool
+        (``trim_to``), and with ``spec_adapt`` the dispatch's acceptance
+        moves the draft cap."""
         if self._pending is None:
             return False
         toks_dev, active, uids = self._pending
         self._pending = None
+        t_fetch = self._clock()
         toks = toks_dev.cpu().numpy()
+        self._ewma_decode_s = self._ewma_update(self._ewma_decode_s,
+                                                self._clock() - t_fetch)
         counts = (toks >= 0).sum(axis=1)
         spec = self.config.spec_tokens > 0
         bs = self.config.block_size
+        drafted_this = accepted_this = 0
         for i in active:
             slot = self.slots[i]
             if slot is None or slot.request.uid != uids[i]:
@@ -809,10 +1783,12 @@ class InferenceEngine:
             # drawn with the draft removed, a greedy one is the argmax
             # the draft was not
             prop = self._draft_plan.get(i, ())
+            drafted_this += len(prop)
             for j in range(min(n, len(prop))):
                 if int(toks[i, j]) != prop[j]:
                     break
                 self._num_accepted_tokens += 1
+                accepted_this += 1
             slot = self.slots[i]
             if slot is not None:
                 keep = blocks_needed(slot.context_len, bs)
@@ -822,14 +1798,32 @@ class InferenceEngine:
                     # no table rebuild: the trimmed entries sit past the
                     # lane's context, where every read and write is
                     # masked, and a span reaching them allocates first
-                    slot.blocks = self.allocator.trim_to(slot.blocks, keep)
+                    slot.blocks = self.allocator.trim_to(
+                        slot.blocks, keep, tenant=slot.request.tenant)
+        if spec and self.config.spec_adapt and drafted_this:
+            # the dead band [low, high] is the hysteresis: at or above
+            # high the cap never moves (static speculation)
+            self._spec_accept_ewma = self._ewma_update(
+                self._spec_accept_ewma, accepted_this / drafted_this)
+            if (self._spec_accept_ewma < self.config.spec_accept_low
+                    and self._spec_cap > 0):
+                self._spec_cap -= 1
+                self._num_spec_cap_shrinks += 1
+            elif (self._spec_accept_ewma > self.config.spec_accept_high
+                    and self._spec_cap < self.config.spec_tokens):
+                self._spec_cap += 1
+                self._num_spec_cap_restores += 1
         return True
 
     def _record_token(self, idx: int, token: int) -> None:
+        """The one funnel of fresh tokens: the lane, the stream, the
+        tenant's count and rate; finishes on EOS or the budget."""
         slot = self.slots[idx]
         slot.generated.append(token)
         slot.last_token = token
         req = slot.request
+        self._stream.append((req.uid, int(token), False))
+        self._note_tenant_tokens(req.tenant, 1)
         if ((req.eos_token_id is not None and token == req.eos_token_id)
                 or len(slot.generated) >= req.max_new_tokens):
             self._finish(idx)
@@ -839,10 +1833,64 @@ class InferenceEngine:
         registered blocks stay cached, and a chain's tail must age out of
         the LRU before its head for partial chains to stay matchable."""
         slot = self.slots[idx]
-        self.allocator.free(list(reversed(slot.blocks)))
-        self.finished[slot.request.uid] = list(slot.generated)
+        self.allocator.free(list(reversed(slot.blocks)),
+                            tenant=slot.request.tenant)
+        self.finished[slot.request.uid] = self._resume_tokens(slot)
+        # clear the lane first: the idle-tenant pruning must not see it
         self.slots[idx] = None
-        self.statuses[slot.request.uid] = status
-        object.__setattr__(slot.request, "status", status)
-        self._live_uids.discard(slot.request.uid)
+        self._set_status(slot.request, status)
         self._invalidate_lanes()
+
+    # -- the degradation ladder ----------------------------------------------
+
+    def _ladder_enabled(self) -> bool:
+        return (self.config.queue_high_watermark is not None
+                or self.config.free_block_low_watermark is not None)
+
+    def _under_pressure(self) -> bool:
+        """Queue depth at or over the high mark, or the allocatable
+        fraction (free plus cached: what ``alloc`` can draw on) at or
+        under the low mark."""
+        cfg = self.config
+        if (cfg.queue_high_watermark is not None
+                and len(self.waiting) >= cfg.queue_high_watermark):
+            return True
+        if cfg.free_block_low_watermark is not None:
+            allocatable = (self.allocator.num_free
+                           + self.allocator.num_cached)
+            if (allocatable / max(self.allocator.num_blocks, 1)
+                    <= cfg.free_block_low_watermark):
+                return True
+        return False
+
+    def _update_ladder(self) -> bool:
+        """One hysteresis tick: ``degrade_patience`` pressure ticks in a
+        row step one rung down, as many clear ticks one rung up; at rung
+        2 and below the prefix cache's cached blocks are flushed every
+        tick. Returns whether a transition happened."""
+        if not self._ladder_enabled():
+            return False
+        transition = False
+        if self._under_pressure():
+            self._pressure_streak += 1
+            self._clear_streak = 0
+            if (self._degradation_level < _LADDER_TOP
+                    and self._pressure_streak
+                    >= self.config.degrade_patience):
+                self._degradation_level += 1
+                self._pressure_streak = 0
+                self._num_degrade_steps_down += 1
+                transition = True
+        else:
+            self._clear_streak += 1
+            self._pressure_streak = 0
+            if (self._degradation_level > 0
+                    and self._clear_streak >= self.config.degrade_patience):
+                self._degradation_level -= 1
+                self._clear_streak = 0
+                self._num_degrade_steps_up += 1
+                transition = True
+        if self._degradation_level >= 2:
+            self._num_degrade_flushed_blocks += \
+                self.allocator.flush_evictable()
+        return transition

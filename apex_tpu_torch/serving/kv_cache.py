@@ -1,16 +1,21 @@
 """Paged KV cache for serving (counterpart of
-:mod:`apex_tpu.serving.kv_cache`; the engine writes full-precision
-pools only).
+:mod:`apex_tpu.serving.kv_cache`, without the spill tier and the block
+shards).
 
 The pools are ``[num_layers, num_blocks, block_size, num_heads,
 head_dim]`` tensors on the serving device, allocated once and updated IN
 PLACE (the JAX pools are functional: scatter in, new pytree out).
-:class:`BlockAllocator` hands out block ids on the host and keeps the
-prefix-cache index (chain hashes of full blocks); sequences map
-positions to blocks through ``[B, max_blocks_per_seq]`` block tables
-whose unallocated entries hold ``num_blocks`` on the device (one past
-the pool): writes never land there and reads clip into the pool and are
-masked by context length.
+``KVCache.create(quantization="int8" | "fp8")`` stores int8 or
+float8_e4m3fn payloads with one fp32 scale per written (token, head) row
+(``k_scale``/``v_scale``, ``[L, N, bs, H]``), moved with their payload by
+every block op; :func:`write_kv` quantizes on the way in (the rounding
+rule is :mod:`apex_tpu_torch.ops.kv_quant`'s) and the attention read
+dequantizes. :class:`BlockAllocator` hands out block ids on the host,
+keeps the prefix-cache index (chain hashes of full blocks) and the
+per-tenant ledger; sequences map positions to blocks through ``[B,
+max_blocks_per_seq]`` block tables whose unallocated entries hold
+``num_blocks`` on the device (one past the pool): writes never land
+there and reads clip into the pool and are masked by context length.
 """
 
 from __future__ import annotations
@@ -23,6 +28,22 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from apex_tpu_torch.ops.kv_quant import (  # noqa: F401 (re-exported)
+    KV_QUANT_MODES,
+    KV_QUANT_SEED as _KV_QUANT_SEED,
+    fp8_kv_dtype,
+    kv_quant_write,
+    pool_quantization,
+    quant_storage_dtype as _quant_storage_dtype,
+    quantize_kv_rows,
+    quantize_kv_rows_with,
+)
+
+# the tenant every unlabelled caller is accounted to: single-tenant
+# traffic runs entirely under it, and allocation order never reads a
+# tenant, so the default tenant's ids are the tenant-blind allocator's
+DEFAULT_TENANT = "default"
+
 
 def default_kv_dtype(dtype=None) -> torch.dtype:
     """The KV storage dtype: an explicit ``dtype`` wins, else fp32 (the
@@ -30,17 +51,48 @@ def default_kv_dtype(dtype=None) -> torch.dtype:
     return torch.float32 if dtype is None else dtype
 
 
+def kv_block_bytes(num_layers: int, block_size: int, num_heads: int,
+                   head_dim: int, dtype=None, quantization=None) -> int:
+    """Device bytes one block costs across every layer: K + V payload,
+    plus the per-row fp32 scales when quantized (the JAX formula). The
+    tenant ledger charges a quantized block this over the full-precision
+    block's bytes."""
+    if quantization is None:
+        item = torch.empty((), dtype=default_kv_dtype(dtype)).element_size()
+        return 2 * num_layers * block_size * num_heads * head_dim * item
+    item = torch.empty((), dtype=_quant_storage_dtype(
+        quantization)).element_size()
+    payload = 2 * num_layers * block_size * num_heads * head_dim * item
+    scales = 2 * num_layers * block_size * num_heads * 4
+    return payload + scales
+
+
 @dataclasses.dataclass
 class KVCache:
     """The device block pools. ``k_scale``/``v_scale`` are the per-row
-    fp32 scales of int8/fp8 pools (``[L, N, bs, H]``): the attention
-    read dequantizes them, but this slice writes full precision only,
-    so :meth:`create` leaves them ``None``."""
+    fp32 scales of int8/fp8 pools (``[L, N, bs, H]``, None at full
+    precision): :func:`write_kv` writes them with their payload and the
+    attention read dequantizes them."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantization(self) -> Optional[str]:
+        """The storage mode (from the payload dtype): None, "int8" or
+        "fp8"."""
+        if self.k_scale is None:
+            return None
+        return pool_quantization(self.k.dtype)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the pools, scales included."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_scale, self.v_scale)
+                   if t is not None)
 
     @property
     def num_layers(self) -> int:
@@ -65,11 +117,23 @@ class KVCache:
     @classmethod
     def create(cls, num_layers: int, num_blocks: int, block_size: int,
                num_heads: int, head_dim: int, dtype=None,
+               quantization: Optional[str] = None,
                device=None) -> "KVCache":
+        """Zeroed pools; ``quantization`` (one of ``KV_QUANT_MODES``)
+        stores int8/fp8 payloads with fp32 ``[L, N, bs, H]`` scales
+        (``dtype`` is then unused)."""
         shape = (num_layers, num_blocks, block_size, num_heads, head_dim)
-        dt = default_kv_dtype(dtype)
+        if quantization is None:
+            dt = default_kv_dtype(dtype)
+            return cls(k=torch.zeros(shape, dtype=dt, device=device),
+                       v=torch.zeros(shape, dtype=dt, device=device))
+        dt = _quant_storage_dtype(quantization)
         return cls(k=torch.zeros(shape, dtype=dt, device=device),
-                   v=torch.zeros(shape, dtype=dt, device=device))
+                   v=torch.zeros(shape, dtype=dt, device=device),
+                   k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device),
+                   v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device))
 
 
 class CacheOutOfBlocks(RuntimeError):
@@ -92,19 +156,32 @@ def hash_block_tokens(prev_hash: Optional[str],
 
 
 class BlockAllocator:
-    """Host-side block-id accounting: a free list, reference counts and
-    the prefix-cache index (the JAX allocator without tenants, shards or
-    the spill tier; the same ids in the same order for the same calls).
+    """Host-side block-id accounting: a free list, reference counts, the
+    prefix-cache index and the per-tenant ledger (the JAX allocator
+    without shards or the spill tier; the same ids in the same order for
+    the same calls).
 
     A block id is **free** (on the free list; ``alloc`` hands it out at
     refcount 1, ascending ids first), **active** (refcount >= 1:
     ``acquire`` adds a reference, ``free`` drops one) or **cached**
     (refcount 0 but registered in the prefix index: its contents stay
     matchable; ``alloc`` evicts cached blocks least recently used when
-    the free list is empty, ``match_prefix`` revives them)."""
+    the free list is empty, ``match_prefix`` revives them).
 
-    def __init__(self, num_blocks: int):
+    Every reference is held by a tenant: a block shared across tenants
+    charges each ``block_weight * tenant_refs / refs``
+    (:meth:`tenant_charge`; ``block_weight`` is 1.0, or a quantized
+    block's bytes over the full-precision block's), and a cached block
+    belongs to the tenant that registered it, so its eviction or flush
+    is counted against that tenant. The ledger is bookkeeping: no
+    allocation or eviction reads it."""
+
+    def __init__(self, num_blocks: int, block_weight: float = 1.0):
         self.num_blocks = int(num_blocks)
+        if not block_weight > 0:
+            raise ValueError(
+                f"block_weight must be > 0, got {block_weight}")
+        self.block_weight = float(block_weight)
         # pop() from the end serves ascending ids first
         self._free: List[int] = list(range(self.num_blocks - 1, -1, -1))
         self._ref: Dict[int, int] = {}
@@ -113,6 +190,15 @@ class BlockAllocator:
         # refcount-0 registered blocks; insertion order is LRU order
         self._evictable: "OrderedDict[int, None]" = OrderedDict()
         self.num_evictions = 0
+        # the tenant ledger: each block's references split by holder, the
+        # registering tenant of each indexed block, eviction and flush
+        # counts by that tenant, and the running fractional charge
+        # (_charge_block keeps it; check_integrity rebases it exactly)
+        self._tenant_refs: Dict[int, Dict[str, int]] = {}
+        self._cached_owner: Dict[int, str] = {}
+        self._evicted_by_tenant: Dict[str, int] = {}
+        self._flushed_by_tenant: Dict[str, int] = {}
+        self._tenant_charge_acc: Dict[str, float] = {}
 
     # -- accounting ----------------------------------------------------------
 
@@ -137,18 +223,65 @@ class BlockAllocator:
     def refcount(self, block_id: int) -> int:
         return self._ref.get(int(block_id), 0)
 
+    def tenant_refcount(self, block_id: int, tenant: str) -> int:
+        """How many of a block's references ``tenant`` holds."""
+        return self._tenant_refs.get(int(block_id), {}).get(tenant, 0)
+
+    def _charge_block(self, b: int, sign: int) -> None:
+        """Add (+1) or remove (-1) block ``b``'s current per-tenant shares
+        to the running charge, around each change of its holders."""
+        total = self._ref.get(b, 0)
+        if not total:
+            return
+        w = self.block_weight
+        for t, n in self._tenant_refs[b].items():
+            self._tenant_charge_acc[t] = \
+                self._tenant_charge_acc.get(t, 0.0) + sign * w * n / total
+
+    def tenant_charge(self, tenant: str) -> float:
+        """The tenant's fractional resident-block charge, in
+        ``block_weight`` units: what ``TenantQuota.max_resident_blocks``
+        is held against."""
+        return max(0.0, self._tenant_charge_acc.get(tenant, 0.0))
+
+    def tenant_stats(self) -> Dict[str, Dict[str, object]]:
+        """Per tenant: resident charge, cached blocks it registered, and
+        its evicted and flushed blocks."""
+        tenants = set(self._evicted_by_tenant) | set(self._flushed_by_tenant)
+        for refs in self._tenant_refs.values():
+            tenants.update(refs)
+        cached_by: Dict[str, int] = {}
+        for b in self._evictable:
+            owner = self._cached_owner.get(b)
+            if owner is not None:
+                tenants.add(owner)
+                cached_by[owner] = cached_by.get(owner, 0) + 1
+        return {t: {
+            "resident_block_charge": round(self.tenant_charge(t), 6),
+            "cached_blocks": cached_by.get(t, 0),
+            "evicted_blocks": self._evicted_by_tenant.get(t, 0),
+            "flushed_blocks": self._flushed_by_tenant.get(t, 0),
+        } for t in sorted(tenants)}
+
     # -- alloc / free / share ------------------------------------------------
 
-    def _evict_one(self) -> int:
-        """Unregister and return the least recently used cached block."""
+    def _evict_one(self, flushed: bool = False) -> int:
+        """Unregister and return the least recently used cached block,
+        counting it against its registering tenant (``flushed``: the
+        degradation ladder's flush counter)."""
         b, _ = self._evictable.popitem(last=False)
         del self._hash_to_block[self._block_to_hash.pop(b)]
+        owner = self._cached_owner.pop(b, None)
+        if owner is not None:
+            counter = (self._flushed_by_tenant if flushed
+                       else self._evicted_by_tenant)
+            counter[owner] = counter.get(owner, 0) + 1
         self.num_evictions += 1
         return b
 
-    def alloc(self, n: int) -> List[int]:
-        """``n`` blocks at refcount 1, evicting cached blocks (LRU first)
-        when the free list alone cannot serve them."""
+    def alloc(self, n: int, tenant: str = DEFAULT_TENANT) -> List[int]:
+        """``n`` blocks at refcount 1, held by ``tenant``, evicting cached
+        blocks (LRU first) when the free list alone cannot serve them."""
         if n > len(self._free) + len(self._evictable):
             raise CacheOutOfBlocks(
                 f"requested {n} blocks, {len(self._free)} free + "
@@ -157,48 +290,73 @@ class BlockAllocator:
         for _ in range(n):
             b = self._free.pop() if self._free else self._evict_one()
             self._ref[b] = 1
+            self._tenant_refs[b] = {tenant: 1}
+            self._charge_block(b, +1)
             out.append(b)
         return out
 
-    def free(self, ids: Sequence[int]) -> None:
-        """Drop one reference per id. A registered block reaching 0 stays
-        cached (the most recently used end); an unregistered one returns
-        to the free list. Raises on an unknown id or a double free."""
+    def free(self, ids: Sequence[int], tenant: str = DEFAULT_TENANT) -> None:
+        """Drop one of ``tenant``'s references per id. A registered block
+        reaching 0 stays cached (the most recently used end); an
+        unregistered one returns to the free list. Raises on an unknown
+        id, a double free, or a tenant dropping a reference it does not
+        hold."""
         for b in ids:
             b = int(b)
             if not 0 <= b < self.num_blocks:
                 raise ValueError(f"block id {b} out of range")
             if self._ref.get(b, 0) <= 0:
                 raise ValueError(f"double free of block {b}")
+            holders = self._tenant_refs[b]
+            if holders.get(tenant, 0) <= 0:
+                raise ValueError(
+                    f"tenant {tenant!r} holds no reference on block {b} "
+                    f"(holders: {holders})")
+            self._charge_block(b, -1)
+            holders[tenant] -= 1
+            if holders[tenant] == 0:
+                del holders[tenant]
             self._ref[b] -= 1
             if self._ref[b] == 0:
                 del self._ref[b]
+                del self._tenant_refs[b]
                 if b in self._block_to_hash:
                     self._evictable[b] = None
                 else:
                     self._free.append(b)
+            else:
+                self._charge_block(b, +1)
 
-    def acquire(self, ids: Sequence[int]) -> None:
-        """Add one reference per id (prefix sharing); revives cached
-        blocks. A free block holds nothing to share: raises."""
+    def acquire(self, ids: Sequence[int],
+                tenant: str = DEFAULT_TENANT) -> None:
+        """Add one reference per id for ``tenant`` (prefix sharing);
+        revives cached blocks. A free block holds nothing to share:
+        raises."""
         for b in ids:
             b = int(b)
             if self._ref.get(b, 0) > 0:
+                self._charge_block(b, -1)
                 self._ref[b] += 1
+                holders = self._tenant_refs[b]
+                holders[tenant] = holders.get(tenant, 0) + 1
+                self._charge_block(b, +1)
             elif b in self._evictable:
                 del self._evictable[b]
                 self._ref[b] = 1
+                self._tenant_refs[b] = {tenant: 1}
+                self._charge_block(b, +1)
             else:
                 raise ValueError(
                     f"cannot acquire block {b}: neither active nor cached")
 
     # -- the prefix index ----------------------------------------------------
 
-    def register_prefix(self, block_hash: str, block_id: int) -> bool:
+    def register_prefix(self, block_hash: str, block_id: int,
+                        tenant: str = DEFAULT_TENANT) -> bool:
         """Index a FULL block under its chain hash. The first
         registration wins (a duplicate stays unregistered and is freed
-        when released). Returns whether ``block_id`` is the indexed
-        block."""
+        when released) and records ``tenant`` as the block's cached
+        owner. Returns whether ``block_id`` is the indexed block."""
         block_id = int(block_id)
         if block_hash in self._hash_to_block:
             return self._hash_to_block[block_hash] == block_id
@@ -206,6 +364,7 @@ class BlockAllocator:
             return False
         self._hash_to_block[block_hash] = block_id
         self._block_to_hash[block_id] = block_hash
+        self._cached_owner[block_id] = tenant
         return True
 
     def indexed_block(self, block_hash: str) -> Optional[int]:
@@ -223,14 +382,16 @@ class BlockAllocator:
             out.append(b)
         return out
 
-    def match_prefix(self, hashes: Sequence[str]) -> List[int]:
-        """:meth:`lookup_prefix`, acquiring a reference on each block;
-        the caller frees them."""
+    def match_prefix(self, hashes: Sequence[str],
+                     tenant: str = DEFAULT_TENANT) -> List[int]:
+        """:meth:`lookup_prefix`, acquiring a reference on each block for
+        ``tenant``; the caller frees them under the same tenant."""
         out = self.lookup_prefix(hashes)
-        self.acquire(out)
+        self.acquire(out, tenant=tenant)
         return out
 
-    def trim_to(self, blocks: Sequence[int], keep: int) -> List[int]:
+    def trim_to(self, blocks: Sequence[int], keep: int,
+                tenant: str = DEFAULT_TENANT) -> List[int]:
         """Release the blocks of a sequence past its first ``keep`` and
         return the kept prefix: the rollback of a speculative span's
         reservation. A trimmed block must be private (refcount 1) and
@@ -252,45 +413,61 @@ class BlockAllocator:
                 raise ValueError(
                     f"cannot trim block {b}: registered in the prefix "
                     "index (it is matchable cached context)")
-        self.free(list(reversed(tail)))
+        self.free(list(reversed(tail)), tenant=tenant)
         return blocks[:keep]
 
     def flush_evictable(self) -> int:
-        """Evict every cached block to the free list; returns how many
-        (each counts as an eviction)."""
+        """Evict every cached block to the free list (the degradation
+        ladder's rung 2); returns how many. Each counts as an eviction
+        and against its registering tenant's flush count."""
         n = len(self._evictable)
         while self._evictable:
-            self._free.append(self._evict_one())
+            self._free.append(self._evict_one(flushed=True))
         return n
 
     def reset(self) -> None:
-        """Every block free, the index empty (``num_evictions`` kept)."""
+        """Every block free, the index and the references empty
+        (``num_evictions`` and the eviction/flush counts kept)."""
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._ref.clear()
         self._hash_to_block.clear()
         self._block_to_hash.clear()
         self._evictable.clear()
+        self._tenant_refs.clear()
+        self._cached_owner.clear()
+        self._tenant_charge_acc.clear()
 
     # -- audit ---------------------------------------------------------------
 
     def snapshot_state(self) -> Dict[str, object]:
         """JSON-serializable picture: refcounts, the prefix index, the
-        LRU order of the cached blocks, the free list, evictions."""
+        LRU order of the cached blocks, the free list, evictions and the
+        tenant ledger."""
         return {
             "refcounts": {str(b): int(c) for b, c in self._ref.items()},
             "prefix_index": dict(self._hash_to_block),
             "evictable": [int(b) for b in self._evictable],
             "free": [int(b) for b in self._free],
             "num_evictions": int(self.num_evictions),
+            "tenant_refs": {str(b): dict(refs)
+                            for b, refs in self._tenant_refs.items()},
+            "cached_owners": {str(b): t
+                              for b, t in self._cached_owner.items()},
+            "evicted_by_tenant": dict(self._evicted_by_tenant),
+            "flushed_by_tenant": dict(self._flushed_by_tenant),
         }
 
     def check_integrity(self, expected_refcounts: Optional[Dict[int, int]]
-                        = None) -> None:
+                        = None,
+                        expected_tenant_refs: Optional[
+                            Dict[int, Dict[str, int]]] = None) -> None:
         """Raise ``ValueError`` on a broken invariant: every block in
         exactly one of free, active and cached; the hash and block maps a
         bijection; cached blocks registered; no registered block free;
-        and, given the refcounts the caller's own bookkeeping implies,
-        an exact match with the internal ones."""
+        the tenant split of each block summing to its refcount, and the
+        running charges equal to the exact sums (then rebased to them);
+        and, given the refcounts (and their tenant split) that the
+        caller's own bookkeeping implies, an exact match."""
         free, active = set(self._free), set(self._ref)
         cached = set(self._evictable)
         if len(free) != len(self._free):
@@ -321,6 +498,44 @@ class BlockAllocator:
         if registered_free:
             raise ValueError(
                 f"free blocks still indexed: {sorted(registered_free)}")
+        if set(self._tenant_refs) != active:
+            raise ValueError(
+                f"tenant-ref map keys {sorted(self._tenant_refs)} != "
+                f"active blocks {sorted(active)}")
+        for b, refs in self._tenant_refs.items():
+            if any(c <= 0 for c in refs.values()):
+                raise ValueError(
+                    f"block {b}: non-positive tenant refcount {refs}")
+            if sum(refs.values()) != self._ref[b]:
+                raise ValueError(
+                    f"block {b}: tenant refs {refs} sum to "
+                    f"{sum(refs.values())}, refcount is {self._ref[b]}")
+        stray_owner = set(self._cached_owner) - set(self._block_to_hash)
+        if stray_owner:
+            raise ValueError(f"cached-owner entries for unregistered "
+                             f"blocks: {sorted(stray_owner)}")
+        exact: Dict[str, float] = {}
+        for b, refs in self._tenant_refs.items():
+            for t, n in refs.items():
+                exact[t] = exact.get(t, 0.0) \
+                    + self.block_weight * n / self._ref[b]
+        for t in set(exact) | set(self._tenant_charge_acc):
+            if abs(exact.get(t, 0.0)
+                   - self._tenant_charge_acc.get(t, 0.0)) > 1e-6:
+                raise ValueError(
+                    f"tenant {t!r}: incremental charge "
+                    f"{self._tenant_charge_acc.get(t, 0.0)} diverged "
+                    f"from exact {exact.get(t, 0.0)}")
+        self._tenant_charge_acc = exact
+        if expected_tenant_refs is not None:
+            expect = {int(b): {t: int(c) for t, c in refs.items() if c > 0}
+                      for b, refs in expected_tenant_refs.items()}
+            expect = {b: refs for b, refs in expect.items() if refs}
+            if expect != self._tenant_refs:
+                raise ValueError(
+                    f"tenant refs diverge from caller bookkeeping: "
+                    f"expected {expect}, allocator holds "
+                    f"{self._tenant_refs}")
         if expected_refcounts is not None:
             expected = {int(b): int(c) for b, c in expected_refcounts.items()
                         if int(c) > 0}
@@ -356,35 +571,44 @@ def device_block_table(host_tables, num_blocks: int,
 
 def write_coords(block_tables, positions, valid, num_blocks: int,
                  block_size: int):
-    """The scatter coordinates ``(page, off, b, s)`` of every VALID
-    token write, as 1-D index tensors. Invalid tokens (padding, frozen
-    lanes, positions below ``write_start``) and tokens whose table entry
-    is unallocated are left out, which is what the JAX scatter's
-    ``mode="drop"`` does with them: nothing is ever written to block
-    ``num_blocks``. Filtering is a host sync on CUDA, so the model
-    computes the coordinates once per forward and every layer's write
-    shares them."""
+    """The scatter coordinates ``(page, off, b, s, pos)`` of every VALID
+    token write, as 1-D int64 tensors (``pos`` is the token's absolute
+    position, ``positions[b, s]``, which keys the quantized write's
+    rounding). Invalid tokens (padding, frozen lanes, positions below
+    ``write_start``) and tokens whose table entry is unallocated are left
+    out, which is what the JAX scatter's ``mode="drop"`` does with them:
+    nothing is ever written to block ``num_blocks``. Filtering is a host
+    sync on CUDA, so the model computes the coordinates once per forward
+    and every layer's write shares them."""
     M = block_tables.shape[1]
     entry = (positions // block_size).clamp(max=M - 1).long()
     page = torch.gather(block_tables.long(), 1, entry)
     keep = valid & (page < num_blocks)
     b, s = keep.nonzero(as_tuple=True)
-    return page[b, s], (positions[b, s] % block_size).long(), b, s
+    pos = positions[b, s].long()
+    return page[b, s], pos % block_size, b, s, pos
 
 
 def paged_write(pages, layer: int, coords, values) -> None:
     """Write per-token K or V rows (``values`` ``[B, S, H, D]``) into one
-    layer of the pool ``[L, N, bs, H, D]``, in place, at ``coords``
-    (:func:`write_coords`)."""
-    page, off, b, s = coords
+    layer of a full-precision pool ``[L, N, bs, H, D]``, in place, at
+    ``coords`` (:func:`write_coords`)."""
+    page, off, b, s = coords[:4]
     pages[layer, page, off] = values[b, s].to(pages.dtype)
 
 
 def write_kv(cache: KVCache, layer: int, coords, k_values,
              v_values) -> KVCache:
-    """Write one layer's K and V rows (full-precision pools)."""
-    paged_write(cache.k, layer, coords, k_values)
-    paged_write(cache.v, layer, coords, v_values)
+    """Write one layer's K and V rows at ``coords``: two
+    :func:`paged_write` calls into full-precision pools; into int8/fp8
+    pools, :func:`~apex_tpu_torch.ops.kv_quant.kv_quant_write` (payload
+    and scales, the kernel on CUDA tensors)."""
+    if cache.k_scale is None:
+        paged_write(cache.k, layer, coords, k_values)
+        paged_write(cache.v, layer, coords, v_values)
+    else:
+        kv_quant_write(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                       layer, coords, k_values, v_values)
     return cache
 
 
@@ -429,13 +653,23 @@ def defragment(cache: KVCache, allocator: BlockAllocator, host_tables):
     for idx, old in np.ndenumerate(tables):
         if old >= 0:
             tables[idx] = mapping[int(old)]
+    for b in allocator._evictable:       # dropped, counted as evictions
+        owner = allocator._cached_owner.pop(b, None)
+        if owner is not None:
+            allocator._evicted_by_tenant[owner] = \
+                allocator._evicted_by_tenant.get(owner, 0) + 1
     allocator.num_evictions += len(allocator._evictable)
     allocator._evictable.clear()
     allocator._ref = {mapping[b]: c for b, c in allocator._ref.items()}
+    allocator._tenant_refs = {mapping[b]: refs for b, refs in
+                              allocator._tenant_refs.items()}
     allocator._hash_to_block = {
         h: mapping[b] for h, b in allocator._hash_to_block.items()
         if b in mapping}
     allocator._block_to_hash = {
         b: h for h, b in allocator._hash_to_block.items()}
+    allocator._cached_owner = {
+        mapping[b]: t for b, t in allocator._cached_owner.items()
+        if b in mapping}
     allocator._free = list(range(cache.num_blocks - 1, len(live) - 1, -1))
     return gather_blocks(cache, perm), tables

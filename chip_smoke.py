@@ -27,6 +27,12 @@ PyTorch version on the same inputs:
   rtol = 1e-4 (fp32 sums in another order than cuBLAS); a second call
   must give the same bits, and the profiler must count one CUDA kernel
   a call.
+- ``kv_quant_write`` (the port's own kernel, not a TPU kernel: the JAX
+  package leaves its quantized KV write to XLA's fusion): one layer's
+  write at the engine's decode (B 8, S 1) and prefill-chunk (S 128)
+  shapes, fp32 and bf16 rows, int8 and fp8 pools; the payload bytes and
+  scales must equal the plain version's on the same card tensors and on
+  the CPU, one CUDA kernel a call.
 - ``layer_norm_bwd`` (B1) at the shapes of B2's list below that it takes
   (H up to 8192: BERT-large and GPT-2 small activations in bf16, BERT-large
   in fp32, RMSNorm, the OpenFold pair and MSA, an odd H), each rerun and
@@ -243,6 +249,25 @@ O2, FusedAdam, S 1024, B 4) for 2 steps with ``fused_kernels=False`` (no
 port kernel) and over int8 weights (B15 on the 72 quantized products of
 a forward and again in its recompute). Every loss finite.
 
+Phase 12 serves over quantized KV pools, then under tenancy and overload.
+12a: phase 2's engine and traffic over fp32, int8 and fp8 pools (fp32
+weights) and an int8 pool over int8 weights: every request finishes,
+exactly 12 B14 and (quantized pools) 12 ``kv_quant_write`` launches a
+forward, no plain route; one 128-token chunk's logits within rtol = atol
+= 0.15 of the fp32 pool's; a decode forward's kernel count on an int8
+pool no more than on the fp32 pool's (profiler); then fp32 (96 blocks)
+against int8 (361 blocks) at equal pool bytes, preemptions and peak
+memory printed. 12b: GPT-2 small over an int8 pool with ``spec_tokens`` 4
+and ``spec_adapt``, the degradation ladder (queue watermark 4), two
+tenants at weights 3:1 (a quota on one), priorities 0/1, deadlines, one
+abort, streaming drained every tick: every uid that entered is terminal
+exactly once in the stream and in ``run()``, its streamed tokens are its
+``run()`` tokens, the allocator's integrity check passes every tick, the
+ladder leaves rung 0 and returns; then a tiny GPT on the same trace with a
+stepped clock must give the same door verdicts, statuses and counters on
+the card and on the CPU. ``--only 12`` runs phase 1's write row and phase
+12 alone.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -256,6 +281,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -4563,6 +4589,451 @@ def phase11(torch, dev, seed, card, bert_kw=None):
     return rec
 
 
+# -- phase 1: the quantized KV write (the port's own kernel) -----------------
+
+def kvq_case(torch, B, S, dtype, mode, seed, dev):
+    """One layer's write at GPT-2 small's KV geometry (12 heads of 64,
+    blocks of 16) into a 512-block pool of 12 layers: lanes on distinct
+    blocks at ragged positions. Returns (cache, coords, k, v)."""
+    from apex_tpu_torch.serving import (KVCache, device_block_table,
+                                        write_coords)
+
+    L, N, bs, H, D, M = 12, 512, 16, 12, 64, 64
+    g = torch.Generator().manual_seed(seed)
+    k, v = (torch.randn(B, S, H, D, generator=g)
+            * (torch.rand(B, S, H, 1, generator=g) * 4 + 0.05)
+            for _ in range(2))
+    perm = torch.randperm(N, generator=g)
+    tbl = perm[: B * M].reshape(B, M).to(torch.int32)
+    start = torch.randint(0, M * bs - S, (B,), generator=g)
+    pos = start[:, None] + torch.arange(S)[None]
+    cache = KVCache.create(L, N, bs, H, D, quantization=mode, device=dev)
+    coords = write_coords(device_block_table(tbl.numpy(), N, dev),
+                          pos.to(dev), torch.ones(B, S, dtype=torch.bool,
+                                                  device=dev), N, bs)
+    return cache, coords, k.to(dtype).to(dev), v.to(dtype).to(dev)
+
+
+def phase1_kv_quant(torch, dev, seed):
+    """The quantized KV write (``csrc/kv_quant_write.cu``) at the
+    engine's decode (B 8, S 1) and prefill-chunk (B 1, S 128) shapes,
+    fp32 and bf16 rows, int8 and fp8 pools: the payload bytes and scales
+    equal to its plain version's on the same card tensors and to the
+    plain version's on the CPU, one CUDA kernel a call. Its bound is the
+    bytes (each value read once, each payload byte, scale and coordinate
+    written or read once); its Philox work (int8: one call a 4 draws) is
+    far below them. No one PyTorch call computes it (library_ms null)."""
+    from apex_tpu_torch.ops.kv_quant import (kv_quant_write,
+                                             kv_quant_write_plain)
+
+    rows = []
+    for i, (name, B, S, dt, mode) in enumerate((
+            ("decode B 8, fp32 rows, int8 pool", 8, 1, torch.float32,
+             "int8"),
+            ("decode B 8, fp32 rows, fp8 pool", 8, 1, torch.float32, "fp8"),
+            ("prefill C 128, fp32 rows, int8 pool", 1, 128, torch.float32,
+             "int8"),
+            ("prefill C 128, bf16 rows, fp8 pool", 1, 128, torch.bfloat16,
+             "fp8"))):
+        cache, coords, k, v = kvq_case(torch, B, S, dt, mode, seed + i, dev)
+        plain, _, _, _ = kvq_case(torch, B, S, dt, mode, seed + i, dev)
+        cpu, cpu_coords, kc, vc = kvq_case(torch, B, S, dt, mode, seed + i,
+                                           torch.device("cpu"))
+
+        def run(c=cache):
+            kv_quant_write(c.k, c.v, c.k_scale, c.v_scale, 3, coords, k, v)
+
+        def run_plain(c=plain):
+            kv_quant_write_plain(c.k, c.v, c.k_scale, c.v_scale, 3, coords,
+                                 k, v)
+
+        run()
+        run_plain()
+        kv_quant_write_plain(cpu.k, cpu.v, cpu.k_scale, cpu.v_scale, 3,
+                             cpu_coords, kc, vc)
+        torch.cuda.synchronize()
+        for a, b, c in ((cache.k, plain.k, cpu.k), (cache.v, plain.v, cpu.v),
+                        (cache.k_scale, plain.k_scale, cpu.k_scale),
+                        (cache.v_scale, plain.v_scale, cpu.v_scale)):
+            if a.dtype != torch.float32:
+                a, b, c = (t.view(torch.uint8) for t in (a, b, c))
+            check(torch.equal(a, b), f"kv_quant_write {name}: "
+                  f"{(a != b).sum().item()} of {a.numel()} elements differ "
+                  f"from its plain version")
+            check(torch.equal(a.cpu(), c), f"kv_quant_write {name}: the "
+                  f"card and the CPU round differently "
+                  f"({(a.cpu() != c).sum().item()} elements)")
+        check(cache.k_scale[3].count_nonzero().item() == B * S * 12,
+              f"kv_quant_write {name}: rows missing")
+        per_call = kernels_per_call(run)
+        check(per_call == 1, f"kv_quant_write {name}: {per_call} CUDA "
+              f"kernels a call, not 1")
+        n = B * S
+        elems = 2 * n * 12 * 64
+        nbytes = (elems * k.element_size() + elems + 2 * n * 12 * 4
+                  + 5 * n * 8)
+        int_ops = philox_ops(elems) if mode == "int8" else 0
+        b_ms, b_by = bound(nbytes, 4 * elems, int_ops=int_ops)
+        row = dict(case=name, B=B, S=S, dtype=str(dt), pool=mode,
+                   max_abs_err=0.0, kernels_per_call=per_call,
+                   ms=time_ms(run), plain_ms=time_ms(run_plain, graph=False),
+                   library_ms=None, bytes=nbytes, bound_ms=b_ms,
+                   bound_by=b_by)
+        rows.append(row)
+        print(f"[kv_quant_write] {name}: bytes identical to the plain "
+              f"version on the card and on the CPU | ms {row['ms']:.4f} "
+              f"plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} "
+              f"({b_by})", flush=True)
+    return rows
+
+
+# -- phase 12: quantized KV pools, then tenancy and overload ------------------
+
+KV_MODES = ("int8", "fp8")
+
+
+def decode_forward_launches(torch, model, mode, dev, seed):
+    """CUDA kernels and copies one decode forward launches (B 8 lanes at
+    contexts 300-1000 of a 512-block pool of ``mode``), by the profiler."""
+    from apex_tpu_torch.serving import KVCache, device_block_table
+
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(seed)
+    ctx = torch.randint(300, 1000, (8,), generator=g)
+    tbl = torch.randperm(512, generator=g)[: 8 * 64].reshape(8, 64)
+    cache = KVCache.create(cfg.num_layers, 512, 16, cfg.num_heads,
+                           cfg.hidden_size // cfg.num_heads,
+                           quantization=mode, device=dev)
+    tables = device_block_table(tbl.numpy(), 512, dev)
+    tok = torch.randint(0, cfg.vocab_size, (8, 1), generator=g).to(dev)
+    ctx = ctx.to(dev)
+
+    def fwd():
+        with torch.no_grad():
+            model(tok, cache, tables, ctx[:, None], ctx + 1,
+                  write_start=ctx)
+
+    return kernels_per_call(fwd)
+
+
+def phase12_pools(torch, dev, seed, card):
+    """12a: phase 2's engine and traffic on fp32, int8 and fp8 pools over
+    fp32 weights and an int8 pool over int8 weights; then fp32 (96
+    blocks) against int8 (361 blocks) at equal pool bytes."""
+    from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from apex_tpu_torch.models.gpt import quantize_gpt_model
+    from apex_tpu_torch.serving import (EngineConfig, InferenceEngine,
+                                        KVCache, Request,
+                                        device_block_table)
+
+    cfg = GPTConfig.gpt2_small()
+    model = GPTLMHeadModel(cfg, device=dev, seed=seed)
+    reqs = traffic(seed, cfg.vocab_size)
+    config = EngineConfig(max_batch=8, block_size=16, num_blocks=512,
+                           max_seq_len=1024, prefill_chunk=128,
+                           decode_steps=8, seed=seed)
+    L = cfg.num_layers
+    # warm the allocator and library handles outside the counted runs
+    warm = InferenceEngine(model, dataclasses.replace(
+        config, kv_quantization="int8"), device=dev)
+    warm.add_request(Request("warm", reqs[0].prompt[:64], max_new_tokens=4))
+    warm.run()
+    del warm
+    arms = {}
+    for label, kvq, wq, blocks in (
+            ("fp32 pool", None, None, 512), ("int8 pool", "int8", None, 512),
+            ("fp8 pool", "fp8", None, 512),
+            ("int8 pool, int8 weights", "int8", "int8", 512),
+            ("fp32 pool, 96 blocks", None, None, 96),
+            ("int8 pool, 361 blocks", "int8", None, 361)):
+        c = dataclasses.replace(config, kv_quantization=kvq,
+                                weight_quantization=wq, num_blocks=blocks)
+        # the last arm's engine (a reference cycle through serve's timing
+        # wrappers) must be gone, or its pool counts in this arm's peak
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec, _ = serve(torch, model, c, reqs, label, card, dev)
+        s, launches = rec["stats"], rec["launches"]
+        forwards = s["num_prefill_chunks"] + rec["decode_forwards"]
+        check(launches["paged_read"] == L * forwards,
+              f"{label}: {launches['paged_read']} B14 launches for "
+              f"{forwards} forwards")
+        want = L * forwards if kvq else 0
+        check(launches["kv_quant_write"] == want,
+              f"{label}: {launches['kv_quant_write']} quantized writes, "
+              f"expected {want}")
+        rec["forwards"] = forwards
+        rec["pool_bytes"] = s["kv_pool_bytes"]
+        arms[label] = rec
+    equal = (arms["fp32 pool, 96 blocks"]["pool_bytes"],
+             arms["int8 pool, 361 blocks"]["pool_bytes"])
+    check(abs(equal[0] - equal[1]) / equal[0] < 0.01,
+          f"equal-bytes arms hold {equal} bytes")
+    # prefill logits of one 128-token chunk through each pool
+    hd = cfg.hidden_size // cfg.num_heads
+    logits = {}
+    for mode in (None,) + KV_MODES:
+        cache = KVCache.create(L, 16, 16, cfg.num_heads, hd,
+                               quantization=mode, device=dev)
+        tbl = device_block_table([list(range(8)) + [-1] * 56], 16, dev)
+        with torch.no_grad():
+            out, _ = model(torch.tensor([reqs[0].prompt[:128]], device=dev),
+                           cache, tbl, torch.arange(128, device=dev)[None],
+                           torch.tensor([128], device=dev),
+                           write_start=torch.tensor([0], device=dev))
+        logits[mode] = out.float().cpu()
+    checks = {}
+    for mode in KV_MODES:
+        d = (logits[mode] - logits[None]).abs().max().item()
+        check(torch.isfinite(logits[mode]).all().item()
+              and torch.allclose(logits[mode], logits[None], atol=0.15,
+                                 rtol=0.15),
+              f"{mode} pool prefill logits: max abs diff {d} from the "
+              f"fp32 pool's (tol 0.15)")
+        checks[f"prefill_logits_max_abs_diff_{mode}"] = d
+    launches = {str(m): decode_forward_launches(torch, model, m, dev, seed)
+                for m in (None,) + KV_MODES}
+    check(launches["int8"] <= launches["None"],
+          f"an int8-pool decode forward launches {launches['int8']}, more "
+          f"than the fp32 pool's {launches['None']}")
+    qmodel = quantize_gpt_model(model, "int8")
+    launches["int8 weights, int8 pool"] = decode_forward_launches(
+        torch, qmodel, "int8", dev, seed)
+    del model, qmodel
+    torch.cuda.empty_cache()
+    print(f"[phase 12a] {card}: prefill logits vs the fp32 pool "
+          f"{checks}; kernels a decode forward {launches}", flush=True)
+    return dict(arms=arms, checks=checks, decode_launches=launches)
+
+
+def tenancy_script(vocab, seed, short=False):
+    """12b's traffic: two tenants (a: weight 3, b: weight 1 under a quota),
+    priorities 0/1, a tight and two loose deadlines, one abort, a burst
+    past the ladder's queue watermark and a second wave. ``short``
+    scales lengths down for the tiny model."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lo, hi, new = (6, 24, 12) if short else (32, 257, 40)
+    tight, loose = (1.0, 60.0) if short else (0.002, 120.0)
+    script = {}
+    for i in range(16):
+        tick = 0 if i < 12 else 10
+        kw = dict(tenant="a" if i % 8 < 5 else "b", priority=i % 2,
+                  max_new_tokens=int(new + rng.randint(0, 8)))
+        if i in (3, 9):
+            kw["deadline_s"] = loose
+        if i == 5:
+            kw["deadline_s"] = tight
+        prompt = [int(t) for t in rng.randint(0, vocab,
+                                              rng.randint(lo, hi))]
+        script.setdefault(tick, []).append(("add", (f"t{i}", prompt, kw)))
+    script.setdefault(6, []).append(("abort", "t7"))
+    return script
+
+
+def play_tenancy(torch, model, config, script, dev, step_s=None,
+                 check_every_tick=True):
+    """Drive one engine through ``script`` (events at tick t apply before
+    step t), draining the stream every tick. With ``step_s`` the clock is
+    a stepped fake one, advanced between steps; else the engine's own."""
+    from apex_tpu_torch.serving import (InferenceEngine, QueueFullError,
+                                        Request, TenantThrottledError)
+
+    now = [0.0]
+    eng = InferenceEngine(model, config, device=dev,
+                          clock=None if step_s is None else lambda: now[0])
+    door, stream, levels = {}, [], []
+    t = 0
+    while t <= max(script) or eng.has_work:
+        for kind, arg in script.get(t, ()):
+            if kind == "add":
+                uid, prompt, kw = arg
+                try:
+                    eng.add_request(Request(uid, prompt, **kw))
+                    door[uid] = "added"
+                except QueueFullError:
+                    door[uid] = "queue_full"
+                except TenantThrottledError:
+                    door[uid] = "throttled"
+            else:
+                door["abort:" + arg] = eng.abort(arg)
+        if eng.has_work:
+            eng.step()
+        if check_every_tick:
+            eng.check_allocator_integrity()
+        stream.extend(eng.pop_stream_events())
+        levels.append(eng.stats()["degradation_level"])
+        if step_s is not None:
+            now[0] += step_s
+        t += 1
+        check(t < 5000, "tenancy trace did not drain")
+    sync(torch, dev)
+    out = eng.run(return_status=True)
+    # the ladder climbs back on idle ticks too
+    idle = 0
+    while eng.stats()["degradation_level"] and idle < 12:
+        eng.step()
+        idle += 1
+    levels.append(eng.stats()["degradation_level"])
+    eng.check_allocator_integrity()
+    return eng, door, out, stream, levels
+
+
+TENANCY_KEYS = ("num_prefill_chunks", "num_decode_dispatches",
+                "num_tokens_decoded", "num_preemptions", "num_draft_tokens",
+                "num_accepted_tokens", "spec_cap", "num_spec_cap_shrinks",
+                "num_spec_cap_restores", "num_degrade_steps_down",
+                "num_degrade_steps_up", "num_degrade_flushed_blocks",
+                "num_timeouts", "num_rejected_infeasible", "num_throttled",
+                "num_cancelled", "queue_depth_peak", "tenants")
+
+
+def tenancy_config(short=False, **kw):
+    from apex_tpu_torch.serving import EngineConfig, TenantQuota
+
+    geo = (dict(max_batch=4, block_size=4, num_blocks=64, max_seq_len=64,
+                prefill_chunk=8) if short else
+           dict(max_batch=8, block_size=16, num_blocks=512,
+                max_seq_len=1024, prefill_chunk=128))
+    return EngineConfig(
+        **geo, kv_quantization="int8", spec_tokens=4, spec_adapt=True,
+        enable_prefix_caching=True, queue_high_watermark=4,
+        degrade_patience=2, max_waiting=32,
+        tenant_weights={"a": 3, "b": 1},
+        tenant_quotas={"b": TenantQuota(
+            max_waiting=3, max_resident_blocks=4 if short else 8)},
+        **kw)
+
+
+def check_tenancy(label, door, out, stream, levels, vocab):
+    """The run contract: every uid that entered the engine is terminal
+    exactly once in the stream and in run(), its streamed tokens are its
+    run() tokens; the abort ended its request; the ladder left rung 0 and
+    came back."""
+    entered = {u for u, d in door.items()
+               if not u.startswith("abort:") and d != "queue_full"}
+    check(set(out) == entered, f"{label}: run() results {sorted(out)} "
+          f"are not the entered uids {sorted(entered)}")
+    toks, ends = {}, {}
+    for uid, tok, last in stream:
+        if last:
+            ends[uid] = ends.get(uid, 0) + 1
+        else:
+            check(uid not in ends, f"{label}: {uid} streamed after its end")
+            toks.setdefault(uid, []).append(tok)
+    check(set(ends) == entered and all(n == 1 for n in ends.values()),
+          f"{label}: terminal events {ends}")
+    for uid, res in out.items():
+        check(toks.get(uid, []) == list(res.tokens),
+              f"{label}: {uid}'s streamed tokens are not its run() tokens")
+        check(all(0 <= t < vocab for t in res.tokens),
+              f"{label}: {uid} emitted an out-of-vocab token")
+        check(res.status in ("finished", "timeout", "rejected", "throttled",
+                             "cancelled"), f"{label}: status {res.status}")
+    check(door.get("abort:t7") is True and out["t7"].status == "cancelled",
+          f"{label}: the abort did not cancel t7")
+    check(max(levels) > 0 and levels[-1] == 0,
+          f"{label}: the ladder did not leave rung 0 and return "
+          f"(max {max(levels)}, last {levels[-1]})")
+    statuses = {}
+    for res in out.values():
+        statuses[res.status] = statuses.get(res.status, 0) + 1
+    return statuses
+
+
+def phase12_tenancy(torch, dev, seed, card):
+    """12b: GPT-2 small over an int8 pool with speculation (spec_adapt),
+    the ladder, two weighted tenants (one under a quota), priorities,
+    deadlines, an abort and streaming; then a tiny GPT on the same trace
+    with a stepped clock, on the card and on the CPU."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+
+    cfg = GPTConfig.gpt2_small()
+    model = GPTLMHeadModel(cfg, device=dev, seed=seed)
+    config = tenancy_config(seed=seed)
+    script = tenancy_script(cfg.vocab_size, seed)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, door, out, stream, levels = play_tenancy(torch, model, config,
+                                                  script, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    statuses = check_tenancy("12b", door, out, stream, levels,
+                             cfg.vocab_size)
+    check_no_route(launches, "12b")
+    check(launches["kv_quant_write"] > 0 and launches["paged_read"] > 0,
+          f"12b: launches {launches}")
+    s = eng.stats()
+    del eng, model
+    torch.cuda.empty_cache()
+    # the tiny GPT, same trace shape, stepped clock: card against CPU
+    tiny_cfg = GPTConfig.tiny()
+    tiny_script = tenancy_script(tiny_cfg.vocab_size, seed, short=True)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        m = GPTLMHeadModel(tiny_cfg, device=where, seed=seed)
+        e, d, o, st, lv = play_tenancy(torch, m, tenancy_config(
+            short=True, seed=seed), tiny_script, where, step_s=0.25)
+        check_tenancy(f"12b tiny ({where.type})", d, o, st, lv,
+                      tiny_cfg.vocab_size)
+        runs[where.type] = dict(
+            door=d, statuses={u: r.status for u, r in o.items()},
+            tokens={u: list(r.tokens) for u, r in o.items()},
+            counters={k: e.stats()[k] for k in TENANCY_KEYS}, levels=lv)
+    a, b = runs["cuda"], runs["cpu"]
+    check(a["door"] == b["door"] and a["statuses"] == b["statuses"],
+          f"12b tiny: card and CPU statuses differ: {a['statuses']} vs "
+          f"{b['statuses']}")
+    diff = {k: (a["counters"][k], b["counters"][k]) for k in TENANCY_KEYS
+            if a["counters"][k] != b["counters"][k]}
+    check(not diff and a["levels"] == b["levels"],
+          f"12b tiny: card and CPU counters differ: {diff}")
+    same_tokens = a["tokens"] == b["tokens"]
+    rec = dict(card=card, wall_s=wall, statuses=statuses, door=door,
+               levels=levels, launches=launches,
+               stats={k: v for k, v in s.items() if k != "kernel_launches"},
+               tiny_card_vs_cpu=dict(statuses=a["statuses"],
+                                     counters=a["counters"],
+                                     tokens_identical=same_tokens))
+    print(f"[phase 12b] {card}: wall {wall:.2f} s | statuses {statuses} | "
+          f"ladder max {max(levels)} -> {levels[-1]} | spec cap "
+          f"{s['spec_cap']} (shrinks {s['num_spec_cap_shrinks']}, restores "
+          f"{s['num_spec_cap_restores']}), accepted "
+          f"{s['num_accepted_tokens']}/{s['num_draft_tokens']} | "
+          f"preemptions {s['num_preemptions']} | tenants "
+          f"{ {t: (r['tokens'], r['statuses']) for t, r in s['tenants'].items()} }"
+          f" | tiny card vs CPU: statuses and counters identical, tokens "
+          f"identical {same_tokens}", flush=True)
+    return rec
+
+
+def phase12(torch, dev, seed, card):
+    rec = dict(pools=phase12_pools(torch, dev, seed, card),
+               tenancy=phase12_tenancy(torch, dev, seed, card))
+    arms = rec["pools"]["arms"]
+    print(json.dumps({"phase12": dict(
+        card=card, arms={k: dict(
+            wall_s=a["wall_s"], decode_tokens_per_s=a["decode_tokens_per_s"],
+            prefill_tokens_per_s=a["prefill_tokens_per_s"],
+            peak_memory_bytes=a["peak_memory_bytes"],
+            pool_bytes=a["pool_bytes"],
+            preemptions=a["stats"]["num_preemptions"],
+            queue_wait_mean_ticks=a["stats"]["queue_wait_mean_ticks"],
+            decode_lanes_per_forward=a["decode_lanes_per_forward"],
+            forwards=a["forwards"],
+            kv_quant_write=a["launches"]["kv_quant_write"],
+            paged_read=a["launches"]["paged_read"])
+            for k, a in arms.items()},
+        checks=rec["pools"]["checks"],
+        decode_launches=rec["pools"]["decode_launches"],
+        tenancy={k: rec["tenancy"][k] for k in (
+            "wall_s", "statuses", "tiny_card_vs_cpu")})},
+        default=str), flush=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4577,8 +5048,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
-                    "(10, 11), for iterating on one; prints no kernels or "
-                    "ok line")
+                    "(10, 11, 12), for iterating on one; prints no kernels "
+                    "or ok line")
     args = ap.parse_args(argv)
     if not (ROOT / "apex_tpu_torch" / "csrc").is_dir():
         raise SmokeFailure("apex_tpu_torch is not beside chip_smoke.py: "
@@ -4622,6 +5093,11 @@ def main(argv=None):
         if "11" in only:
             out["phase11"] = timed("phase 11", phase11, torch, dev, seed,
                                    card)
+        if "12" in only:
+            out["phase1_kv_quant"] = timed("phase 1 kv_quant_write",
+                                           phase1_kv_quant, torch, dev, seed)
+            out["phase12"] = timed("phase 12", phase12, torch, dev, seed,
+                                   card)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_only.json").write_text(json.dumps(
@@ -4630,6 +5106,8 @@ def main(argv=None):
         return 0
     paged_rows = timed("phase 1 B14", phase1_paged, torch, F, dev, seed)
     dq_rows = timed("phase 1 B15", phase1_dequant, torch, dev, seed)
+    kvq_rows = timed("phase 1 kv_quant_write", phase1_kv_quant, torch, dev,
+                     seed)
     ln_rows = timed("phase 1 B1", phase1_layer_norm, torch, dev, seed)
     ln_fwd_rows = timed("phase 1 B2", phase1_layer_norm_fwd, torch, F, dev,
                         seed)
@@ -4667,14 +5145,18 @@ def main(argv=None):
     parallel = phase9(torch, F, dev, seed, card, timed)
     serving = timed("phase 10", phase10, torch, dev, seed, card)
     options = timed("phase 11", phase11, torch, dev, seed, card)
+    pools = timed("phase 12", phase12, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the training phases 3-5 and 9, B2 and B1 also on the contrib
     # modules' path and in phase 7; B10/B12 on the contrib modules' path)
     launches = {k: sum(r["launches"][k] for r in runs.values())
-                + serving["spec"]["launches"][k]
+                + serving["spec"]["launches"].get(k, 0)
                 + serving["prefix"]["runs"]["on"]["launches"][k]
-                for k in ("paged_read", "dequant_gemm")}
+                + sum(a["launches"][k]
+                      for a in pools["pools"]["arms"].values())
+                + pools["tenancy"]["launches"][k]
+                for k in ("paged_read", "dequant_gemm", "kv_quant_write")}
     launches.update({k: sum(t["launches"][k] for t in (train, train128, gpt))
                      for k in ("dropout", "flash_fwd",
                                "flash_bwd", "softmax_fwd", "softmax_fwd4",
@@ -4710,6 +5192,12 @@ def main(argv=None):
                      next(r for r in dq_rows if r["mode"] == "int8"
                           and (r["M"], r["K"], r["N"]) == (8, 768, 3072)),
                      launches["dequant_gemm"]),
+        # the port's own kernel: not a TPU kernel (the JAX package leaves
+        # the quantized write to XLA's fusion, in write_kv)
+        kernel_entry("kv_quant_write",
+                     "apex_tpu_torch/csrc/kv_quant_write.cu",
+                     "apex_tpu/serving/kv_cache.py:1403", kvq_rows,
+                     kvq_rows[0], launches["kv_quant_write"]),
         kernel_entry("layer_norm_bwd", "apex_tpu_torch/csrc/layer_norm_bwd.cu",
                      "apex_tpu/ops/layer_norm.py:108", ln_rows, ln_rows[0],
                      launches["layer_norm_bwd"]),
@@ -4759,14 +5247,16 @@ def main(argv=None):
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, seed=args.seed, paged_read=paged_rows,
-        dequant_gemm=dq_rows, layer_norm_bwd=ln_rows,
+        dequant_gemm=dq_rows, kv_quant_write=kvq_rows,
+        layer_norm_bwd=ln_rows,
         layer_norm_fwd=ln_fwd_rows, dropout=drop_rows,
         flash_fwd=fwd_rows, flash_bwd=bwd_rows, softmax=sm_rows,
         flash_tiled=tiled, flash_fwd16=fwd16, engine=runs, train=train,
         train_s128=train128, train_gpt=gpt, contrib_mha=mha,
         norm_microbench=norm_bench, openfold=openfold, wide_norms=wide,
         amp_mnist=mnist, fused_optimizers=optimizers, parallel=parallel,
-        serving_prefix_spec=serving, model_options=options, checks=checks,
+        serving_prefix_spec=serving, model_options=options,
+        quantized_pools_tenancy=pools, checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -1863,3 +1863,115 @@ def test_stochastic_round_mean_on_card(cuda_device):
     r = stochastic_round(odd, torch.bfloat16, gen).float().cpu()
     assert r[0] == float("inf") and r[1] == -float("inf")
     assert torch.isnan(r[2]) and r[3] == torch.finfo(torch.bfloat16).max
+
+
+# -- the quantized KV write ----------------------------------------------------
+
+kv_quant_module = importlib.import_module("apex_tpu_torch.ops.kv_quant")
+
+
+def _kvq_case(B, S, dtype, mode, seed=0, device="cpu"):
+    """GPT-2 small's KV geometry (12 heads of 64, blocks of 16), 3
+    layers: rows of mixed magnitudes (one all-zero), scrambled tables
+    (no block shared by two lanes), ragged positions, some rows invalid
+    (a frozen lane, padding)."""
+    from apex_tpu_torch.serving import (KVCache, device_block_table,
+                                        write_coords)
+    L, Np, bs, Hh, Dh, Mb = 3, 160, 16, 12, 64, 16
+    rng = np.random.RandomState(seed)
+    vals = [torch.from_numpy((rng.randn(B, S, Hh, Dh) * rng.uniform(
+        0.05, 8.0, (B, S, Hh, 1))).astype(np.float32)).to(dtype)
+        for _ in range(2)]
+    vals[0][0, 0, 3] = 0
+    perm = rng.permutation(Np)
+    tbl = np.full((B, Mb), -1, np.int32)
+    for b in range(B):
+        tbl[b] = perm[b * Mb: (b + 1) * Mb]
+    start = rng.randint(0, Mb * bs - S, B)
+    pos = torch.from_numpy(start[:, None] + np.arange(S)[None]).long()
+    valid = torch.ones(B, S, dtype=torch.bool)
+    if B > 1:
+        valid[-1] = False              # a frozen lane
+    if S > 1:
+        valid[0, S - 5:] = False       # chunk padding
+    cache = KVCache.create(L, Np, bs, Hh, Dh, quantization=mode,
+                           device=device)
+    tables = device_block_table(tbl, Np, device)
+    coords = write_coords(tables, pos.to(device), valid.to(device), Np, bs)
+    return cache, coords, [v.to(device) for v in vals]
+
+
+def test_kv_quant_write_refuses_what_the_kernel_does_not_take():
+    cache, coords, (k, v) = _kvq_case(2, 1, torch.float32, "int8")
+    check = kv_quant_module._check_cuda_args
+    with pytest.raises(ValueError, match="int8 or fp8 pools"):
+        check(cache.k.float(), cache.v.float(), cache.k_scale,
+              cache.v_scale, coords, k, v)
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        check(cache.k, cache.v, cache.k_scale, cache.v_scale, coords,
+              k.double(), v.double())
+    with pytest.raises(ValueError, match="scales"):
+        check(cache.k, cache.v, None, cache.v_scale, coords, k, v)
+    with pytest.raises(ValueError, match="do not match"):
+        check(cache.k, cache.v, cache.k_scale, cache.v_scale, coords,
+              k[..., :32], v[..., :32])
+    before = dict(_build.launches)
+    kv_quant_module.kv_quant_write(cache.k, cache.v, cache.k_scale,
+                                   cache.v_scale, 1, coords, k, v)
+    assert _build.launches == before     # the plain write on the CPU
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S", [(8, 1), (1, 128), (3, 7)])
+def test_kv_quant_write_kernel_matches_plain(cuda_device, B, S, dtype,
+                                             mode):
+    """The quantized write against its plain version on the same card
+    tensors and on the CPU: the same payload bytes and scales in every
+    layer written (decode at B 8, S 1; a 128-row prefill chunk), and
+    nothing written where the rows are invalid."""
+    cache, coords, (k, v) = _kvq_case(B, S, dtype, mode, device=cuda_device)
+    plain, _, _ = _kvq_case(B, S, dtype, mode, device=cuda_device)
+    cpu, cpu_coords, (kc, vc) = _kvq_case(B, S, dtype, mode)
+    before = _build.launches["kv_quant_write"]
+    for layer in (0, 2):
+        kv_quant_module.kv_quant_write(cache.k, cache.v, cache.k_scale,
+                                       cache.v_scale, layer, coords, k, v)
+        kv_quant_module.kv_quant_write_plain(
+            plain.k, plain.v, plain.k_scale, plain.v_scale, layer, coords,
+            k, v)
+        kv_quant_module.kv_quant_write_plain(
+            cpu.k, cpu.v, cpu.k_scale, cpu.v_scale, layer, cpu_coords, kc,
+            vc)
+    torch.cuda.synchronize()
+    assert _build.launches["kv_quant_write"] == before + 2
+    for name, a, b, c in zip(
+            ("k", "v", "k_scale", "v_scale"),
+            (cache.k, cache.v, cache.k_scale, cache.v_scale),
+            (plain.k, plain.v, plain.k_scale, plain.v_scale),
+            (cpu.k, cpu.v, cpu.k_scale, cpu.v_scale)):
+        if a.dtype != torch.float32:
+            a, b, c = (t.view(torch.uint8) for t in (a, b, c))
+        assert torch.equal(a, b), \
+            f"{name}: {(a != b).sum().item()} bytes differ from the plain"
+        assert torch.equal(a.cpu(), c), \
+            f"{name}: {(a.cpu() != c).sum().item()} differ from the CPU"
+        assert torch.equal(b.cpu(), c)
+    assert cache.k_scale[1].abs().sum().item() == 0    # layer 1 untouched
+    assert cache.k_scale.count_nonzero().item() > 0
+
+
+@pytest.mark.gpu
+def test_kv_quant_write_launches_with_no_valid_row(cuda_device):
+    """A forward whose every row is frozen still launches the write once
+    (its count is a layer's), and writes nothing."""
+    cache, coords, (k, v) = _kvq_case(8, 1, torch.float32, "int8",
+                                      device=cuda_device)
+    empty = tuple(c[:0] for c in coords)
+    before = _build.launches["kv_quant_write"]
+    kv_quant_module.kv_quant_write(cache.k, cache.v, cache.k_scale,
+                                   cache.v_scale, 0, empty, k, v)
+    torch.cuda.synchronize()
+    assert _build.launches["kv_quant_write"] == before + 1
+    assert cache.k.count_nonzero().item() == 0

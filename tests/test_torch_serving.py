@@ -105,7 +105,8 @@ def test_engine_accounting_and_stats(tiny):
     assert s["num_prefill_chunks"] >= s["num_prefills"] + 1
     assert s["num_tokens_decoded"] == sum(
         len(r.tokens) for r in out.values()) - len(PROMPTS)
-    assert set(s["kernel_launches"]) == {"paged_read", "dequant_gemm"}
+    assert set(s["kernel_launches"]) == {"paged_read", "dequant_gemm",
+                                         "kv_quant_write"}
 
 
 def test_eos_stops_early_and_validation(tiny):
