@@ -31,7 +31,7 @@ spec_verify_tokens` emits 1 to ``spec_tokens + 1`` tokens a lane; the
 span's blocks are reserved for the worst case and those rejection
 strands go back at the drain (``BlockAllocator.trim_to``). With
 ``spec_adapt`` an acceptance EWMA walks the per-plan draft cap down and
-back up. An exception raised by the drafter propagates.
+back up.
 
 ``kv_quantization`` ("int8" or "fp8") stores the KV pool quantized with
 per-row scales: the write quantizes (:mod:`apex_tpu_torch.ops.kv_quant`,
@@ -57,9 +57,33 @@ prefix cache every tick, then pauses the classes at or past
 Deadlines, the token-rate estimator and the service EWMAs read the
 engine's clock (``clock=``, ``time.monotonic`` by default).
 
-Not ported yet: drafter quarantine, faults and retries, snapshot/restore
-(A.3 item 15), the spill tier (item 16), observability (item 17) and the
-mesh (item 18).
+Faults and recovery: with ``faults=`` (a :class:`~apex_tpu_torch.utils.
+faults.FaultPlan`) every prefill chunk, decode (or verify) dispatch and
+drafter call fires the plan at its site (``"prefill"``, ``"decode"``,
+``"draft"``) before it runs, under the retry policy of
+:func:`~apex_tpu_torch.utils.faults.guarded_call`
+(``max_dispatch_retries``, ``retry_backoff_s``). A prefill whose retries
+run out ends its request ``"failed"`` (quarantine, tokens kept); a decode
+dispatch whose retries run out quarantines the lowest-class, youngest
+lane and dispatches again over the rest; a drafter that raises (or runs
+out of retries) is quarantined for good, and decoding goes on without
+proposals. A fetch failure at the drain counts against the same budget,
+then requeues every resident with its tokens and resets the allocator and
+the pool, whose contents re-derive by re-prefill. A ``"corrupt"`` fire at
+``"decode"`` perturbs one drained token (the silent-data-corruption
+model). :meth:`InferenceEngine.snapshot` (after a drain) and
+:meth:`InferenceEngine.checkpoint` (without one; every
+``snapshot_interval_ticks`` ticks into ``last_checkpoint``) build a
+sealed JSON-able picture; :meth:`InferenceEngine.restore` verifies it
+(``verify_artifacts``), checks the config fingerprint, and re-queues
+every unfinished request with its arrival index and tokens, so a
+restored run continues the uninterrupted one's tokens. A CUDA error is
+not retried (it is sticky; ROADMAP C7): recovery from one is a restore
+in a new process.
+
+Not ported yet: the spill tier and its scrub (A.3 item 16),
+observability (item 17), the mesh (item 18) and the fleet's migration
+surface (item 19).
 """
 
 from __future__ import annotations
@@ -102,6 +126,19 @@ from apex_tpu_torch.serving.sampling import (
     token_generator,
     uniforms,
 )
+from apex_tpu_torch.utils.faults import (
+    TRANSIENT_ERRORS,
+    DispatchFailedError,
+    SimulatedCrash,
+    guarded_call,
+    perturb_json,
+    perturb_tokens,
+)
+from apex_tpu_torch.utils.integrity import (
+    IntegrityError,
+    seal_record,
+    verify_record,
+)
 
 # new-observation weight of the service-time EWMAs (the feasibility
 # gate) and of the speculation acceptance EWMA (spec_adapt)
@@ -113,6 +150,12 @@ _LADDER_TOP = 3
 # while the spec_adapt cap sits at 0, every Nth decode phase runs a
 # 1-token probe, so acceptance is measured again and the cap can climb
 _SPEC_PROBE_EVERY = 16
+# the FaultPlan sites that take only "corrupt" specs: the spill tier's
+# write and read (A.3 item 16), the periodic checkpoint, and migration
+# records out and in (item 19). The spill and migration sites never fire
+# in this engine, as in a JAX engine without a spill tier or migrations.
+_INTEGRITY_SITES = ("spill_put", "spill_get", "checkpoint",
+                    "export", "import")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,8 +218,8 @@ class Request:
 @dataclasses.dataclass(frozen=True)
 class RequestResult:
     """One entry of ``run(return_status=True)``: the emitted tokens and
-    the terminal status ("finished", "timeout", "rejected", "throttled"
-    or "cancelled")."""
+    the terminal status ("finished", "timeout", "rejected", "throttled",
+    "cancelled" or "failed")."""
 
     tokens: List[int]
     status: str
@@ -249,6 +292,16 @@ class EngineConfig:
     spec_adapt: bool = False
     spec_accept_low: float = 0.5
     spec_accept_high: float = 0.8
+    # -- faults and recovery -------------------------------------------------
+    # a failed prefill/decode/draft call is retried up to
+    # max_dispatch_retries times, sleeping retry_backoff_s * 2**(attempt -
+    # 1) before each retry
+    max_dispatch_retries: int = 2
+    retry_backoff_s: float = 0.0
+    # checkpoint() every N ticks into last_checkpoint (None: off)
+    snapshot_interval_ticks: Optional[int] = None
+    # verify the checksum a snapshot carries at restore()
+    verify_artifacts: bool = True
     seed: int = 0
 
     @property
@@ -282,6 +335,10 @@ class EngineConfig:
         if self.spec_tokens < 0:
             raise ValueError(
                 f"spec_tokens must be >= 0, got {self.spec_tokens}")
+        if self.max_dispatch_retries < 0:
+            raise ValueError(
+                f"max_dispatch_retries must be >= 0, got "
+                f"{self.max_dispatch_retries}")
         if self.max_waiting is not None and self.max_waiting < 1:
             raise ValueError(
                 f"max_waiting must be >= 1 (or None for unbounded), "
@@ -333,6 +390,12 @@ class EngineConfig:
             raise ValueError(
                 f"tenant_rate_tau_s must be > 0, got "
                 f"{self.tenant_rate_tau_s}")
+        if (self.snapshot_interval_ticks is not None
+                and self.snapshot_interval_ticks < 1):
+            raise ValueError(
+                f"snapshot_interval_ticks must be >= 1 (or None for no "
+                f"periodic checkpointing), got "
+                f"{self.snapshot_interval_ticks}")
         if self.spec_adapt and self.spec_tokens < 1:
             raise ValueError(
                 "spec_adapt requires spec_tokens >= 1 (there is no "
@@ -573,6 +636,42 @@ class _WaitingQueue:
                 del self._classes[p]
         return removed
 
+    def snapshot_state(self) -> Dict[str, object]:
+        """The JSON-able DRR walk state a class: ring order, the cursor's
+        tenant, its credited flag and the deficits."""
+        out = {}
+        for p, cq in self._classes.items():
+            out[str(p)] = {
+                "ring": list(cq.ring),
+                "cursor_tenant": (cq.ring[cq.cursor] if cq.ring
+                                  else None),
+                "credited": bool(cq.credited),
+                "deficits": {t: float(d) for t, d in cq.deficits.items()},
+            }
+        return out
+
+    def restore_state(self, state: Mapping[str, object]) -> None:
+        """Re-apply :meth:`snapshot_state` after the entries were
+        appended again: the serialized ring order first (tenants it no
+        longer holds drop out), tenants new to it at the tail; the cursor
+        re-anchors on its tenant."""
+        for key, rec in (state or {}).items():
+            cq = self._classes.get(int(key))
+            if cq is None:
+                continue
+            serialized = [t for t in rec.get("ring", ()) if t in cq.queues]
+            cq.ring = serialized + [t for t in cq.ring
+                                    if t not in serialized]
+            for t, d in (rec.get("deficits") or {}).items():
+                if t in cq.queues:
+                    cq.deficits[t] = float(d)
+            cur = rec.get("cursor_tenant")
+            if cur in cq.ring:
+                cq.cursor = cq.ring.index(cur)
+                cq.credited = bool(rec.get("credited", False))
+            else:
+                cq.cursor, cq.credited = 0, False
+
     def __iter__(self):
         for p in sorted(self._classes):
             cq = self._classes[p]
@@ -614,12 +713,40 @@ class InferenceEngine:
     ``config.spec_tokens > 0`` (default :class:`NgramDrafter`).
     ``clock`` (a function returning seconds, ``time.monotonic`` by
     default) is what deadlines, the tenant token rates and the service
-    EWMAs read."""
+    EWMAs read. ``faults`` (a :class:`~apex_tpu_torch.utils.faults.
+    FaultPlan`) fires at ``"prefill"``, ``"decode"``, ``"draft"`` and
+    ``"checkpoint"``."""
 
     def __init__(self, model, config: EngineConfig, *, drafter=None,
-                 clock=None, device=None):
+                 clock=None, device=None, faults=None):
         self.device = resolve_device(device)
         self.config = config
+        self.faults = faults
+        if faults is not None:
+            # serving outputs are integer tokens: a nan fire there would
+            # corrupt nothing
+            bad = [s.site for s in getattr(faults, "specs", ())
+                   if s.kind == "nan"
+                   and s.site in ("prefill", "decode", "draft")]
+            if bad:
+                raise ValueError(
+                    f"nan faults are not supported at serving sites "
+                    f"{sorted(set(bad))}; use transient/crash (the "
+                    f"train loop's watchdog owns nan handling)")
+            # the integrity sites take only "corrupt", and "corrupt" at a
+            # dispatch site only at "decode" (a wrong drained token)
+            bad = [s.site for s in getattr(faults, "specs", ())
+                   if (s.site in _INTEGRITY_SITES
+                       and s.kind != "corrupt")
+                   or (s.kind == "corrupt"
+                       and s.site in ("prefill", "draft"))]
+            if bad:
+                raise ValueError(
+                    f"unsupported fault kind/site combination at "
+                    f"{sorted(set(bad))}: integrity sites "
+                    f"{_INTEGRITY_SITES} take only 'corrupt' specs, "
+                    f"and 'corrupt' dispatch faults are supported at "
+                    f"'decode' only (docs/robustness.md)")
         self._clock = time.monotonic if clock is None else clock
         if config.spec_tokens > 0:
             self.drafter = NgramDrafter() if drafter is None else drafter
@@ -730,6 +857,23 @@ class InferenceEngine:
         self._spec_probe_countdown = _SPEC_PROBE_EVERY
         self._num_spec_cap_shrinks = 0
         self._num_spec_cap_restores = 0
+        # -- faults and recovery ----------------------------------------------
+        # False once the drafter is quarantined (every later plan empty)
+        self._drafter_ok = config.spec_tokens > 0
+        self._num_dispatch_retries = 0
+        self._num_quarantines = 0
+        self._num_draft_retries = 0
+        self._num_drafter_quarantines = 0
+        self._num_snapshots = 0
+        self._num_restores = 0
+        self._num_checkpoints = 0
+        self._num_corruptions_detected = 0
+        self._fetch_failures = 0    # consecutive failed drains
+        # the corruption seed of the in-flight dispatch (a "corrupt" fire
+        # at "decode"), applied at its drain
+        self._pending_corrupt: Optional[int] = None
+        # the latest checkpoint() (every snapshot_interval_ticks ticks)
+        self.last_checkpoint: Optional[Dict[str, object]] = None
         # the in-flight decode: (device [B, K] tokens, lanes, {lane: uid}),
         # fetched at the next tick's drain
         self._pending = None
@@ -876,8 +1020,9 @@ class InferenceEngine:
     def step(self) -> bool:
         """One tick: the ladder, expire deadlines, admit, one prefill
         chunk, drain the previous decode, expire and admit again, then
-        dispatch one K-step decode over every started lane. Returns
-        whether anything progressed."""
+        dispatch one K-step decode over every started lane, and with
+        ``snapshot_interval_ticks`` a checkpoint. Returns whether
+        anything progressed (a quarantine counts)."""
         self._num_ticks += 1
         pre_shed = self._num_rejected_infeasible
         stepped = self._update_ladder()
@@ -905,8 +1050,10 @@ class InferenceEngine:
                     f"request {entry.request.uid!r} needs {need} blocks "
                     f"to admit but only {self.allocator.num_blocks} exist "
                     "in the pool")
+            self._maybe_checkpoint()
             return made
         pre_preempt = self._num_preemptions
+        pre_quarantine = self._num_quarantines
         active = self._started_lanes()
         if active and self.config.spec_tokens > 0:
             # proposals first: they size each lane's span reservation
@@ -916,8 +1063,18 @@ class InferenceEngine:
         active = self._started_lanes()
         if active:
             self._dispatch_decode(active)
-        return bool(made or self._pending is not None
-                    or self._num_preemptions > pre_preempt)
+        progressed = bool(made or self._pending is not None
+                          or self._num_preemptions > pre_preempt
+                          or self._num_quarantines > pre_quarantine)
+        self._maybe_checkpoint()
+        return progressed
+
+    def _maybe_checkpoint(self) -> None:
+        """Every ``snapshot_interval_ticks``-th tick: :meth:`checkpoint`
+        (which never drains) into ``last_checkpoint``."""
+        interval = self.config.snapshot_interval_ticks
+        if interval is not None and self._num_ticks % interval == 0:
+            self.checkpoint()
 
     def probe_prefix(self, hashes: Sequence[str]) -> int:
         """How many leading blocks of a chain this engine could serve
@@ -1010,9 +1167,13 @@ class InferenceEngine:
             "num_accepted_tokens": self._num_accepted_tokens,
             "draft_acceptance_rate": (self._num_accepted_tokens / drafted
                                       if drafted else 0.0),
+            "num_draft_retries": self._num_draft_retries,
+            "num_drafter_quarantines": self._num_drafter_quarantines,
             "num_spec_blocks_rolled_back":
                 self._num_spec_blocks_rolled_back,
-            "speculation_active": int(self.config.spec_tokens > 0
+            # 0 once the drafter is quarantined, or while the ladder
+            # suspends speculation
+            "speculation_active": int(self._drafter_ok
                                       and self._degradation_level < 1),
             "spec_cap": self._spec_cap,
             "spec_accept_ewma": float(self._spec_accept_ewma or 0.0),
@@ -1023,6 +1184,14 @@ class InferenceEngine:
             "num_cancelled": self._num_cancelled,
             "stream_backlog": len(self._stream),
             "tenants": self._tenant_section(),
+            # faults and recovery: retries, quarantines, snapshots,
+            # checkpoints, restores and detected corruptions
+            "num_dispatch_retries": self._num_dispatch_retries,
+            "num_quarantines": self._num_quarantines,
+            "num_snapshots": self._num_snapshots,
+            "num_restores": self._num_restores,
+            "num_checkpoints": self._num_checkpoints,
+            "num_corruptions_detected": self._num_corruptions_detected,
             "weight_bytes": self._weight_bytes,
             "kv_pool_bytes": self.cache.nbytes,
             # the serving path's kernels (the counters also hold training's)
@@ -1056,6 +1225,250 @@ class InferenceEngine:
                 "statuses": dict(self._tenant_status.get(t, {})),
             }
         return out
+
+    # -- snapshot / checkpoint / restore ---------------------------------------
+
+    def _config_fingerprint(self) -> Dict[str, object]:
+        """The config as JSON-able values: a snapshot restores only into
+        an engine of the same fingerprint. The operational knobs (retries,
+        overload, tenancy, ``spec_adapt``, the checkpoint cadence,
+        verification) change no token and stay out, so a restore into a
+        bigger queue or retry budget works; ``kv_dtype`` is the dtype's
+        plain name (``"float32"``, ``"bfloat16"``)."""
+        d = {f.name: getattr(self.config, f.name)
+             for f in dataclasses.fields(self.config)}
+        d["kv_dtype"] = (None if self.config.kv_dtype is None
+                         else str(self.config.kv_dtype).replace("torch.",
+                                                                ""))
+        for knob in ("max_dispatch_retries", "retry_backoff_s",
+                     "max_waiting", "queue_high_watermark",
+                     "free_block_low_watermark", "degrade_patience",
+                     "degrade_admit_priority",
+                     "tenant_weights", "tenant_quotas", "drr_quantum",
+                     "tenant_rate_tau_s",
+                     "spec_adapt", "spec_accept_low", "spec_accept_high",
+                     "snapshot_interval_ticks", "verify_artifacts"):
+            d.pop(knob, None)
+        return d
+
+    def _entry_record(self, entry: _QueueEntry, now: float) -> Dict:
+        """One unfinished request as JSON: the request, its arrival index
+        (its sampling identity), its emitted tokens, and its deadline as
+        the time remaining."""
+        req = entry.request
+        rec = {
+            "uid": req.uid,
+            "prompt": [int(t) for t in req.prompt],
+            "max_new_tokens": int(req.max_new_tokens),
+            "eos_token_id": (None if req.eos_token_id is None
+                             else int(req.eos_token_id)),
+            "sampling": {"temperature": float(req.sampling.temperature),
+                         "top_k": int(req.sampling.top_k),
+                         "top_p": float(req.sampling.top_p)},
+            "arrival": int(entry.arrival),
+            "priority": int(req.priority),
+            "tenant": str(req.tenant),
+            "drr_charged": bool(entry.drr_charged),
+            "generated": [int(t) for t in entry.generated],
+        }
+        dl = self._deadline.get(req.uid)
+        if dl is not None:
+            rec["deadline_remaining_s"] = float(dl - now)
+        return rec
+
+    def snapshot(self) -> Dict[str, object]:
+        """A sealed, JSON-serializable picture of the engine, taken after
+        draining the in-flight decode (one host sync), so no emitted
+        token is lost at its boundary. Resident lanes serialize as
+        resumable entries (prompt, emitted tokens, arrival index) in
+        admission order, ahead of the waiting queue. The block tables and
+        the allocator ride along for audit only: KV contents do not
+        survive a process, and :meth:`restore` re-prefills them."""
+        self._drain_decode()
+        self._num_snapshots += 1
+        return self._build_snapshot()
+
+    def checkpoint(self) -> Dict[str, object]:
+        """:meth:`snapshot` without the drain (no host sync): the tokens
+        of the dispatch in flight are absent and re-derived on restore.
+        Fires the plan at site ``"checkpoint"``, where a ``"corrupt"``
+        fire perturbs the sealed record. Stored on ``last_checkpoint``
+        and returned."""
+        self._num_checkpoints += 1
+        snap = self._build_snapshot(lightweight=True)
+        snap = self._maybe_corrupt_record("checkpoint", snap)
+        self.last_checkpoint = snap
+        return snap
+
+    def _build_snapshot(self, lightweight: bool = False
+                        ) -> Dict[str, object]:
+        """The body of both: host reads only, sealed last."""
+        now = self._clock()
+        live = sorted((s.admit_seq, i) for i, s in enumerate(self.slots)
+                      if s is not None)
+        requests = []
+        for _, i in live:
+            slot = self.slots[i]
+            requests.append(self._entry_record(
+                _QueueEntry(request=slot.request, arrival=slot.entry.arrival,
+                            generated=self._resume_tokens(slot),
+                            # its DRR cost was paid at admission
+                            drr_charged=True), now))
+        for entry in self.waiting:
+            requests.append(self._entry_record(entry, now))
+        snap = {
+            "version": 1,
+            "config": self._config_fingerprint(),
+            "arrival_count": int(self._arrival_count),
+            "requests": requests,
+            "finished": {uid: [int(t) for t in toks]
+                         for uid, toks in self.finished.items()},
+            "statuses": dict(self.statuses),
+            "counters": self.stats(),
+            # a quarantined drafter stays quarantined across a restore
+            "drafter_ok": bool(self._drafter_ok),
+            # the ladder with its streaks, the gate's EWMAs and the
+            # spec_adapt walk continue where they were
+            "overload": {
+                "degradation_level": int(self._degradation_level),
+                "pressure_streak": int(self._pressure_streak),
+                "clear_streak": int(self._clear_streak),
+                "ewma_prefill_s": self._ewma_prefill_s,
+                "ewma_decode_s": self._ewma_decode_s,
+                "spec_cap": int(self._spec_cap),
+                "spec_accept_ewma": self._spec_accept_ewma,
+                "spec_probe_countdown": int(self._spec_probe_countdown),
+            },
+            # the DRR walk state, the token-rate estimators (ages, which
+            # re-anchor on the restoring clock) and the tallies
+            "tenancy": {
+                "classes": self.waiting.snapshot_state(),
+                "rates": {t: {"rate": float(r),
+                              "age_s": float(now - self._tenant_rate_t[t])}
+                          for t, r in self._tenant_rate.items()},
+                "tokens": {t: int(n)
+                           for t, n in self._tenant_tokens.items()},
+                "status_counts": {t: dict(c) for t, c in
+                                  self._tenant_status.items()},
+                "preemptions": dict(self._tenant_preemptions),
+                "seen": sorted(self._tenant_seen),
+            },
+            "block_tables": {
+                self.slots[i].request.uid: [int(b) for b in
+                                            self.slots[i].blocks]
+                for _, i in live},
+            "allocator": self.allocator.snapshot_state(),
+        }
+        if lightweight:
+            snap["lightweight"] = True
+        return seal_record(snap)
+
+    def _maybe_corrupt_record(self, site: str, rec: Dict) -> Dict:
+        """Fire the plan at a record site and, on a ``"corrupt"`` hit,
+        perturb the sealed record (its checksum goes stale)."""
+        if self.faults is None:
+            return rec
+        self.faults.fire(site)
+        seed = self.faults.corrupt_seed(site)
+        if seed is None:
+            return rec
+        return perturb_json(rec, seed)
+
+    def restore(self, snap: Dict[str, object]) -> None:
+        """Load a :meth:`snapshot` or :meth:`checkpoint` into a FRESH
+        engine of the same model and config. With ``verify_artifacts`` a
+        sealed snapshot must verify first (``IntegrityError``, counted in
+        ``num_corruptions_detected``; an unsealed one loads). Then the
+        version, the config fingerprint and freshness are checked, and
+        every unfinished request re-enters the queue in snapshot order
+        with its arrival index and emitted tokens: re-admission
+        re-prefills ``prompt + generated[:-1]``, and the arrival-keyed
+        sampler continues the uninterrupted run's tokens."""
+        if self.config.verify_artifacts:
+            try:
+                verify_record(snap, "restore")
+            except IntegrityError:
+                self._num_corruptions_detected += 1
+                raise
+        if snap.get("version") != 1:
+            raise ValueError(
+                f"unknown snapshot version {snap.get('version')!r}")
+        mine, theirs = self._config_fingerprint(), dict(snap["config"])
+        diff = {k: (theirs.get(k), mine.get(k))
+                for k in set(mine) | set(theirs)
+                if mine.get(k) != theirs.get(k)}
+        if diff:
+            raise ValueError(
+                f"snapshot config mismatch (snapshot vs engine): {diff}")
+        if self.has_work or self._arrival_count or self.finished:
+            raise RuntimeError(
+                "restore() requires a fresh engine: this one has queued, "
+                "resident, in-flight, or finished requests")
+        now = self._clock()
+        for rec in snap["requests"]:
+            deadline = rec.get("deadline_remaining_s")
+            req = Request(
+                uid=rec["uid"], prompt=list(rec["prompt"]),
+                max_new_tokens=int(rec["max_new_tokens"]),
+                sampling=SamplingParams(
+                    temperature=rec["sampling"]["temperature"],
+                    top_k=rec["sampling"]["top_k"],
+                    top_p=rec["sampling"]["top_p"]),
+                eos_token_id=rec.get("eos_token_id"),
+                deadline_s=deadline,
+                priority=int(rec.get("priority", 0)),
+                tenant=str(rec.get("tenant", DEFAULT_TENANT)))
+            if deadline is not None:
+                # a blown deadline stays blown
+                self._deadline[req.uid] = now + deadline
+            self._live_uids.add(req.uid)
+            self._tenant_seen.add(req.tenant)
+            self.waiting.append(_QueueEntry(
+                request=req, arrival=int(rec["arrival"]),
+                generated=[int(t) for t in rec["generated"]],
+                enq_t=now, enq_tick=self._num_ticks,
+                drr_charged=bool(rec.get("drr_charged", False))))
+        self._arrival_count = int(snap["arrival_count"])
+        self.finished.update({uid: [int(t) for t in toks]
+                              for uid, toks in snap["finished"].items()})
+        self.statuses.update(snap["statuses"])
+        self._drafter_ok = (bool(snap["drafter_ok"])
+                            and self.config.spec_tokens > 0)
+        # the ladder resumes only where this engine has one (else its rung
+        # could never climb back)
+        overload = snap.get("overload", {})
+        if self._ladder_enabled():
+            self._degradation_level = int(
+                overload.get("degradation_level", 0))
+            self._pressure_streak = int(overload.get("pressure_streak", 0))
+            self._clear_streak = int(overload.get("clear_streak", 0))
+        for attr, key in (("_ewma_prefill_s", "ewma_prefill_s"),
+                          ("_ewma_decode_s", "ewma_decode_s")):
+            v = overload.get(key)
+            if v is not None:
+                setattr(self, attr, float(v))
+        if self.config.spec_adapt:
+            self._spec_cap = int(overload.get("spec_cap",
+                                              self.config.spec_tokens))
+            ewma = overload.get("spec_accept_ewma")
+            if ewma is not None:
+                self._spec_accept_ewma = float(ewma)
+            self._spec_probe_countdown = int(
+                overload.get("spec_probe_countdown", _SPEC_PROBE_EVERY))
+        tenancy = snap.get("tenancy", {})
+        self.waiting.restore_state(tenancy.get("classes", {}))
+        for t, rec in (tenancy.get("rates") or {}).items():
+            self._tenant_rate[t] = float(rec["rate"])
+            self._tenant_rate_t[t] = now - max(0.0, float(rec["age_s"]))
+        for t, n in (tenancy.get("tokens") or {}).items():
+            self._tenant_tokens[t] = int(n)
+        for t, counts in (tenancy.get("status_counts") or {}).items():
+            self._tenant_status[t] = {s: int(c)
+                                      for s, c in counts.items()}
+        for t, n in (tenancy.get("preemptions") or {}).items():
+            self._tenant_preemptions[t] = int(n)
+        self._tenant_seen.update(tenancy.get("seen", ()))
+        self._num_restores += 1
 
     # -- the tenant ledger ---------------------------------------------------
 
@@ -1399,30 +1812,43 @@ class InferenceEngine:
         table = np.full((1, self.max_blocks_per_seq), -1, np.int32)
         table[0, : len(slot.blocks)] = slot.blocks
         dev = self.device
-        t0 = self._clock()
-        with torch.no_grad():
-            logits, _ = self.model(
-                torch.from_numpy(ids).to(dev), self.cache,
-                device_block_table(table, self.config.num_blocks, dev),
-                torch.from_numpy(positions).to(dev),
-                torch.tensor([end], dtype=torch.int64, device=dev),
-                write_start=torch.tensor([slot.prefill_pos],
-                                         dtype=torch.int64, device=dev))
-        tok = None
-        if end == L and not slot.entry.generated:
-            sp = slot.request.sampling
+        attempt_s = [0.0]      # the successful attempt's service time
+
+        def attempt():
+            # the chunk and the sampling of its token (a host read) in one
+            # retry unit; the plan fires before the chunk writes the pool
+            t0 = self._clock()
             with torch.no_grad():
-                tok = int(sample_with_uniforms(
-                    logits[:, (L - 1) - start],
-                    uniforms([token_generator(self.config.seed,
-                                              slot.entry.arrival, 0)]).to(
-                        dev),
-                    torch.tensor([sp.temperature], device=dev),
-                    torch.tensor([sp.top_k], device=dev),
-                    torch.tensor([sp.top_p], device=dev),
-                    sp.temperature > 0)[0])
+                logits, _ = self.model(
+                    torch.from_numpy(ids).to(dev), self.cache,
+                    device_block_table(table, self.config.num_blocks, dev),
+                    torch.from_numpy(positions).to(dev),
+                    torch.tensor([end], dtype=torch.int64, device=dev),
+                    write_start=torch.tensor([slot.prefill_pos],
+                                             dtype=torch.int64, device=dev))
+                tok = None
+                if end == L and not slot.entry.generated:
+                    sp = slot.request.sampling
+                    tok = int(sample_with_uniforms(
+                        logits[:, (L - 1) - start],
+                        uniforms([token_generator(self.config.seed,
+                                                  slot.entry.arrival,
+                                                  0)]).to(dev),
+                        torch.tensor([sp.temperature], device=dev),
+                        torch.tensor([sp.top_k], device=dev),
+                        torch.tensor([sp.top_p], device=dev),
+                        sp.temperature > 0)[0])
+            attempt_s[0] = self._clock() - t0
+            return tok
+
+        try:
+            tok = self._guarded_dispatch("prefill", attempt)
+        except DispatchFailedError:
+            # the failing chunk served one request: it ends "failed"
+            self._quarantine_slot(idx)
+            return True
         self._ewma_prefill_s = self._ewma_update(self._ewma_prefill_s,
-                                                 self._clock() - t0)
+                                                 attempt_s[0])
         self._num_prefill_chunks += 1
         self._num_prefill_tokens += end - start
         slot.prefill_pos = end
@@ -1495,8 +1921,13 @@ class InferenceEngine:
         a decoding lane (so the verify never emits past the budget), cut
         at the first token outside the vocabulary. The cap is
         ``spec_tokens``, or ``spec_adapt``'s; at ladder rung 1 and up the
-        plan is empty (a zero-proposal verify is one decode step)."""
+        plan is empty (a zero-proposal verify is one decode step). Each
+        proposal runs under :func:`guarded_call` at site ``"draft"``; a
+        drafter that raises anything but ``SimulatedCrash``, or runs out
+        of retries, is quarantined for good: every later plan is empty."""
         self._draft_plan = {}
+        if not self._drafter_ok:
+            return
         if self._degradation_level >= 1:
             return
         S = self.config.spec_tokens
@@ -1511,6 +1942,10 @@ class InferenceEngine:
                 S = 1
         vocab = self.model.cfg.vocab_size
         plan: Dict[int, List[int]] = {}
+
+        def count(attempt):
+            self._num_draft_retries += 1
+
         for i in active:
             slot = self.slots[i]
             cap = min(S, slot.request.max_new_tokens
@@ -1518,8 +1953,22 @@ class InferenceEngine:
             if cap < 1:
                 continue
             history = list(slot.request.prompt) + slot.generated
+            try:
+                props, _ = guarded_call(
+                    self.drafter.propose, history, cap,
+                    plan=self.faults, site="draft",
+                    retries=self.config.max_dispatch_retries,
+                    backoff_s=self.config.retry_backoff_s,
+                    on_retry=count)
+            except SimulatedCrash:
+                raise
+            except Exception:
+                # out of retries, or a drafter bug: decode on without it
+                self._drafter_ok = False
+                self._num_drafter_quarantines += 1
+                return
             clean: List[int] = []
-            for t in list(self.drafter.propose(history, cap))[:cap]:
+            for t in list(props)[:cap]:
                 t = int(t)
                 if not 0 <= t < vocab:
                     break
@@ -1649,15 +2098,40 @@ class InferenceEngine:
 
     def _dispatch_decode(self, active: List[int]) -> None:
         """Run the K-step decode (or, speculating, the verify) for
-        ``active`` lanes and leave its ``[B, K]`` tokens in flight
-        (``-1`` where a lane emitted nothing). Each step writes the
-        carried token's K/V at the lane's context position, attends,
-        samples token ``gen_count + j`` and feeds it back; a lane freezes
-        (its ``write_start`` one past its position, so nothing is
-        written) once its budget is spent or it samples its EOS id."""
-        if self.config.spec_tokens > 0:
-            self._dispatch_verify(active)
+        ``active`` lanes at site ``"decode"`` and leave its ``[B, K]``
+        tokens in flight. When its retries run out the batch is poisoned
+        and nothing says by which lane: the lowest-class, youngest lane
+        (:meth:`_yield_key`) is quarantined and the dispatch runs again
+        over the rest, until it launches or no lane is left. A
+        ``"corrupt"`` fire marks the dispatch's tokens for its drain."""
+        while active:
+            try:
+                out, drafted = self._guarded_dispatch(
+                    "decode", self._decode_program, active)
+            except DispatchFailedError:
+                self._quarantine_slot(max(active, key=self._yield_key))
+                active = self._started_lanes()
+                continue
+            self._num_decode_dispatches += 1
+            self._pending_corrupt = (
+                self.faults.corrupt_seed("decode")
+                if self.faults is not None else None)
+            # counted for the lanes this dispatch verifies
+            self._num_draft_tokens += drafted
+            self._pending = (out, list(active),
+                             {i: self.slots[i].request.uid for i in active})
             return
+
+    def _decode_program(self, active: List[int]):
+        """The K-step decode over ``active`` lanes (or, speculating,
+        :meth:`_verify_program`): ``([B, K] tokens, drafted)``, ``-1``
+        where a lane emitted nothing. Each step writes the carried
+        token's K/V at the lane's context position, attends, samples
+        token ``gen_count + j`` and feeds it back; a lane freezes (its
+        ``write_start`` one past its position, so nothing is written)
+        once its budget is spent or it samples its EOS id."""
+        if self.config.spec_tokens > 0:
+            return self._verify_program(active)
         K = self.config.decode_steps
         seed = self.config.seed
 
@@ -1686,11 +2160,9 @@ class InferenceEngine:
                 tok = torch.where(cont, new, tok)
                 ctx_t = ctx_t + emitted
                 budget = torch.where(cont, budget, torch.zeros_like(budget))
-        self._num_decode_dispatches += 1
-        self._pending = (torch.stack(outs, dim=1), list(active),
-                         {i: self.slots[i].request.uid for i in active})
+        return torch.stack(outs, dim=1), 0
 
-    def _dispatch_verify(self, active: List[int]) -> None:
+    def _verify_program(self, active: List[int]):
         """The draft-and-verify dispatch: ONE ``[max_batch, spec_tokens +
         1]`` forward through the paged cache (the multi-query prefill
         read). Each lane's chunk is its carried token and its proposals at
@@ -1700,7 +2172,8 @@ class InferenceEngine:
         drafts, then the stop masks of the K-step decode apply: nothing
         past the emitted window, nothing after an EOS, nothing from an
         inactive lane (its ``write_start`` past the chunk) — ``-1``
-        sentinels, so the drain is the K-step one."""
+        sentinels, so the drain is the K-step one. Returns ``(tokens,
+        proposals verified)``."""
         B, S = self.config.max_batch, self.config.spec_tokens
         P = S + 1
         seed = self.config.seed
@@ -1737,10 +2210,7 @@ class InferenceEngine:
                          - is_eos.long()) > 0
             keep = within & ~after_eos & act[:, None]
             out = torch.where(keep, emitted, torch.full_like(emitted, -1))
-        self._num_decode_dispatches += 1
-        self._num_draft_tokens += int(dlens.sum())
-        self._pending = (out, list(active),
-                         {i: self.slots[i].request.uid for i in active})
+        return out, int(dlens.sum())
 
     def _drain_decode(self) -> bool:
         """Fetch the in-flight dispatch's tokens and replay them through
@@ -1751,16 +2221,49 @@ class InferenceEngine:
         to the lane's proposal at its index is an accepted draft, the
         span blocks the rejection stranded go back to the pool
         (``trim_to``), and with ``spec_adapt`` the dispatch's acceptance
-        moves the draft cap."""
+        moves the draft cap.
+
+        A failed fetch counts against ``max_dispatch_retries`` (running
+        out quarantines the youngest lane the dispatch covered), then
+        :meth:`_reset_device_state` requeues the residents and resets the
+        pool: re-prefill re-derives it, and nothing of the failed
+        dispatch is reused. A ``"corrupt"`` dispatch has one of its
+        tokens perturbed before any bookkeeping."""
         if self._pending is None:
             return False
         toks_dev, active, uids = self._pending
         self._pending = None
+        corrupt_seed, self._pending_corrupt = self._pending_corrupt, None
         t_fetch = self._clock()
-        toks = toks_dev.cpu().numpy()
+        try:
+            toks = toks_dev.cpu().numpy()
+        except SimulatedCrash:
+            raise
+        except TRANSIENT_ERRORS:
+            self._fetch_failures += 1
+            if self._fetch_failures > self.config.max_dispatch_retries:
+                # a lane aborted or refilled in flight was no part of it
+                live = [i for i in active
+                        if self.slots[i] is not None
+                        and self.slots[i].started
+                        and self.slots[i].request.uid == uids[i]]
+                if live:
+                    self._quarantine_slot(max(live, key=self._yield_key))
+                self._fetch_failures = 0
+            else:
+                self._num_dispatch_retries += 1
+                if self.config.retry_backoff_s > 0.0:
+                    time.sleep(self.config.retry_backoff_s
+                               * (2 ** (self._fetch_failures - 1)))
+            self._reset_device_state()
+            return True
+        self._fetch_failures = 0
         self._ewma_decode_s = self._ewma_update(self._ewma_decode_s,
                                                 self._clock() - t_fetch)
         counts = (toks >= 0).sum(axis=1)
+        if corrupt_seed is not None:
+            toks = perturb_tokens(toks, counts, self.model.cfg.vocab_size,
+                                  corrupt_seed)
         spec = self.config.spec_tokens > 0
         bs = self.config.block_size
         drafted_this = accepted_this = 0
@@ -1839,6 +2342,56 @@ class InferenceEngine:
         # clear the lane first: the idle-tenant pruning must not see it
         self.slots[idx] = None
         self._set_status(slot.request, status)
+        self._invalidate_lanes()
+
+    # -- faults and recovery -------------------------------------------------
+
+    def _quarantine_slot(self, idx: int) -> None:
+        """End a lane's request ``"failed"`` after its dispatches ran out
+        of retries (the tokens it emitted kept); the engine serves on."""
+        self._finish(idx, status="failed")
+        self._num_quarantines += 1
+
+    def _guarded_dispatch(self, site: str, fn, *args):
+        """``fn(*args)`` under :func:`guarded_call` at ``site``: the plan
+        fires before each attempt, transient failures retry
+        ``max_dispatch_retries`` times, and running out raises
+        ``DispatchFailedError``. A retry is sound because the fire comes
+        before ``fn`` writes the pool."""
+
+        def count(attempt):
+            self._num_dispatch_retries += 1
+
+        out, _ = guarded_call(
+            fn, *args, plan=self.faults, site=site,
+            retries=self.config.max_dispatch_retries,
+            backoff_s=self.config.retry_backoff_s, on_retry=count)
+        return out
+
+    def _reset_device_state(self) -> None:
+        """After a failed drain: every resident goes back to the head of
+        the queue with its emitted tokens (oldest first), the allocator
+        resets and the pools are zeroed in place; re-prefill re-derives
+        the cache."""
+        live = sorted(((s.admit_seq, i)
+                       for i, s in enumerate(self.slots)
+                       if s is not None), reverse=True)
+        for _, i in live:    # youngest first, so the oldest lands at head
+            slot = self.slots[i]
+            self.waiting.appendleft(_QueueEntry(
+                request=slot.request, arrival=slot.entry.arrival,
+                generated=self._resume_tokens(slot),
+                enq_t=self._clock(), enq_tick=self._num_ticks,
+                drr_charged=True))
+            self.slots[i] = None
+        self._queue_depth_peak = max(self._queue_depth_peak,
+                                     len(self.waiting))
+        self.allocator.reset()
+        for t in (self.cache.k, self.cache.v, self.cache.k_scale,
+                  self.cache.v_scale):
+            if t is not None:
+                t.zero_()
+        self._draft_plan = {}
         self._invalidate_lanes()
 
     # -- the degradation ladder ----------------------------------------------

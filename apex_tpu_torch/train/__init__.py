@@ -1,10 +1,14 @@
 """Training (counterpart of :mod:`apex_tpu.train`): ``build_train_step``
-with gradient accumulation and the deferred-metrics ``TrainLoop`` on one
-device, the BERT pretraining step of ``bench.py``, and the GPT LM's loss
-function and batches."""
+with gradient accumulation, the deferred-metrics ``TrainLoop`` with its
+retries, watchdog and checkpoints, the BERT pretraining step of
+``bench.py``, and the GPT LM's loss function and batches."""
 
 from apex_tpu_torch.train.lm import lm_loss_fn, make_lm_batch
-from apex_tpu_torch.train.loop import TrainLoop
+from apex_tpu_torch.train.loop import (
+    NonFiniteLossError,
+    TrainLoop,
+    WatchdogConfig,
+)
 from apex_tpu_torch.train.pretraining import (
     PretrainingStep,
     build_pretraining,
@@ -17,6 +21,7 @@ from apex_tpu_torch.train.step import (
     build_train_step,
 )
 
-__all__ = ["PretrainingStep", "TrainLoop", "TrainState", "TrainStep",
-           "build_pretraining", "build_train_step", "lm_loss_fn",
-           "make_lm_batch", "make_pretraining_batch", "pretraining_loss_fn"]
+__all__ = ["NonFiniteLossError", "PretrainingStep", "TrainLoop",
+           "TrainState", "TrainStep", "WatchdogConfig", "build_pretraining",
+           "build_train_step", "lm_loss_fn", "make_lm_batch",
+           "make_pretraining_batch", "pretraining_loss_fn"]

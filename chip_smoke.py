@@ -268,6 +268,31 @@ stepped clock must give the same door verdicts, statuses and counters on
 the card and on the CPU. ``--only 12`` runs phase 1's write row and phase
 12 alone.
 
+Phase 13 runs faults, retries and recovery. 13a: phase 2's engine and
+traffic at GPT-2 small's width under ``FaultPlan``s. Transient faults at
+every 7th call of ``prefill`` and ``decode`` (and ``draft`` with
+``spec_tokens`` 4) must give the fault-free tokens with retries and no
+quarantine; a persistent prefill failure ends one request ``"failed"``
+and leaves every other one its tokens; a raising drafter is quarantined;
+a ``SimulatedCrash`` at decode dispatch 14 is restored into a fresh
+engine from a ``snapshot()`` taken every tick (through JSON) and from
+the ``last_checkpoint`` of every 4th tick, and again on int8 weights over
+an int8 pool: the restored tokens must be the uninterrupted run's, a
+divergence passing only as a near-tie of the prefill and decode routes
+(at most one in the phase); a ``corrupt`` checkpoint is refused. Every
+arm launches exactly 12 B14 a forward (72 B15 and 12 writes on int8) and
+routes nothing to a plain version; the snapshot's bytes and the ms of
+``snapshot()`` and ``restore()`` are printed. 13b: GPT-2 small (bf16,
+remat, dropout 0.1, O2, FusedAdam, S 1024, B 4) in torch's deterministic
+mode, checkpointing every 2 steps into a temporary directory (removed
+after): a crash at the 4th step resumed from step 2 in a newly built
+model, optimizer and step must end with the uninterrupted run's losses,
+parameters, masters, moments, scaler and generator, bit for bit; a
+transient fault is retried with the losses unchanged; injected NaN
+losses climb the watchdog to its rescale rung (the loss scale halves
+twice). A ``{"phase13": ...}`` line records it; ``--only 13`` runs it
+alone.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -5034,6 +5059,568 @@ def phase12(torch, dev, seed, card):
     return rec
 
 
+# -- phase 13: faults, retries, snapshot/restore, checkpointed training ------
+
+def fault_plan(*specs):
+    """A ``FaultPlan`` of the given spec dicts (seed 0)."""
+    from apex_tpu_torch.utils.faults import FaultPlan, FaultSpec
+
+    return FaultPlan([FaultSpec(**s) for s in specs])
+
+
+class RaisingDrafter:
+    """A drafter whose every proposal raises: the engine must quarantine
+    it and decode on without proposals."""
+
+    def propose(self, history, max_tokens):
+        raise RuntimeError("drafter failed")
+
+
+def serve_faults(torch, model, config, reqs, dev, faults=None, drafter=None,
+                 snapshot_every_tick=False, restore_from=None):
+    """Phase 2's two waves (6 requests, 12 ticks, then 6 more) through one
+    engine under ``faults``, the launch counters set to 0 just before and
+    read just after. A ``SimulatedCrash`` ends the engine's run; with
+    ``restore_from`` ("snapshot": the last ``snapshot()``, taken every
+    tick; "checkpoint": ``last_checkpoint``) its picture goes through
+    JSON into a fresh engine, which runs to the end. Returns the results
+    (the snapshot's finished requests merged in), counters, launches,
+    forwards, and the snapshot's bytes and times."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.serving import InferenceEngine
+    from apex_tpu_torch.utils.faults import SimulatedCrash
+
+    eng = InferenceEngine(model, config, drafter=drafter, device=dev,
+                          faults=faults)
+    per_forward = 1 if config.spec_tokens else config.decode_steps
+    snap, snap_ms = None, []
+    sync(torch, dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    crashed = False
+    try:
+        for r in reqs[:6]:
+            eng.add_request(r)
+        tick = 0
+        while tick < 12 or eng.has_work:
+            if tick == 12:
+                for r in reqs[6:]:
+                    eng.add_request(r)
+            eng.step()
+            tick += 1
+            if snapshot_every_tick:
+                t = time.perf_counter()
+                snap = eng.snapshot()
+                snap_ms.append((time.perf_counter() - t) * 1e3)
+        out = {u: (r.tokens, r.status)
+               for u, r in eng.run(return_status=True).items()}
+    except SimulatedCrash:
+        crashed = True
+    s = eng.stats()
+    forwards = (s["num_prefill_chunks"]
+                + s["num_decode_dispatches"] * per_forward)
+    rec = dict(crashed=crashed, stats={k: v for k, v in s.items()
+                                       if k != "kernel_launches"})
+    if crashed:
+        check(restore_from is not None, "phase 13a: an unplanned crash")
+        picture = snap if restore_from == "snapshot" else eng.last_checkpoint
+        check(picture is not None, f"phase 13a: no {restore_from} to "
+              f"restore from")
+        wire = json.dumps(picture)
+        picture = json.loads(wire)
+        del eng
+        eng = InferenceEngine(model, config, drafter=drafter, device=dev)
+        t = time.perf_counter()
+        eng.restore(picture)
+        restore_ms = (time.perf_counter() - t) * 1e3
+        out = {u: (list(t), picture["statuses"].get(u, "finished"))
+               for u, t in picture["finished"].items()}
+        out.update({u: (r.tokens, r.status)
+                    for u, r in eng.run(return_status=True).items()})
+        s2 = eng.stats()
+        forwards += (s2["num_prefill_chunks"]
+                     + s2["num_decode_dispatches"] * per_forward)
+        rec.update(picture_bytes=len(wire), restore_ms=restore_ms,
+                   restored_requests=len(picture["requests"]),
+                   restored_generated=sum(len(x["generated"])
+                                          for x in picture["requests"]),
+                   restored_stats={k: v for k, v in s2.items()
+                                   if k != "kernel_launches"})
+    elif restore_from is not None:
+        raise SmokeFailure("phase 13a: the planned crash did not fire")
+    sync(torch, dev)
+    rec.update(wall_s=time.perf_counter() - t0,
+               launches=dict(_build.launches), forwards=forwards,
+               snapshot_ms=snap_ms, out=out)
+    eng.check_allocator_integrity()
+    check(eng.allocator.num_used == 0, "phase 13a: blocks leaked")
+    return rec
+
+
+def route_logits(torch, model, context, config, dev):
+    """The logits that predict the token after ``context`` by the two
+    routes a restore mixes: a prefill of the whole context in chunks
+    (the re-prefill), and a prefill of all but its last token followed
+    by a one-token decode step."""
+    from apex_tpu_torch.serving import KVCache, device_block_table
+    from apex_tpu_torch.serving.kv_cache import blocks_needed
+
+    cfg = model.cfg
+    bs, C = config.block_size, config.chunk
+    M = blocks_needed(config.max_seq_len, bs)
+    tbl = device_block_table([list(range(M))], M, dev)
+
+    def fresh():
+        return KVCache.create(cfg.num_layers, M, bs, cfg.num_heads,
+                              cfg.hidden_size // cfg.num_heads,
+                              dtype=config.kv_dtype,
+                              quantization=config.kv_quantization,
+                              device=dev)
+
+    def fwd(cache, ids, pos, seq_len, write_start):
+        with torch.no_grad():
+            logits, _ = model(torch.tensor([ids], device=dev), cache, tbl,
+                              torch.tensor([pos], device=dev),
+                              torch.tensor([seq_len], device=dev),
+                              write_start=torch.tensor([write_start],
+                                                       device=dev))
+        return logits[0].float()
+
+    def prefill(cache, toks):
+        last = None
+        for s in range(0, len(toks), C):
+            e = min(s + C, len(toks))
+            ids = toks[s:e] + [0] * (C - (e - s))
+            last = fwd(cache, ids, list(range(s, s + C)), e, s)[e - 1 - s]
+        return last
+
+    n = len(context)
+    whole = prefill(fresh(), context)
+    cache = fresh()
+    prefill(cache, context[:-1])
+    step = fwd(cache, [context[-1]], [n - 1], n, n - 1)[0]
+    return whole, step
+
+
+def restore_divergences(torch, model, config, reqs, ref, got, label, ties,
+                        dev):
+    """Hold a restored run's tokens to the uninterrupted run's. The
+    re-prefill computes the K/V of emitted tokens by the prefill route,
+    whose low bits can differ from the decode route's, so a divergence
+    passes only as a near-tie at its first token: greedy, the top-2 gap of
+    both routes' logits under 1e-5 of their largest magnitude (phase 10's
+    rule); sampled, the request's uniform within 1e-5 of a CDF boundary of
+    either route's filtered distribution. At most one in the phase."""
+    from apex_tpu_torch.serving.sampling import (_filtered_sorted_logits,
+                                                 token_generator, uniforms)
+
+    for arrival, r in enumerate(reqs):
+        a, b = list(ref[r.uid]), list(got[r.uid])
+        if a == b:
+            continue
+        check(len(a) == len(b), f"{label}: {r.uid} emitted {len(b)} tokens, "
+              f"the uninterrupted run {len(a)}")
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        lw, ls = route_logits(torch, model, list(r.prompt) + a[:j], config,
+                              dev)
+        amax = max(lw.abs().max().item(), ls.abs().max().item())
+        sp = r.sampling
+        if sp.temperature <= 0:
+            gaps = [(lambda t: (t[0] - t[1]).item())(torch.topk(x, 2).values)
+                    for x in (lw, ls)]
+            measure, tie = max(gaps) / amax, max(gaps) < 1e-5 * amax
+        else:
+            u = uniforms([token_generator(config.seed, arrival, j)]).item()
+            margins = []
+            for x in (lw, ls):
+                filt, _, _ = _filtered_sorted_logits(
+                    x[None], torch.tensor([sp.temperature], device=dev),
+                    torch.tensor([sp.top_k], device=dev),
+                    torch.tensor([sp.top_p], device=dev))
+                cdf = torch.cumsum(torch.softmax(filt, -1), -1)[0]
+                margins.append(((cdf - u * cdf[-1]).abs().min()
+                                / cdf[-1]).item())
+            measure, tie = min(margins), min(margins) < 1e-5
+        rec = dict(arm=label, uid=r.uid, position=j, ref=a[j], got=b[j],
+                   sampled=sp.temperature > 0, measure=measure,
+                   logits_absmax=amax)
+        ties.append(rec)
+        print(f"[phase 13a divergence] {rec}", flush=True)
+        check(tie, f"{label}: request {r.uid} diverges at token {j} and it "
+              f"is not a near-tie ({measure:.3g})")
+        check(len(ties) <= 1,
+              f"phase 13a: {len(ties)} near-ties, at most 1 allowed")
+
+
+def phase13_serving(torch, dev, seed, card, crash_at=14, cfg=None):
+    """13a: phase 2's engine and traffic at GPT-2 small's full width under
+    fault plans: transient faults (every 7th call at each site, with and
+    without speculation) retried to the fault-free tokens, a persistent
+    prefill failure quarantining one request, a raising drafter
+    quarantined, a crash at decode dispatch ``crash_at`` restored from a
+    snapshot taken every tick and from the checkpoint of every 4th tick,
+    the snapshot arm again on int8 weights over an int8 pool, and a
+    corrupt checkpoint refused."""
+    from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from apex_tpu_torch.models.gpt import quantize_gpt_model
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    from apex_tpu_torch.utils.integrity import IntegrityError
+
+    cfg = cfg or GPTConfig.gpt2_small()
+    model = GPTLMHeadModel(cfg, device=dev, seed=seed)
+    reqs = traffic(seed, cfg.vocab_size)
+    config = EngineConfig(max_batch=8, block_size=16, num_blocks=512,
+                          max_seq_len=1024, prefill_chunk=128,
+                          decode_steps=8, seed=seed)
+    spec = dataclasses.replace(config, spec_tokens=4)
+    quant = dataclasses.replace(config, weight_quantization="int8",
+                                kv_quantization="int8")
+    L = cfg.num_layers
+
+    def every7(*sites):
+        return fault_plan(*[dict(site=s, kind="transient", every=7)
+                            for s in sites])
+
+    def crash():
+        return fault_plan(dict(site="decode", kind="crash", at=(crash_at,)))
+
+    plans = [
+        ("fp32", config, {}),
+        ("fp32 transient every 7", config,
+         dict(faults=every7("prefill", "decode"))),
+        ("spec 4", spec, {}),
+        ("spec 4 transient every 7", spec,
+         dict(faults=every7("prefill", "decode", "draft"))),
+        ("persistent prefill failure", config,
+         dict(faults=fault_plan(dict(site="prefill", kind="transient",
+                                     at=(0, 1, 2))))),
+        ("raising drafter", spec, dict(drafter=RaisingDrafter())),
+        ("crash, snapshot every tick", config,
+         dict(faults=crash(), snapshot_every_tick=True,
+              restore_from="snapshot")),
+        ("crash, checkpoint every 4 ticks",
+         dataclasses.replace(config, snapshot_interval_ticks=4),
+         dict(faults=crash(), restore_from="checkpoint")),
+        ("int8", quant, {}),
+        ("int8 crash, snapshot every tick", quant,
+         dict(faults=crash(), snapshot_every_tick=True,
+              restore_from="snapshot")),
+    ]
+    arms = {}
+    for label, c, kw in plans:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = serve_faults(torch, model, c, reqs, dev, **kw)
+        launches, forwards = rec["launches"], rec["forwards"]
+        check_no_route(launches, f"phase 13a {label}")
+        check(launches["paged_read"] == L * forwards,
+              f"phase 13a {label}: {launches['paged_read']} B14 launches "
+              f"for {forwards} forwards")
+        if c.kv_quantization is not None:
+            check(launches["kv_quant_write"] == L * forwards,
+                  f"phase 13a {label}: {launches['kv_quant_write']} "
+                  f"kv_quant_write launches for {forwards} forwards")
+        if c.weight_quantization is not None:
+            check(launches["dequant_gemm"] == 6 * L * forwards,
+                  f"phase 13a {label}: {launches['dequant_gemm']} B15 "
+                  f"launches for {forwards} forwards")
+        for r in reqs:
+            toks, status = rec["out"][r.uid]
+            check(all(0 <= t < cfg.vocab_size for t in toks),
+                  f"phase 13a {label}: {r.uid} emitted an out-of-vocab "
+                  f"token")
+        arms[label] = rec
+
+    def tokens(label):
+        return {u: list(t) for u, (t, _) in arms[label]["out"].items()}
+
+    def finished_all(label):
+        return all(st == "finished" and len(t) == r.max_new_tokens
+                   for r in reqs
+                   for t, st in [arms[label]["out"][r.uid]])
+
+    for label in ("fp32", "spec 4", "int8", "raising drafter"):
+        check(finished_all(label), f"phase 13a {label}: a request did not "
+              f"finish its budget")
+    for label, ref in (("fp32 transient every 7", "fp32"),
+                       ("spec 4 transient every 7", "spec 4")):
+        s = arms[label]["stats"]
+        check(tokens(label) == tokens(ref),
+              f"phase 13a {label}: tokens differ from the fault-free run")
+        check(s["num_dispatch_retries"] > 0 and s["num_quarantines"] == 0,
+              f"phase 13a {label}: {s['num_dispatch_retries']} retries, "
+              f"{s['num_quarantines']} quarantines")
+    check(arms["spec 4 transient every 7"]["stats"]["num_draft_retries"] > 0,
+          "phase 13a: no draft call was retried")
+    out = arms["persistent prefill failure"]["out"]
+    s = arms["persistent prefill failure"]["stats"]
+    check(out[reqs[0].uid] == ([], "failed") and s["num_quarantines"] == 1,
+          f"phase 13a: the poisoned prefill ended {out[reqs[0].uid][1]} "
+          f"after {s['num_quarantines']} quarantines")
+    ref = tokens("fp32")
+    check(all(out[r.uid] == (ref[r.uid], "finished") for r in reqs[1:]),
+          "phase 13a: a request beside the poisoned prefill changed tokens")
+    s = arms["raising drafter"]["stats"]
+    check(s["num_drafter_quarantines"] == 1 and s["num_draft_tokens"] == 0
+          and s["speculation_active"] == 0,
+          f"phase 13a raising drafter: {s['num_drafter_quarantines']} "
+          f"quarantines, {s['num_draft_tokens']} draft tokens")
+    ties = []
+    qmodel = quantize_gpt_model(model, "int8")
+    for label, ref_label, m, c in (
+            ("crash, snapshot every tick", "fp32", model, config),
+            ("crash, checkpoint every 4 ticks", "fp32", model, config),
+            ("int8 crash, snapshot every tick", "int8", qmodel, quant)):
+        rec = arms[label]
+        check(rec["crashed"] and rec["restored_generated"] > 0,
+              f"phase 13a {label}: crashed {rec['crashed']}, "
+              f"{rec['restored_generated']} tokens carried")
+        check(all(st == "finished" for _, st in rec["out"].values()),
+              f"phase 13a {label}: a restored request did not finish")
+        restore_divergences(torch, m, c, reqs, tokens(ref_label),
+                            tokens(label), label, ties, dev)
+    del qmodel
+    # a corrupt fire at "checkpoint" rots the sealed record: refused
+    eng = InferenceEngine(model, dataclasses.replace(
+        config, snapshot_interval_ticks=1), device=dev, faults=fault_plan(
+            dict(site="checkpoint", kind="corrupt", at=(0,))))
+    for r in reqs[:2]:
+        eng.add_request(r)
+    eng.step()
+    rotten = json.loads(json.dumps(eng.last_checkpoint))
+    del eng
+    victim = InferenceEngine(model, config, device=dev)
+    refused = False
+    try:
+        victim.restore(rotten)
+    except IntegrityError:
+        refused = True
+    check(refused and victim.stats()["num_corruptions_detected"] == 1
+          and not victim.has_work,
+          "phase 13a: a corrupt checkpoint was not refused")
+    del victim, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    snap_arm = arms["crash, snapshot every tick"]
+    rec = dict(card=card, crash_at=crash_at, near_ties=ties,
+               corrupt_checkpoint_refused=refused,
+               snapshot_bytes=snap_arm["picture_bytes"],
+               snapshot_ms_mean=sum(snap_arm["snapshot_ms"])
+               / len(snap_arm["snapshot_ms"]),
+               snapshot_ms_max=max(snap_arm["snapshot_ms"]),
+               restore_ms=snap_arm["restore_ms"],
+               checkpoint_bytes=arms["crash, checkpoint every 4 ticks"][
+                   "picture_bytes"],
+               arms={k: {kk: vv for kk, vv in v.items() if kk != "out"}
+                     for k, v in arms.items()})
+    for label, a in arms.items():
+        s = a["stats"]
+        print(f"[phase 13a {label}] {card}: wall {a['wall_s']:.2f} s | "
+              f"retries {s['num_dispatch_retries']} (draft "
+              f"{s['num_draft_retries']}) | quarantines "
+              f"{s['num_quarantines']} (drafter "
+              f"{s['num_drafter_quarantines']}) | crashed {a['crashed']} | "
+              f"B14 {a['launches']['paged_read']} for {a['forwards']} "
+              f"forwards, B15 {a['launches']['dequant_gemm']}, "
+              f"kv_quant_write {a['launches']['kv_quant_write']}", flush=True)
+    print(f"[phase 13a snapshot] {card}: {rec['snapshot_bytes']} bytes of "
+          f"JSON, snapshot() {rec['snapshot_ms_mean']:.2f} ms mean "
+          f"({rec['snapshot_ms_max']:.2f} max, drain included), restore() "
+          f"{rec['restore_ms']:.2f} ms | checkpoint "
+          f"{rec['checkpoint_bytes']} bytes | near-ties {len(ties)} | "
+          f"corrupt checkpoint refused", flush=True)
+    return rec
+
+
+def phase13_training(torch, dev, seed, card, steps=4, B=4, S=1024,
+                     cfg_kw=None):
+    """13b: GPT-2 small (bf16, remat, dropout 0.1, O2, FusedAdam) at S
+    1024, B 4, in torch's deterministic mode, checkpointing every 2 steps:
+    4 steps uninterrupted; a crash at the 4th step resumed from step 2 in
+    a newly built model, optimizer and step, bitwise equal to it; a
+    transient fault retried with the losses unchanged; injected NaN
+    losses climbing the watchdog to its rescale rung."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import GPTConfig
+    from apex_tpu_torch.train import TrainLoop, WatchdogConfig, make_lm_batch
+    from apex_tpu_torch.utils.checkpoint import load_train_state
+    from apex_tpu_torch.utils.faults import SimulatedCrash
+
+    cfg = GPTConfig(dtype=torch.bfloat16, remat=True, **(cfg_kw or {}))
+    batches = [make_lm_batch(cfg, B, S, seed=seed + 100 + i, device=dev,
+                             accum_steps=1) for i in range(steps)]
+    root = tempfile.mkdtemp(prefix="phase13_ckpt_")
+
+    def build():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return gpt_train_step(torch, cfg, "O2", 1, seed, dev)
+
+    def snapshot_state(model, opt, ts, loop):
+        return ([t.clone() for t in train_state_tensors(model, opt)],
+                loop.state.scaler_state, ts.generator.get_state())
+
+    def timed_saves(loop, into):
+        save = loop.save_checkpoint
+
+        def wrapper():
+            sync(torch, dev)
+            t = time.perf_counter()
+            path = save()
+            into.append((time.perf_counter() - t) * 1e3)
+            return path
+
+        loop.save_checkpoint = wrapper
+
+    def losses(metrics):
+        return [m["loss"] for m in metrics]
+
+    rec = dict(card=card, steps=steps, B=B, S=S)
+    try:
+        with deterministic(torch):
+            model, opt, ts = build()
+            save_ms = []
+            loop = ts.loop(ts.init(), checkpoint_dir=os.path.join(root, "a"),
+                           checkpoint_every=2)
+            timed_saves(loop, save_ms)
+            sync(torch, dev)
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            ref = losses(loop.run(batches))
+            sync(torch, dev)
+            rec["wall_s"] = time.perf_counter() - t0
+            launches = dict(_build.launches)
+            rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            check_no_route(launches, "phase 13b")
+            for k in ("flash_fwd_tiled", "flash_bwd_dq_tiled",
+                      "flash_bwd_dkv_tiled", "layer_norm_fwd",
+                      "layer_norm_bwd", "dropout"):
+                check(launches[k] > 0, f"phase 13b: {k} never launched")
+            check(all(math.isfinite(x) for x in ref),
+                  f"phase 13b: losses {ref}")
+            step_dir = os.path.join(root, "a", "step_000000002")
+            rec["checkpoint_bytes"] = sum(
+                os.path.getsize(os.path.join(step_dir, f))
+                for f in os.listdir(step_dir))
+            ref_state = snapshot_state(model, opt, ts, loop)
+            del model, opt, ts, loop
+            shutil.rmtree(os.path.join(root, "a"))
+
+            # crash at the 4th step; resume from step 2 in a new process's
+            # worth of objects
+            model, opt, ts = build()
+            loop = ts.loop(ts.init(), faults=fault_plan(
+                dict(site="train_step", kind="crash", at=(3,))),
+                checkpoint_dir=os.path.join(root, "b"), checkpoint_every=2)
+            crashed = False
+            try:
+                loop.run(batches)
+            except SimulatedCrash:
+                crashed = True
+            before = losses(loop.last_run_metrics)
+            check(crashed and loop.stats()["last_checkpoint_step"] == 2,
+                  f"phase 13b: crashed {crashed}, {loop.stats()}")
+            del model, opt, ts, loop
+            model, opt, ts = build()
+            sync(torch, dev)
+            t = time.perf_counter()
+            state, k = load_train_state(os.path.join(root, "b"), ts)
+            sync(torch, dev)
+            rec["load_ms"] = (time.perf_counter() - t) * 1e3
+            check(k == 2 and state.step == 2, f"phase 13b: resumed at {k}")
+            resumed = TrainLoop(ts, state)
+            after = losses(resumed.run(batches[k:]))
+            check(before[:k] + after == ref and before[k] == ref[k],
+                  f"phase 13b: losses {before} then {after}, uninterrupted "
+                  f"{ref}")
+            got = snapshot_state(model, opt, ts, resumed)
+            same = (len(got[0]) == len(ref_state[0])
+                    and all(torch.equal(a, b)
+                            for a, b in zip(got[0], ref_state[0])))
+            check(same and got[1] == ref_state[1]
+                  and torch.equal(got[2], ref_state[2]),
+                  "phase 13b: the resumed run's parameters, masters, "
+                  "moments, scaler or generator differ from the "
+                  "uninterrupted run's")
+            rec["tensors_compared"] = len(got[0])
+            del model, opt, ts, resumed
+            shutil.rmtree(os.path.join(root, "b"))
+
+            # a transient fault: retried, losses unchanged
+            model, opt, ts = build()
+            loop = ts.loop(ts.init(), faults=fault_plan(
+                dict(site="train_step", kind="transient", at=(1,))))
+            retried = losses(loop.run(batches))
+            check(retried == ref and loop.stats()["dispatch_retries"] == 1,
+                  f"phase 13b: transient arm losses {retried}")
+            del model, opt, ts, loop
+
+            # injected NaN losses: skip, then rescale twice
+            model, opt, ts = build()
+            loop = ts.loop(ts.init(), faults=fault_plan(
+                dict(site="train_step", kind="nan", every=1)),
+                watchdog=WatchdogConfig(skip_steps=1, rescale_steps=2))
+            scales = [loop.state.scaler_state.loss_scale]
+            for b in batches[:3]:
+                loop.step(b)
+                scales.append(loop.state.scaler_state.loss_scale)
+            loop.drain()
+            scales.append(loop.state.scaler_state.loss_scale)
+            s = loop.stats()
+            check((s["watchdog_skips"], s["watchdog_rescales"],
+                   s["watchdog_halts"]) == (1, 2, 0)
+                  and scales[-1] == scales[0] / 4,
+                  f"phase 13b: watchdog {s}, scales {scales}")
+            del model, opt, ts, loop
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec.update(losses=ref, save_ms=save_ms, launches=launches,
+               watchdog_scales=scales)
+    print(f"[phase 13b GPT-2 small S {S} B {B}] {card}: losses {ref} | "
+          f"crash at step 4, resumed from step 2: losses and "
+          f"{rec['tensors_compared']} state tensors bitwise equal | "
+          f"transient retried, losses unchanged | watchdog scales "
+          f"{scales} | checkpoint {rec['checkpoint_bytes'] / 2**20:.1f} MiB, "
+          f"save {', '.join(f'{x:.0f}' for x in save_ms)} ms, load "
+          f"{rec['load_ms']:.0f} ms | peak memory "
+          f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB | launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return rec
+
+
+def phase13(torch, dev, seed, card):
+    rec = dict(serving=phase13_serving(torch, dev, seed, card),
+               training=phase13_training(torch, dev, seed, card))
+    sv, tr = rec["serving"], rec["training"]
+    print(json.dumps({"phase13": dict(
+        card=card,
+        serving={k: sv[k] for k in (
+            "snapshot_bytes", "snapshot_ms_mean", "snapshot_ms_max",
+            "restore_ms", "checkpoint_bytes", "near_ties")},
+        arms={k: dict(wall_s=a["wall_s"], forwards=a["forwards"],
+                      retries=a["stats"]["num_dispatch_retries"],
+                      draft_retries=a["stats"]["num_draft_retries"],
+                      quarantines=a["stats"]["num_quarantines"],
+                      drafter_quarantines=a["stats"][
+                          "num_drafter_quarantines"],
+                      crashed=a["crashed"],
+                      paged_read=a["launches"]["paged_read"])
+              for k, a in sv["arms"].items()},
+        training={k: tr[k] for k in (
+            "losses", "save_ms", "load_ms", "checkpoint_bytes",
+            "peak_memory_bytes", "watchdog_scales", "wall_s")})},
+        default=str), flush=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5048,8 +5635,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
-                    "(10, 11, 12), for iterating on one; prints no kernels "
-                    "or ok line")
+                    "(10, 11, 12, 13), for iterating on one; prints no "
+                    "kernels or ok line")
     args = ap.parse_args(argv)
     if not (ROOT / "apex_tpu_torch" / "csrc").is_dir():
         raise SmokeFailure("apex_tpu_torch is not beside chip_smoke.py: "
@@ -5097,6 +5684,9 @@ def main(argv=None):
             out["phase1_kv_quant"] = timed("phase 1 kv_quant_write",
                                            phase1_kv_quant, torch, dev, seed)
             out["phase12"] = timed("phase 12", phase12, torch, dev, seed,
+                                   card)
+        if "13" in only:
+            out["phase13"] = timed("phase 13", phase13, torch, dev, seed,
                                    card)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
@@ -5146,6 +5736,7 @@ def main(argv=None):
     serving = timed("phase 10", phase10, torch, dev, seed, card)
     options = timed("phase 11", phase11, torch, dev, seed, card)
     pools = timed("phase 12", phase12, torch, dev, seed, card)
+    faults = timed("phase 13", phase13, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the training phases 3-5 and 9, B2 and B1 also on the contrib
@@ -5156,6 +5747,8 @@ def main(argv=None):
                 + sum(a["launches"][k]
                       for a in pools["pools"]["arms"].values())
                 + pools["tenancy"]["launches"][k]
+                + sum(a["launches"][k]
+                      for a in faults["serving"]["arms"].values())
                 for k in ("paged_read", "dequant_gemm", "kv_quant_write")}
     launches.update({k: sum(t["launches"][k] for t in (train, train128, gpt))
                      for k in ("dropout", "flash_fwd",
@@ -5178,8 +5771,10 @@ def main(argv=None):
         if k in launches:
             launches[k] += v
     # phase 11: the dots-remat BERT runs B1-B3 and B6/B8, the int8 GPT B15
-    # (the stock arms launch none)
-    for arm in (options["bert"]["dots"], options["gpt"]["int8"]):
+    # (the stock arms launch none); phase 13b's uninterrupted GPT-2 run
+    # B1-B3 and B9/B11a/B11b
+    for arm in (options["bert"]["dots"], options["gpt"]["int8"],
+                faults["training"]):
         for k, v in arm["launches"].items():
             if k in launches:
                 launches[k] += v
@@ -5256,7 +5851,8 @@ def main(argv=None):
         norm_microbench=norm_bench, openfold=openfold, wide_norms=wide,
         amp_mnist=mnist, fused_optimizers=optimizers, parallel=parallel,
         serving_prefix_spec=serving, model_options=options,
-        quantized_pools_tenancy=pools, checks=checks,
+        quantized_pools_tenancy=pools, faults_recovery=faults,
+        checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

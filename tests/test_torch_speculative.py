@@ -324,12 +324,18 @@ class _Boom(Drafter):
         raise RuntimeError("drafter failed")
 
 
-def test_drafter_errors_propagate_and_config_validates(tiny):
+def test_raising_drafter_is_quarantined_and_config_validates(tiny):
+    """A drafter that raises is quarantined at its first call: the run
+    finishes on the non-speculative engine's tokens without proposals."""
     _, _, port = tiny
     eng = _engine(port, drafter=_Boom(), spec_tokens=2)
-    eng.add_request(Request("a", [1, 2, 3], max_new_tokens=4))
-    with pytest.raises(RuntimeError, match="drafter failed"):
-        eng.run()
+    ref = _engine(port)
+    for e in (eng, ref):
+        e.add_request(Request("a", [1, 2, 3], max_new_tokens=4))
+    assert eng.run() == ref.run()
+    s = eng.stats()
+    assert s["num_drafter_quarantines"] == 1
+    assert s["speculation_active"] == 0 and s["num_draft_tokens"] == 0
     with pytest.raises(ValueError, match="spec_tokens"):
         _engine(port, drafter=NgramDrafter())
     with pytest.raises(ValueError, match="spec_tokens"):

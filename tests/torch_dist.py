@@ -1,5 +1,6 @@
 """Spawned gloo worlds for the port's data-parallel parity tests
-(``tests/test_torch_parallel.py``, ``tests/test_torch_resnet.py``).
+(``tests/test_torch_parallel.py``, ``tests/test_torch_resnet.py``,
+``tests/test_torch_train_faults.py``).
 
 :func:`run_worlds` starts ``world`` processes (``spawn``) for each world
 asked for, each joining its world's gloo process group through the
@@ -367,6 +368,61 @@ def resnet_ddp(rank, world, params_path, stats_path):
     return {"losses": losses,
             "params": {n: _np(p) for n, p in model.named_parameters()},
             "buffers": {n: _np(b) for n, b in model.named_buffers()}}
+
+
+def _mlp_step(seed=0):
+    """An 8-16-4 MLP from ``seed``, FusedAdam and ``build_train_step``
+    with DDP (the same weights on every rank)."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.train import build_train_step
+
+    torch.manual_seed(seed)
+    model = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                                torch.nn.Linear(16, 4))
+    opt = FusedAdam(model.parameters(), lr=1e-2)
+
+    def loss_fn(mb, generator):
+        return torch.nn.functional.cross_entropy(model(mb["x"]), mb["y"])
+
+    return model, build_train_step(loss_fn, opt,
+                                   ddp=DistributedDataParallel())
+
+
+def mlp_batches(world: int, n: int = 4, rows: int = 2):
+    rng = np.random.RandomState(21)
+    return [(rng.randn(1, world * rows, 8).astype(np.float32),
+             rng.randint(0, 4, (1, world * rows))) for _ in range(n)]
+
+
+@case
+def ddp_checkpoint(rank, world, ckpt_dir):
+    """Two DDP steps, ``save_train_state`` (rank 0 writes, every rank
+    waits), two more; then a fresh model, optimizer and step load the
+    checkpoint and take the same two steps. Returns both ends."""
+    from apex_tpu_torch.utils.checkpoint import (load_train_state,
+                                                 save_train_state)
+
+    rows = slice(rank * 2, (rank + 1) * 2)
+    batches = [{"x": torch.from_numpy(x[:, rows].copy()),
+                "y": torch.from_numpy(y[:, rows].copy())}
+               for x, y in mlp_batches(world)]
+    model, ts = _mlp_step()
+    state = ts.init()
+    for b in batches[:2]:
+        state, _ = ts(state, b)
+    save_train_state(ckpt_dir, state, ts)
+    listing = sorted(os.listdir(ckpt_dir))
+    for b in batches[2:]:
+        state, _ = ts(state, b)
+    model2, ts2 = _mlp_step(seed=1)     # other weights, overwritten
+    state2, step = load_train_state(ckpt_dir, ts2)
+    for b in batches[2:]:
+        state2, _ = ts2(state2, b)
+    return {"step": step, "listing": listing,
+            "steps": (state.step, state2.step),
+            "params": [_np(p) for p in model.parameters()],
+            "resumed": [_np(p) for p in model2.parameters()]}
 
 
 # -- the world ------------------------------------------------------------
