@@ -15,8 +15,10 @@ tiled flash kernels, the GPT training forward and ``lm_loss``, FusedAdam)
 and the contrib ``multihead_attn`` modules, and data parallelism over
 ``torch.distributed`` (``parallel/``: DDP, SyncBatchNorm, LARC, the
 bootstrap; ``build_train_step(ddp=)``) with the ResNet tier (contrib
-``groupbn``, ``cudnn_gbn``, ``bottleneck``; ``models/resnet.py``). Plain
-tensor code is
+``groupbn``, ``cudnn_gbn``, ``bottleneck``; ``models/resnet.py``), and
+the serving engine's host-RAM spill tier, faults and recovery, and the
+observability layer (``observability/``: tracer, flight recorder,
+metrics). Plain tensor code is
 PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel under
 ``csrc/``, built with ``nvcc`` at first use
 (:mod:`apex_tpu_torch._build`). Entry points run on the CUDA card unless
@@ -27,3 +29,5 @@ The port imports neither ``jax`` nor anything of ``apex_tpu``.
 """
 
 __version__ = "0.1.0"
+
+from apex_tpu_torch import observability  # noqa: F401

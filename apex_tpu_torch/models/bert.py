@@ -100,7 +100,7 @@ def _check_ported(cfg: BertConfig):
                          f"{cfg.remat_policy!r}")
     if cfg.use_tensor_parallel or cfg.sequence_parallel:
         raise NotImplementedError("BERT under tensor/sequence parallelism "
-                                  "is not ported yet")
+                                  "is not ported yet (ROADMAP A.4 item 20)")
 
 
 # the products the "dots" policy keeps: those without batch dimensions

@@ -81,9 +81,25 @@ restored run continues the uninterrupted one's tokens. A CUDA error is
 not retried (it is sticky; ROADMAP C7): recovery from one is a restore
 in a new process.
 
-Not ported yet: the spill tier and its scrub (A.3 item 16),
-observability (item 17), the mesh (item 18) and the fleet's migration
-surface (item 19).
+``spill_max_bytes`` adds a bounded host-RAM tier under the prefix cache
+(:class:`~apex_tpu_torch.serving.kv_cache.HostSpillStore`): a cached block
+the allocator evicts is first copied to the host with a checksum, and an
+admission whose chain continues into the store re-admits those blocks by
+one in-place upload instead of prefilling them; a corrupt entry
+(``verify_artifacts``) is discarded and recomputed. Every
+``scrub_interval_ticks`` ticks a scrub re-verifies
+``scrub_spill_blocks`` entries and audits the allocator. Unlike the JAX
+engine's, the spill fetch catches no error: a CUDA error is sticky
+(ROADMAP C7, C8).
+
+``obs=`` (an :class:`~apex_tpu_torch.observability.Observability`)
+traces every request's lifecycle, records the engine's decisions in a
+flight recorder and keeps the latency histograms (TTFT and inter-token
+times at the moment a token's copy reaches the host). Observation changes
+no token, counter or launch.
+
+Not in this engine: the mesh (ROADMAP A.3 item 18) and the fleet's
+migration surface and shared prefix tier (item 19).
 """
 
 from __future__ import annotations
@@ -103,6 +119,7 @@ from apex_tpu_torch.models.gpt import (
     gpt_param_bytes,
     quantize_gpt_model,
 )
+from apex_tpu_torch.observability import QUANT_MODE_CODES
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.serving.drafter import NgramDrafter
 from apex_tpu_torch.serving.kv_cache import (
@@ -110,6 +127,7 @@ from apex_tpu_torch.serving.kv_cache import (
     KV_QUANT_MODES,
     BlockAllocator,
     CacheOutOfBlocks,
+    HostSpillStore,
     KVCache,
     blocks_needed,
     copy_block,
@@ -132,6 +150,7 @@ from apex_tpu_torch.utils.faults import (
     SimulatedCrash,
     guarded_call,
     perturb_json,
+    perturb_payload,
     perturb_tokens,
 )
 from apex_tpu_torch.utils.integrity import (
@@ -151,9 +170,10 @@ _LADDER_TOP = 3
 # 1-token probe, so acceptance is measured again and the cap can climb
 _SPEC_PROBE_EVERY = 16
 # the FaultPlan sites that take only "corrupt" specs: the spill tier's
-# write and read (A.3 item 16), the periodic checkpoint, and migration
-# records out and in (item 19). The spill and migration sites never fire
-# in this engine, as in a JAX engine without a spill tier or migrations.
+# write and read, the periodic checkpoint, and migration records out and
+# in. The spill sites fire when a spill tier is configured; the migration
+# sites never fire in this engine (ROADMAP A.3 item 19), as in a JAX
+# engine without migrations.
 _INTEGRITY_SITES = ("spill_put", "spill_get", "checkpoint",
                     "export", "import")
 
@@ -237,11 +257,15 @@ class TenantThrottledError(RuntimeError):
 
 class EngineStalledError(RuntimeError):
     """``has_work`` is true but a full ``step()`` made no progress;
-    ``engine_stats`` holds ``stats()`` at the stall."""
+    ``engine_stats`` holds ``stats()`` at the stall, ``recorder_tail`` the
+    flight recorder's last events when an observer was attached (else
+    None)."""
 
-    def __init__(self, message: str, stats: Dict[str, object]):
+    def __init__(self, message: str, stats: Dict[str, object],
+                 recorder_tail=None):
         super().__init__(f"{message} (stats: {stats})")
         self.engine_stats = stats
+        self.recorder_tail = recorder_tail
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +284,11 @@ class EngineConfig:
     # None | "int8" | "fp8": quantized KV blocks with per-row scales
     kv_quantization: Optional[str] = None
     weight_quantization: Optional[str] = None  # None | "int8" | "fp8"
+    # the host-RAM spill tier: evicted and flushed prefix blocks are
+    # copied to a host store of at most this many payload bytes and
+    # re-admitted by upload (None: off). Needs enable_prefix_caching.
+    # Operational: it stays out of the snapshot fingerprint
+    spill_max_bytes: Optional[int] = None
     # > 0: draft-and-verify decoding with up to this many proposals a
     # lane (decode_steps is then unused: the verify forward is the
     # dispatch)
@@ -300,8 +329,13 @@ class EngineConfig:
     retry_backoff_s: float = 0.0
     # checkpoint() every N ticks into last_checkpoint (None: off)
     snapshot_interval_ticks: Optional[int] = None
-    # verify the checksum a snapshot carries at restore()
+    # verify the checksums of snapshots at restore() and of spilled
+    # blocks at every read
     verify_artifacts: bool = True
+    # every N ticks re-verify scrub_spill_blocks spill entries (round
+    # robin) and audit the allocator (None: off); operational
+    scrub_interval_ticks: Optional[int] = None
+    scrub_spill_blocks: int = 4
     seed: int = 0
 
     @property
@@ -332,6 +366,16 @@ class EngineConfig:
             raise ValueError(
                 f"weight_quantization must be one of "
                 f"{WEIGHT_QUANT_MODES}, got {self.weight_quantization!r}")
+        if self.spill_max_bytes is not None:
+            if self.spill_max_bytes < 1:
+                raise ValueError(
+                    f"spill_max_bytes must be >= 1 (or None for no "
+                    f"spill tier), got {self.spill_max_bytes}")
+            if not self.enable_prefix_caching:
+                raise ValueError(
+                    "spill_max_bytes requires enable_prefix_caching: "
+                    "the spill tier is keyed by the prefix index's "
+                    "hash chains, and nothing registers without it")
         if self.spec_tokens < 0:
             raise ValueError(
                 f"spec_tokens must be >= 0, got {self.spec_tokens}")
@@ -405,6 +449,15 @@ class EngineConfig:
                 f"spec acceptance thresholds must satisfy 0 <= low <= "
                 f"high <= 1, got low={self.spec_accept_low} "
                 f"high={self.spec_accept_high}")
+        if (self.scrub_interval_ticks is not None
+                and self.scrub_interval_ticks < 1):
+            raise ValueError(
+                f"scrub_interval_ticks must be >= 1 (or None for no "
+                f"background scrubbing), got {self.scrub_interval_ticks}")
+        if self.scrub_spill_blocks < 1:
+            raise ValueError(
+                f"scrub_spill_blocks must be >= 1, got "
+                f"{self.scrub_spill_blocks}")
 
 
 @dataclasses.dataclass
@@ -715,10 +768,13 @@ class InferenceEngine:
     default) is what deadlines, the tenant token rates and the service
     EWMAs read. ``faults`` (a :class:`~apex_tpu_torch.utils.faults.
     FaultPlan`) fires at ``"prefill"``, ``"decode"``, ``"draft"`` and
-    ``"checkpoint"``."""
+    ``"checkpoint"``, and with a spill tier at ``"spill_put"`` and
+    ``"spill_get"``. ``obs`` (an :class:`~apex_tpu_torch.observability.
+    Observability`) observes; it reads the engine's clock and nothing of
+    the device."""
 
     def __init__(self, model, config: EngineConfig, *, drafter=None,
-                 clock=None, device=None, faults=None):
+                 clock=None, device=None, faults=None, obs=None):
         self.device = resolve_device(device)
         self.config = config
         self.faults = faults
@@ -748,6 +804,12 @@ class InferenceEngine:
                     f"and 'corrupt' dispatch faults are supported at "
                     f"'decode' only (docs/robustness.md)")
         self._clock = time.monotonic if clock is None else clock
+        # observation only: no decision reads observer state, and every
+        # observer timestamp comes from the engine's clock
+        self._obs = obs
+        # (dispatch time, dispatch number) of the decode in flight, kept
+        # only for an observer's dispatch-to-drain span
+        self._pending_obs = None
         if config.spec_tokens > 0:
             self.drafter = NgramDrafter() if drafter is None else drafter
         elif drafter is not None:
@@ -760,10 +822,21 @@ class InferenceEngine:
         self._draft_plan: Dict[int, List[int]] = {}
         model = model.to(self.device)
         self._weight_bytes = gpt_param_bytes(model)
+        fp_bytes = self._weight_bytes
         if config.weight_quantization is not None:
             model = quantize_gpt_model(model, config.weight_quantization)
             self._weight_bytes = gpt_param_bytes(model)
         self.model = model.eval()
+        if obs is not None:
+            obs.bind_engine(self._clock)
+            obs.gauge("kv_quant_mode",
+                      QUANT_MODE_CODES[config.kv_quantization])
+            obs.gauge("weight_quant_mode",
+                      QUANT_MODE_CODES[config.weight_quantization])
+            if config.weight_quantization is not None:
+                obs.record("dequant_gemm",
+                           mode=config.weight_quantization,
+                           fp_bytes=fp_bytes, quant_bytes=self._weight_bytes)
         cfg = model.cfg
         if config.max_seq_len > cfg.max_position_embeddings:
             raise ValueError(
@@ -790,6 +863,21 @@ class InferenceEngine:
                                  dtype=config.kv_dtype))
         self.allocator = BlockAllocator(config.num_blocks,
                                         block_weight=self._block_weight)
+        # the host spill tier: the allocator copies evicted and flushed
+        # blocks into it, _admit re-admits them by upload
+        self.spill: Optional[HostSpillStore] = None
+        self._spill_hits = 0
+        self._spill_misses = 0
+        self._num_scrubs = 0
+        self._num_scrub_blocks_verified = 0
+        if config.spill_max_bytes is not None:
+            self.spill = HostSpillStore(
+                config.spill_max_bytes, verify=config.verify_artifacts,
+                # the fault seam exists only where a plan does
+                corrupt_hook=(self._corrupt_payload_hook
+                              if faults is not None else None),
+                on_corrupt=self._note_corruption)
+            self.allocator.attach_spill(self.spill, self._spill_payload)
         self.slots: List[Optional[_Slot]] = [None] * config.max_batch
         self.waiting = _WaitingQueue(weights=config.tenant_weights,
                                      quantum=config.drr_quantum)
@@ -927,6 +1015,8 @@ class InferenceEngine:
         self._tenant_seen.add(request.tenant)
         reason = self._door_throttle_reason(request)
         if reason is not None:
+            if self._obs is not None:
+                self._obs.note_shed(uid, "throttled", queued=False)
             self.finished[uid] = []
             self._set_status(request, "throttled")
             self._num_throttled += 1
@@ -936,6 +1026,10 @@ class InferenceEngine:
         if (self.config.max_waiting is not None
                 and len(self.waiting) >= self.config.max_waiting):
             self._num_rejected_queue_full += 1
+            if self._obs is not None:
+                # the request never entered (no status), but the trace
+                # shows the refusal
+                self._obs.note_shed(uid, "queue_full", queued=False)
             raise QueueFullError(
                 f"request {uid!r} rejected: waiting queue is at "
                 f"max_waiting ({self.config.max_waiting})")
@@ -947,6 +1041,10 @@ class InferenceEngine:
         self.waiting.append(_QueueEntry(request=request, arrival=arrival,
                                         enq_t=enq_t,
                                         enq_tick=self._num_ticks))
+        if self._obs is not None:
+            self._obs.note_enqueue(uid, tenant=request.tenant,
+                                   priority=request.priority,
+                                   prompt_len=n, t=enq_t)
         self._arrival_count += 1
         self._queue_depth_peak = max(self._queue_depth_peak,
                                      len(self.waiting))
@@ -1002,12 +1100,24 @@ class InferenceEngine:
         """Step until every request is terminal. Returns ``{uid:
         tokens}``, or ``{uid: RequestResult}`` with ``return_status``.
         Raises :class:`EngineStalledError` when a full step makes no
-        progress while work remains."""
-        while self.has_work:
-            if not self.step():
-                raise EngineStalledError(
-                    "engine has work but a full step made no progress",
-                    self.stats())
+        progress while work remains; with an observer, an exception that
+        escapes writes its crash dump first."""
+        try:
+            while self.has_work:
+                if not self.step():
+                    tail = None
+                    if self._obs is not None:
+                        self._obs.record("stall")
+                        if self._obs.recorder is not None:
+                            tail = self._obs.recorder.tail()
+                    raise EngineStalledError(
+                        "engine has work but a full step made no progress",
+                        self.stats(), recorder_tail=tail)
+        except Exception as e:
+            if self._obs is not None:
+                # the post-mortem; the exception goes on
+                self._obs.crash_dump(e)
+            raise
         out, self.finished = self.finished, {}
         statuses, self.statuses = self.statuses, {}
         self._stream.clear()
@@ -1021,7 +1131,8 @@ class InferenceEngine:
         """One tick: the ladder, expire deadlines, admit, one prefill
         chunk, drain the previous decode, expire and admit again, then
         dispatch one K-step decode over every started lane, and with
-        ``snapshot_interval_ticks`` a checkpoint. Returns whether
+        ``scrub_interval_ticks`` a scrub, with ``snapshot_interval_ticks``
+        a checkpoint. Returns whether
         anything progressed (a quarantine counts)."""
         self._num_ticks += 1
         pre_shed = self._num_rejected_infeasible
@@ -1046,11 +1157,17 @@ class InferenceEngine:
                 entry = self.waiting.head()
                 need = blocks_needed(len(entry.request.prompt) + 1,
                                      self.config.block_size)
+                if self._obs is not None:
+                    self._obs.record("alloc_pressure",
+                                     uid=entry.request.uid, need=need)
                 raise CacheOutOfBlocks(
                     f"request {entry.request.uid!r} needs {need} blocks "
                     f"to admit but only {self.allocator.num_blocks} exist "
                     "in the pool")
+            self._maybe_scrub()
             self._maybe_checkpoint()
+            self._record_tick(admitted, chunked, synced, expired, shed,
+                              made)
             return made
         pre_preempt = self._num_preemptions
         pre_quarantine = self._num_quarantines
@@ -1066,7 +1183,10 @@ class InferenceEngine:
         progressed = bool(made or self._pending is not None
                           or self._num_preemptions > pre_preempt
                           or self._num_quarantines > pre_quarantine)
+        self._maybe_scrub()
         self._maybe_checkpoint()
+        self._record_tick(admitted, chunked, synced, expired, shed,
+                          progressed)
         return progressed
 
     def _maybe_checkpoint(self) -> None:
@@ -1076,12 +1196,42 @@ class InferenceEngine:
         if interval is not None and self._num_ticks % interval == 0:
             self.checkpoint()
 
+    def _record_tick(self, admitted: int, chunked: bool, synced: bool,
+                     expired: int, shed: int, progress: bool) -> None:
+        """One flight-recorder ``tick`` summary a ``step()``, only with a
+        recorder attached."""
+        obs = self._obs
+        if obs is None or obs.recorder is None:
+            return
+        obs.record(
+            "tick", tick=self._num_ticks, admitted=int(admitted),
+            chunked=bool(chunked), drained=bool(synced),
+            expired=int(expired), shed=int(shed),
+            progress=bool(progress),
+            active=sum(s is not None for s in self.slots),
+            waiting=len(self.waiting),
+            blocks_free=self.allocator.num_free,
+            level=self._degradation_level)
+
     def probe_prefix(self, hashes: Sequence[str]) -> int:
         """How many leading blocks of a chain this engine could serve
-        without recompute (read only: no references, no LRU change)."""
+        without recompute: the device index's match extended by the run
+        of hashes the spill tier holds (read only: no references, no LRU
+        change)."""
         if not self.config.enable_prefix_caching:
             return 0
-        return len(self.allocator.lookup_prefix(hashes))
+        n = len(self.allocator.lookup_prefix(hashes))
+        if self.spill is not None:
+            while n < len(hashes) and hashes[n] in self.spill:
+                n += 1
+        return n
+
+    def spilled_hashes(self) -> Dict[str, str]:
+        """Chain hash -> owning tenant of every entry in the spill tier
+        (empty without one)."""
+        if self.spill is None:
+            return {}
+        return self.spill.entry_tenants()
 
     @property
     def block_weight(self) -> float:
@@ -1109,12 +1259,17 @@ class InferenceEngine:
             expected_refcounts=expected,
             expected_tenant_refs=expected_tenants)
 
-    def stats(self) -> Dict[str, object]:
+    def stats(self, deep: bool = False) -> Dict[str, object]:
+        """The engine's counters; ``deep`` adds the observer's section
+        (``"observability"``: metric values, recorder and trace depth)
+        when one is attached."""
         alloc = self.allocator
+        spill = self.spill
         lookups = self._prefix_lookup_blocks
         drafted = self._num_draft_tokens
         waits = self._queue_wait_count
-        return {
+        spill_lookups = self._spill_hits + self._spill_misses
+        out = {
             "kv_quantization": self.config.kv_quantization,
             "weight_quantization": self.config.weight_quantization,
             "num_ticks": self._num_ticks,
@@ -1141,6 +1296,22 @@ class InferenceEngine:
             "prefix_cache_hit_rate": (self._prefix_hit_blocks / lookups
                                       if lookups else 0.0),
             "prompt_blocks_allocated": self._prompt_blocks_allocated,
+            # the spill tier: residency, traffic, re-admissions by block
+            # (`is not None`: an empty store is falsy)
+            "spill_blocks": len(spill) if spill is not None else 0,
+            "spill_bytes": spill.total_bytes if spill is not None else 0,
+            "num_blocks_spilled": spill.puts if spill is not None else 0,
+            "num_spill_evictions": (spill.evictions if spill is not None
+                                    else 0),
+            "spill_hits": self._spill_hits,
+            "spill_misses": self._spill_misses,
+            "spill_hit_rate": (self._spill_hits / spill_lookups
+                               if spill_lookups else 0.0),
+            "num_spill_refused": spill.refused if spill is not None else 0,
+            "num_spill_corrupt_discards": (spill.corrupt_discards
+                                           if spill is not None else 0),
+            "num_scrubs": self._num_scrubs,
+            "num_scrub_blocks_verified": self._num_scrub_blocks_verified,
             # overload: deadlines, queue depth and wait, sheds, the
             # service EWMAs and the ladder
             "num_timeouts": self._num_timeouts,
@@ -1199,6 +1370,9 @@ class InferenceEngine:
                                 for k in ("paged_read", "dequant_gemm",
                                           "kv_quant_write")},
         }
+        if deep and self._obs is not None:
+            out["observability"] = self._obs.deep_stats()
+        return out
 
     def _tenant_section(self) -> Dict[str, Dict[str, object]]:
         """``stats()["tenants"]``: a row a tenant seen (or holding
@@ -1231,9 +1405,9 @@ class InferenceEngine:
     def _config_fingerprint(self) -> Dict[str, object]:
         """The config as JSON-able values: a snapshot restores only into
         an engine of the same fingerprint. The operational knobs (retries,
-        overload, tenancy, ``spec_adapt``, the checkpoint cadence,
-        verification) change no token and stay out, so a restore into a
-        bigger queue or retry budget works; ``kv_dtype`` is the dtype's
+        overload, tenancy, ``spec_adapt``, the spill tier, the checkpoint
+        and scrub cadences, verification) change no token and stay out, so
+        a restore into a bigger queue, retry budget or spill bound works; ``kv_dtype`` is the dtype's
         plain name (``"float32"``, ``"bfloat16"``)."""
         d = {f.name: getattr(self.config, f.name)
              for f in dataclasses.fields(self.config)}
@@ -1245,9 +1419,10 @@ class InferenceEngine:
                      "free_block_low_watermark", "degrade_patience",
                      "degrade_admit_priority",
                      "tenant_weights", "tenant_quotas", "drr_quantum",
-                     "tenant_rate_tau_s",
+                     "tenant_rate_tau_s", "spill_max_bytes",
                      "spec_adapt", "spec_accept_low", "spec_accept_high",
-                     "snapshot_interval_ticks", "verify_artifacts"):
+                     "snapshot_interval_ticks", "verify_artifacts",
+                     "scrub_interval_ticks", "scrub_spill_blocks"):
             d.pop(knob, None)
         return d
 
@@ -1281,12 +1456,16 @@ class InferenceEngine:
         draining the in-flight decode (one host sync), so no emitted
         token is lost at its boundary. Resident lanes serialize as
         resumable entries (prompt, emitted tokens, arrival index) in
-        admission order, ahead of the waiting queue. The block tables and
-        the allocator ride along for audit only: KV contents do not
-        survive a process, and :meth:`restore` re-prefills them."""
+        admission order, ahead of the waiting queue. The block tables, the
+        allocator, the spill tier's counters and the observer's recorder
+        tail ride along for audit only: KV contents do not survive a
+        process, and :meth:`restore` re-prefills them."""
         self._drain_decode()
         self._num_snapshots += 1
-        return self._build_snapshot()
+        snap = self._build_snapshot()
+        if self._obs is not None:
+            self._obs.record("snapshot", requests=len(snap["requests"]))
+        return snap
 
     def checkpoint(self) -> Dict[str, object]:
         """:meth:`snapshot` without the drain (no host sync): the tokens
@@ -1298,6 +1477,9 @@ class InferenceEngine:
         snap = self._build_snapshot(lightweight=True)
         snap = self._maybe_corrupt_record("checkpoint", snap)
         self.last_checkpoint = snap
+        if self._obs is not None:
+            self._obs.record("snapshot", requests=len(snap["requests"]),
+                             lightweight=True)
         return snap
 
     def _build_snapshot(self, lightweight: bool = False
@@ -1359,6 +1541,25 @@ class InferenceEngine:
                 for _, i in live},
             "allocator": self.allocator.snapshot_state(),
         }
+        if self.spill is not None:
+            # audit only, as the allocator section: spilled bytes do not
+            # ride a snapshot, and a restored engine starts with an empty
+            # tier (restore never reads this)
+            snap["spill"] = dict(self.spill.stats(), audit_only=True,
+                                 hits=int(self._spill_hits),
+                                 misses=int(self._spill_misses),
+                                 scrub_cursor=int(
+                                     self.spill._scrub_cursor))
+        if self._obs is not None:
+            # audit only: the recorder tail and trace depth for a
+            # post-mortem; restore never reads observer state
+            audit = {"audit_only": True}
+            if self._obs.recorder is not None:
+                audit["recorder_tail"] = self._obs.recorder.tail()
+                audit["recorder_dropped"] = self._obs.recorder.dropped
+            if self._obs.tracer is not None:
+                audit["trace_events"] = len(self._obs.tracer)
+            snap["observability"] = audit
         if lightweight:
             snap["lightweight"] = True
         return seal_record(snap)
@@ -1387,8 +1588,8 @@ class InferenceEngine:
         if self.config.verify_artifacts:
             try:
                 verify_record(snap, "restore")
-            except IntegrityError:
-                self._num_corruptions_detected += 1
+            except IntegrityError as e:
+                self._note_corruption("restore", e.detail)
                 raise
         if snap.get("version") != 1:
             raise ValueError(
@@ -1428,6 +1629,13 @@ class InferenceEngine:
                 generated=[int(t) for t in rec["generated"]],
                 enq_t=now, enq_tick=self._num_ticks,
                 drr_charged=bool(rec.get("drr_charged", False))))
+            if self._obs is not None:
+                # a requeue, not an enqueue: its submit time belongs to
+                # the process that took the snapshot
+                self._obs.note_enqueue(req.uid, tenant=req.tenant,
+                                       priority=req.priority,
+                                       prompt_len=len(req.prompt),
+                                       requeue=True, t=now)
         self._arrival_count = int(snap["arrival_count"])
         self.finished.update({uid: [int(t) for t in toks]
                               for uid, toks in snap["finished"].items()})
@@ -1469,6 +1677,8 @@ class InferenceEngine:
             self._tenant_preemptions[t] = int(n)
         self._tenant_seen.update(tenancy.get("seen", ()))
         self._num_restores += 1
+        if self._obs is not None:
+            self._obs.record("restore", requests=len(snap["requests"]))
 
     # -- the tenant ledger ---------------------------------------------------
 
@@ -1552,10 +1762,12 @@ class InferenceEngine:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def _set_status(self, request: Request, status: str) -> None:
+    def _set_status(self, request: Request, status: str,
+                    lane: Optional[int] = None) -> None:
         """Every terminal transition: the drainable status, the request's
-        own field, the deadline and live sets, the tenant's tally and the
-        stream's terminal event."""
+        own field, the deadline and live sets, the tenant's tally, the
+        stream's terminal event and the observer's (``lane``: the lane it
+        left, None from the queue)."""
         self.statuses[request.uid] = status
         object.__setattr__(request, "status", status)
         self._deadline.pop(request.uid, None)
@@ -1563,6 +1775,8 @@ class InferenceEngine:
         tally = self._tenant_status.setdefault(request.tenant, {})
         tally[status] = tally.get(status, 0) + 1
         self._stream.append((request.uid, -1, True))
+        if self._obs is not None:
+            self._obs.note_terminal(request.uid, status, lane=lane)
         self._prune_tenant_if_idle(request.tenant)
 
     def _yield_key(self, idx: int):
@@ -1666,27 +1880,36 @@ class InferenceEngine:
             skips_prefill=bool(entry.generated) and uncached_tail <= 0)
         if est is None or self._clock() + est <= dl:
             return False
+        if self._obs is not None:
+            self._obs.note_shed(req.uid, "rejected", queued=True)
         self.waiting.popleft(below=below, skip=skip)  # exactly this entry
         self.finished[req.uid] = list(entry.generated)
         self._set_status(req, "rejected")
         self._num_rejected_infeasible += 1
         return True
 
-    def _note_admitted_wait(self, entry: _QueueEntry) -> None:
+    def _note_admitted_wait(self, entry: _QueueEntry):
+        """Count an admission's queue wait; returns ``(wait_s, now)``."""
         wait_ticks = self._num_ticks - entry.enq_tick
-        wait_s = max(0.0, self._clock() - entry.enq_t)
+        now = self._clock()
+        wait_s = max(0.0, now - entry.enq_t)
         self._queue_wait_count += 1
         self._queue_wait_ticks_sum += wait_ticks
         self._queue_wait_ticks_max = max(self._queue_wait_ticks_max,
                                          wait_ticks)
         self._queue_wait_s_sum += wait_s
         self._queue_wait_s_max = max(self._queue_wait_s_max, wait_s)
+        return wait_s, now
 
     def _admit(self) -> int:
         """Move waiting requests into free lanes while the pool covers
         their current need: the blocks through the first decode write
         (position L), less the longest cached block-aligned prefix,
-        which is shared by reference. Candidates come class by class,
+        which is shared by reference. The run of chain hashes that
+        continues that prefix in the spill tier is re-admitted by one
+        upload into fresh blocks instead of prefilled; a corrupt or
+        missing entry ends the run, and the blocks it would have covered
+        are prefilled. Candidates come class by class,
         weighted DRR across tenants within a class; the feasibility gate
         sheds an infeasible head; a head whose tenant would pass its
         ``max_resident_blocks`` is held (the tenant is skipped this pass,
@@ -1715,10 +1938,20 @@ class InferenceEngine:
                         entry.hashes = seq_block_hashes(seq, bs)
                     hashes = entry.hashes
                     matched = alloc.lookup_prefix(hashes)
-                m_tok = len(matched) * bs
+                # the spill run continues the device match: a spilled
+                # block past a gap is unreachable, as in the index
+                spill_run: List[str] = []
+                if self.spill is not None:
+                    j = len(matched)
+                    while j < len(hashes) and hashes[j] in self.spill:
+                        spill_run.append(hashes[j])
+                        j += 1
+                n_up = len(spill_run)
+                m_tok = (len(matched) + n_up) * bs
                 if self._shed_if_infeasible(entry, L - m_tok, below, skip):
                     continue
-                tail = blocks_needed(L, bs) - len(matched)
+                tail = blocks_needed(L, bs) - len(matched) - n_up
+                # uploads take fresh blocks too, so they count
                 need = blocks_needed(L + 1, bs) - len(matched)
                 tenant = entry.request.tenant
                 q = self._tenant_quota(tenant)
@@ -1731,6 +1964,9 @@ class InferenceEngine:
                             > q.max_resident_blocks + 1e-9):
                         if not self._tenant_has_resident(tenant):
                             # nothing of the tenant's will free a block
+                            if self._obs is not None:
+                                self._obs.note_shed(entry.request.uid,
+                                                    "throttled", queued=True)
                             self.waiting.popleft(below=below, skip=skip)
                             self.finished[entry.request.uid] = \
                                 list(entry.generated)
@@ -1745,9 +1981,45 @@ class InferenceEngine:
                     return admitted         # head-of-line blocking
                 alloc.acquire(matched, tenant=tenant)
                 self.waiting.popleft(below=below, skip=skip)
-                self._note_admitted_wait(entry)
-                blocks = matched + (alloc.alloc(tail, tenant=tenant)
-                                    if tail else [])
+                wait_s, admit_t = self._note_admitted_wait(entry)
+                if self._obs is not None:
+                    self._obs.note_admit(entry.request.uid, idx, wait_s,
+                                         cached_blocks=len(matched),
+                                         t=admit_t)
+                up_blocks: List[int] = []
+                if spill_run:
+                    # pop before the alloc: the alloc may evict cached
+                    # blocks into the store, whose byte bound could then
+                    # drop the very entries this admission probed. The
+                    # run stops at the first miss or corrupt entry; the
+                    # lost blocks are prefilled instead (the same number
+                    # of fresh blocks, so the checks above still hold)
+                    payloads = []
+                    for h in spill_run:
+                        p = self.spill.pop(h)
+                        if p is None:
+                            break
+                        payloads.append(p)
+                    if len(payloads) < n_up:
+                        tail += n_up - len(payloads)
+                        n_up = len(payloads)
+                        spill_run = spill_run[:n_up]
+                        m_tok = (len(matched) + n_up) * bs
+                if spill_run:
+                    up_blocks = alloc.alloc(n_up, tenant=tenant)
+                    self._upload_blocks(up_blocks, payloads)
+                    for h, nb in zip(spill_run, up_blocks):
+                        alloc.register_prefix(h, nb, tenant=tenant)
+                    self._spill_hits += n_up
+                    if self._obs is not None:
+                        self._obs.record("spill_upload",
+                                         uid=entry.request.uid, blocks=n_up)
+                if self.spill is not None:
+                    # misses by block, the hits' unit, counted only at a
+                    # committed admission
+                    self._spill_misses += len(hashes) - len(matched) - n_up
+                blocks = matched + up_blocks + (
+                    alloc.alloc(tail, tenant=tenant) if tail else [])
                 self._prefix_lookup_blocks += len(hashes)
                 self._prefix_hit_blocks += len(matched)
                 self._prompt_blocks_allocated += tail
@@ -1756,7 +2028,7 @@ class InferenceEngine:
                     entry=entry, admit_seq=self._admit_count, tokens=seq,
                     prefill_len=L, prefill_pos=m_tok, context_len=m_tok,
                     blocks=blocks, block_hashes=list(hashes),
-                    num_registered=len(matched), generated=[],
+                    num_registered=len(matched) + n_up, generated=[],
                     last_token=0, started=False)
                 if entry.generated and m_tok == L:
                     # resumed and fully cached: nothing to recompute
@@ -1812,7 +2084,9 @@ class InferenceEngine:
         table = np.full((1, self.max_blocks_per_seq), -1, np.int32)
         table[0, : len(slot.blocks)] = slot.blocks
         dev = self.device
-        attempt_s = [0.0]      # the successful attempt's service time
+        # the successful attempt's service time and start: the token is
+        # host-visible at their sum (its read is inside the attempt)
+        attempt_s = [0.0, 0.0]
 
         def attempt():
             # the chunk and the sampling of its token (a host read) in one
@@ -1839,6 +2113,7 @@ class InferenceEngine:
                         torch.tensor([sp.top_p], device=dev),
                         sp.temperature > 0)[0])
             attempt_s[0] = self._clock() - t0
+            attempt_s[1] = t0
             return tok
 
         try:
@@ -1851,6 +2126,9 @@ class InferenceEngine:
                                                  attempt_s[0])
         self._num_prefill_chunks += 1
         self._num_prefill_tokens += end - start
+        if self._obs is not None:
+            self._obs.note_prefill_chunk(slot.request.uid, idx, start, end,
+                                         attempt_s[1], attempt_s[0])
         slot.prefill_pos = end
         slot.context_len = max(slot.context_len, end)
         self._register_full_blocks(slot)
@@ -1864,7 +2142,7 @@ class InferenceEngine:
             slot.generated = list(slot.entry.generated)
             slot.last_token = slot.generated[-1]
             return True
-        self._record_token(idx, tok)
+        self._record_token(idx, tok, t_vis=attempt_s[1] + attempt_s[0])
         return True
 
     def _preempt_for(self, requester: int) -> bool:
@@ -1897,23 +2175,31 @@ class InferenceEngine:
         idx = max(cand, key=self._yield_key)
         tally = self._tenant_preemptions
         tally[tenant] = tally.get(tenant, 0) + 1
-        return self._preempt_slot(idx)
+        return self._preempt_slot(idx, reason="quota")
 
-    def _preempt_slot(self, idx: int) -> bool:
+    def _preempt_slot(self, idx: int, reason: str = "pool_pressure") -> bool:
         slot = self.slots[idx]
         gen = self._resume_tokens(slot)
         # deepest first, as _finish
         self.allocator.free(list(reversed(slot.blocks)),
                             tenant=slot.request.tenant)
+        requeue_t = self._clock()
         self.waiting.appendleft(_QueueEntry(
             request=slot.request, arrival=slot.entry.arrival,
-            generated=gen, enq_t=self._clock(), enq_tick=self._num_ticks,
+            generated=gen, enq_t=requeue_t, enq_tick=self._num_ticks,
             drr_charged=True))
         self._queue_depth_peak = max(self._queue_depth_peak,
                                      len(self.waiting))
         self.slots[idx] = None
         self._invalidate_lanes()
         self._num_preemptions += 1
+        if self._obs is not None:
+            self._obs.note_preempt(slot.request.uid, idx, reason=reason,
+                                   t=requeue_t)
+            self._obs.note_enqueue(slot.request.uid,
+                                   tenant=slot.request.tenant,
+                                   priority=slot.request.priority,
+                                   requeue=True, t=requeue_t)
         return True
 
     def _build_draft_plan(self, active: List[int]) -> None:
@@ -1966,6 +2252,9 @@ class InferenceEngine:
                 # out of retries, or a drafter bug: decode on without it
                 self._drafter_ok = False
                 self._num_drafter_quarantines += 1
+                if self._obs is not None:
+                    self._obs.record("drafter_quarantine")
+                    self._obs.incident("drafter_quarantine")
                 return
             clean: List[int] = []
             for t in list(props)[:cap]:
@@ -2016,6 +2305,10 @@ class InferenceEngine:
                         self._invalidate_lanes()
                     except CacheOutOfBlocks:
                         if not self._preempt_for(i):
+                            if self._obs is not None:
+                                self._obs.record(
+                                    "alloc_pressure", uid=slot.request.uid,
+                                    free=self.allocator.num_free)
                             raise CacheOutOfBlocks(
                                 f"request {slot.request.uid!r} cannot grow "
                                 f"past {slot.context_len} cached tokens: "
@@ -2034,6 +2327,10 @@ class InferenceEngine:
                     nb = self.allocator.alloc(1, tenant=tenant)[0]
                 except CacheOutOfBlocks:
                     if not self._preempt_for(i):
+                        if self._obs is not None:
+                            self._obs.record(
+                                "alloc_pressure", uid=slot.request.uid,
+                                free=self.allocator.num_free)
                         raise CacheOutOfBlocks(
                             f"request {slot.request.uid!r}: cannot "
                             "copy-on-write a shared block, pool exhausted "
@@ -2120,6 +2417,9 @@ class InferenceEngine:
             self._num_draft_tokens += drafted
             self._pending = (out, list(active),
                              {i: self.slots[i].request.uid for i in active})
+            if self._obs is not None:
+                self._pending_obs = (self._clock(),
+                                     self._num_decode_dispatches)
             return
 
     def _decode_program(self, active: List[int]):
@@ -2233,6 +2533,7 @@ class InferenceEngine:
             return False
         toks_dev, active, uids = self._pending
         self._pending = None
+        pending_obs, self._pending_obs = self._pending_obs, None
         corrupt_seed, self._pending_corrupt = self._pending_corrupt, None
         t_fetch = self._clock()
         try:
@@ -2252,18 +2553,33 @@ class InferenceEngine:
                 self._fetch_failures = 0
             else:
                 self._num_dispatch_retries += 1
+                if self._obs is not None:
+                    self._obs.record("fault_retry", site="decode_drain",
+                                     attempt=self._fetch_failures)
                 if self.config.retry_backoff_s > 0.0:
                     time.sleep(self.config.retry_backoff_s
                                * (2 ** (self._fetch_failures - 1)))
             self._reset_device_state()
             return True
         self._fetch_failures = 0
+        # the tokens are host-visible once the copy returned: t_end is
+        # their time (TTFT, inter-token times) and ends the fetch block
+        t_end = self._clock()
         self._ewma_decode_s = self._ewma_update(self._ewma_decode_s,
-                                                self._clock() - t_fetch)
+                                                t_end - t_fetch)
         counts = (toks >= 0).sum(axis=1)
         if corrupt_seed is not None:
             toks = perturb_tokens(toks, counts, self.model.cfg.vocab_size,
                                   corrupt_seed)
+        if self._obs is not None and pending_obs is not None:
+            # the dispatch is traced before its tokens replay, so each
+            # timeline reads decode, drain, terminal; aborted or refilled
+            # lanes are left out as the replay leaves them out
+            self._obs.note_decode_drained(
+                pending_obs[1], pending_obs[0], t_end, t_end - t_fetch,
+                [(uids[i], i, int(counts[i])) for i in active
+                 if self.slots[i] is not None
+                 and self.slots[i].request.uid == uids[i]])
         spec = self.config.spec_tokens > 0
         bs = self.config.block_size
         drafted_this = accepted_this = 0
@@ -2276,7 +2592,7 @@ class InferenceEngine:
                 slot.tokens.append(slot.last_token)     # its K/V landed
                 slot.context_len += 1
                 self._register_full_blocks(slot)
-                self._record_token(i, int(toks[i, j]))
+                self._record_token(i, int(toks[i, j]), t_vis=t_end)
                 if self.slots[i] is None:
                     break
             self._num_tokens_decoded += n
@@ -2312,20 +2628,33 @@ class InferenceEngine:
                     and self._spec_cap > 0):
                 self._spec_cap -= 1
                 self._num_spec_cap_shrinks += 1
+                if self._obs is not None:
+                    self._obs.record("spec_cap", cap=self._spec_cap,
+                                     direction="shrink",
+                                     ewma=self._spec_accept_ewma)
             elif (self._spec_accept_ewma > self.config.spec_accept_high
                     and self._spec_cap < self.config.spec_tokens):
                 self._spec_cap += 1
                 self._num_spec_cap_restores += 1
+                if self._obs is not None:
+                    self._obs.record("spec_cap", cap=self._spec_cap,
+                                     direction="restore",
+                                     ewma=self._spec_accept_ewma)
         return True
 
-    def _record_token(self, idx: int, token: int) -> None:
+    def _record_token(self, idx: int, token: int,
+                      t_vis: Optional[float] = None) -> None:
         """The one funnel of fresh tokens: the lane, the stream, the
-        tenant's count and rate; finishes on EOS or the budget."""
+        tenant's count and rate, the observer (``t_vis``: when the token
+        reached the host, a time the caller already read); finishes on
+        EOS or the budget."""
         slot = self.slots[idx]
         slot.generated.append(token)
         slot.last_token = token
         req = slot.request
         self._stream.append((req.uid, int(token), False))
+        if self._obs is not None:
+            self._obs.note_token(req.uid, t=t_vis)
         self._note_tenant_tokens(req.tenant, 1)
         if ((req.eos_token_id is not None and token == req.eos_token_id)
                 or len(slot.generated) >= req.max_new_tokens):
@@ -2341,16 +2670,21 @@ class InferenceEngine:
         self.finished[slot.request.uid] = self._resume_tokens(slot)
         # clear the lane first: the idle-tenant pruning must not see it
         self.slots[idx] = None
-        self._set_status(slot.request, status)
+        self._set_status(slot.request, status, lane=idx)
         self._invalidate_lanes()
 
     # -- faults and recovery -------------------------------------------------
 
     def _quarantine_slot(self, idx: int) -> None:
         """End a lane's request ``"failed"`` after its dispatches ran out
-        of retries (the tokens it emitted kept); the engine serves on."""
+        of retries (the tokens it emitted kept); the engine serves on. An
+        observer's recorder freezes its tail as an incident."""
+        uid = self.slots[idx].request.uid
         self._finish(idx, status="failed")
         self._num_quarantines += 1
+        if self._obs is not None:
+            self._obs.record("quarantine", uid=uid, lane=idx)
+            self._obs.incident("quarantine", uid=uid)
 
     def _guarded_dispatch(self, site: str, fn, *args):
         """``fn(*args)`` under :func:`guarded_call` at ``site``: the plan
@@ -2361,6 +2695,8 @@ class InferenceEngine:
 
         def count(attempt):
             self._num_dispatch_retries += 1
+            if self._obs is not None:
+                self._obs.record("fault_retry", site=site, attempt=attempt)
 
         out, _ = guarded_call(
             fn, *args, plan=self.faults, site=site,
@@ -2376,14 +2712,26 @@ class InferenceEngine:
         live = sorted(((s.admit_seq, i)
                        for i, s in enumerate(self.slots)
                        if s is not None), reverse=True)
+        if self._obs is not None:
+            self._obs.record("device_reset", residents=len(live),
+                             fetch_failures=self._fetch_failures)
+            self._obs.incident("device_reset")
         for _, i in live:    # youngest first, so the oldest lands at head
             slot = self.slots[i]
+            requeue_t = self._clock()
             self.waiting.appendleft(_QueueEntry(
                 request=slot.request, arrival=slot.entry.arrival,
                 generated=self._resume_tokens(slot),
-                enq_t=self._clock(), enq_tick=self._num_ticks,
+                enq_t=requeue_t, enq_tick=self._num_ticks,
                 drr_charged=True))
             self.slots[i] = None
+            if self._obs is not None:
+                self._obs.note_preempt(slot.request.uid, i,
+                                       reason="device_reset", t=requeue_t)
+                self._obs.note_enqueue(slot.request.uid,
+                                       tenant=slot.request.tenant,
+                                       priority=slot.request.priority,
+                                       requeue=True, t=requeue_t)
         self._queue_depth_peak = max(self._queue_depth_peak,
                                      len(self.waiting))
         self.allocator.reset()
@@ -2393,6 +2741,85 @@ class InferenceEngine:
                 t.zero_()
         self._draft_plan = {}
         self._invalidate_lanes()
+
+    # -- data integrity ------------------------------------------------------
+
+    def _corrupt_payload_hook(self, site: str, payload):
+        """The spill store's fault seam: fire the plan at the store's
+        site and, on a ``"corrupt"`` hit, return a copy with one byte
+        flipped (the rot its checksum exists to catch); the payload as it
+        was otherwise."""
+        self.faults.fire(site)
+        seed = self.faults.corrupt_seed(site)
+        if seed is None:
+            return payload
+        return perturb_payload(payload, seed)
+
+    def _note_corruption(self, site: str, detail: str) -> None:
+        """Every detection path ends here: one count in
+        ``num_corruptions_detected`` and one recorder event."""
+        self._num_corruptions_detected += 1
+        if self._obs is not None:
+            self._obs.record("corruption_detected", site=site,
+                             detail=str(detail))
+
+    def _maybe_scrub(self) -> None:
+        """Every ``scrub_interval_ticks``-th tick: re-verify
+        ``scrub_spill_blocks`` spill entries round robin (a corrupt one is
+        discarded; a later admission recomputes it) and audit the
+        allocator, which raises on a broken invariant (a corrupt ledger
+        has no safe degradation)."""
+        interval = self.config.scrub_interval_ticks
+        if interval is None or self._num_ticks % interval:
+            return
+        self._num_scrubs += 1
+        verified = corrupt = 0
+        if self.spill is not None:
+            verified, corrupt = self.spill.scrub(
+                self.config.scrub_spill_blocks)
+            self._num_scrub_blocks_verified += verified
+        self.check_allocator_integrity()
+        if self._obs is not None:
+            self._obs.record("scrub", verified=int(verified),
+                             corrupt=int(corrupt))
+
+    # -- the host spill tier ---------------------------------------------------
+
+    def _spill_payload(self, block_id: int):
+        """The allocator's spill fetch: one block's contents as CPU
+        tensors in the pool's dtype (scales included on a quantized pool).
+        Each is a blocking copy on the pool's stream, so the bytes are in
+        host memory, and fresh, when the store checksums them. Unlike the
+        JAX engine's fetch, this one catches nothing: a CUDA error is
+        sticky, and swallowing it would hide a dead device (ROADMAP
+        C8)."""
+        payload = {}
+        for key in ("k", "v", "k_scale", "v_scale"):
+            pool = getattr(self.cache, key)
+            if pool is not None:
+                payload[key] = pool[:, block_id].to("cpu", copy=True)
+        if self._obs is not None:
+            self._obs.record(
+                "spill", block=int(block_id),
+                bytes=int(sum(t.nbytes for t in payload.values())))
+        return payload
+
+    def _upload_blocks(self, block_ids: List[int], payloads) -> None:
+        """Write spilled payloads into blocks ``block_ids`` of the pool,
+        in place: one ``index_copy_`` a pool tensor, of the payloads
+        stacked on the block axis. The copy is of raw bytes (a uint8
+        view), so the uploaded blocks hold exactly the spilled bytes in
+        every dtype, fp8 included. The stacked host tensors are fresh and
+        the copy to the device returns after reading them."""
+        ids = torch.as_tensor(block_ids, dtype=torch.long,
+                              device=self.device)
+        for key in ("k", "v", "k_scale", "v_scale"):
+            pool = getattr(self.cache, key)
+            if pool is None:
+                continue
+            src = torch.stack([p[key] for p in payloads], dim=1)
+            pool.view(torch.uint8).index_copy_(
+                1, ids, src.to(self.device).view(torch.uint8))
 
     # -- the degradation ladder ----------------------------------------------
 
@@ -2434,6 +2861,9 @@ class InferenceEngine:
                 self._pressure_streak = 0
                 self._num_degrade_steps_down += 1
                 transition = True
+                if self._obs is not None:
+                    self._obs.record("ladder", direction="down",
+                                     level=self._degradation_level)
         else:
             self._clear_streak += 1
             self._pressure_streak = 0
@@ -2443,6 +2873,9 @@ class InferenceEngine:
                 self._clear_streak = 0
                 self._num_degrade_steps_up += 1
                 transition = True
+                if self._obs is not None:
+                    self._obs.record("ladder", direction="up",
+                                     level=self._degradation_level)
         if self._degradation_level >= 2:
             self._num_degrade_flushed_blocks += \
                 self.allocator.flush_evictable()

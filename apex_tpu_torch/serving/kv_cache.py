@@ -1,6 +1,6 @@
 """Paged KV cache for serving (counterpart of
-:mod:`apex_tpu.serving.kv_cache`, without the spill tier and the block
-shards).
+:mod:`apex_tpu.serving.kv_cache`, without the block shards and the
+fleet's shared prefix tier).
 
 The pools are ``[num_layers, num_blocks, block_size, num_heads,
 head_dim]`` tensors on the serving device, allocated once and updated IN
@@ -16,6 +16,12 @@ per-tenant ledger; sequences map positions to blocks through ``[B,
 max_blocks_per_seq]`` block tables whose unallocated entries hold
 ``num_blocks`` on the device (one past the pool): writes never land
 there and reads clip into the pool and are masked by context length.
+
+:class:`HostSpillStore` is the prefix cache's host-RAM tier: with one
+attached (:meth:`BlockAllocator.attach_spill`), a cached block the
+allocator evicts is first copied to host memory under its chain hash and
+tenant, with a SHA-256 checksum re-checked at every read, and a later
+prefix match re-admits it by upload instead of recompute.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +44,7 @@ from apex_tpu_torch.ops.kv_quant import (  # noqa: F401 (re-exported)
     quantize_kv_rows,
     quantize_kv_rows_with,
 )
+from apex_tpu_torch.utils.integrity import payload_checksum
 
 # the tenant every unlabelled caller is accounted to: single-tenant
 # traffic runs entirely under it, and allocation order never reads a
@@ -157,9 +164,9 @@ def hash_block_tokens(prev_hash: Optional[str],
 
 class BlockAllocator:
     """Host-side block-id accounting: a free list, reference counts, the
-    prefix-cache index and the per-tenant ledger (the JAX allocator
-    without shards or the spill tier; the same ids in the same order for
-    the same calls).
+    prefix-cache index, the per-tenant ledger and, when attached, the
+    host spill tier (the JAX allocator without shards; the same ids in
+    the same order for the same calls).
 
     A block id is **free** (on the free list; ``alloc`` hands it out at
     refcount 1, ascending ids first), **active** (refcount >= 1:
@@ -199,6 +206,10 @@ class BlockAllocator:
         self._evicted_by_tenant: Dict[str, int] = {}
         self._flushed_by_tenant: Dict[str, int] = {}
         self._tenant_charge_acc: Dict[str, float] = {}
+        # the host spill tier (attach_spill): evicted and flushed cached
+        # blocks are copied there before reuse
+        self.spill_store: Optional["HostSpillStore"] = None
+        self._spill_fetch = None
 
     # -- accounting ----------------------------------------------------------
 
@@ -265,13 +276,35 @@ class BlockAllocator:
 
     # -- alloc / free / share ------------------------------------------------
 
+    # -- the host spill tier ---------------------------------------------------
+
+    def attach_spill(self, store: "HostSpillStore", fetch) -> None:
+        """Wire the host spill tier in: every block :meth:`_evict_one`
+        drops (LRU pressure or a ladder flush; never :meth:`reset`) is
+        first copied to ``store`` under its chain hash and owning tenant,
+        its contents read by ``fetch(block_id) -> payload`` (the engine
+        owns the pool, so it owns the fetch; a fetch returning None skips
+        the spill). :meth:`register_prefix` discards the stored copy of a
+        hash the moment a device block is indexed under it, which keeps
+        the store disjoint from the device index."""
+        self.spill_store = store
+        self._spill_fetch = fetch
+
     def _evict_one(self, flushed: bool = False) -> int:
         """Unregister and return the least recently used cached block,
         counting it against its registering tenant (``flushed``: the
-        degradation ladder's flush counter)."""
+        degradation ladder's flush counter). With a spill tier attached
+        the block's contents are copied to the host store first, so the
+        eviction becomes a future upload instead of a recompute."""
         b, _ = self._evictable.popitem(last=False)
-        del self._hash_to_block[self._block_to_hash.pop(b)]
+        h = self._block_to_hash.pop(b)
+        del self._hash_to_block[h]
         owner = self._cached_owner.pop(b, None)
+        if self.spill_store is not None and self._spill_fetch is not None:
+            payload = self._spill_fetch(b)
+            if payload is not None:
+                self.spill_store.put(h, payload,
+                                     tenant=owner or DEFAULT_TENANT)
         if owner is not None:
             counter = (self._flushed_by_tenant if flushed
                        else self._evicted_by_tenant)
@@ -365,6 +398,10 @@ class BlockAllocator:
         self._hash_to_block[block_hash] = block_id
         self._block_to_hash[block_id] = block_hash
         self._cached_owner[block_id] = tenant
+        if self.spill_store is not None:
+            # a device block serves this hash now: the host copy is
+            # redundant (and would break the store's disjointness)
+            self.spill_store.discard(block_hash)
         return True
 
     def indexed_block(self, block_hash: str) -> Optional[int]:
@@ -427,7 +464,9 @@ class BlockAllocator:
 
     def reset(self) -> None:
         """Every block free, the index and the references empty
-        (``num_evictions`` and the eviction/flush counts kept)."""
+        (``num_evictions`` and the eviction/flush counts kept). Nothing
+        is spilled: reset follows a failed drain, and a pool that may be
+        poisoned is never copied to the host tier."""
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._ref.clear()
         self._hash_to_block.clear()
@@ -466,6 +505,7 @@ class BlockAllocator:
         bijection; cached blocks registered; no registered block free;
         the tenant split of each block summing to its refcount, and the
         running charges equal to the exact sums (then rebased to them);
+        the spill store disjoint from the index and within its bound;
         and, given the refcounts (and their tenant split) that the
         caller's own bookkeeping implies, an exact match."""
         free, active = set(self._free), set(self._ref)
@@ -514,6 +554,19 @@ class BlockAllocator:
         if stray_owner:
             raise ValueError(f"cached-owner entries for unregistered "
                              f"blocks: {sorted(stray_owner)}")
+        # the spill tier: disjoint from the device index (re-admission
+        # pops, registration discards) and within its byte bound
+        if self.spill_store is not None:
+            overlap = (set(self.spill_store.hashes())
+                       & set(self._hash_to_block))
+            if overlap:
+                raise ValueError(
+                    f"{len(overlap)} hash(es) both device-indexed and "
+                    f"spilled (e.g. {sorted(overlap)[:2]})")
+            if self.spill_store.total_bytes > self.spill_store.max_bytes:
+                raise ValueError(
+                    f"spill store holds {self.spill_store.total_bytes} "
+                    f"bytes, over its {self.spill_store.max_bytes} bound")
         exact: Dict[str, float] = {}
         for b, refs in self._tenant_refs.items():
             for t, n in refs.items():
@@ -558,6 +611,202 @@ def seq_block_hashes(tokens: Sequence[int], block_size: int) -> List[str]:
             prev, tokens[j * block_size: (j + 1) * block_size])
         hashes.append(prev)
     return hashes
+
+
+def payload_nbytes(payload: Dict[str, object]) -> int:
+    """The bytes of a payload's arrays (torch tensors or numpy arrays)."""
+    return sum(int(a.nbytes) for a in payload.values()
+               if isinstance(a, (torch.Tensor, np.ndarray)))
+
+
+class HostSpillStore:
+    """The host-RAM spill tier of the prefix cache: a bounded LRU of
+    evicted prefix blocks keyed by the chain hash the device index uses
+    (the JAX store's semantics and counters). Chain hashes are
+    comparable across engines, so a spilled block is re-admittable by any
+    engine of the same model and config.
+
+    An entry is one block's contents as CPU tensors in the pool's storage
+    dtype: ``{"k": [L, bs, H, D], "v": [L, bs, H, D]}``, plus
+    ``"k_scale"``/``"v_scale"`` (``[L, bs, H]`` fp32) on a quantized pool,
+    so a re-admitted block has the bytes it was spilled with. Torch
+    tensors hold bf16 and fp8 where numpy cannot. ``max_bytes`` bounds the
+    payload total: a put evicts least recently used entries past it, and
+    an entry larger than the whole bound is refused (counted as an
+    eviction too).
+
+    The store is an optimization, never identity: a miss means recompute,
+    and a hit is token-identical to recompute. With ``verify`` every entry
+    keeps a SHA-256 checksum taken at :meth:`put` and re-checked at every
+    read (:meth:`pop`, :meth:`export_entry`) and by :meth:`scrub`; a
+    mismatch discards the entry, counts it (``corrupt_discards``),
+    reports it through ``on_corrupt(site, block_hash)`` and reads as a
+    miss. ``corrupt_hook(site, payload) -> payload`` is the fault seam
+    (the engine's ``FaultPlan`` at ``"spill_put"`` and ``"spill_get"``)."""
+
+    def __init__(self, max_bytes: int, verify: bool = True,
+                 corrupt_hook=None, on_corrupt=None):
+        if max_bytes < 1:
+            raise ValueError(f"max_bytes must be >= 1, got {max_bytes}")
+        self.max_bytes = int(max_bytes)
+        self.verify = bool(verify)
+        self._corrupt_hook = corrupt_hook
+        self._on_corrupt = on_corrupt
+        # hash -> {"payload", "tenant", "bytes", "checksum"}; insertion
+        # order is LRU order (a put re-inserts)
+        self._entries: "OrderedDict[str, Dict[str, object]]" = \
+            OrderedDict()
+        self.total_bytes = 0
+        self.puts = 0              # lifetime blocks spilled in
+        self.evictions = 0         # entries dropped by the byte bound
+        self.refused = 0           # oversize entries never admitted
+        self.corrupt_discards = 0  # entries dropped on a checksum mismatch
+        self._scrub_cursor = 0     # round-robin position of scrub()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, block_hash: str) -> bool:
+        return block_hash in self._entries
+
+    def hashes(self):
+        return self._entries.keys()
+
+    def entry_tenants(self) -> Dict[str, str]:
+        """Chain hash -> owning tenant of every resident entry."""
+        return {h: str(rec["tenant"]) for h, rec in self._entries.items()}
+
+    def _drop(self, block_hash: str) -> None:
+        rec = self._entries.pop(block_hash)
+        self.total_bytes -= rec["bytes"]
+
+    def put(self, block_hash: str, payload: Dict[str, torch.Tensor],
+            tenant: str = DEFAULT_TENANT) -> bool:
+        """Insert (or refresh) a block at the most recently used end,
+        evicting least recently used entries past the byte bound. Returns
+        whether the entry is resident after the call."""
+        nbytes = payload_nbytes(payload)
+        if block_hash in self._entries:
+            self._drop(block_hash)
+        self.puts += 1
+        if nbytes > self.max_bytes:
+            self.evictions += 1
+            self.refused += 1
+            return False
+        # the checksum of the true bytes first, then the fault seam: a
+        # flip in host memory happens after the checksum was taken
+        checksum = payload_checksum(payload) if self.verify else None
+        if self._corrupt_hook is not None:
+            payload = self._corrupt_hook("spill_put", payload)
+        self._entries[block_hash] = {
+            "payload": payload, "tenant": tenant, "bytes": nbytes,
+            "checksum": checksum}
+        self.total_bytes += nbytes
+        while self.total_bytes > self.max_bytes:
+            self._drop(next(iter(self._entries)))
+            self.evictions += 1
+        return block_hash in self._entries
+
+    def _read_ok(self, block_hash: str, payload, checksum) -> bool:
+        """The read-side check against the put-time checksum; a mismatch
+        counts a corrupt discard and reports it (the caller turns it into
+        a miss)."""
+        if not self.verify or checksum is None:
+            return True
+        if payload_checksum(payload) == checksum:
+            return True
+        self.corrupt_discards += 1
+        if self._on_corrupt is not None:
+            self._on_corrupt("spill_get", block_hash)
+        return False
+
+    def pop(self, block_hash: str) -> Optional[Dict[str, torch.Tensor]]:
+        """Remove and return a block's payload: the re-admission read.
+        None on a miss or a checksum mismatch (the corrupt entry is
+        discarded and counted). Popping keeps the store disjoint from the
+        device index the caller is about to register the block in."""
+        rec = self._entries.get(block_hash)
+        if rec is None:
+            return None
+        self._drop(block_hash)
+        payload = rec["payload"]
+        if self._corrupt_hook is not None:
+            payload = self._corrupt_hook("spill_get", payload)
+        if not self._read_ok(block_hash, payload, rec.get("checksum")):
+            return None
+        return payload
+
+    def discard(self, block_hash: str) -> None:
+        if block_hash in self._entries:
+            self._drop(block_hash)
+
+    def export_entry(self, block_hash: str
+                     ) -> Optional[Dict[str, torch.Tensor]]:
+        """A copied payload for transport to another store (None on a
+        miss): a peek that leaves the entry and its recency as they were.
+        A checksum mismatch discards the entry and returns None."""
+        rec = self._entries.get(block_hash)
+        if rec is None:
+            return None
+        payload = {k: (v.clone() if isinstance(v, torch.Tensor)
+                       else np.array(v, copy=True))
+                   for k, v in rec["payload"].items()}
+        if self._corrupt_hook is not None:
+            payload = self._corrupt_hook("spill_get", payload)
+        if not self._read_ok(block_hash, payload, rec.get("checksum")):
+            self._drop(block_hash)
+            return None
+        return payload
+
+    def import_entry(self, block_hash: str,
+                     payload: Dict[str, torch.Tensor],
+                     tenant: str = DEFAULT_TENANT) -> bool:
+        """Insert a payload exported by another store: checked for its
+        K/V keys, then :meth:`put`. Returns whether it is resident."""
+        missing = [k for k in ("k", "v") if k not in payload]
+        if missing:
+            raise ValueError(
+                f"imported payload for {block_hash!r} is missing "
+                f"{missing} (expected the block's K/V arrays)")
+        return self.put(block_hash, payload, tenant=tenant)
+
+    def scrub(self, n: int) -> Tuple[int, int]:
+        """Re-verify up to ``n`` resident entries against their put-time
+        checksums, round robin from where the last scrub stopped, so rot
+        in a cold entry is found before an admission needs it. A corrupt
+        entry is discarded and counted as at a read. Returns
+        ``(verified, corrupt)``; (0, 0) without verification or
+        entries."""
+        if not self.verify or n < 1 or not self._entries:
+            return (0, 0)
+        hashes = list(self._entries.keys())
+        start = self._scrub_cursor % len(hashes)
+        scanned = min(int(n), len(hashes))
+        verified = corrupt = 0
+        for j in range(scanned):
+            h = hashes[(start + j) % len(hashes)]
+            rec = self._entries.get(h)
+            if rec is None or rec.get("checksum") is None:
+                continue
+            verified += 1
+            if payload_checksum(rec["payload"]) != rec["checksum"]:
+                self._drop(h)
+                self.corrupt_discards += 1
+                corrupt += 1
+                if self._on_corrupt is not None:
+                    self._on_corrupt("scrub", h)
+        self._scrub_cursor = start + scanned
+        return (verified, corrupt)
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "blocks": len(self._entries),
+            "bytes": int(self.total_bytes),
+            "puts": int(self.puts),
+            "evictions": int(self.evictions),
+            "refused": int(self.refused),
+            "corrupt_discards": int(self.corrupt_discards),
+        }
 
 
 def device_block_table(host_tables, num_blocks: int,

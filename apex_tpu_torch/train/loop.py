@@ -28,8 +28,14 @@ Robustness, all off by default:
   (:func:`~apex_tpu_torch.utils.checkpoint.save_train_state`);
   ``load_train_state`` into a fresh step and loop resumes bit-identically.
 
-Not ported yet: the observability hooks (``obs``, ROADMAP A.3 item 17),
-which raise.
+Observability: ``obs`` (an :class:`~apex_tpu_torch.observability.
+Observability`) gets the step histogram (``train_step_s``), the step,
+retry, non-finite and checkpoint counters, and the retries, watchdog
+actions and checkpoints as recorder events; ``stats(deep=True)`` adds its
+section. The step span includes device time: the port's step reads its
+overflow flag on the host, so the span waits for the step's gradients on
+the device (the JAX span is the dispatch alone). Nothing the loop decides
+reads the observer.
 """
 
 from __future__ import annotations
@@ -94,20 +100,21 @@ class TrainLoop:
     Keyword-only knobs: ``faults`` (a
     :class:`~apex_tpu_torch.utils.faults.FaultPlan`, fired at site
     ``"train_step"`` before each step), ``max_retries`` /
-    ``retry_backoff_s``, ``watchdog`` (a :class:`WatchdogConfig`), and
+    ``retry_backoff_s``, ``watchdog`` (a :class:`WatchdogConfig`),
     ``checkpoint_dir`` + ``checkpoint_every`` (a checkpoint every N
-    steps)."""
+    steps), and ``obs`` (an
+    :class:`~apex_tpu_torch.observability.Observability`)."""
 
     def __init__(self, train_step, state, *, faults=None,
                  max_retries: int = 2, retry_backoff_s: float = 0.0,
                  watchdog: Optional[WatchdogConfig] = None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0, obs=None):
-        if obs is not None:
-            raise NotImplementedError(
-                "TrainLoop(obs=...) is not ported yet (ROADMAP A.3 item 17)")
         self._train_step = train_step
         self.state = state
+        self._obs = obs
+        if obs is not None:
+            obs.bind_train()
         self._pending = None
         self._faults = faults
         self._max_retries = int(max_retries)
@@ -133,9 +140,15 @@ class TrainLoop:
         (fetched now, after this step was issued), ``None`` on the first
         call. Raises ``DispatchFailedError`` when the retries run out and
         :class:`NonFiniteLossError` at the watchdog's halt rung."""
+        obs = self._obs
+        t0 = obs.now() if obs is not None else 0.0
 
         def count(attempt):
             self._retries += 1
+            if obs is not None:
+                obs.record("fault_retry", site="train_step",
+                           attempt=attempt)
+                obs.inc("retries")
 
         (new_state, metrics), nan_hit = guarded_call(
             self._train_step, self.state, batch, plan=self._faults,
@@ -150,6 +163,13 @@ class TrainLoop:
                     else "loss"] = float("nan")
         prev, self._pending = self._pending, metrics
         out = None if prev is None else _to_host(prev)
+        if obs is not None:
+            # this step and the previous step's fetch
+            dt = obs.now() - t0
+            obs.inc("steps")
+            obs.observe("step", dt)
+            obs.record("train_step", step=self._steps_dispatched,
+                       host_span_s=dt)
         if out is not None:
             self._observe(out, raise_on_halt=True)
         self._maybe_checkpoint()
@@ -209,16 +229,26 @@ class TrainLoop:
             return
         self._nonfinite_run += 1
         self._watchdog_trips += 1
+        obs = self._obs
+        if obs is not None:
+            obs.inc("nonfinite")
         run = self._nonfinite_run
         if run <= wd.skip_steps:
             self._watchdog_skips += 1
+            if obs is not None:
+                obs.record("watchdog", action="skip", run=run)
         elif run <= wd.skip_steps + wd.rescale_steps:
             self._watchdog_rescales += 1
+            if obs is not None:
+                obs.record("watchdog", action="rescale", run=run)
             self._rescale(wd)
         elif raise_on_halt:
             # counted only when raised: a drain while unwinding may see
             # one more halt-level loss, the same failure
             self._watchdog_halts += 1
+            if obs is not None:
+                obs.record("watchdog", action="halt", run=run)
+                obs.incident("watchdog_halt", run=run)
             raise NonFiniteLossError(
                 f"loss non-finite for {run} consecutive steps "
                 f"(through {wd.skip_steps} skips and "
@@ -245,6 +275,10 @@ class TrainLoop:
                                 self._train_step)
         self._checkpoints_saved += 1
         self._last_checkpoint_step = int(self.state.step)
+        if self._obs is not None:
+            self._obs.inc("checkpoints")
+            self._obs.record("checkpoint",
+                             step=self._last_checkpoint_step, path=path)
         return path
 
     def _maybe_checkpoint(self) -> None:
@@ -253,9 +287,10 @@ class TrainLoop:
             return
         self.save_checkpoint()
 
-    def stats(self) -> Dict[str, Any]:
-        """The failure-path counters."""
-        return {
+    def stats(self, deep: bool = False) -> Dict[str, Any]:
+        """The failure-path counters; ``deep`` adds the observer's section
+        (``"observability"``) when one is attached."""
+        out = {
             "steps_dispatched": self._steps_dispatched,
             "dispatch_retries": self._retries,
             "watchdog_nonfinite": self._watchdog_trips,
@@ -265,3 +300,6 @@ class TrainLoop:
             "checkpoints_saved": self._checkpoints_saved,
             "last_checkpoint_step": self._last_checkpoint_step,
         }
+        if deep and self._obs is not None:
+            out["observability"] = self._obs.deep_stats()
+        return out

@@ -230,19 +230,28 @@ def corruption_seed(plan_seed: int, site: str, index: int) -> int:
 
 
 def perturb_payload(payload, seed: int):
-    """Flip one byte of one numpy array of a payload dict (a bit flip in
-    host memory after the checksum was taken); a new dict, only the
-    touched array copied."""
+    """Flip one byte of one array of a payload dict, a numpy array or a
+    torch tensor of any dtype (a bit flip in host memory after the
+    checksum was taken); a new dict, only the touched array copied (the
+    caller's tensor is left as it was)."""
     keys = sorted(k for k, v in payload.items()
-                  if isinstance(v, np.ndarray) and v.nbytes > 0)
+                  if isinstance(v, (np.ndarray, torch.Tensor))
+                  and v.nbytes > 0)
     out = dict(payload)
     if not keys:
         return out
     rng = np.random.RandomState(seed & 0xFFFFFFFF)
     k = keys[rng.randint(len(keys))]
-    a = np.array(payload[k], copy=True)
-    flat = a.view(np.uint8).reshape(-1)
-    flat[rng.randint(flat.size)] ^= np.uint8(1 + rng.randint(255))
+    v = payload[k]
+    if isinstance(v, torch.Tensor):
+        a = v.detach().clone()
+        flat = a.reshape(-1).view(torch.uint8)
+        i = rng.randint(flat.numel())
+        flat[i] = int(flat[i]) ^ (1 + rng.randint(255))
+    else:
+        a = np.array(v, copy=True)
+        flat = a.view(np.uint8).reshape(-1)
+        flat[rng.randint(flat.size)] ^= np.uint8(1 + rng.randint(255))
     out[k] = a
     return out
 

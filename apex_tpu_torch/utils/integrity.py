@@ -3,8 +3,11 @@
 inputs).
 
 - :func:`payload_checksum`: SHA-256 over a payload dict's arrays (key
-  names, dtypes, shapes, raw C-order bytes, in sorted key order); a torch
-  tensor is read through ``.cpu().numpy()``.
+  names, dtypes, shapes, raw C-order bytes, in sorted key order). A torch
+  tensor (CPU or CUDA, any dtype: fp32, bf16, int8, ``float8_e4m3fn``)
+  is read as its raw bytes and named by the dtype name numpy gives the
+  same array (``"bfloat16"``, ``"float8_e4m3fn"``), so the hex string
+  equals the JAX package's for the same bytes.
 - :func:`record_checksum`: SHA-256 over a JSON-able record's canonical
   encoding (sorted keys, compact separators) without its ``"checksum"``
   field, stable across a ``json.dumps``/``json.loads`` round trip.
@@ -38,25 +41,35 @@ class IntegrityError(RuntimeError):
         self.detail = detail
 
 
-def _as_array(a):
+def _parts(a):
+    """(dtype name, shape, raw C-order bytes) of an array value, or None.
+    A tensor's bytes go through a uint8 view (numpy holds no bf16 or fp8
+    without ``ml_dtypes``) and its dtype takes numpy's name for it."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return a
+        flat = a.detach().contiguous().reshape(-1)
+        return (str(a.dtype).replace("torch.", ""),
+                tuple(int(n) for n in a.shape),
+                flat.view(torch.uint8).cpu().numpy().tobytes())
+    if isinstance(a, np.ndarray):
+        a = np.ascontiguousarray(a)
+        return str(a.dtype), a.shape, a.tobytes()
+    return None
 
 
 def payload_checksum(payload: Mapping[str, object]) -> str:
-    """SHA-256 over the payload's array values (other values skipped):
-    two payloads checksum equal iff their arrays are equal."""
+    """SHA-256 over the payload's array values, numpy arrays or torch
+    tensors (other values skipped): two payloads checksum equal iff their
+    arrays are equal."""
     h = hashlib.sha256()
     for key in sorted(payload):
-        a = _as_array(payload[key])
-        if not isinstance(a, np.ndarray):
+        parts = _parts(payload[key])
+        if parts is None:
             continue
-        a = np.ascontiguousarray(a)
+        dtype, shape, raw = parts
         h.update(key.encode("utf-8"))
-        h.update(str(a.dtype).encode("ascii"))
-        h.update(repr(a.shape).encode("ascii"))
-        h.update(a.tobytes())
+        h.update(dtype.encode("ascii"))
+        h.update(repr(shape).encode("ascii"))
+        h.update(raw)
     return h.hexdigest()
 
 

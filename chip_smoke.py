@@ -293,6 +293,31 @@ losses climb the watchdog to its rescale rung (the loss scale halves
 twice). A ``{"phase13": ...}`` line records it; ``--only 13`` runs it
 alone.
 
+Phase 14 runs the host spill tier, then observability. 14a: multi-turn
+chat at GPT-2 small's width (phase 2's engine with prefix caching over
+320 blocks): round 1 is 16 conversations of 256-384 prompt tokens and 32
+new; round 2 each one's prompt, answer and a new turn of 32-64 tokens, 32
+new, after round 1's blocks were evicted. Arms: no spill tier; 1 GiB;
+128 MiB (the store's LRU evicts); int8 and fp8 pools at 1 GiB, each
+against the same pool at 1,024 blocks (nothing evicted); and 1 GiB under
+a plan corrupting every 5th ``spill_get`` and 7th ``spill_put`` with a
+scrub every 4 ticks. The spilling arms give the no-spill arm's tokens (a
+divergence passes only as a near-tie of the prefill and decode routes,
+since the no-spill arm recomputes what they upload), each quantized arm
+its never-evicted run's tokens exactly; the 1 GiB arm hits and prefills
+fewer tokens, the 128 MiB store evicts, the corrupt arm's discards equal
+its detections; exactly 12 B14 (and on int8/fp8 pools 12
+``kv_quant_write``) a forward, nothing routed. Host bytes, the upload's
+device ms per admission, the spill fetch's ms per block, the prefill
+tokens saved beside spill hits x 16 and round 2's wall are printed. 14b:
+phase 2's engine and traffic with an ``Observability`` against none: the
+same tokens and launches, the TTFT histogram counting 12 and the
+inter-token one the tokens less 12, the Chrome trace loading as JSON and
+``tools/trace_summary.py`` reading the dump; then ``TrainLoop(obs=)``
+over phase 13b's GPT-2 small for 3 steps, losses and every state tensor
+bitwise equal to the loop without it, the step histogram counting 3. A
+``{"phase14": ...}`` line records it; ``--only 14`` runs it alone.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -5210,7 +5235,8 @@ def restore_divergences(torch, model, config, reqs, ref, got, label, ties,
     passes only as a near-tie at its first token: greedy, the top-2 gap of
     both routes' logits under 1e-5 of their largest magnitude (phase 10's
     rule); sampled, the request's uniform within 1e-5 of a CDF boundary of
-    either route's filtered distribution. At most one in the phase."""
+    either route's filtered distribution. At most one in ``ties`` (one
+    list for phase 13a, one an arm in phase 14a)."""
     from apex_tpu_torch.serving.sampling import (_filtered_sorted_logits,
                                                  token_generator, uniforms)
 
@@ -5245,11 +5271,11 @@ def restore_divergences(torch, model, config, reqs, ref, got, label, ties,
                    sampled=sp.temperature > 0, measure=measure,
                    logits_absmax=amax)
         ties.append(rec)
-        print(f"[phase 13a divergence] {rec}", flush=True)
+        print(f"[divergence] {rec}", flush=True)
         check(tie, f"{label}: request {r.uid} diverges at token {j} and it "
               f"is not a near-tie ({measure:.3g})")
         check(len(ties) <= 1,
-              f"phase 13a: {len(ties)} near-ties, at most 1 allowed")
+              f"{label}: {len(ties)} near-ties, at most 1 allowed")
 
 
 def phase13_serving(torch, dev, seed, card, crash_at=14, cfg=None):
@@ -5621,6 +5647,429 @@ def phase13(torch, dev, seed, card):
     return rec
 
 
+# -- phase 14: the host spill tier, then observability ------------------------
+
+def chat_rounds(seed, vocab, n=16, prompt=(256, 385), turn=(32, 65), new=32):
+    """Multi-turn chat: round 1 is ``n`` conversations' first turns
+    (distinct prompts of ``prompt`` tokens); round 2, made from round 1's
+    answers by ``round2``, is each conversation's next turn. Greedy."""
+    import numpy as np
+
+    from apex_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed + 14)
+    first = [Request(f"c{i}t1", [int(t) for t in rng.randint(
+        0, vocab, int(rng.randint(*prompt)))], max_new_tokens=new)
+             for i in range(n)]
+    turns = [[int(t) for t in rng.randint(0, vocab, int(rng.randint(*turn)))]
+             for _ in range(n)]
+
+    def round2(answers):
+        return [Request(f"c{i}t2", list(r.prompt) + list(answers[r.uid])
+                        + turns[i], max_new_tokens=new)
+                for i, r in enumerate(first)]
+
+    return first, round2
+
+
+def serve_chat(torch, model, config, rounds, dev, label, faults=None):
+    """Both rounds of ``rounds`` through one engine (round 2 after round 1
+    finished), the launch counters set to 0 just before round 1 and read
+    after round 2. The spill fetch is timed on the host (a blocking copy
+    that waits for the dispatch in flight) and by CUDA events around its
+    copies; each admission's upload by CUDA events. Returns tokens,
+    counters, launches, forwards and the timings."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.serving import InferenceEngine
+
+    eng = InferenceEngine(model, config, device=dev, faults=faults)
+    cuda = dev.type == "cuda"
+    fetch_ms, fetch_dev_ms, upload_ms = [], [], []
+    fetch, upload = eng._spill_payload, eng._upload_blocks
+
+    def events(fn, into, *a):
+        if not cuda:
+            return fn(*a)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn(*a)
+        e1.record()
+        e1.synchronize()
+        into.append(e0.elapsed_time(e1))
+        return out
+
+    def timed_fetch(block_id):
+        t = time.perf_counter()
+        out = events(fetch, fetch_dev_ms, block_id)
+        fetch_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_upload(ids, payloads):
+        return events(upload, upload_ms, ids, payloads)
+
+    if eng.spill is not None:
+        # the allocator took the bound method at construction
+        eng.allocator._spill_fetch = timed_fetch
+        eng._upload_blocks = timed_upload
+    first, round2 = rounds
+    sync(torch, dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in first:
+        eng.add_request(r)
+    out = {u: list(t) for u, t in eng.run().items()}
+    sync(torch, dev)
+    t1 = time.perf_counter()
+    s1 = eng.stats()
+    second = round2(out)
+    for r in second:
+        eng.add_request(r)
+    out.update({u: list(t) for u, t in eng.run().items()})
+    sync(torch, dev)
+    t2 = time.perf_counter()
+    s = eng.stats()
+    for r in first + second:
+        toks = out.get(r.uid)
+        check(toks is not None and len(toks) == r.max_new_tokens,
+              f"phase 14a {label}: {r.uid} did not finish its budget")
+        check(all(0 <= t < model.cfg.vocab_size for t in toks),
+              f"phase 14a {label}: {r.uid} emitted an out-of-vocab token")
+    check(eng.allocator.num_used == 0, f"phase 14a {label}: blocks leaked")
+    eng.check_allocator_integrity()
+    per = 1 if config.spec_tokens else config.decode_steps
+    return dict(label=label, tokens=out, launches=dict(_build.launches),
+                forwards=s["num_prefill_chunks"]
+                + s["num_decode_dispatches"] * per,
+                stats={k: v for k, v in s.items() if k != "kernel_launches"},
+                round1_prefill_tokens=s1["num_prefill_tokens"],
+                round1_wall_s=t1 - t0, round2_wall_s=t2 - t1,
+                fetch_ms=fetch_ms, fetch_device_ms=fetch_dev_ms,
+                upload_ms=upload_ms)
+
+
+def phase14_spill(torch, dev, seed, card, cfg=None, num_blocks=320,
+                  roomy_blocks=1024, small_bytes=128 << 20, rounds_kw=None):
+    """14a: multi-turn chat through the spill tier at GPT-2 small's width
+    (phase 2's engine with prefix caching, ``num_blocks`` 320): round 1's
+    blocks are evicted before round 2 comes back. Arms: (i) no spill
+    tier; (ii) 1 GiB; (iii) 128 MiB (the store's own LRU evicts); (iv)
+    int8 and fp8 pools at 1 GiB, each against the same pool at
+    ``roomy_blocks`` blocks where nothing is evicted; (v) (ii) under a
+    plan that corrupts every 5th ``spill_get`` and 7th ``spill_put``,
+    scrubbing every 4 ticks. (ii), (iii) and (v) give (i)'s tokens (a
+    divergence passes only as a near-tie of the prefill and decode routes:
+    (i) recomputes what the others upload), each (iv) arm its roomy run's
+    tokens exactly; exactly 12 B14 a forward (and 12 ``kv_quant_write``
+    on int8/fp8 pools), nothing routed."""
+    from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from apex_tpu_torch.serving import EngineConfig
+    from apex_tpu_torch.serving.kv_cache import kv_block_bytes
+
+    cfg = cfg or GPTConfig.gpt2_small()
+    model = GPTLMHeadModel(cfg, device=dev, seed=seed)
+    L = cfg.num_layers
+    rounds = chat_rounds(seed, cfg.vocab_size, **(rounds_kw or {}))
+    base = EngineConfig(max_batch=8, block_size=16, num_blocks=num_blocks,
+                        max_seq_len=1024, prefill_chunk=128, decode_steps=8,
+                        enable_prefix_caching=True, seed=seed)
+    gib = 1 << 30
+    rep = dataclasses.replace
+    arms = [
+        ("(i) no spill", base, None),
+        ("(ii) spill 1 GiB", rep(base, spill_max_bytes=gib), None),
+        ("(iii) spill 128 MiB", rep(base, spill_max_bytes=small_bytes),
+         None),
+        ("(v) spill 1 GiB, corrupt get/5 put/7, scrub/4",
+         rep(base, spill_max_bytes=gib, scrub_interval_ticks=4),
+         [dict(site="spill_get", kind="corrupt", every=5),
+          dict(site="spill_put", kind="corrupt", every=7)]),
+    ]
+    for mode in ("int8", "fp8"):
+        q = rep(base, kv_quantization=mode)
+        arms += [(f"(iv) {mode} spill 1 GiB", rep(q, spill_max_bytes=gib),
+                  None),
+                 (f"(iv) {mode} {roomy_blocks} blocks",
+                  rep(q, num_blocks=roomy_blocks), None)]
+    runs = {}
+    for label, c, specs in arms:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec = serve_chat(torch, model, c, rounds, dev, label,
+                         faults=fault_plan(*specs) if specs else None)
+        launches, fw = rec["launches"], rec["forwards"]
+        check_no_route(launches, f"phase 14a {label}")
+        check(launches["paged_read"] == L * fw,
+              f"phase 14a {label}: {launches['paged_read']} B14 launches "
+              f"for {fw} forwards")
+        if c.kv_quantization is not None:
+            check(launches["kv_quant_write"] == L * fw,
+                  f"phase 14a {label}: {launches['kv_quant_write']} "
+                  f"kv_quant_write launches for {fw} forwards")
+        runs[label] = rec
+    s = {k: r["stats"] for k, r in runs.items()}
+    ref = runs["(i) no spill"]
+    ties = {}
+    for label in ("(ii) spill 1 GiB", "(iii) spill 128 MiB",
+                  "(v) spill 1 GiB, corrupt get/5 put/7, scrub/4"):
+        ties[label] = []
+        first, round2 = rounds
+        reqs = first + round2(ref["tokens"])
+        restore_divergences(torch, model, base, reqs, ref["tokens"],
+                            runs[label]["tokens"], f"phase 14a {label}",
+                            ties[label], dev)
+    for mode in ("int8", "fp8"):
+        a, b = (runs[f"(iv) {mode} spill 1 GiB"],
+                runs[f"(iv) {mode} {roomy_blocks} blocks"])
+        check(a["tokens"] == b["tokens"],
+              f"phase 14a {mode}: the spilling pool's tokens differ from "
+              f"the never-evicted pool's")
+        check(b["stats"]["num_cache_evictions"] == 0
+              and a["stats"]["spill_hits"] > 0,
+              f"phase 14a {mode}: roomy evictions "
+              f"{b['stats']['num_cache_evictions']}, spill hits "
+              f"{a['stats']['spill_hits']}")
+    two = s["(ii) spill 1 GiB"]
+    check(s["(i) no spill"]["num_cache_evictions"] > 0,
+          "phase 14a: round 1's blocks were never evicted")
+    check(two["spill_hits"] > 0 and two["num_prefill_tokens"]
+          < s["(i) no spill"]["num_prefill_tokens"],
+          f"phase 14a: spill hits {two['spill_hits']}, prefill tokens "
+          f"{two['num_prefill_tokens']} against "
+          f"{s['(i) no spill']['num_prefill_tokens']}")
+    check(s["(iii) spill 128 MiB"]["num_spill_evictions"] > 0,
+          "phase 14a: the 128 MiB store never evicted")
+    five = s["(v) spill 1 GiB, corrupt get/5 put/7, scrub/4"]
+    check(five["num_spill_corrupt_discards"]
+          == five["num_corruptions_detected"] > 0 and five["num_scrubs"] > 0,
+          f"phase 14a (v): {five['num_spill_corrupt_discards']} discards, "
+          f"{five['num_corruptions_detected']} detections, "
+          f"{five['num_scrubs']} scrubs")
+    block_bytes = kv_block_bytes(L, 16, cfg.num_heads,
+                                 cfg.hidden_size // cfg.num_heads)
+    rec = dict(card=card, num_blocks=num_blocks, block_bytes=block_bytes,
+               near_ties=ties, arms={})
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else 0.0
+
+    for label, r in runs.items():
+        st = r["stats"]
+        saved = s["(i) no spill"]["num_prefill_tokens"] \
+            - st["num_prefill_tokens"]
+        rec["arms"][label] = a = dict(
+            round1_wall_s=r["round1_wall_s"],
+            round2_wall_s=r["round2_wall_s"], forwards=r["forwards"],
+            launches=r["launches"], prefill_tokens=st["num_prefill_tokens"],
+            prefill_tokens_saved=saved,
+            spill_hits_x_block=st["spill_hits"] * 16,
+            host_bytes=st["spill_bytes"],
+            blocks_spilled=st["num_blocks_spilled"],
+            fetch_host_ms_per_block=mean(r["fetch_ms"]),
+            fetch_device_ms_per_block=mean(r["fetch_device_ms"]),
+            upload_device_ms_per_admission=mean(r["upload_ms"]),
+            uploads=len(r["upload_ms"]),
+            stats={k: st[k] for k in (
+                "num_cache_evictions", "spill_blocks", "spill_bytes",
+                "num_blocks_spilled", "num_spill_evictions", "spill_hits",
+                "spill_misses", "spill_hit_rate", "num_spill_refused",
+                "num_spill_corrupt_discards", "num_corruptions_detected",
+                "num_scrubs", "num_scrub_blocks_verified",
+                "prefix_hit_blocks", "num_prefill_tokens",
+                "num_prefill_chunks", "num_decode_dispatches",
+                "num_preemptions")})
+        print(f"[phase 14a {label}] {card}: host bytes {a['host_bytes']} "
+              f"({a['blocks_spilled']} blocks spilled) | upload "
+              f"{a['upload_device_ms_per_admission']:.3f} ms device per "
+              f"admission ({a['uploads']}) | spill fetch "
+              f"{a['fetch_host_ms_per_block']:.3f} ms host, "
+              f"{a['fetch_device_ms_per_block']:.3f} ms device per block | "
+              f"prefill tokens {a['prefill_tokens']}, saved {saved} beside "
+              f"spill hits x 16 = {a['spill_hits_x_block']} | round 2 wall "
+              f"{a['round2_wall_s']:.3f} s | B14 {r['launches']['paged_read']}"
+              f" for {r['forwards']} forwards, kv_quant_write "
+              f"{r['launches']['kv_quant_write']} | {a['stats']}",
+              flush=True)
+    del model
+    return rec
+
+
+def serve_observed(torch, model, config, reqs, dev, obs=None):
+    """Phase 2's two waves through one engine with ``obs`` (or none), the
+    launch counters set to 0 just before and read just after."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.serving import InferenceEngine
+
+    eng = InferenceEngine(model, config, device=dev, obs=obs)
+    sync(torch, dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs[:6]:
+        eng.add_request(r)
+    for _ in range(12):
+        eng.step()
+    for r in reqs[6:]:
+        eng.add_request(r)
+    out = {u: (list(r.tokens), r.status)
+           for u, r in eng.run(return_status=True).items()}
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    s = eng.stats(deep=True)
+    return dict(out=out, launches=dict(_build.launches), wall_s=wall,
+                forwards=s["num_prefill_chunks"]
+                + s["num_decode_dispatches"] * config.decode_steps,
+                stats={k: v for k, v in s.items()
+                       if k not in ("kernel_launches", "observability")},
+                observability=s.get("observability"))
+
+
+def phase14_observability(torch, dev, seed, card, cfg=None, train_kw=None):
+    """14b: phase 2's engine and traffic with an ``Observability`` against
+    the same run without one: the same tokens and the same kernels a
+    forward; the TTFT histogram counts the 12 requests, the inter-token
+    histogram their tokens less 12; the Chrome trace loads as JSON;
+    ``tools/trace_summary.py`` reads the dump (exit 0). Then
+    ``TrainLoop(obs=)`` over phase 13b's GPT-2 small (S 1024, B 4, bf16,
+    O2, deterministic mode) for 3 steps against the loop without it:
+    losses and parameters bitwise equal, the step histogram counting 3."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from apex_tpu_torch.observability import Observability
+    from apex_tpu_torch.serving import EngineConfig
+    from apex_tpu_torch.train import make_lm_batch
+
+    scfg = cfg or GPTConfig.gpt2_small()
+    model = GPTLMHeadModel(scfg, device=dev, seed=seed)
+    reqs = traffic(seed, scfg.vocab_size)
+    config = EngineConfig(max_batch=8, block_size=16, num_blocks=512,
+                          max_seq_len=1024, prefill_chunk=128,
+                          decode_steps=8, seed=seed)
+    L = scfg.num_layers
+    off = serve_observed(torch, model, config, reqs, dev)
+    obs = Observability()
+    on = serve_observed(torch, model, config, reqs, dev, obs=obs)
+    del model
+    for label, r in (("off", off), ("on", on)):
+        check_no_route(r["launches"], f"phase 14b serving {label}")
+        check(r["launches"]["paged_read"] == L * r["forwards"],
+              f"phase 14b serving {label}: {r['launches']['paged_read']} "
+              f"B14 launches for {r['forwards']} forwards")
+    check(on["out"] == off["out"], "phase 14b: tokens differ with an "
+          "observer attached")
+    check(on["launches"] == off["launches"]
+          and on["forwards"] == off["forwards"],
+          f"phase 14b: launches {on['launches']} with an observer, "
+          f"{off['launches']} without")
+    m = on["observability"]["metrics"]
+    tokens = sum(len(t) for t, _ in on["out"].values())
+    check(m["serving_ttft_s"]["count"] == len(reqs)
+          and m["serving_itl_s"]["count"] == tokens - len(reqs)
+          and m["serving_tokens_total"] == tokens,
+          f"phase 14b: TTFT count {m['serving_ttft_s']['count']}, ITL "
+          f"count {m['serving_itl_s']['count']} for {tokens} tokens")
+    trace = json.loads(json.dumps(obs.tracer.chrome_trace()))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    dump = out_dir / "phase14_obs_dump.json"
+    obs.dump_to(str(dump))
+    summary = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "trace_summary.py"),
+         str(dump)], capture_output=True, text=True, timeout=120)
+    check(summary.returncode == 0,
+          f"phase 14b: trace_summary exited {summary.returncode}: "
+          f"{summary.stderr[-2000:]}")
+    rec = dict(card=card, serving=dict(
+        wall_s_off=off["wall_s"], wall_s_on=on["wall_s"],
+        forwards=on["forwards"], launches=on["launches"],
+        trace_events=len(trace["traceEvents"]),
+        recorder_events=on["observability"]["recorder_events"],
+        ttft_s={k: m["serving_ttft_s"][k] for k in ("p50", "p90", "p99")},
+        itl_s={k: m["serving_itl_s"][k] for k in ("p50", "p90", "p99")},
+        decode_dispatch_s={k: m["serving_decode_dispatch_s"][k]
+                           for k in ("p50", "p90", "p99")},
+        prefill_dispatch_s={k: m["serving_prefill_dispatch_s"][k]
+                            for k in ("p50", "p90", "p99")}))
+    print(f"[phase 14b serving] {card}: tokens and launches equal with an "
+          f"observer ({on['forwards']} forwards, B14 "
+          f"{on['launches']['paged_read']}) | wall {off['wall_s']:.3f} s "
+          f"off, {on['wall_s']:.3f} s on | TTFT p50/p90/p99 "
+          f"{rec['serving']['ttft_s']} | ITL {rec['serving']['itl_s']} | "
+          f"decode dispatch {rec['serving']['decode_dispatch_s']} | "
+          f"{len(trace['traceEvents'])} trace events | trace_summary exit 0",
+          flush=True)
+
+    # the train loop with and without an observer, bit for bit
+    kw = dict(steps=3, B=4, S=1024)
+    kw.update(train_kw or {})
+    tcfg = GPTConfig(dtype=torch.bfloat16, remat=True,
+                     **kw.pop("cfg_kw", {}))
+    batches = [make_lm_batch(tcfg, kw["B"], kw["S"], seed=seed + 100 + i,
+                             device=dev, accum_steps=1)
+               for i in range(kw["steps"])]
+    runs = {}
+    with deterministic(torch):
+        for label in ("off", "on"):
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            tmodel, opt, ts = gpt_train_step(torch, tcfg, "O2", 1, seed, dev)
+            tobs = Observability() if label == "on" else None
+            loop = ts.loop(ts.init(), obs=tobs)
+            sync(torch, dev)
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = [mm["loss"] for mm in loop.run(batches)]
+            sync(torch, dev)
+            runs[label] = dict(
+                losses=losses, wall_s=time.perf_counter() - t0,
+                launches=dict(_build.launches),
+                state=[t.clone() for t in train_state_tensors(tmodel, opt)],
+                obs=tobs)
+            del tmodel, opt, ts, loop
+    a, b = runs["off"], runs["on"]
+    same = (len(a["state"]) == len(b["state"])
+            and all(torch.equal(x, y) for x, y in zip(a["state"],
+                                                     b["state"])))
+    check(a["losses"] == b["losses"] and same,
+          f"phase 14b training: losses {b['losses']} with an observer, "
+          f"{a['losses']} without; state equal {same}")
+    check(a["launches"] == b["launches"],
+          "phase 14b training: launches differ with an observer")
+    tm = b["obs"].metrics.as_dict()
+    check(tm["train_step_s"]["count"] == kw["steps"]
+          and tm["train_steps_total"] == kw["steps"],
+          f"phase 14b training: step histogram {tm['train_step_s']}")
+    rec["training"] = dict(
+        losses=a["losses"], tensors_compared=len(a["state"]),
+        wall_s_off=a["wall_s"], wall_s_on=b["wall_s"],
+        launches=b["launches"],
+        step_s={k: tm["train_step_s"][k] for k in ("count", "sum", "p50")})
+    print(f"[phase 14b training GPT-2 small S {kw['S']} B {kw['B']}] {card}: "
+          f"losses {a['losses']} and {len(a['state'])} state tensors "
+          f"bitwise equal with an observer | step histogram "
+          f"{rec['training']['step_s']} | wall {a['wall_s']:.2f} s off, "
+          f"{b['wall_s']:.2f} s on", flush=True)
+    for r in runs.values():
+        r.pop("state")
+    del runs
+    return rec
+
+
+def phase14(torch, dev, seed, card):
+    rec = dict(spill=phase14_spill(torch, dev, seed, card),
+               observability=phase14_observability(torch, dev, seed, card))
+    sp = rec["spill"]
+    print(json.dumps({"phase14": dict(
+        card=card, block_bytes=sp["block_bytes"], near_ties=sp["near_ties"],
+        arms={k: {kk: a[kk] for kk in (
+            "round2_wall_s", "prefill_tokens", "prefill_tokens_saved",
+            "spill_hits_x_block", "host_bytes", "fetch_host_ms_per_block",
+            "fetch_device_ms_per_block", "upload_device_ms_per_admission")}
+            for k, a in sp["arms"].items()},
+        observability=rec["observability"])}, default=str), flush=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5635,7 +6084,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
-                    "(10, 11, 12, 13), for iterating on one; prints no "
+                    "(10, 11, 12, 13, 14), for iterating on one; prints no "
                     "kernels or ok line")
     args = ap.parse_args(argv)
     if not (ROOT / "apex_tpu_torch" / "csrc").is_dir():
@@ -5688,6 +6137,9 @@ def main(argv=None):
         if "13" in only:
             out["phase13"] = timed("phase 13", phase13, torch, dev, seed,
                                    card)
+        if "14" in only:
+            out["phase14"] = timed("phase 14", phase14, torch, dev, seed,
+                                   card)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_only.json").write_text(json.dumps(
@@ -5737,6 +6189,7 @@ def main(argv=None):
     options = timed("phase 11", phase11, torch, dev, seed, card)
     pools = timed("phase 12", phase12, torch, dev, seed, card)
     faults = timed("phase 13", phase13, torch, dev, seed, card)
+    tiers = timed("phase 14", phase14, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the training phases 3-5 and 9, B2 and B1 also on the contrib
@@ -5749,6 +6202,9 @@ def main(argv=None):
                 + pools["tenancy"]["launches"][k]
                 + sum(a["launches"][k]
                       for a in faults["serving"]["arms"].values())
+                + sum(a["launches"][k]
+                      for a in tiers["spill"]["arms"].values())
+                + tiers["observability"]["serving"]["launches"][k]
                 for k in ("paged_read", "dequant_gemm", "kv_quant_write")}
     launches.update({k: sum(t["launches"][k] for t in (train, train128, gpt))
                      for k in ("dropout", "flash_fwd",
@@ -5771,10 +6227,10 @@ def main(argv=None):
         if k in launches:
             launches[k] += v
     # phase 11: the dots-remat BERT runs B1-B3 and B6/B8, the int8 GPT B15
-    # (the stock arms launch none); phase 13b's uninterrupted GPT-2 run
-    # B1-B3 and B9/B11a/B11b
+    # (the stock arms launch none); phase 13b's uninterrupted GPT-2 run and
+    # phase 14b's observed one B1-B3 and B9/B11a/B11b
     for arm in (options["bert"]["dots"], options["gpt"]["int8"],
-                faults["training"]):
+                faults["training"], tiers["observability"]["training"]):
         for k, v in arm["launches"].items():
             if k in launches:
                 launches[k] += v
@@ -5852,7 +6308,7 @@ def main(argv=None):
         amp_mnist=mnist, fused_optimizers=optimizers, parallel=parallel,
         serving_prefix_spec=serving, model_options=options,
         quantized_pools_tenancy=pools, faults_recovery=faults,
-        checks=checks,
+        spill_observability=tiers, checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

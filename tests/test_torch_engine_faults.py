@@ -272,7 +272,8 @@ def test_construction_checks_match_jax(tiny, case):
 
 def test_accepted_plans_and_config_validation(tiny):
     # nan at the train site riding in a shared plan, corrupt at every
-    # integrity site (the spill and migration sites never fire here)
+    # integrity site (the spill sites fire once a spill tier is
+    # configured, the migration sites never fire here)
     ok = [dict(site="train_step", kind="nan", at=(0,)),
           dict(site="decode", kind="corrupt", at=(0,))] + [
         dict(site=s, kind="corrupt", at=(0,))
@@ -280,7 +281,13 @@ def test_accepted_plans_and_config_validation(tiny):
     plan = pf.FaultPlan([pf.FaultSpec(**s) for s in ok])
     _engine("port", tiny, faults=plan)
     for kw, match in ((dict(max_dispatch_retries=-1), "max_dispatch"),
-                      (dict(snapshot_interval_ticks=0), "snapshot_interval")):
+                      (dict(snapshot_interval_ticks=0), "snapshot_interval"),
+                      (dict(enable_prefix_caching=True, spill_max_bytes=0),
+                       "spill_max_bytes"),
+                      (dict(spill_max_bytes=1 << 20),
+                       "requires enable_prefix_caching"),
+                      (dict(scrub_interval_ticks=0), "scrub_interval"),
+                      (dict(scrub_spill_blocks=0), "scrub_spill_blocks")):
         msgs = []
         for mod in (jax_engine_mod, port_engine_mod):
             with pytest.raises(ValueError, match=match) as ei:

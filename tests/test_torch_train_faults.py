@@ -29,6 +29,7 @@ from apex_tpu.utils import faults as jf
 from apex_tpu_torch import amp
 from apex_tpu_torch.amp.scaler import LossScaler
 from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+from apex_tpu_torch.observability import Observability
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.train import (
     NonFiniteLossError,
@@ -252,15 +253,21 @@ def test_loop_knobs(mlp, tmp_path):
     loop = _port_loop(mlp)
     with pytest.raises(ValueError, match="checkpoint_dir"):
         loop.save_checkpoint()
-    with pytest.raises(NotImplementedError, match="A.3 item 17"):
-        _port_loop(mlp, obs=object())
     with pytest.raises(ValueError, match="rung widths"):
         WatchdogConfig(skip_steps=-1)
-    loop = _port_loop(mlp, checkpoint_dir=str(tmp_path), checkpoint_every=3)
+    # an observed loop: its checkpoints are counted and recorded
+    obs = Observability()
+    loop = _port_loop(mlp, checkpoint_dir=str(tmp_path), checkpoint_every=3,
+                      obs=obs)
     loop.run(_batches(mlp, "port"))
     s = loop.stats()
     assert (s["checkpoints_saved"], s["last_checkpoint_step"]) == (2, 6)
     assert ck.latest_step(str(tmp_path)) == 6
+    m = loop.stats(deep=True)["observability"]["metrics"]
+    assert m["train_checkpoints_total"] == 2
+    assert m["train_steps_total"] == s["steps_dispatched"]
+    assert [e["step"] for e in obs.recorder.tail()
+            if e["kind"] == "checkpoint"] == [3, 6]
 
 
 # -- crash and resume of GPT tiny, dropout 0.1, amp O2 ------------------------

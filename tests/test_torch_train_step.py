@@ -24,6 +24,7 @@ from apex_tpu_torch.models.bert import (
     _walk,
     load_jax_params,
 )
+from apex_tpu_torch.observability import Observability
 from apex_tpu_torch.optimizers import FusedLAMB, FusedSGD
 from apex_tpu_torch.train import (
     TrainLoop,
@@ -224,8 +225,11 @@ def test_unported_knobs_raise_and_batches_are_checked():
     ts = build_train_step(loss_fn, opt, accum_steps=2)
     with pytest.raises(ValueError, match="accum_steps=2"):
         ts(ts.init(), {"x": torch.zeros(3, 1, 4)})
-    with pytest.raises(NotImplementedError, match="A.3 item 17"):
-        TrainLoop(ts, ts.init(), obs=object())
+    # an observed loop runs, and its step histogram counts the steps
+    obs = Observability()
+    loop = TrainLoop(ts, ts.init(), obs=obs)
+    loop.run([{"x": torch.ones(2, 3, 4)}] * 2)
+    assert obs.metrics.as_dict()["train_step_s"]["count"] == 2
     # the unity static scale: a plain step, metrics on the host
     state, m = ts(ts.init(), {"x": torch.ones(2, 3, 4)})
     assert state.step == 1 and not m["skipped"] and m["loss_scale"] == 1.0
