@@ -154,8 +154,9 @@ _SIGNATURES = {
     # out, n, seed, threshold, stream
     "flash_keep_mask": [_VP, _LL, _U, _U, _VP],
     # k_vals, v_vals, k_pool, v_pool, k_scale, v_scale, page, off, b, s,
-    # pos, n, S, H, D, layer, N, bs, in_dtype, pool_mode, stream
-    "kv_quant_write": [_VP] * 11 + [_LL] + [_I] * 8 + [_VP],
+    # pos, n, S, H, D, layer, N, bs, head_offset, in_dtype, pool_mode,
+    # stream
+    "kv_quant_write": [_VP] * 11 + [_LL] + [_I] * 9 + [_VP],
     # x, mask, y, rows, Sk, H, Sq, sb, sh, sq, dtype, scale, mask_mode,
     # fill, causal, stream
     "softmax_fwd": [_VP] * 3 + [_LL, _I, _I, _I, _LL, _LL, _LL, _I, _F, _I,

@@ -17,12 +17,14 @@
 // u is element e = h * D + d's noise: word e % 4 of Philox4x32-10 at
 // counter (e / 4, position, 0, 0) under key (0x51CA17, stream), shifted
 // right by 8 and scaled by 2^-24, so u is in [0, 1) on a 2^-24 grid; the
-// stream is 2 * layer for K and 2 * layer + 1 for V. The noise is a pure
-// function of (stream, absolute position, element): a token rounds the
-// same way in any lane, block, chunk or decode step. Every operation is
-// one IEEE fp32 operation rounded to nearest (__fdiv_rn, __fadd_rn, no
-// contraction), as the plain version's torch ops are, so the two write
-// the same bytes.
+// stream is 2 * layer for K and 2 * layer + 1 for V. h is the head's index
+// in the whole token row: a model shard's pool holds heads h0 .. h0 + H - 1
+// (head_offset h0), so its bytes are the unsharded pool's head slice. The
+// noise is a pure function of (stream, absolute position, element): a token
+// rounds the same way in any lane, block, chunk, decode step or shard.
+// Every operation is one IEEE fp32 operation rounded to nearest (__fdiv_rn,
+// __fadd_rn, no contraction), as the plain version's torch ops are, so the
+// two write the same bytes.
 //
 // Design: a warp per (token, head, K-or-V) row, four rows a block; a lane
 // holds D / 32 elements (at most 8, D up to 256), the row's max is a warp
@@ -54,7 +56,7 @@ __global__ void __launch_bounds__(kWarps * 32) kv_quant_write_kernel(
     const long long* __restrict__ page, const long long* __restrict__ off,
     const long long* __restrict__ bi, const long long* __restrict__ si,
     const long long* __restrict__ pos, long long n, int S, int H, int D,
-    int layer, int N, int bs) {
+    int layer, int N, int bs, int h0) {
   const int lane = threadIdx.x & 31;
   const long long task =
       static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
@@ -93,7 +95,7 @@ __global__ void __launch_bounds__(kWarps * 32) kv_quant_write_kernel(
       dst[d] = static_cast<int8_t>(
           __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3));
     } else {
-      const unsigned int e = static_cast<unsigned int>(h * D + d);
+      const unsigned int e = static_cast<unsigned int>((h0 + h) * D + d);
       const uint4 r = philox4x32_10_words(e >> 2, p, kSeed, stream);
       const float u =
           __fmul_rn(static_cast<float>(philox_word(r, e & 3) >> 8),
@@ -111,14 +113,15 @@ int launch(const void* k_vals, const void* v_vals, void* k_pool,
            void* v_pool, float* k_scale, float* v_scale,
            const long long* page, const long long* off, const long long* b,
            const long long* s, const long long* pos, long long n, int S,
-           int H, int D, int layer, int N, int bs, cudaStream_t stream) {
+           int H, int D, int layer, int N, int bs, int h0,
+           cudaStream_t stream) {
   long long blocks = (n * H * 2 + kWarps - 1) / kWarps;
   if (blocks < 1) blocks = 1;
   kv_quant_write_kernel<T, FP8><<<(unsigned int)blocks, kWarps * 32, 0,
                                   stream>>>(
       static_cast<const T*>(k_vals), static_cast<const T*>(v_vals),
       static_cast<int8_t*>(k_pool), static_cast<int8_t*>(v_pool), k_scale,
-      v_scale, page, off, b, s, pos, n, S, H, D, layer, N, bs);
+      v_scale, page, off, b, s, pos, n, S, H, D, layer, N, bs, h0);
   return (int)cudaGetLastError();
 }
 
@@ -127,15 +130,16 @@ int by_pool(int pool_mode, const void* k_vals, const void* v_vals,
             void* k_pool, void* v_pool, float* k_scale, float* v_scale,
             const long long* page, const long long* off, const long long* b,
             const long long* s, const long long* pos, long long n, int S,
-            int H, int D, int layer, int N, int bs, cudaStream_t stream) {
+            int H, int D, int layer, int N, int bs, int h0,
+            cudaStream_t stream) {
   if (pool_mode == 0)
     return launch<T, false>(k_vals, v_vals, k_pool, v_pool, k_scale, v_scale,
                             page, off, b, s, pos, n, S, H, D, layer, N, bs,
-                            stream);
+                            h0, stream);
   if (pool_mode == 1)
     return launch<T, true>(k_vals, v_vals, k_pool, v_pool, k_scale, v_scale,
                            page, off, b, s, pos, n, S, H, D, layer, N, bs,
-                           stream);
+                           h0, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -145,15 +149,17 @@ int by_pool(int pool_mode, const void* k_vals, const void* v_vals,
 // bfloat16, 2 float16); k_pool, v_pool: contiguous [L, N, bs, H, D] int8
 // (pool_mode 0) or fp8 e4m3 (pool_mode 1) bytes; k_scale, v_scale:
 // contiguous fp32 [L, N, bs, H]; page, off, b, s, pos: n int64
-// coordinates (write_coords), every page < N. n may be 0.
+// coordinates (write_coords), every page < N. n may be 0. head_offset: the
+// global index of the pool's first head (0 unsharded).
 extern "C" int kv_quant_write(const void* k_vals, const void* v_vals,
                               void* k_pool, void* v_pool, void* k_scale,
                               void* v_scale, const void* page,
                               const void* off, const void* b, const void* s,
                               const void* pos, long long n, int S, int H,
-                              int D, int layer, int N, int bs, int in_dtype,
-                              int pool_mode, void* stream) {
-  if (n < 0 || D < 1 || D > 32 * kMaxPer || H < 1)
+                              int D, int layer, int N, int bs,
+                              int head_offset, int in_dtype, int pool_mode,
+                              void* stream) {
+  if (n < 0 || D < 1 || D > 32 * kMaxPer || H < 1 || head_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ks = static_cast<float*>(k_scale);
@@ -165,13 +171,15 @@ extern "C" int kv_quant_write(const void* k_vals, const void* v_vals,
   const long long* ps = static_cast<const long long*>(pos);
   if (in_dtype == 0)
     return by_pool<float>(pool_mode, k_vals, v_vals, k_pool, v_pool, ks, vs,
-                          pg, of, bb, ss, ps, n, S, H, D, layer, N, bs, st);
+                          pg, of, bb, ss, ps, n, S, H, D, layer, N, bs,
+                          head_offset, st);
   if (in_dtype == 1)
     return by_pool<__nv_bfloat16>(pool_mode, k_vals, v_vals, k_pool, v_pool,
                                   ks, vs, pg, of, bb, ss, ps, n, S, H, D,
-                                  layer, N, bs, st);
+                                  layer, N, bs, head_offset, st);
   if (in_dtype == 2)
     return by_pool<__half>(pool_mode, k_vals, v_vals, k_pool, v_pool, ks, vs,
-                           pg, of, bb, ss, ps, n, S, H, D, layer, N, bs, st);
+                           pg, of, bb, ss, ps, n, S, H, D, layer, N, bs,
+                           head_offset, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -24,6 +24,15 @@ context), both on kernel B14 on the card. With
 The other products (the fp dense layers, the tied LM head) are plain
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
+The serving forward is one function for every mesh shape:
+:func:`sharded_serve_forward` over a model's :class:`GPTServeShard` s,
+the Megatron layout of the JAX ``gpt_param_pspec``
+(:func:`gpt_param_split`). On the serving mesh
+(:mod:`apex_tpu_torch.serving.mesh`) each shard runs its heads, the
+row-parallel partials are summed in shard order and each bias is added
+once; the model's own call is its one shard, which shares the model's
+weights.
+
 ``fused_kernels=False`` runs the reference's stock arm: the stock
 LayerNorm, the composed causal ``mha_reference`` and unfused dropout
 (none of the port's kernels on the card). A model built with
@@ -183,20 +192,23 @@ class QuantLinear(nn.Module):
 
 
 def _cached_attention(cfg, q, k, v, kv_cache, layer, block_tables,
-                      cache_positions, seq_lens, coords):
+                      cache_positions, seq_lens, coords, num_heads=None,
+                      head_offset: int = 0):
     """Write the chunk's K/V at ``coords`` (quantized, keyed by the
     positions they carry, into int8/fp8 pools), then attend through the
     block table: ``S == 1`` is the decode read, ``S > 1`` the chunked
-    prefill (or verify) read. Flat ``(B, S, h)`` in and out."""
+    prefill (or verify) read. Flat ``(B, S, h)`` in and out. A model
+    shard passes its ``num_heads`` (local) and the global index of its
+    first head (``head_offset``, the quantized write's rounding key)."""
     from apex_tpu_torch.serving.kv_cache import write_kv
 
     B, S, h = q.shape
-    nh = cfg.num_heads
+    nh = cfg.num_heads if num_heads is None else num_heads
     hd = h // nh
     scale = 1.0 / (hd ** 0.5)
     qh = q.reshape(B, S, nh, hd)
     write_kv(kv_cache, layer, coords, k.reshape(B, S, nh, hd),
-             v.reshape(B, S, nh, hd))
+             v.reshape(B, S, nh, hd), head_offset)
     k_scales = None if kv_cache.k_scale is None else kv_cache.k_scale[layer]
     v_scales = None if kv_cache.v_scale is None else kv_cache.v_scale[layer]
     if S == 1:
@@ -222,9 +234,10 @@ def _check_trainable(cfg: GPTConfig):
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN block: attention (the flash kernels in training, or the
-    composed ``mha_reference`` with ``fused_kernels`` off; the paged
-    cache in serving), then the GELU MLP."""
+    """Pre-LN block: attention (the flash kernels, or the composed
+    ``mha_reference`` with ``fused_kernels`` off), then the GELU MLP.
+    Serving runs the block's weights through :func:`serve_hidden` over
+    the paged cache."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -274,22 +287,6 @@ class GPTBlock(nn.Module):
         y = F.gelu(self.mlp_in(self.ln_2(x)).to(dt), approximate="tanh")
         y = self.mlp_out(y).to(dt)
         return x + self.dropout(y, seeds[2], deterministic)
-
-    def forward(self, x, kv_cache, layer, block_tables, cache_positions,
-                seq_lens, coords):
-        dt = self.cfg.dtype
-        y = self.ln_1(x)
-        q = self.attn_q(y).to(dt)
-        k = self.attn_k(y).to(dt)
-        v = self.attn_v(y).to(dt)
-        ctx = _cached_attention(self.cfg, q, k, v, kv_cache, layer,
-                                block_tables, cache_positions, seq_lens,
-                                coords).to(dt)
-        x = x + self.attn_out(ctx).to(dt)
-        y = self.ln_2(x)
-        # flax nn.gelu is the tanh approximation
-        y = F.gelu(self.mlp_in(y).to(dt), approximate="tanh")
-        return x + self.mlp_out(y).to(dt)
 
 
 class GPTModel(nn.Module):
@@ -360,25 +357,10 @@ class GPTModel(nn.Module):
 
     def _serve_forward(self, input_ids, kv_cache, block_tables,
                        cache_positions, seq_lens, write_start):
-        from apex_tpu_torch.serving.kv_cache import write_coords
-
-        cfg = self.cfg
-        # positions past the table (verify/prefill padding) clamp
-        pos = torch.clamp(cache_positions,
-                          max=cfg.max_position_embeddings - 1).long()
-        x = (self.wte[input_ids.long()] + self.wpe[pos]).to(cfg.dtype)
-        valid = cache_positions < seq_lens[:, None]
-        if write_start is not None:
-            valid = valid & (cache_positions >= write_start[:, None])
-        # one host sync a forward, shared by every layer's write; the
-        # coordinates carry each row's absolute position (the quantized
-        # write's rounding key)
-        coords = write_coords(block_tables, cache_positions, valid,
-                              kv_cache.num_blocks, kv_cache.block_size)
-        for i, block in enumerate(self.h):
-            x = block(x, kv_cache, i, block_tables, cache_positions,
-                      seq_lens, coords)
-        return self.ln_f(x)
+        # the one serving forward, over this model as its only shard
+        return serve_hidden([GPTServeShard(self, 0, 1, self.wte.device)],
+                            input_ids, [kv_cache], block_tables,
+                            cache_positions, seq_lens, write_start)
 
 
 class GPTLMHeadModel(nn.Module):
@@ -549,3 +531,235 @@ def load_jax_params(params_np, cfg: GPTConfig, device=None,
     for mod in (t, *t.h):
         mod.cfg = cfg
     return model.to(resolve_device(device))
+
+
+# -- model shards for the serving mesh ---------------------------------------
+
+# the Megatron split of the JAX gpt_param_pspec: the column-parallel modules
+# split their output columns (kernel, bias and quantized scale alike), the
+# row-parallel ones their input rows (the kernel only: bias and scale apply
+# after the partial products are summed)
+COL_PARALLEL = ("attn_q", "attn_k", "attn_v", "mlp_in")
+ROW_PARALLEL = ("attn_out", "mlp_out")
+
+
+def gpt_param_split(module: str, leaf: str) -> Optional[str]:
+    """How a GPT leaf splits over the serving mesh's model axis, by its
+    module and leaf names (the rule of the JAX ``gpt_param_pspec``):
+    ``"col"`` along its output dim (a column-parallel module's kernel,
+    bias and scale), ``"row"`` along its input dim (a row-parallel
+    kernel), None replicated (embeddings, norms, and a row-parallel
+    module's bias and scale)."""
+    if module in COL_PARALLEL:
+        return "col"
+    if module in ROW_PARALLEL and leaf == "kernel":
+        return "row"
+    return None
+
+
+def _own_copy(t, device):
+    """A contiguous buffer of its own on ``device``, never a view of
+    ``t`` (B15 refuses a strided weight rather than copy it per call)."""
+    return t.detach().to(device=device, copy=True,
+                         memory_format=torch.contiguous_format)
+
+
+def _on_device(module: nn.Module, device) -> nn.Module:
+    """A replicated module on ``device``: the module itself where its
+    parameters already lie there (shards on one device share it), else a
+    copy."""
+    p = next(module.parameters(), None)
+    if p is None or p.device == device:
+        return module
+    return copy.deepcopy(module).to(device)
+
+
+class ShardLinear:
+    """Model shard ``m`` of ``M`` of a :class:`~apex_tpu_torch.models.bert.
+    Dense` or :class:`QuantLinear`. ``"col"``: output columns ``[m n, (m +
+    1) n)`` of the kernel, with their bias and scale; its product is this
+    shard's slice of the output. ``"row"``: input rows ``[m n, (m + 1)
+    n)`` of the kernel; its product is a partial that the mesh sums, and
+    :meth:`finish` adds the (replicated) bias once, after the sum. Every
+    split weight is a contiguous buffer of its own, made once. At ``M ==
+    1`` the shard is the whole layer: it shares the layer's weights (a
+    copy only onto another device) and computes what the layer does,
+    bias included, with nothing to sum."""
+
+    def __init__(self, lin, split: str, m: int, M: int, device):
+        self.split = split
+        self.whole = M == 1
+        self.dtype = lin.dtype
+        self.quant = isinstance(lin, QuantLinear)
+        # kernel in the JAX (in, out) layout for quantized layers, torch's
+        # (out, in) for dense ones
+        kern = lin.kernel if self.quant else lin.weight
+        if self.whole:
+            self.kernel = kern.detach().to(device)
+            self.bias = lin.bias.detach().to(device)
+            self.scale = lin.scale.detach().to(device) if self.quant else None
+            return
+        out_dim = 1 if self.quant else 0
+        dim = out_dim if split == "col" else 1 - out_dim
+        n = kern.shape[dim] // M
+        self.kernel = _own_copy(kern.narrow(dim, m * n, n), device)
+        if split == "col":
+            self.bias = _own_copy(lin.bias[m * n:(m + 1) * n], device)
+            self.scale = (_own_copy(lin.scale[m * n:(m + 1) * n], device)
+                          if self.quant else None)
+        else:
+            self.bias = lin.bias.detach().to(device)
+            self.scale = lin.scale.detach().to(device) if self.quant else None
+
+    def jax_leaf(self, leaf: str) -> torch.Tensor:
+        """This shard's ``kernel``/``bias``/``scale`` in the JAX layout
+        (kernels ``(in, out)``), as the JAX mesh's addressable shard of
+        the same leaf holds it."""
+        if leaf == "kernel":
+            return self.kernel if self.quant else self.kernel.t()
+        return getattr(self, leaf)
+
+    def __call__(self, x):
+        dt = self.dtype
+        partial = self.split == "row" and not self.whole
+        if self.quant:
+            y = dequant_matmul(x, self.kernel, self.scale)
+            return y if partial else (y + self.bias).to(dt)
+        if partial:
+            return F.linear(x.to(dt), self.kernel.to(dt))
+        return F.linear(x.to(dt), self.kernel.to(dt), self.bias.to(dt))
+
+    def finish(self, summed):
+        """A row-parallel layer's output from the summed partials: the
+        bias added once, in the layer's dtype."""
+        if self.quant:
+            return (summed + self.bias).to(self.dtype)
+        return summed + self.bias.to(self.dtype)
+
+
+class GPTServeShard:
+    """Model shard ``m`` of ``M`` of a GPT LM (or its ``GPTModel``) for
+    serving, on ``device``: heads ``[m H / M, (m + 1) H / M)``, the
+    column-parallel linears' output columns and the row-parallel ones'
+    input rows (:class:`ShardLinear`, int8/fp8 kernels with their
+    scales), the embeddings and norms replicated (shared with the model
+    where it lies on ``device``)."""
+
+    def __init__(self, model, m: int, M: int, device):
+        cfg = model.cfg
+        if cfg.num_heads % M:
+            raise ValueError(f"model axis {M} must divide num_heads "
+                             f"({cfg.num_heads})")
+        t = getattr(model, "transformer", model)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.num_heads = cfg.num_heads // M
+        self.head_offset = m * self.num_heads
+        self.wte = t.wte.detach().to(self.device)
+        self.wpe = t.wpe.detach().to(self.device)
+        self.ln_f = _on_device(t.ln_f, self.device)
+        self.blocks = []
+        for block in t.h:
+            rec = {"ln_1": _on_device(block.ln_1, self.device),
+                   "ln_2": _on_device(block.ln_2, self.device)}
+            for name in COL_PARALLEL + ROW_PARALLEL:
+                rec[name] = ShardLinear(
+                    getattr(block, name), gpt_param_split(name, "kernel"),
+                    m, M, self.device)
+            self.blocks.append(rec)
+
+
+def sum_partials(parts):
+    """The row-parallel partials summed in shard order on the first one's
+    device: a plain add when they share it, else each copied there."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device)
+    return total
+
+
+def serve_hidden(shards, input_ids, caches, block_tables, cache_positions,
+                 seq_lens, write_start=None, all_reduce=None):
+    """The paged serving forward of one batch group over its model shards
+    (:class:`GPTServeShard`, ``caches[m]`` shard ``m``'s pool; the inputs
+    on ``shards[0]``'s device): the final norm's hidden states ``[B, S,
+    h]`` there.
+
+    Each shard normalizes the full width, projects its local q/k/v,
+    writes its heads' K/V (quantized with the global head index), reads
+    them through B14, and gives the row-parallel ``attn_out`` partial;
+    ``all_reduce(parts)`` sums the partials in shard order on
+    ``shards[0]``'s device (default: a plain sum), then the bias and the
+    residual follow there, and the MLP the same way. One shard has
+    nothing to sum: its layers are whole. The write coordinates take one
+    host sync a forward, shared by every layer and shard."""
+    from apex_tpu_torch.serving.kv_cache import write_coords
+
+    reduce = sum_partials if all_reduce is None else all_reduce
+    s0 = shards[0]
+    cfg = s0.cfg
+    dt = cfg.dtype
+    # positions past the table (verify/prefill padding) clamp
+    pos = torch.clamp(cache_positions,
+                      max=cfg.max_position_embeddings - 1).long()
+    x = (s0.wte[input_ids.long()] + s0.wpe[pos]).to(dt)
+    valid = cache_positions < seq_lens[:, None]
+    if write_start is not None:
+        valid = valid & (cache_positions >= write_start[:, None])
+    # the coordinates carry each row's absolute position (the quantized
+    # write's rounding key)
+    coords = write_coords(block_tables, cache_positions, valid,
+                          caches[0].num_blocks, caches[0].block_size)
+    # the inputs once a device
+    inputs = {}
+    for sh in shards:
+        d = sh.device
+        if d not in inputs:
+            inputs[d] = tuple(t.to(d) for t in (
+                block_tables, cache_positions, seq_lens)) + (
+                tuple(c.to(d) for c in coords),)
+
+    def on(t, d):
+        return t if t.device == d else t.to(d)
+
+    def rows(i, name, parts):
+        # a whole layer's output, or the partials summed and the bias added
+        if len(parts) == 1:
+            return parts[0]
+        return s0.blocks[i][name].finish(reduce(parts))
+
+    for i in range(cfg.num_layers):
+        parts = []
+        for sh, cache in zip(shards, caches):
+            blk = sh.blocks[i]
+            tables, positions, lens, crd = inputs[sh.device]
+            y = blk["ln_1"](on(x, sh.device))
+            q = blk["attn_q"](y).to(dt)
+            k = blk["attn_k"](y).to(dt)
+            v = blk["attn_v"](y).to(dt)
+            ctx = _cached_attention(cfg, q, k, v, cache, i, tables,
+                                    positions, lens, crd, sh.num_heads,
+                                    sh.head_offset).to(dt)
+            parts.append(blk["attn_out"](ctx))
+        x = x + rows(i, "attn_out", parts).to(dt)
+        parts = []
+        for sh in shards:
+            blk = sh.blocks[i]
+            y = blk["ln_2"](on(x, sh.device))
+            # flax nn.gelu is the tanh approximation
+            y = F.gelu(blk["mlp_in"](y).to(dt), approximate="tanh")
+            parts.append(blk["mlp_out"](y))
+        x = x + rows(i, "mlp_out", parts).to(dt)
+    return s0.ln_f(x)
+
+
+def sharded_serve_forward(shards, input_ids, caches, block_tables,
+                          cache_positions, seq_lens, write_start=None,
+                          all_reduce=None):
+    """:func:`serve_hidden` through the tied head: logits ``[B, S, V]``
+    fp32 on ``shards[0]``'s device."""
+    x = serve_hidden(shards, input_ids, caches, block_tables,
+                     cache_positions, seq_lens, write_start, all_reduce)
+    # the tied head: x @ wte^T with wte in x's dtype, accumulated and
+    # returned in fp32 (the JAX einsum's preferred_element_type)
+    return torch.matmul(x.float(), shards[0].wte.to(x.dtype).float().t())

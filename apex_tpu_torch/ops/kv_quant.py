@@ -16,7 +16,9 @@ position ``p`` takes word ``e % 4`` of the generator at counter ``(e //
 2^-24``. The stream is ``2 * layer`` for K and ``2 * layer + 1`` for V.
 So a token rounds the same way in any lane, block, chunk, ``decode_steps``
 or preemption, and :func:`quantize_kv_rows_with` fed the JAX noise gives
-the JAX bytes.
+the JAX bytes. ``h`` is the head's index in the whole token row: a model
+shard holding heads ``h0 .. h0 + H - 1`` of a sharded pool draws with
+``head_offset = h0``, so its bytes are the unsharded pool's head slice.
 
 :func:`kv_quant_write` writes one layer's valid K and V rows, payload and
 scales, at the coordinates of ``serving.kv_cache.write_coords``: one
@@ -80,16 +82,19 @@ def pool_quantization(dtype: torch.dtype) -> Optional[str]:
 
 
 def kv_quant_noise(stream: int, positions: torch.Tensor, num_heads: int,
-                   head_dim: int) -> torch.Tensor:
+                   head_dim: int, head_offset: int = 0) -> torch.Tensor:
     """The int8 rounding noise of rows at ``positions`` (int, any shape
     ``P``) in ``stream``: fp32 ``P + (num_heads, head_dim)`` in [0, 1),
-    a pure function of (stream, position, element)."""
+    a pure function of (stream, position, element). The heads are
+    ``head_offset .. head_offset + num_heads - 1`` of the token row."""
+    e0 = head_offset * head_dim
     E = num_heads * head_dim
-    groups = torch.arange(-(-E // 4), dtype=torch.int64,
+    groups = torch.arange(e0 // 4, -(-(e0 + E) // 4), dtype=torch.int64,
                           device=positions.device)
     pos = positions.reshape(-1, 1).long()
     words = philox_words(groups[None, :], pos, KV_QUANT_SEED, int(stream))
-    flat = words.reshape(pos.shape[0], 4 * groups.numel())[:, :E]
+    first = e0 - 4 * (e0 // 4)
+    flat = words.reshape(pos.shape[0], 4 * groups.numel())[:, first:first + E]
     u = (flat >> 8).to(torch.float32) * 2.0 ** -24
     return u.reshape(tuple(positions.shape) + (num_heads, head_dim))
 
@@ -115,18 +120,21 @@ def quantize_kv_rows_with(values: torch.Tensor,
 
 
 def quantize_kv_rows(values: torch.Tensor, positions: torch.Tensor,
-                     quantization: str, stream: int = 0):
+                     quantization: str, stream: int = 0,
+                     head_offset: int = 0):
     """Quantize ``[B, S, H, D]`` K/V rows at absolute ``positions`` ``[B,
-    S]`` with the noise of ``stream`` (:func:`kv_quant_noise`)."""
+    S]`` with the noise of ``stream`` (:func:`kv_quant_noise`); the rows
+    hold heads ``head_offset ..`` of the token row."""
     noise = None
     if quantization == "int8":
         noise = kv_quant_noise(stream, positions, values.shape[-2],
-                               values.shape[-1])
+                               values.shape[-1], head_offset)
     return quantize_kv_rows_with(values, noise, quantization)
 
 
 def kv_quant_write_plain(k_pool, v_pool, k_scale, v_scale, layer: int,
-                         coords, k_values, v_values) -> None:
+                         coords, k_values, v_values,
+                         head_offset: int = 0) -> None:
     """The plain version of :func:`kv_quant_write`: quantize the rows at
     ``coords`` (``(page, off, b, s, pos)``) and write payload and scales
     into ``layer`` of the pools, in place."""
@@ -135,7 +143,7 @@ def kv_quant_write_plain(k_pool, v_pool, k_scale, v_scale, layer: int,
     for pool, spool, vals, stream in (
             (k_pool, k_scale, k_values, 2 * layer),
             (v_pool, v_scale, v_values, 2 * layer + 1)):
-        q, sc = quantize_kv_rows(vals[b, s], pos, mode, stream)
+        q, sc = quantize_kv_rows(vals[b, s], pos, mode, stream, head_offset)
         pool[layer, page, off] = q
         spool[layer, page, off] = sc
 
@@ -175,17 +183,22 @@ def _check_cuda_args(k_pool, v_pool, k_scale, v_scale, coords, k_values,
 
 
 def kv_quant_write(k_pool, v_pool, k_scale, v_scale, layer: int, coords,
-                   k_values, v_values) -> None:
+                   k_values, v_values, head_offset: int = 0) -> None:
     """Quantize and write one layer's valid K and V rows (``[B, S, H,
     D]``) into int8/fp8 pools ``[L, N, bs, H, D]`` and their fp32 scales
     ``[L, N, bs, H]``, in place, at ``coords`` = ``(page, off, b, s,
-    pos)`` (int64, one entry a valid row). CUDA tensors launch the kernel
-    (once, also when no row is valid); CPU tensors run
-    :func:`kv_quant_write_plain`. Raises on an unsupported shape or
-    dtype, or a failed launch."""
+    pos)`` (int64, one entry a valid row). The pool holds heads
+    ``head_offset .. head_offset + H - 1`` of the token row (a model
+    shard's; the rounding noise is keyed by the global head). CUDA
+    tensors launch the kernel (once, also when no row is valid); CPU
+    tensors run :func:`kv_quant_write_plain`. Raises on an unsupported
+    shape or dtype, or a failed launch."""
+    if not head_offset >= 0:
+        raise ValueError(f"kv_quant_write: head_offset must be >= 0, got "
+                         f"{head_offset}")
     if k_pool.device.type == "cpu":
         kv_quant_write_plain(k_pool, v_pool, k_scale, v_scale, layer,
-                             coords, k_values, v_values)
+                             coords, k_values, v_values, head_offset)
         return
     mode = _check_cuda_args(k_pool, v_pool, k_scale, v_scale, coords,
                             k_values, v_values)
@@ -198,7 +211,7 @@ def kv_quant_write(k_pool, v_pool, k_scale, v_scale, layer: int, coords,
         v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         page.data_ptr(), off.data_ptr(), b.data_ptr(), s.data_ptr(),
         pos.data_ptr(), page.numel(), k_values.shape[1], H, D, int(layer),
-        N, bs, DTYPE_CODES[k_values.dtype], _POOL_MODE_CODES[mode],
-        _build.stream_ptr(k_pool.device))
+        N, bs, int(head_offset), DTYPE_CODES[k_values.dtype],
+        _POOL_MODE_CODES[mode], _build.stream_ptr(k_pool.device))
     _build.check(code, "kv_quant_write")
     _build.launches["kv_quant_write"] += 1

@@ -98,8 +98,26 @@ flight recorder and keeps the latency histograms (TTFT and inter-token
 times at the moment a token's copy reaches the host). Observation changes
 no token, counter or launch.
 
-Not in this engine: the mesh (ROADMAP A.3 item 18) and the fleet's
-migration surface and shared prefix tier (item 19).
+``mesh_shape`` (and ``mesh=``, a :func:`~apex_tpu_torch.serving.mesh.
+build_mesh` grid whose devices may repeat) serves the model over a
+``("batch", "model")`` grid of shards (:mod:`apex_tpu_torch.serving.
+mesh`): at model axis ``M > 1`` every forward runs each model shard's
+heads on its own pool and weight shards and sums the two row-parallel
+partials a block (counted ``all-reduce`` s, :meth:`InferenceEngine.
+audit_collectives`); at batch axis ``B > 1`` lanes and blocks split into
+``B`` groups, each running only its lanes against its own block range.
+Every shard's kernel is an ordinary single-device call. ``(1, 1)`` is the
+engine without a mesh.
+
+The replica and migration surface (:meth:`InferenceEngine.pop_results`,
+``load``, ``export_requests``, ``import_requests``,
+``export_prefix_payloads``, ``import_prefix_payloads``, ...) moves live
+requests between engines as sealed, layout-free records that keep their
+arrival index, so a migrated request continues its token stream on any
+engine of the same model and seed, at any mesh shape.
+
+Not in this engine: the fleet's router and its shared prefix tier
+(ROADMAP A.3 item 19b).
 """
 
 from __future__ import annotations
@@ -118,9 +136,11 @@ from apex_tpu_torch.models.gpt import (
     WEIGHT_QUANT_MODES,
     gpt_param_bytes,
     quantize_gpt_model,
+    sharded_serve_forward,
 )
 from apex_tpu_torch.observability import QUANT_MODE_CODES
 from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.serving import mesh as mesh_lib
 from apex_tpu_torch.serving.drafter import NgramDrafter
 from apex_tpu_torch.serving.kv_cache import (
     DEFAULT_TENANT,
@@ -128,7 +148,7 @@ from apex_tpu_torch.serving.kv_cache import (
     BlockAllocator,
     CacheOutOfBlocks,
     HostSpillStore,
-    KVCache,
+    ShardedKVCache,
     blocks_needed,
     copy_block,
     device_block_table,
@@ -155,7 +175,9 @@ from apex_tpu_torch.utils.faults import (
 )
 from apex_tpu_torch.utils.integrity import (
     IntegrityError,
+    payload_checksum,
     seal_record,
+    verify_payload,
     verify_record,
 )
 
@@ -170,10 +192,9 @@ _LADDER_TOP = 3
 # 1-token probe, so acceptance is measured again and the cap can climb
 _SPEC_PROBE_EVERY = 16
 # the FaultPlan sites that take only "corrupt" specs: the spill tier's
-# write and read, the periodic checkpoint, and migration records out and
-# in. The spill sites fire when a spill tier is configured; the migration
-# sites never fire in this engine (ROADMAP A.3 item 19), as in a JAX
-# engine without migrations.
+# write and read, the periodic checkpoint, and migration records out
+# (export_requests, one fire a record) and in (import_requests). The spill
+# sites fire when a spill tier is configured.
 _INTEGRITY_SITES = ("spill_put", "spill_get", "checkpoint",
                     "export", "import")
 
@@ -336,6 +357,11 @@ class EngineConfig:
     # robin) and audit the allocator (None: off); operational
     scrub_interval_ticks: Optional[int] = None
     scrub_spill_blocks: int = 4
+    # the (batch, model) serving mesh (apex_tpu_torch.serving.mesh): the
+    # model axis splits heads and weights, the batch axis lanes and
+    # blocks; part of the snapshot fingerprint (snapshots restore across
+    # equal meshes only)
+    mesh_shape: Tuple[int, int] = (1, 1)
     seed: int = 0
 
     @property
@@ -458,6 +484,12 @@ class EngineConfig:
             raise ValueError(
                 f"scrub_spill_blocks must be >= 1, got "
                 f"{self.scrub_spill_blocks}")
+        # the geometry half of the mesh check (the model's heads are
+        # checked by the engine), normalized to a tuple
+        object.__setattr__(self, "mesh_shape",
+                           mesh_lib.validate_mesh_shape(
+                               self.mesh_shape, max_batch=self.max_batch,
+                               num_blocks=self.num_blocks))
 
 
 @dataclasses.dataclass
@@ -769,13 +801,41 @@ class InferenceEngine:
     EWMAs read. ``faults`` (a :class:`~apex_tpu_torch.utils.faults.
     FaultPlan`) fires at ``"prefill"``, ``"decode"``, ``"draft"`` and
     ``"checkpoint"``, and with a spill tier at ``"spill_put"`` and
-    ``"spill_get"``. ``obs`` (an :class:`~apex_tpu_torch.observability.
+    ``"spill_get"``, and at ``"export"`` and ``"import"`` when requests
+    migrate. ``obs`` (an :class:`~apex_tpu_torch.observability.
     Observability`) observes; it reads the engine's clock and nothing of
-    the device."""
+    the device. ``mesh`` (a :class:`~apex_tpu_torch.serving.mesh.
+    ServingMesh` of ``config.mesh_shape``) places the shards; by default
+    ``(1, 1)`` is ``device`` and a larger shape the first CUDA devices.
+    With a mesh, ``device`` (the host's side: inputs, sampling, the
+    drained tokens) is its shard ``(0, 0)``'s."""
+
+    mode = "in_process"
 
     def __init__(self, model, config: EngineConfig, *, drafter=None,
-                 clock=None, device=None, faults=None, obs=None):
+                 clock=None, device=None, faults=None, obs=None, mesh=None):
+        if mesh is not None:
+            if (tuple(mesh.axis_names) != mesh_lib.MESH_AXES
+                    or tuple(mesh.mesh_shape)
+                    != tuple(config.mesh_shape)):
+                raise ValueError(
+                    f"mesh= (axes {tuple(mesh.axis_names)}, shape "
+                    f"{tuple(mesh.mesh_shape)}) does not match "
+                    f"mesh_shape {tuple(config.mesh_shape)} over axes "
+                    f"{mesh_lib.MESH_AXES}")
+            if device is not None and torch.device(device).type \
+                    != mesh.device(0, 0).type:
+                raise ValueError(
+                    f"device={device!r} does not match the mesh's shard "
+                    f"(0, 0) device {mesh.device(0, 0)}")
+            device = mesh.device(0, 0)
         self.device = resolve_device(device)
+        if mesh is None:
+            mesh = mesh_lib.build_mesh(
+                config.mesh_shape,
+                devices=([self.device] if config.mesh_shape == (1, 1)
+                         else None))
+        self.mesh = mesh
         self.config = config
         self.faults = faults
         if faults is not None:
@@ -845,10 +905,24 @@ class InferenceEngine:
         self.max_blocks_per_seq = blocks_needed(config.max_seq_len,
                                                 config.block_size)
         head_dim = cfg.hidden_size // cfg.num_heads
-        self.cache = KVCache.create(
-            cfg.num_layers, config.num_blocks, config.block_size,
-            cfg.num_heads, head_dim, dtype=config.kv_dtype,
-            quantization=config.kv_quantization, device=self.device)
+        # -- the mesh: the model half of its check, the batch split, each
+        # shard's pools and weights
+        mesh_lib.validate_mesh_shape(config.mesh_shape,
+                                     num_heads=cfg.num_heads)
+        self._batch_shards, self._model_axis = config.mesh_shape
+        self._lanes_per_shard = config.max_batch // self._batch_shards
+        self._blocks_per_shard = config.num_blocks // self._batch_shards
+        self._pools = ShardedKVCache.create(
+            mesh.devices, cfg.num_layers, config.num_blocks,
+            config.block_size, cfg.num_heads, head_dim,
+            dtype=config.kv_dtype, quantization=config.kv_quantization)
+        # batch group b's inputs live on its shard (b, 0)'s device
+        self._group_device = [mesh.device(b, 0)
+                              for b in range(self._batch_shards)]
+        # at model axis 1 each batch group's one shard shares the model's
+        # weights where it lies on the model's device
+        self._model_shards = mesh_lib.shard_params(mesh, self.model)
+        self._collectives = mesh_lib.CollectiveLog()
         # the tenant ledger's charge unit: a quantized block charges its
         # bytes over the full-precision block's, so max_resident_blocks
         # counts full-precision block equivalents
@@ -862,7 +936,8 @@ class InferenceEngine:
                                  cfg.num_heads, head_dim,
                                  dtype=config.kv_dtype))
         self.allocator = BlockAllocator(config.num_blocks,
-                                        block_weight=self._block_weight)
+                                        block_weight=self._block_weight,
+                                        num_shards=self._batch_shards)
         # the host spill tier: the allocator copies evicted and flushed
         # blocks into it, _admit re-admits them by upload
         self.spill: Optional[HostSpillStore] = None
@@ -956,7 +1031,13 @@ class InferenceEngine:
         self._num_restores = 0
         self._num_checkpoints = 0
         self._num_corruptions_detected = 0
+        self._num_import_refusals = 0
         self._fetch_failures = 0    # consecutive failed drains
+        # -- migration: requests moved out and in, and the arrival index
+        # each exported uid left with (the source's clean copy)
+        self._num_migrated_in = 0
+        self._num_migrated_out = 0
+        self._exported_arrivals: Dict[str, int] = {}
         # the corruption seed of the in-flight dispatch (a "corrupt" fire
         # at "decode"), applied at its drain
         self._pending_corrupt: Optional[int] = None
@@ -965,7 +1046,18 @@ class InferenceEngine:
         # the in-flight decode: (device [B, K] tokens, lanes, {lane: uid}),
         # fetched at the next tick's drain
         self._pending = None
-        self._dev_tables: Optional[torch.Tensor] = None
+        # the decode block table a batch group (local ids), rebuilt when
+        # lanes change
+        self._dev_tables: Optional[List[Optional[torch.Tensor]]] = None
+
+    @property
+    def cache(self):
+        """The KV pool: a :class:`~apex_tpu_torch.serving.kv_cache.KVCache`
+        on a one-shard mesh, else the :class:`~apex_tpu_torch.serving.
+        kv_cache.ShardedKVCache`."""
+        if self._batch_shards == 1 and self._model_axis == 1:
+            return self._pools.shards[0][0]
+        return self._pools
 
     # -- client surface ------------------------------------------------------
 
@@ -1243,11 +1335,14 @@ class InferenceEngine:
         return self.allocator.tenant_charge(tenant)
 
     def check_allocator_integrity(self) -> None:
-        """The allocator's invariants, and its refcounts (and their
-        tenant split) exactly the resident lanes holding each block."""
+        """The allocator's invariants, its refcounts (and their tenant
+        split) exactly the resident lanes holding each block, and at batch
+        axis ``B > 1`` every block on its lanes' shard (the local tables
+        rely on it: a foreign block would read masked rows, not raise)."""
         expected: Dict[int, int] = {}
         expected_tenants: Dict[int, Dict[str, int]] = {}
-        for slot in self.slots:
+        shards: Dict[int, int] = {}
+        for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
             t = slot.request.tenant
@@ -1255,9 +1350,302 @@ class InferenceEngine:
                 expected[b] = expected.get(b, 0) + 1
                 per = expected_tenants.setdefault(b, {})
                 per[t] = per.get(t, 0) + 1
+                # a block held across shards can match neither
+                sh = self._lane_shard(i)
+                shards[b] = sh if shards.get(b, sh) == sh else -1
         self.allocator.check_integrity(
             expected_refcounts=expected,
-            expected_tenant_refs=expected_tenants)
+            expected_tenant_refs=expected_tenants,
+            expected_shards=shards if self._batch_shards > 1 else None)
+
+    # -- the mesh's collective audit ------------------------------------------
+
+    def program_collective_stats(self, program: str) -> Dict[str, Dict]:
+        """``{"all-reduce": {"ops", "bytes"}}``, the one collective kind
+        the port runs: the sums across model shards in the newest forward
+        of one batch group of ``program``: ``"prefill"``, ``"decode"`` or
+        ``"verify"``
+        (``"verify"`` insists speculation is on). The JAX engine lowers
+        its programs from abstract arguments; the port has no compiler to
+        ask, so it reads what its forwards did, and a program must have
+        run once (``ValueError`` before)."""
+        if program not in mesh_lib.PROGRAMS:
+            raise ValueError(
+                f"unknown program {program!r} (expected 'prefill', "
+                "'decode', or 'verify')")
+        if program == "verify" and self.config.spec_tokens < 1:
+            raise ValueError(
+                "program 'verify' requires spec_tokens >= 1 (the decode "
+                "slot holds the plain scan otherwise)")
+        stats = self._collectives.last.get(program)
+        if stats is None:
+            raise ValueError(
+                f"program {program!r} has not run on this engine yet: the "
+                "audit reads the sums its forwards counted")
+        return {"all-reduce": dict(stats)}
+
+    def audit_collectives(self) -> Dict[str, Dict[str, Dict]]:
+        """Hold the prefill and the decode (or verify) program to the
+        mesh's contract (:func:`~apex_tpu_torch.serving.mesh.
+        expected_collectives`): no sum at model axis 1, at least ``2 *
+        num_layers`` ``all-reduce`` a forward past it. Raises
+        ``AssertionError`` on a violation; returns ``{program: stats}``."""
+        contract = mesh_lib.expected_collectives(
+            self.config.mesh_shape, num_layers=self.model.cfg.num_layers)
+        exact = contract.get("exact_total_ops")
+        floor = contract.get("min_ops", {}).get("all-reduce", 0)
+        out = {}
+        for prog in ("prefill",
+                     "verify" if self.config.spec_tokens > 0 else "decode"):
+            stats = self.program_collective_stats(prog)
+            ops = stats["all-reduce"]["ops"]
+            if (exact is not None and ops != exact) or ops < floor:
+                raise AssertionError(
+                    f"{prog}@mesh{tuple(self.config.mesh_shape)}: "
+                    f"{ops} all-reduce a forward, the contract is "
+                    f"{contract}")
+            out[prog] = stats
+        return out
+
+    # -- the replica surface ---------------------------------------------------
+
+    def pop_results(self) -> Dict[str, RequestResult]:
+        """Every terminal result so far, without stepping: ``{uid:
+        RequestResult}``; each drained uid becomes reusable, as after
+        ``run()``. Stream events stay (:meth:`pop_stream_events`)."""
+        out, self.finished = self.finished, {}
+        statuses, self.statuses = self.statuses, {}
+        return {uid: RequestResult(tokens=toks,
+                                   status=statuses.get(uid, "finished"))
+                for uid, toks in out.items()}
+
+    def load(self) -> Dict[str, float]:
+        """The cheap load signal a router polls (a float subset of
+        ``stats()``): queue depth, active lanes, the service EWMAs and the
+        allocatable blocks (free plus cached)."""
+        return {
+            "queue_depth": float(len(self.waiting)),
+            "active_slots": float(sum(s is not None for s in self.slots)),
+            "ewma_prefill_dispatch_s": float(self._ewma_prefill_s or 0.0),
+            "ewma_decode_dispatch_s": float(self._ewma_decode_s or 0.0),
+            "blocks_allocatable": float(self.allocator.num_free
+                                        + self.allocator.num_cached),
+        }
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.waiting)
+
+    @property
+    def active_slot_count(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def tenant_depth(self, tenant: str) -> int:
+        """The tenant's waiting entries."""
+        return self.waiting.tenant_depth(tenant)
+
+    def decoding_uids(self) -> List[str]:
+        """Uids of the resident lanes whose prefill has completed (first
+        token known), in admission order."""
+        started = [(s.admit_seq, s.request.uid) for s in self.slots
+                   if s is not None and s.started]
+        return [uid for _, uid in sorted(started)]
+
+    # -- migration ---------------------------------------------------------------
+
+    def export_requests(self, uids: Optional[Sequence[str]] = None
+                        ) -> List[Dict]:
+        """Remove the given waiting and resident requests (all of them
+        with ``uids`` None) and return them as sealed snapshot-format
+        records that :meth:`import_requests` resumes on another engine.
+        The decode in flight is drained first (one host sync), so the
+        records carry every emitted token; a resident's blocks are
+        released deepest first (cached under prefix caching), and its
+        deadline travels as the time remaining. Terminal requests awaiting
+        :meth:`pop_results` stay. Each record fires the plan at
+        ``"export"`` (one fire a record) after it is sealed. The records
+        keep the arrival index, so an engine of the same model and seed
+        continues the token stream, at any mesh shape."""
+        self._drain_decode()
+        want = None if uids is None else {str(u) for u in uids}
+        now = self._clock()
+        records: List[Dict] = []
+        live = sorted((s.admit_seq, i) for i, s in enumerate(self.slots)
+                      if s is not None)
+        for _, i in live:
+            slot = self.slots[i]
+            if want is not None and slot.request.uid not in want:
+                continue
+            records.append(self._entry_record(
+                _QueueEntry(request=slot.request, arrival=slot.entry.arrival,
+                            generated=self._resume_tokens(slot),
+                            drr_charged=True), now))
+            self.allocator.free(list(reversed(slot.blocks)),
+                                tenant=slot.request.tenant)
+            self.slots[i] = None
+            self._invalidate_lanes()
+            self._release_exported(slot.request)
+        for entry in self.waiting.expel(
+                lambda e: want is None or e.request.uid in want):
+            records.append(self._entry_record(entry, now))
+            self._release_exported(entry.request)
+        # the clean arrival index, kept before the fault site can touch
+        # the caller's copy
+        for rec in records:
+            self._exported_arrivals[str(rec["uid"])] = int(rec["arrival"])
+        records = [self._maybe_corrupt_record("export", seal_record(rec))
+                   for rec in records]
+        self._num_migrated_out += len(records)
+        return records
+
+    def drop_stream_events(self, uid: str) -> int:
+        """Discard the undrained stream events of ``uid`` (a re-injected
+        request re-emits them); returns how many."""
+        uid = str(uid)
+        before = len(self._stream)
+        self._stream = deque(ev for ev in self._stream if ev[0] != uid)
+        return before - len(self._stream)
+
+    def exported_arrival(self, uid: str) -> Optional[int]:
+        """The arrival index this engine last exported ``uid`` with
+        (None if it never left by :meth:`export_requests`)."""
+        v = self._exported_arrivals.get(str(uid))
+        return None if v is None else int(v)
+
+    def _release_exported(self, request: Request) -> None:
+        """Forget an exported request without a terminal transition: it
+        lives on in another engine (no status, no stream sentinel)."""
+        self._live_uids.discard(request.uid)
+        self._deadline.pop(request.uid, None)
+        self._prune_tenant_if_idle(request.tenant)
+
+    def import_requests(self, records: Sequence[Dict]) -> int:
+        """Enqueue records another engine exported (or checkpointed).
+        Each keeps its arrival index (``_arrival_count`` moves past it)
+        and its DRR standing: an exported resident re-admits ahead of the
+        walk, as a preemption requeue does; a record without ``arrival``
+        takes a fresh one. Deadlines re-anchor on this clock. No door
+        quota is applied: the request was accepted at its first door.
+        Each record fires the plan at ``"import"``. Raises, before
+        touching anything, ``ValueError`` for a uid live or awaiting drain
+        here and, with ``verify_artifacts``, ``IntegrityError`` for a
+        sealed record whose checksum fails (counted in
+        ``num_import_refusals``); an unsealed record imports as it is.
+        Returns how many were enqueued."""
+        now = self._clock()
+        if self.faults is not None:
+            records = [self._maybe_corrupt_record("import", rec)
+                       for rec in records]
+        for rec in records:
+            if self.config.verify_artifacts:
+                try:
+                    verify_record(rec, "import")
+                except IntegrityError as e:
+                    self._num_import_refusals += 1
+                    self._note_corruption("import", e.detail)
+                    raise
+            uid = rec["uid"]
+            if uid in self._live_uids:
+                raise ValueError(
+                    f"cannot import uid {uid!r}: already waiting or "
+                    "resident in this engine")
+            if uid in self.statuses:
+                raise ValueError(
+                    f"cannot import uid {uid!r}: a terminal result "
+                    "awaits drain here")
+        for rec in records:
+            deadline = rec.get("deadline_remaining_s")
+            req = Request(
+                uid=rec["uid"], prompt=list(rec["prompt"]),
+                max_new_tokens=int(rec["max_new_tokens"]),
+                sampling=SamplingParams(
+                    temperature=rec["sampling"]["temperature"],
+                    top_k=rec["sampling"]["top_k"],
+                    top_p=rec["sampling"]["top_p"]),
+                eos_token_id=rec.get("eos_token_id"),
+                deadline_s=deadline,
+                priority=int(rec.get("priority", 0)),
+                tenant=str(rec.get("tenant", DEFAULT_TENANT)))
+            if deadline is not None:
+                # a blown deadline stays blown
+                self._deadline[req.uid] = now + float(deadline)
+            arrival = rec.get("arrival")
+            arrival = self._arrival_count if arrival is None else int(arrival)
+            self._arrival_count = max(self._arrival_count, arrival + 1)
+            # the uid lives here now: an export stamp of ours is stale
+            self._exported_arrivals.pop(req.uid, None)
+            self._live_uids.add(req.uid)
+            self._tenant_seen.add(req.tenant)
+            self.waiting.append(_QueueEntry(
+                request=req, arrival=arrival,
+                generated=[int(t) for t in rec.get("generated", ())],
+                enq_t=now, enq_tick=self._num_ticks,
+                drr_charged=bool(rec.get("drr_charged", False))))
+            if self._obs is not None:
+                # a requeue, as restore() anchors its records: the submit
+                # time belongs to the source
+                self._obs.note_enqueue(req.uid, tenant=req.tenant,
+                                       priority=req.priority,
+                                       prompt_len=len(req.prompt),
+                                       requeue=True, t=now)
+        self._num_migrated_in += len(records)
+        self._queue_depth_peak = max(self._queue_depth_peak,
+                                     len(self.waiting))
+        return len(records)
+
+    def export_prefix_payloads(self, hashes: Sequence[str]
+                               ) -> Dict[str, Dict]:
+        """The leading run of a chain as host payloads (the KV transport
+        between engines): device-indexed blocks read as the spill fetch
+        reads them (full-head, layout-free), spilled ones copied out of
+        the store. Stops at the first hash served by neither, or whose
+        spilled copy fails its checksum. Unlike the JAX engine's, a failed
+        device read is not taken for a miss: it raises (ROADMAP C8, C9).
+        With ``verify_artifacts`` each payload carries a ``"checksum"``
+        string the importer verifies."""
+        out: Dict[str, Dict] = {}
+        if not self.config.enable_prefix_caching:
+            return out
+        for h in hashes:
+            b = self.allocator.indexed_block(h)
+            if b is not None:
+                payload = self._spill_payload(b, record=False)
+            elif self.spill is not None:
+                payload = self.spill.export_entry(h)
+            else:
+                payload = None
+            if payload is None:
+                break
+            if self.config.verify_artifacts:
+                payload = dict(payload)
+                payload["checksum"] = payload_checksum(payload)
+            out[h] = payload
+        return out
+
+    def import_prefix_payloads(self, payloads: Mapping[str, Dict]) -> int:
+        """Seed the spill tier with another engine's payloads: the next
+        admission matching those hashes uploads them instead of
+        recomputing. Hashes a device block already serves are skipped; a
+        payload whose ``"checksum"`` fails is skipped and counted (a
+        recompute, not a refusal). Returns how many entries the tier took
+        (0 without a spill tier)."""
+        if self.spill is None:
+            return 0
+        n = 0
+        for h, payload in payloads.items():
+            if self.allocator.indexed_block(h) is not None:
+                continue
+            payload = dict(payload)
+            checksum = payload.pop("checksum", None)
+            if self.config.verify_artifacts and checksum is not None:
+                try:
+                    verify_payload(payload, checksum, "import_payload")
+                except IntegrityError as e:
+                    self._note_corruption("import_payload", e.detail)
+                    continue
+            if self.spill.import_entry(h, payload):
+                n += 1
+        return n
 
     def stats(self, deep: bool = False) -> Dict[str, object]:
         """The engine's counters; ``deep`` adds the observer's section
@@ -1270,6 +1658,11 @@ class InferenceEngine:
         waits = self._queue_wait_count
         spill_lookups = self._spill_hits + self._spill_misses
         out = {
+            # the mesh, static per config as in the JAX engine
+            "mesh_devices": (self.config.mesh_shape[0]
+                             * self.config.mesh_shape[1]),
+            "mesh_model_axis": self.config.mesh_shape[1],
+            "mesh_batch_axis": self.config.mesh_shape[0],
             "kv_quantization": self.config.kv_quantization,
             "weight_quantization": self.config.weight_quantization,
             "num_ticks": self._num_ticks,
@@ -1363,8 +1756,12 @@ class InferenceEngine:
             "num_restores": self._num_restores,
             "num_checkpoints": self._num_checkpoints,
             "num_corruptions_detected": self._num_corruptions_detected,
+            "num_import_refusals": self._num_import_refusals,
+            # migration: requests moved out and in
+            "num_migrated_in": self._num_migrated_in,
+            "num_migrated_out": self._num_migrated_out,
             "weight_bytes": self._weight_bytes,
-            "kv_pool_bytes": self.cache.nbytes,
+            "kv_pool_bytes": self._pools.nbytes,
             # the serving path's kernels (the counters also hold training's)
             "kernel_launches": {k: _build.launches[k]
                                 for k in ("paged_read", "dequant_gemm",
@@ -1414,6 +1811,8 @@ class InferenceEngine:
         d["kv_dtype"] = (None if self.config.kv_dtype is None
                          else str(self.config.kv_dtype).replace("torch.",
                                                                 ""))
+        # a sharded snapshot restores across equal meshes only
+        d["mesh_shape"] = [int(v) for v in self.config.mesh_shape]
         for knob in ("max_dispatch_retries", "retry_backoff_s",
                      "max_waiting", "queue_high_watermark",
                      "free_block_low_watermark", "degrade_patience",
@@ -1914,15 +2313,21 @@ class InferenceEngine:
         sheds an infeasible head; a head whose tenant would pass its
         ``max_resident_blocks`` is held (the tenant is skipped this pass,
         other tenants flow past); a head that does not fit the pool
-        blocks the queue."""
+        blocks the queue. At batch axis ``B > 1`` free lanes are taken
+        round robin across the batch shards, every match and allocation
+        of a lane stays in its shard's block range, and a head that does
+        not fit its lane's shard blocks only that lane."""
         bs = self.config.block_size
         alloc = self.allocator
         admitted = 0
         below = self._admission_priority_limit()
         skip: set = set()
-        for idx in range(self.config.max_batch):
+        for idx in self._admit_lane_order():
             if self.slots[idx] is not None:
                 continue
+            # None (the whole pool) unsharded
+            shard = (self._lane_shard(idx) if self._batch_shards > 1
+                     else None)
             while True:
                 entry = self.waiting.head(below=below, skip=skip)
                 if entry is None:
@@ -1937,7 +2342,7 @@ class InferenceEngine:
                     if entry.hashes is None:
                         entry.hashes = seq_block_hashes(seq, bs)
                     hashes = entry.hashes
-                    matched = alloc.lookup_prefix(hashes)
+                    matched = alloc.lookup_prefix(hashes, shard=shard)
                 # the spill run continues the device match: a spilled
                 # block past a gap is unreachable, as in the index
                 spill_run: List[str] = []
@@ -1977,7 +2382,16 @@ class InferenceEngine:
                         continue
                 # cached blocks this admission revives stop being evictable
                 reviving = sum(1 for b in matched if alloc.refcount(b) == 0)
-                if need > alloc.num_free + alloc.num_cached - reviving:
+                if shard is None:
+                    capacity = alloc.num_free + alloc.num_cached
+                else:
+                    capacity = (alloc.free_in_shard(shard)
+                                + alloc.cached_in_shard(shard))
+                if need > capacity - reviving:
+                    if shard is not None:
+                        # this shard cannot fit the head; another shard's
+                        # free lane may
+                        break
                     return admitted         # head-of-line blocking
                 alloc.acquire(matched, tenant=tenant)
                 self.waiting.popleft(below=below, skip=skip)
@@ -2006,7 +2420,7 @@ class InferenceEngine:
                         spill_run = spill_run[:n_up]
                         m_tok = (len(matched) + n_up) * bs
                 if spill_run:
-                    up_blocks = alloc.alloc(n_up, tenant=tenant)
+                    up_blocks = alloc.alloc(n_up, tenant=tenant, shard=shard)
                     self._upload_blocks(up_blocks, payloads)
                     for h, nb in zip(spill_run, up_blocks):
                         alloc.register_prefix(h, nb, tenant=tenant)
@@ -2019,7 +2433,8 @@ class InferenceEngine:
                     # committed admission
                     self._spill_misses += len(hashes) - len(matched) - n_up
                 blocks = matched + up_blocks + (
-                    alloc.alloc(tail, tenant=tenant) if tail else [])
+                    alloc.alloc(tail, tenant=tenant, shard=shard)
+                    if tail else [])
                 self._prefix_lookup_blocks += len(hashes)
                 self._prefix_hit_blocks += len(matched)
                 self._prompt_blocks_allocated += tail
@@ -2081,9 +2496,12 @@ class InferenceEngine:
         ids = np.zeros((1, C), np.int64)
         ids[0, : end - start] = slot.tokens[start:end]
         positions = (start + np.arange(C, dtype=np.int64))[None]
+        # the lane's batch group runs the chunk, its table in local ids
+        group = self._lane_shard(idx)
         table = np.full((1, self.max_blocks_per_seq), -1, np.int32)
-        table[0, : len(slot.blocks)] = slot.blocks
-        dev = self.device
+        table[0, : len(slot.blocks)] = (np.asarray(slot.blocks, np.int32)
+                                        - group * self._blocks_per_shard)
+        dev = self._group_device[group]
         # the successful attempt's service time and start: the token is
         # host-visible at their sum (its read is inside the attempt)
         attempt_s = [0.0, 0.0]
@@ -2093,13 +2511,13 @@ class InferenceEngine:
             # retry unit; the plan fires before the chunk writes the pool
             t0 = self._clock()
             with torch.no_grad():
-                logits, _ = self.model(
-                    torch.from_numpy(ids).to(dev), self.cache,
-                    device_block_table(table, self.config.num_blocks, dev),
+                logits = self._group_forward(
+                    "prefill", group, torch.from_numpy(ids).to(dev),
+                    device_block_table(table, self._blocks_per_shard, dev),
                     torch.from_numpy(positions).to(dev),
                     torch.tensor([end], dtype=torch.int64, device=dev),
-                    write_start=torch.tensor([slot.prefill_pos],
-                                             dtype=torch.int64, device=dev))
+                    torch.tensor([slot.prefill_pos], dtype=torch.int64,
+                                 device=dev))
                 tok = None
                 if end == L and not slot.entry.generated:
                     sp = slot.request.sampling
@@ -2148,8 +2566,12 @@ class InferenceEngine:
     def _preempt_for(self, requester: int) -> bool:
         """Free the lowest-class, youngest lane (:meth:`_yield_key`); its
         request re-queues at the front of its class carrying its
-        generated tokens. False when the requester is the only lane."""
-        cand = [i for i, s in enumerate(self.slots) if s is not None]
+        generated tokens. False when the requester is the only lane. At
+        ``B > 1`` only the requester's batch shard is searched: another
+        shard's blocks cannot serve its allocation."""
+        cand = [i for i, s in enumerate(self.slots) if s is not None
+                and (self._batch_shards == 1
+                     or self._lane_shard(i) == self._lane_shard(requester))]
         if len(cand) <= 1:
             return False
         return self._preempt_slot(max(cand, key=self._yield_key))
@@ -2301,7 +2723,8 @@ class InferenceEngine:
                         continue    # the freed charge may cover it now
                     try:
                         slot.blocks.extend(self.allocator.alloc(
-                            grow, tenant=tenant))
+                            grow, tenant=tenant,
+                            shard=self._alloc_shard(i)))
                         self._invalidate_lanes()
                     except CacheOutOfBlocks:
                         if not self._preempt_for(i):
@@ -2324,7 +2747,9 @@ class InferenceEngine:
                 if j is None:
                     break
                 try:
-                    nb = self.allocator.alloc(1, tenant=tenant)[0]
+                    # the private copy lands on the lane's shard
+                    nb = self.allocator.alloc(
+                        1, tenant=tenant, shard=self._alloc_shard(i))[0]
                 except CacheOutOfBlocks:
                     if not self._preempt_for(i):
                         if self._obs is not None:
@@ -2337,7 +2762,7 @@ class InferenceEngine:
                             "and no lane left to preempt")
                     continue
                 b = slot.blocks[j]
-                copy_block(self.cache, b, nb)
+                copy_block(self._pools, b, nb)
                 self.allocator.free([b], tenant=tenant)
                 slot.blocks[j] = nb
                 self._invalidate_lanes()
@@ -2347,26 +2772,67 @@ class InferenceEngine:
                     slot.num_registered = j
                 self._num_cow_copies += 1
 
-    def _decode_tables(self) -> torch.Tensor:
-        """The decode block table on the device (still-prefilling lanes
-        unmapped), rebuilt only when lane composition or blocks change."""
+    # -- the mesh's batch groups ----------------------------------------------
+
+    def _lane_shard(self, lane: int) -> int:
+        """The batch shard owning a lane: ``lane // lanes_per_shard``."""
+        return lane // self._lanes_per_shard
+
+    def _alloc_shard(self, lane: int) -> Optional[int]:
+        """The ``shard=`` of a lane's allocations: its batch shard, None
+        (the whole pool) unsharded."""
+        return self._lane_shard(lane) if self._batch_shards > 1 else None
+
+    def _admit_lane_order(self):
+        """Free lanes in index order unsharded; at ``B > 1`` round robin
+        across the batch shards (lane 0 of every shard, then lane 1, ...),
+        so residents spread over the shards."""
+        if self._batch_shards == 1:
+            return range(self.config.max_batch)
+        return (s * self._lanes_per_shard + lane
+                for lane in range(self._lanes_per_shard)
+                for s in range(self._batch_shards))
+
+    def _group_forward(self, program: str, group: int, ids, tables,
+                       positions, seq_lens, write_start):
+        """One serving forward of batch group ``group`` (its inputs and
+        local block tables on its device): :func:`~apex_tpu_torch.models.
+        gpt.sharded_serve_forward` over its model shards, each sum counted
+        in the collective log under ``program`` (none at model axis 1).
+        Logits ``[B, S, V]``."""
+        log = self._collectives
+        log.begin(program)
+        logits = sharded_serve_forward(
+            self._model_shards[group], ids, self._pools.shards[group],
+            tables, positions, seq_lens, write_start,
+            all_reduce=log.all_reduce)
+        log.end()
+        return logits
+
+    def _decode_tables(self, group: int = 0) -> torch.Tensor:
+        """Batch group ``group``'s decode block table on its device, in
+        local block ids (still-prefilling lanes unmapped), rebuilt only
+        when lane composition or blocks change."""
         if self._dev_tables is None:
-            t = np.full((self.config.max_batch, self.max_blocks_per_seq),
-                        -1, np.int32)
-            for i, slot in enumerate(self.slots):
+            self._dev_tables = [None] * self._batch_shards
+        if self._dev_tables[group] is None:
+            Lp, base = self._lanes_per_shard, group * self._blocks_per_shard
+            t = np.full((Lp, self.max_blocks_per_seq), -1, np.int32)
+            for r in range(Lp):
+                slot = self.slots[group * Lp + r]
                 if slot is not None and slot.started:
-                    t[i, : len(slot.blocks)] = slot.blocks
-            self._dev_tables = device_block_table(
-                t, self.config.num_blocks, self.device)
-        return self._dev_tables
+                    t[r, : len(slot.blocks)] = (
+                        np.asarray(slot.blocks, np.int32) - base)
+            self._dev_tables[group] = device_block_table(
+                t, self._blocks_per_shard, self._group_device[group])
+        return self._dev_tables[group]
 
     def _lane_inputs(self, active: List[int], u_shape, draw):
-        """The per-lane inputs of a dispatch on the device, every lane a
+        """The per-lane inputs of a dispatch as host arrays, every lane a
         row (zeros, no EOS and greedy where a lane is not ``active``):
         carried tokens, context lengths, remaining budgets, EOS ids (-1:
         none), temperature, top-k, top-p, and uniforms of ``u_shape`` a
-        row, drawn by ``draw(slot)`` for the lanes that sample; then
-        whether any lane samples."""
+        row, drawn by ``draw(slot)`` for the lanes that sample."""
         B = self.config.max_batch
         tokens = np.zeros(B, np.int64)
         ctx = np.zeros(B, np.int64)
@@ -2388,10 +2854,29 @@ class InferenceEngine:
             temp[i], top_k[i], top_p[i] = sp.temperature, sp.top_k, sp.top_p
             if sp.temperature > 0:
                 u[i] = draw(slot).numpy()
-        dev = self.device
-        return (tuple(torch.from_numpy(a).to(dev) for a in (
-            tokens, ctx, budgets, eos, temp, top_k, top_p, u)),
-            bool((temp > 0).any()))
+        return tokens, ctx, budgets, eos, temp, top_k, top_p, u
+
+    def _groups(self, active: List[int]):
+        """``(group, rows, device)`` of every batch group with a lane in
+        ``active`` (one group, every row, unsharded)."""
+        Lp = self._lanes_per_shard
+        for g in range(self._batch_shards):
+            rows = slice(g * Lp, (g + 1) * Lp)
+            if any(rows.start <= i < rows.stop for i in active):
+                yield g, rows, self._group_device[g]
+
+    def _lane_tokens(self, outs: Dict[int, torch.Tensor], width: int):
+        """The dispatch's ``[max_batch, width]`` tokens on the engine's
+        device from each group's rows (``-1`` for a group that ran
+        nothing)."""
+        if self._batch_shards == 1:
+            return outs[0]
+        Lp = self._lanes_per_shard
+        return torch.cat([
+            outs[g].to(self.device) if g in outs
+            else torch.full((Lp, width), -1, dtype=torch.long,
+                            device=self.device)
+            for g in range(self._batch_shards)])
 
     def _dispatch_decode(self, active: List[int]) -> None:
         """Run the K-step decode (or, speculating, the verify) for
@@ -2429,7 +2914,8 @@ class InferenceEngine:
         token's K/V at the lane's context position, attends, samples
         token ``gen_count + j`` and feeds it back; a lane freezes (its
         ``write_start`` one past its position, so nothing is written)
-        once its budget is spent or it samples its EOS id."""
+        once its budget is spent or it samples its EOS id. Each batch
+        group with an active lane runs its own K steps."""
         if self.config.spec_tokens > 0:
             return self._verify_program(active)
         K = self.config.decode_steps
@@ -2440,38 +2926,46 @@ class InferenceEngine:
             return uniforms([token_generator(seed, slot.entry.arrival,
                                              g0 + j) for j in range(K)])
 
-        (tok, ctx_t, budget, eos_t, temp_t, top_k_t, top_p_t, u_t), \
-            any_sampled = self._lane_inputs(active, (K,), draw)
-        tables = self._decode_tables()
-        outs = []
-        with torch.no_grad():
-            for j in range(K):
-                act = budget > 0
-                logits, _ = self.model(
-                    tok[:, None], self.cache, tables, ctx_t[:, None],
-                    ctx_t + 1, write_start=torch.where(act, ctx_t, ctx_t + 1))
-                new = sample_with_uniforms(logits[:, 0], u_t[:, j], temp_t,
-                                           top_k_t, top_p_t, any_sampled)
-                emitted = act.long()
-                outs.append(torch.where(act, new, torch.full_like(new, -1)))
-                budget = budget - emitted
-                stop = (budget <= 0) | ((eos_t >= 0) & (new == eos_t))
-                cont = act & ~stop
-                tok = torch.where(cont, new, tok)
-                ctx_t = ctx_t + emitted
-                budget = torch.where(cont, budget, torch.zeros_like(budget))
-        return torch.stack(outs, dim=1), 0
+        host = self._lane_inputs(active, (K,), draw)
+        outs = {}
+        for g, rows, dev in self._groups(active):
+            tok, ctx_t, budget, eos_t, temp_t, top_k_t, top_p_t, u_t = (
+                torch.from_numpy(a[rows]).to(dev) for a in host)
+            any_sampled = bool((host[4][rows] > 0).any())
+            tables = self._decode_tables(g)
+            steps = []
+            with torch.no_grad():
+                for j in range(K):
+                    act = budget > 0
+                    logits = self._group_forward(
+                        "decode", g, tok[:, None], tables, ctx_t[:, None],
+                        ctx_t + 1, torch.where(act, ctx_t, ctx_t + 1))
+                    new = sample_with_uniforms(logits[:, 0], u_t[:, j],
+                                               temp_t, top_k_t, top_p_t,
+                                               any_sampled)
+                    emitted = act.long()
+                    steps.append(torch.where(act, new,
+                                             torch.full_like(new, -1)))
+                    budget = budget - emitted
+                    stop = (budget <= 0) | ((eos_t >= 0) & (new == eos_t))
+                    cont = act & ~stop
+                    tok = torch.where(cont, new, tok)
+                    ctx_t = ctx_t + emitted
+                    budget = torch.where(cont, budget,
+                                         torch.zeros_like(budget))
+            outs[g] = torch.stack(steps, dim=1)
+        return self._lane_tokens(outs, K), 0
 
     def _verify_program(self, active: List[int]):
-        """The draft-and-verify dispatch: ONE ``[max_batch, spec_tokens +
-        1]`` forward through the paged cache (the multi-query prefill
-        read). Each lane's chunk is its carried token and its proposals at
-        positions ``ctx .. ctx + d``; their K/V land in the span reserved
-        for them, rejected ones past the new context where every read
-        masks them. :func:`spec_verify_tokens` keeps a prefix of the
-        drafts, then the stop masks of the K-step decode apply: nothing
-        past the emitted window, nothing after an EOS, nothing from an
-        inactive lane (its ``write_start`` past the chunk) — ``-1``
+        """The draft-and-verify dispatch: ONE ``[lanes, spec_tokens + 1]``
+        forward a batch group through the paged cache (the multi-query
+        prefill read). Each lane's chunk is its carried token and its
+        proposals at positions ``ctx .. ctx + d``; their K/V land in the
+        span reserved for them, rejected ones past the new context where
+        every read masks them. :func:`spec_verify_tokens` keeps a prefix
+        of the drafts, then the stop masks of the K-step decode apply:
+        nothing past the emitted window, nothing after an EOS, nothing
+        from an inactive lane (its ``write_start`` past the chunk) — ``-1``
         sentinels, so the drain is the K-step one. Returns ``(tokens,
         proposals verified)``."""
         B, S = self.config.max_batch, self.config.spec_tokens
@@ -2483,34 +2977,38 @@ class InferenceEngine:
             plan = self._draft_plan.get(i, ())
             drafts[i, : len(plan)] = plan
             dlens[i] = len(plan)
-        (tok, ctx_t, budget, eos_t, temp_t, top_k_t, top_p_t, u_t), \
-            any_sampled = self._lane_inputs(
-                active, (P, 3), lambda slot: spec_uniforms(
-                    seed, slot.entry.arrival, len(slot.generated), P))
-        dev = self.device
-        drafts_t = torch.from_numpy(drafts).to(dev)
-        dlens_t = torch.from_numpy(dlens).to(dev)
-        act = budget > 0
-        q_ids = torch.cat([tok[:, None], drafts_t], dim=1)
-        steps = torch.arange(P, device=dev)[None]
-        with torch.no_grad():
-            logits, _ = self.model(
-                q_ids, self.cache, self._decode_tables(),
-                ctx_t[:, None] + steps, ctx_t + 1 + dlens_t,
-                write_start=torch.where(act, ctx_t, ctx_t + P + 1))
-            emitted, n_emit = spec_verify_tokens(
-                logits, drafts_t, dlens_t, u_t, temp_t, top_k_t, top_p_t,
-                any_sampled)
-            # prefix masks, as the scan's: the emitted window, nothing
-            # after the first EOS, nothing from an inactive lane
-            within = steps < n_emit[:, None]
-            is_eos = within & (eos_t[:, None] >= 0) \
-                & (emitted == eos_t[:, None])
-            after_eos = (torch.cumsum(is_eos.long(), dim=1)
-                         - is_eos.long()) > 0
-            keep = within & ~after_eos & act[:, None]
-            out = torch.where(keep, emitted, torch.full_like(emitted, -1))
-        return out, int(dlens.sum())
+        host = self._lane_inputs(
+            active, (P, 3), lambda slot: spec_uniforms(
+                seed, slot.entry.arrival, len(slot.generated), P))
+        outs = {}
+        for g, rows, dev in self._groups(active):
+            tok, ctx_t, budget, eos_t, temp_t, top_k_t, top_p_t, u_t = (
+                torch.from_numpy(a[rows]).to(dev) for a in host)
+            any_sampled = bool((host[4][rows] > 0).any())
+            drafts_t = torch.from_numpy(drafts[rows]).to(dev)
+            dlens_t = torch.from_numpy(dlens[rows]).to(dev)
+            act = budget > 0
+            q_ids = torch.cat([tok[:, None], drafts_t], dim=1)
+            steps = torch.arange(P, device=dev)[None]
+            with torch.no_grad():
+                logits = self._group_forward(
+                    "verify", g, q_ids, self._decode_tables(g),
+                    ctx_t[:, None] + steps, ctx_t + 1 + dlens_t,
+                    torch.where(act, ctx_t, ctx_t + P + 1))
+                emitted, n_emit = spec_verify_tokens(
+                    logits, drafts_t, dlens_t, u_t, temp_t, top_k_t,
+                    top_p_t, any_sampled)
+                # prefix masks, as the scan's: the emitted window, nothing
+                # after the first EOS, nothing from an inactive lane
+                within = steps < n_emit[:, None]
+                is_eos = within & (eos_t[:, None] >= 0) \
+                    & (emitted == eos_t[:, None])
+                after_eos = (torch.cumsum(is_eos.long(), dim=1)
+                             - is_eos.long()) > 0
+                keep = within & ~after_eos & act[:, None]
+                outs[g] = torch.where(keep, emitted,
+                                      torch.full_like(emitted, -1))
+        return self._lane_tokens(outs, P), int(dlens.sum())
 
     def _drain_decode(self) -> bool:
         """Fetch the in-flight dispatch's tokens and replay them through
@@ -2735,10 +3233,7 @@ class InferenceEngine:
         self._queue_depth_peak = max(self._queue_depth_peak,
                                      len(self.waiting))
         self.allocator.reset()
-        for t in (self.cache.k, self.cache.v, self.cache.k_scale,
-                  self.cache.v_scale):
-            if t is not None:
-                t.zero_()
+        self._pools.zero_()
         self._draft_plan = {}
         self._invalidate_lanes()
 
@@ -2785,20 +3280,18 @@ class InferenceEngine:
 
     # -- the host spill tier ---------------------------------------------------
 
-    def _spill_payload(self, block_id: int):
+    def _spill_payload(self, block_id: int, record: bool = True):
         """The allocator's spill fetch: one block's contents as CPU
-        tensors in the pool's dtype (scales included on a quantized pool).
-        Each is a blocking copy on the pool's stream, so the bytes are in
-        host memory, and fresh, when the store checksums them. Unlike the
-        JAX engine's fetch, this one catches nothing: a CUDA error is
-        sticky, and swallowing it would hide a dead device (ROADMAP
-        C8)."""
-        payload = {}
-        for key in ("k", "v", "k_scale", "v_scale"):
-            pool = getattr(self.cache, key)
-            if pool is not None:
-                payload[key] = pool[:, block_id].to("cpu", copy=True)
-        if self._obs is not None:
+        tensors in the pool's dtype (scales included on a quantized pool),
+        its model shards' heads gathered in order, so the payload is the
+        unsharded pool's. Each piece is a blocking copy on the pool's
+        stream, so the bytes are in host memory, and fresh, when the store
+        checksums them. Unlike the JAX engine's fetch, this one catches
+        nothing: a CUDA error is sticky, and swallowing it would hide a
+        dead device (ROADMAP C8). ``record=False`` (a migration export, not
+        an eviction) records no ``spill`` event."""
+        payload = self._pools.block_payload(block_id)
+        if record and self._obs is not None:
             self._obs.record(
                 "spill", block=int(block_id),
                 bytes=int(sum(t.nbytes for t in payload.values())))
@@ -2806,20 +3299,13 @@ class InferenceEngine:
 
     def _upload_blocks(self, block_ids: List[int], payloads) -> None:
         """Write spilled payloads into blocks ``block_ids`` of the pool,
-        in place: one ``index_copy_`` a pool tensor, of the payloads
-        stacked on the block axis. The copy is of raw bytes (a uint8
-        view), so the uploaded blocks hold exactly the spilled bytes in
-        every dtype, fp8 included. The stacked host tensors are fresh and
-        the copy to the device returns after reading them."""
-        ids = torch.as_tensor(block_ids, dtype=torch.long,
-                              device=self.device)
-        for key in ("k", "v", "k_scale", "v_scale"):
-            pool = getattr(self.cache, key)
-            if pool is None:
-                continue
-            src = torch.stack([p[key] for p in payloads], dim=1)
-            pool.view(torch.uint8).index_copy_(
-                1, ids, src.to(self.device).view(torch.uint8))
+        in place: one ``index_copy_`` a pool tensor of each shard, of the
+        payloads' head slice stacked on the block axis. The copy is of raw
+        bytes (a uint8 view), so the uploaded blocks hold exactly the
+        spilled bytes in every dtype, fp8 included. The stacked host
+        tensors are fresh and the copy to the device returns after
+        reading them."""
+        self._pools.upload(block_ids, payloads)
 
     # -- the degradation ladder ----------------------------------------------
 

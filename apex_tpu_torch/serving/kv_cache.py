@@ -1,6 +1,6 @@
 """Paged KV cache for serving (counterpart of
-:mod:`apex_tpu.serving.kv_cache`, without the block shards and the
-fleet's shared prefix tier).
+:mod:`apex_tpu.serving.kv_cache`, without the fleet's shared prefix
+tier).
 
 The pools are ``[num_layers, num_blocks, block_size, num_heads,
 head_dim]`` tensors on the serving device, allocated once and updated IN
@@ -16,6 +16,14 @@ per-tenant ledger; sequences map positions to blocks through ``[B,
 max_blocks_per_seq]`` block tables whose unallocated entries hold
 ``num_blocks`` on the device (one past the pool): writes never land
 there and reads clip into the pool and are masked by context length.
+
+On a serving mesh (:mod:`apex_tpu_torch.serving.mesh`) the pool is a
+:class:`ShardedKVCache`: shard ``(b, m)`` owns its own contiguous
+``[L, N / B, bs, H / M, D]`` allocation, blocks ``[b N / B, (b + 1) N /
+B)`` and heads ``[m H / M, (m + 1) H / M)``. The allocator's shards
+(``num_shards``) keep every sequence's blocks inside its lane's batch
+shard, and the block operations act on every model shard of the block's
+batch shard.
 
 :class:`HostSpillStore` is the prefix cache's host-RAM tier: with one
 attached (:meth:`BlockAllocator.attach_spill`), a cached block the
@@ -143,6 +151,111 @@ class KVCache:
                                        device=device))
 
 
+@dataclasses.dataclass
+class ShardedKVCache:
+    """The pools of a ``(B, M)`` serving mesh: ``shards[b][m]`` is a
+    :class:`KVCache` ``[L, N / B, bs, H / M, D]`` on the device of mesh
+    coordinate ``(b, m)``, its own contiguous allocation (a head slice of
+    one pool is not contiguous, and kernel B14 refuses a strided or
+    misaligned pool). Global block ``g`` lives on batch shard ``g // (N /
+    B)`` at local id ``g % (N / B)``, its heads ``[m H / M, (m + 1) H /
+    M)`` on model shard ``m``. :meth:`block_payload` gathers a block's
+    head shards and :meth:`upload` splits them, so payloads are full-head
+    and carry no layout."""
+
+    shards: List[List[KVCache]]
+
+    @classmethod
+    def create(cls, devices, num_layers: int, num_blocks: int,
+               block_size: int, num_heads: int, head_dim: int, dtype=None,
+               quantization: Optional[str] = None) -> "ShardedKVCache":
+        """Zeroed pools, one a mesh coordinate: ``devices`` is the mesh's
+        ``B x M`` grid of devices."""
+        B, M = len(devices), len(devices[0])
+        return cls([[KVCache.create(num_layers, num_blocks // B, block_size,
+                                    num_heads // M, head_dim, dtype=dtype,
+                                    quantization=quantization,
+                                    device=devices[b][m])
+                     for m in range(M)] for b in range(B)])
+
+    @property
+    def batch_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def model_shards(self) -> int:
+        return len(self.shards[0])
+
+    @property
+    def blocks_per_shard(self) -> int:
+        return self.shards[0][0].num_blocks
+
+    @property
+    def num_blocks(self) -> int:
+        return self.batch_shards * self.blocks_per_shard
+
+    @property
+    def nbytes(self) -> int:
+        return sum(c.nbytes for row in self.shards for c in row)
+
+    def locate(self, block_id: int) -> Tuple[int, int]:
+        """``(batch shard, local id)`` of a global block id."""
+        return divmod(int(block_id), self.blocks_per_shard)
+
+    def block_payload(self, block_id: int) -> Dict[str, torch.Tensor]:
+        """One block's contents as CPU tensors in the pool's dtype, its
+        model shards' heads gathered in order: ``{"k", "v"}`` ``[L, bs, H,
+        D]`` (and ``"k_scale"``/``"v_scale"`` ``[L, bs, H]`` on a
+        quantized pool). Each piece is a blocking copy, fresh in host
+        memory when it returns."""
+        b, local = self.locate(block_id)
+        out = {}
+        for key in ("k", "v", "k_scale", "v_scale"):
+            pools = [getattr(c, key) for c in self.shards[b]]
+            if pools[0] is None:
+                continue
+            parts = [p[:, local].to("cpu", copy=True) for p in pools]
+            out[key] = parts[0] if len(parts) == 1 else torch.cat(parts,
+                                                                  dim=2)
+        return out
+
+    def upload(self, block_ids: Sequence[int], payloads) -> None:
+        """Write full-head payloads (:meth:`block_payload`'s layout) into
+        global blocks ``block_ids``, in place: per batch shard and model
+        shard one ``index_copy_`` a pool tensor of the payloads' head
+        slice, stacked on the block axis. The copy is of raw bytes (a
+        uint8 view), so every dtype lands as it was read, fp8
+        included."""
+        groups: Dict[int, List[Tuple[int, Dict[str, torch.Tensor]]]] = {}
+        for g, p in zip(block_ids, payloads):
+            b, local = self.locate(g)
+            groups.setdefault(b, []).append((local, p))
+        Hl = self.shards[0][0].num_heads
+        M = self.model_shards
+        for b, items in groups.items():
+            for m, cache in enumerate(self.shards[b]):
+                ids = torch.as_tensor([i for i, _ in items], dtype=torch.long,
+                                      device=cache.k.device)
+                for key in ("k", "v", "k_scale", "v_scale"):
+                    pool = getattr(cache, key)
+                    if pool is None:
+                        continue
+                    if M == 1:
+                        src = torch.stack([p[key] for _, p in items], dim=1)
+                    else:
+                        src = torch.stack([p[key][:, :, m * Hl:(m + 1) * Hl]
+                                           for _, p in items], dim=1)
+                    pool.view(torch.uint8).index_copy_(
+                        1, ids, src.to(pool.device).view(torch.uint8))
+
+    def zero_(self) -> None:
+        for row in self.shards:
+            for c in row:
+                for t in (c.k, c.v, c.k_scale, c.v_scale):
+                    if t is not None:
+                        t.zero_()
+
+
 class CacheOutOfBlocks(RuntimeError):
     """The allocator cannot serve an allocation even after evicting every
     refcount-0 cached block."""
@@ -164,9 +277,9 @@ def hash_block_tokens(prev_hash: Optional[str],
 
 class BlockAllocator:
     """Host-side block-id accounting: a free list, reference counts, the
-    prefix-cache index, the per-tenant ledger and, when attached, the
-    host spill tier (the JAX allocator without shards; the same ids in
-    the same order for the same calls).
+    prefix-cache index, the per-tenant ledger, the batch-axis shards and,
+    when attached, the host spill tier (the JAX allocator: the same ids
+    in the same order for the same calls).
 
     A block id is **free** (on the free list; ``alloc`` hands it out at
     refcount 1, ascending ids first), **active** (refcount >= 1:
@@ -181,10 +294,28 @@ class BlockAllocator:
     block's bytes over the full-precision block's), and a cached block
     belongs to the tenant that registered it, so its eviction or flush
     is counted against that tenant. The ledger is bookkeeping: no
-    allocation or eviction reads it."""
+    allocation or eviction reads it.
 
-    def __init__(self, num_blocks: int, block_weight: float = 1.0):
+    ``num_shards`` (the mesh's batch axis) splits the ids into equal
+    contiguous ranges: shard ``s`` owns ``[s * blocks_per_shard, (s + 1)
+    * blocks_per_shard)``, and ``shard=`` on :meth:`alloc`,
+    :meth:`lookup_prefix` and :meth:`match_prefix` keeps a sequence's
+    blocks on its lane's shard. One shard makes every ``shard`` argument
+    a no-op."""
+
+    def __init__(self, num_blocks: int, block_weight: float = 1.0,
+                 num_shards: int = 1):
         self.num_blocks = int(num_blocks)
+        self.num_shards = int(num_shards)
+        if self.num_shards < 1:
+            raise ValueError(
+                f"num_shards must be >= 1, got {num_shards}")
+        if self.num_blocks % self.num_shards:
+            raise ValueError(
+                f"num_shards ({self.num_shards}) must divide num_blocks "
+                f"({self.num_blocks}): the pool splits into equal "
+                "contiguous shard ranges")
+        self.blocks_per_shard = self.num_blocks // self.num_shards
         if not block_weight > 0:
             raise ValueError(
                 f"block_weight must be > 0, got {block_weight}")
@@ -226,6 +357,20 @@ class BlockAllocator:
     def num_used(self) -> int:
         """Blocks referenced by live sequences."""
         return self.num_blocks - len(self._free) - len(self._evictable)
+
+    def shard_of(self, block_id: int) -> int:
+        """The batch shard owning a block id (0 unsharded)."""
+        return int(block_id) // self.blocks_per_shard
+
+    def free_in_shard(self, shard: int) -> int:
+        """Free blocks inside one shard's id range."""
+        return sum(1 for b in self._free
+                   if b // self.blocks_per_shard == shard)
+
+    def cached_in_shard(self, shard: int) -> int:
+        """Cached (evictable) blocks inside one shard's id range."""
+        return sum(1 for b in self._evictable
+                   if b // self.blocks_per_shard == shard)
 
     @property
     def utilization(self) -> float:
@@ -290,13 +435,21 @@ class BlockAllocator:
         self.spill_store = store
         self._spill_fetch = fetch
 
-    def _evict_one(self, flushed: bool = False) -> int:
+    def _evict_one(self, flushed: bool = False,
+                   shard: Optional[int] = None) -> int:
         """Unregister and return the least recently used cached block,
         counting it against its registering tenant (``flushed``: the
         degradation ladder's flush counter). With a spill tier attached
         the block's contents are copied to the host store first, so the
-        eviction becomes a future upload instead of a recompute."""
-        b, _ = self._evictable.popitem(last=False)
+        eviction becomes a future upload instead of a recompute.
+        ``shard`` restricts the LRU walk to one shard's ids (callers
+        check :meth:`cached_in_shard` first)."""
+        if shard is None:
+            b, _ = self._evictable.popitem(last=False)
+        else:
+            b = next(x for x in self._evictable
+                     if x // self.blocks_per_shard == shard)
+            del self._evictable[b]
         h = self._block_to_hash.pop(b)
         del self._hash_to_block[h]
         owner = self._cached_owner.pop(b, None)
@@ -312,16 +465,47 @@ class BlockAllocator:
         self.num_evictions += 1
         return b
 
-    def alloc(self, n: int, tenant: str = DEFAULT_TENANT) -> List[int]:
+    def alloc(self, n: int, tenant: str = DEFAULT_TENANT,
+              shard: Optional[int] = None) -> List[int]:
         """``n`` blocks at refcount 1, held by ``tenant``, evicting cached
-        blocks (LRU first) when the free list alone cannot serve them."""
-        if n > len(self._free) + len(self._evictable):
+        blocks (LRU first) when the free list alone cannot serve them.
+        ``shard`` takes them from that shard's range only (the most
+        recently freed of the shard first, as the unsharded pop), and
+        raises ``CacheOutOfBlocks`` when that shard cannot serve them,
+        whatever the other shards hold."""
+        if shard is None or self.num_shards == 1:
+            if n > len(self._free) + len(self._evictable):
+                raise CacheOutOfBlocks(
+                    f"requested {n} blocks, {len(self._free)} free + "
+                    f"{len(self._evictable)} evictable of "
+                    f"{self.num_blocks}")
+            out = []
+            for _ in range(n):
+                b = self._free.pop() if self._free else self._evict_one()
+                self._ref[b] = 1
+                self._tenant_refs[b] = {tenant: 1}
+                self._charge_block(b, +1)
+                out.append(b)
+            return out
+        shard = int(shard)
+        if not 0 <= shard < self.num_shards:
+            raise ValueError(
+                f"shard {shard} out of range [0, {self.num_shards})")
+        free_s = self.free_in_shard(shard)
+        if n > free_s + self.cached_in_shard(shard):
             raise CacheOutOfBlocks(
-                f"requested {n} blocks, {len(self._free)} free + "
-                f"{len(self._evictable)} evictable of {self.num_blocks}")
+                f"requested {n} blocks on shard {shard}, {free_s} free "
+                f"+ {self.cached_in_shard(shard)} evictable of "
+                f"{self.blocks_per_shard} shard blocks")
         out = []
         for _ in range(n):
-            b = self._free.pop() if self._free else self._evict_one()
+            b = None
+            for i in range(len(self._free) - 1, -1, -1):
+                if self._free[i] // self.blocks_per_shard == shard:
+                    b = self._free.pop(i)
+                    break
+            if b is None:
+                b = self._evict_one(shard=shard)
             self._ref[b] = 1
             self._tenant_refs[b] = {tenant: 1}
             self._charge_block(b, +1)
@@ -408,22 +592,28 @@ class BlockAllocator:
         """The block serving a chain hash, or None."""
         return self._hash_to_block.get(block_hash)
 
-    def lookup_prefix(self, hashes: Sequence[str]) -> List[int]:
+    def lookup_prefix(self, hashes: Sequence[str],
+                      shard: Optional[int] = None) -> List[int]:
         """The longest indexed prefix of the chain, taking no references
-        and leaving the LRU order alone (for capacity checks)."""
+        and leaving the LRU order alone (for capacity checks). ``shard``
+        stops the walk at the first block outside that shard's range: a
+        lane shares only blocks its own shard holds."""
         out: List[int] = []
         for h in hashes:
             b = self._hash_to_block.get(h)
             if b is None:
                 break
+            if shard is not None and b // self.blocks_per_shard != shard:
+                break
             out.append(b)
         return out
 
     def match_prefix(self, hashes: Sequence[str],
-                     tenant: str = DEFAULT_TENANT) -> List[int]:
+                     tenant: str = DEFAULT_TENANT,
+                     shard: Optional[int] = None) -> List[int]:
         """:meth:`lookup_prefix`, acquiring a reference on each block for
         ``tenant``; the caller frees them under the same tenant."""
-        out = self.lookup_prefix(hashes)
+        out = self.lookup_prefix(hashes, shard=shard)
         self.acquire(out, tenant=tenant)
         return out
 
@@ -499,15 +689,19 @@ class BlockAllocator:
     def check_integrity(self, expected_refcounts: Optional[Dict[int, int]]
                         = None,
                         expected_tenant_refs: Optional[
-                            Dict[int, Dict[str, int]]] = None) -> None:
+                            Dict[int, Dict[str, int]]] = None,
+                        expected_shards: Optional[Dict[int, int]] = None
+                        ) -> None:
         """Raise ``ValueError`` on a broken invariant: every block in
         exactly one of free, active and cached; the hash and block maps a
         bijection; cached blocks registered; no registered block free;
         the tenant split of each block summing to its refcount, and the
         running charges equal to the exact sums (then rebased to them);
         the spill store disjoint from the index and within its bound;
-        and, given the refcounts (and their tenant split) that the
-        caller's own bookkeeping implies, an exact match."""
+        given the refcounts (and their tenant split) that the caller's
+        own bookkeeping implies, an exact match; and given the shard each
+        referenced block must live on (its lanes' batch shard), shard
+        residency."""
         free, active = set(self._free), set(self._ref)
         cached = set(self._evictable)
         if len(free) != len(self._free):
@@ -589,6 +783,15 @@ class BlockAllocator:
                     f"tenant refs diverge from caller bookkeeping: "
                     f"expected {expect}, allocator holds "
                     f"{self._tenant_refs}")
+        if expected_shards is not None:
+            foreign = {int(b): (int(sh), self.shard_of(b))
+                       for b, sh in expected_shards.items()
+                       if self.shard_of(b) != int(sh)}
+            if foreign:
+                raise ValueError(
+                    f"blocks off their lanes' shards (block: (lane shard, "
+                    f"block shard)) {foreign}: batch-axis shard residency "
+                    "violated")
         if expected_refcounts is not None:
             expected = {int(b): int(c) for b, c in expected_refcounts.items()
                         if int(c) > 0}
@@ -847,43 +1050,68 @@ def paged_write(pages, layer: int, coords, values) -> None:
 
 
 def write_kv(cache: KVCache, layer: int, coords, k_values,
-             v_values) -> KVCache:
+             v_values, head_offset: int = 0) -> KVCache:
     """Write one layer's K and V rows at ``coords``: two
     :func:`paged_write` calls into full-precision pools; into int8/fp8
     pools, :func:`~apex_tpu_torch.ops.kv_quant.kv_quant_write` (payload
-    and scales, the kernel on CUDA tensors)."""
+    and scales, the kernel on CUDA tensors). ``head_offset``: the global
+    index of the pool's first head (a model shard's), which keys the
+    quantized rounding."""
     if cache.k_scale is None:
         paged_write(cache.k, layer, coords, k_values)
         paged_write(cache.v, layer, coords, v_values)
     else:
         kv_quant_write(cache.k, cache.v, cache.k_scale, cache.v_scale,
-                       layer, coords, k_values, v_values)
+                       layer, coords, k_values, v_values, head_offset)
     return cache
 
 
-def copy_block(cache: KVCache, src: int, dst: int) -> KVCache:
+def copy_block(cache, src: int, dst: int):
     """Copy block ``src`` onto ``dst`` in every layer, in place, scales
-    with their payload: the device half of copy-on-write."""
+    with their payload: the device half of copy-on-write. On a
+    :class:`ShardedKVCache` both ids lie on one batch shard, and every
+    model shard of it copies its heads."""
+    if isinstance(cache, ShardedKVCache):
+        (bs_, ls), (bd, ld) = cache.locate(src), cache.locate(dst)
+        if bs_ != bd:
+            raise ValueError(f"copy_block: blocks {src} and {dst} lie on "
+                             f"batch shards {bs_} and {bd}")
+        for shard in cache.shards[bs_]:
+            copy_block(shard, ls, ld)
+        return cache
     for pool in (cache.k, cache.v, cache.k_scale, cache.v_scale):
         if pool is not None:
             pool[:, dst] = pool[:, src]
     return cache
 
 
-def gather_blocks(cache: KVCache, perm) -> KVCache:
+def gather_blocks(cache, perm):
     """Permute the pool's blocks in place (``new[i] = old[perm[i]]``),
-    scales with their payload."""
-    perm = torch.as_tensor(np.asarray(perm), dtype=torch.long,
-                           device=cache.k.device)
+    scales with their payload. On a :class:`ShardedKVCache` the
+    permutation keeps every block on its batch shard, and each shard
+    applies its local part."""
+    perm = np.asarray(perm, np.int64)
+    if isinstance(cache, ShardedKVCache):
+        Nl = cache.blocks_per_shard
+        if np.any(perm // Nl != np.arange(len(perm)) // Nl):
+            raise ValueError("gather_blocks: the permutation moves blocks "
+                             "across batch shards")
+        for b, row in enumerate(cache.shards):
+            local = perm[b * Nl:(b + 1) * Nl] - b * Nl
+            for shard in row:
+                gather_blocks(shard, local)
+        return cache
+    perm = torch.as_tensor(perm, dtype=torch.long, device=cache.k.device)
     for pool in (cache.k, cache.v, cache.k_scale, cache.v_scale):
         if pool is not None:
             pool.copy_(pool[:, perm])
     return cache
 
 
-def defragment(cache: KVCache, allocator: BlockAllocator, host_tables):
+def defragment(cache, allocator: BlockAllocator, host_tables):
     """Compact the live blocks (those in ``host_tables``) to the lowest
-    ids, in place: the pool is permuted, the allocator's refcounts and
+    ids of their batch shard, in place: the pool is permuted (every
+    shard of a :class:`ShardedKVCache`), the allocator's refcounts and
     index are rewritten in the new ids and its cached blocks dropped
     (counted as evictions; no table reaches them). Returns ``(cache,
     new_host_tables)``. A maintenance operation, never per step."""
@@ -895,10 +1123,17 @@ def defragment(cache: KVCache, allocator: BlockAllocator, host_tables):
         raise ValueError(
             f"defragment: blocks {sorted(missing)} hold references but "
             "appear in no table — allocator and tables are inconsistent")
-    mapping = {int(old): new for new, old in enumerate(live)}
+    Nl = allocator.blocks_per_shard
+    mapping: Dict[int, int] = {}
     perm = np.arange(cache.num_blocks, dtype=np.int64)
-    perm[: len(live)] = live
-    perm[len(live):] = np.setdiff1d(np.arange(cache.num_blocks), live)
+    for sh in range(allocator.num_shards):
+        base = sh * Nl
+        own = live[(live >= base) & (live < base + Nl)]
+        mapping.update({int(old): base + new for new, old in enumerate(own)})
+        rest = np.setdiff1d(np.arange(base, base + Nl), own)
+        perm[base:base + len(own)] = own
+        perm[base + len(own):base + Nl] = rest
+    new_live = set(mapping.values())
     for idx, old in np.ndenumerate(tables):
         if old >= 0:
             tables[idx] = mapping[int(old)]
@@ -920,5 +1155,7 @@ def defragment(cache: KVCache, allocator: BlockAllocator, host_tables):
     allocator._cached_owner = {
         mapping[b]: t for b, t in allocator._cached_owner.items()
         if b in mapping}
-    allocator._free = list(range(cache.num_blocks - 1, len(live) - 1, -1))
+    # descending, so pop() serves ascending ids first
+    allocator._free = [b for b in range(cache.num_blocks - 1, -1, -1)
+                       if b not in new_live]
     return gather_blocks(cache, perm), tables

@@ -16,14 +16,19 @@ PyTorch version on the same inputs:
   lanes with ragged contexts from 0 to 1020, and 8 live lanes at 300 to
   1000, the engine's steady decode, its keys split over a cluster) and a
   128-row prefill chunk (B = 1), fp32 and bf16, plus int8 and fp8 pools
-  with per-row scales. Tolerance: atol = rtol = 1e-4 for fp32 math on
+  with per-row scales; then at a model shard's 6 heads (GPT-2 small at
+  model axis 2: 8 live decode lanes fp32 and over an int8 pool, a
+  128-row prefill chunk fp32 and bf16). Tolerance: atol = rtol = 1e-4 for
+  fp32 math on
   fp32 outputs (online vs full softmax and 3xTF32 products reorder the
   sums), 2e-2 for bf16 outputs (one bf16 ulp at their magnitude); a
   second call must give the same bits, and the profiler must count one
   CUDA kernel a call.
 - ``dequant_gemm`` (B15): M in {1, 8, 64, 128} (decode lanes and
   prefill chunks, both of its regimes) x (K, N) in {(768, 768), (768,
-  3072), (3072, 768)}, int8 and float8_e4m3fn weights. Tolerance atol =
+  3072), (3072, 768)}, int8 and float8_e4m3fn weights; then a model
+  shard's int8 weights at model axis 2 ((768, 384), (768, 1536), (384,
+  768), (1536, 768) at M 4, 8 and 128). Tolerance atol =
   rtol = 1e-4 (fp32 sums in another order than cuBLAS); a second call
   must give the same bits, and the profiler must count one CUDA kernel
   a call.
@@ -32,7 +37,9 @@ PyTorch version on the same inputs:
   write at the engine's decode (B 8, S 1) and prefill-chunk (S 128)
   shapes, fp32 and bf16 rows, int8 and fp8 pools; the payload bytes and
   scales must equal the plain version's on the same card tensors and on
-  the CPU, one CUDA kernel a call.
+  the CPU, one CUDA kernel a call; and a model shard's write (heads 6-11
+  of 12 at head offset 6), whose bytes must also equal the unsharded
+  pool's head slice.
 - ``layer_norm_bwd`` (B1) at the shapes of B2's list below that it takes
   (H up to 8192: BERT-large and GPT-2 small activations in bf16, BERT-large
   in fp32, RMSNorm, the OpenFold pair and MSA, an odd H), each rerun and
@@ -318,6 +325,32 @@ over phase 13b's GPT-2 small for 3 steps, losses and every state tensor
 bitwise equal to the loop without it, the step histogram counting 3. A
 ``{"phase14": ...}`` line records it; ``--only 14`` runs it alone.
 
+Phase 15 serves over the mesh on this one card, then migrates. 15a:
+phase 2's engine and traffic at mesh (1, 1), (1, 2), (2, 1) and (2, 2)
+(every shard on this card, through ``build_mesh(shape, devices=)``), then
+int8 weights over an int8 pool at (1, 1) and (2, 2): every request
+finishes; each forward of a batch group launches exactly 12 B14 a model
+shard (12 ``kv_quant_write`` on the int8 pool, 72 B15 on int8 weights)
+and sums 24 row-parallel partials (counted ``all-reduce`` s) at model
+axis 2, none at 1; ``audit_collectives()`` holds; nothing is routed to a
+plain version. Tokens must equal (1, 1)'s of the same weights: a
+divergence passes only as a near-tie, found by repeating both runs with a
+tap on the engines' own logits rows at the token (the rows must
+reproduce both tokens, differ by at most 1e-3 and explain the choice),
+at most one an fp32 arm. On the int8 pool a last-bit difference flips a
+stochastic rounding now and then, so the int8 (2, 2) arm has its own
+count limit, and both int8 runs are repeated with their prompts' K/V
+read back: the two pools may differ by one step only, in a small share
+of each layer's values (each limit from ``tools/mesh_ties.py``'s
+readings over several seeds). Tokens/s, B2's launches a forward,
+peak memory and each shard's pool and weight bytes are printed. 15b: at
+tick 20 a (1, 2) engine exports every other live request with its prefix
+payloads, through JSON, into a (1, 1) engine on the same card: the union
+of tokens is the unmigrated run's (the same near-tie rule), the target
+uploads the payloads, a record with a flipped byte is refused; export
+and import ms and the bytes moved are printed. A ``{"phase15": ...}``
+line records it; ``--only 15`` runs it alone.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -543,10 +576,11 @@ def card_line():
 
 # -- phase 1: kernels against their plain versions ---------------------------
 
-def paged_case(torch, B, C, ctx, dtype, pool_dtype, seed, dev):
-    """Inputs for one paged-read call: a 512-block pool, M = 64 table
-    entries per lane holding distinct blocks, unallocated entries = N."""
-    H, D, bs, M, N = 12, 64, 16, 64, 512
+def paged_case(torch, B, C, ctx, dtype, pool_dtype, seed, dev, H=12):
+    """Inputs for one paged-read call: a 512-block pool of ``H`` heads (6:
+    a model shard of GPT-2 small at model axis 2), M = 64 table entries
+    per lane holding distinct blocks, unallocated entries = N."""
+    D, bs, M, N = 64, 16, 64, 512
     g = torch.Generator().manual_seed(seed)
     perm = torch.randperm(N, generator=g)
     tbl = torch.full((B, M), N, dtype=torch.int32)
@@ -657,6 +691,22 @@ def paged_cases(torch):
     ]
 
 
+def paged_shard_cases(torch):
+    """B14 at a model shard's width (6 heads: GPT-2 small at model axis
+    2), the serving mesh's shapes: steady decode, fp32 and over an int8
+    pool, and a 128-row prefill chunk, fp32 and bf16."""
+    live_ctx = [300, 400, 500, 600, 700, 800, 900, 1000]
+    f32, bf16, int8 = torch.float32, torch.bfloat16, torch.int8
+    return [
+        ("decode fp32, 8 live lanes, 6 heads", 8, 1, live_ctx, f32, f32,
+         1e-4),
+        ("decode int8 pool, 8 live lanes, 6 heads", 8, 1, live_ctx, f32,
+         int8, 1e-4),
+        ("prefill fp32, 6 heads", 1, 128, [1000], f32, f32, 1e-4),
+        ("prefill bf16, 6 heads", 1, 128, [1000], bf16, bf16, 2e-2),
+    ]
+
+
 def paged_flop_rate(torch, q_dtype, pool_dtype):
     """The peak rate for B14's products at fp32-class precision, by the
     route the operands' dtypes take (``csrc/paged_read.cu``): bf16 queries
@@ -686,9 +736,10 @@ def phase1_paged(torch, F, dev, seed):
     )
 
     rows = []
-    for i, (name, B, C, ctx, dt, pool_dt, tol) in enumerate(
-            paged_cases(torch)):
-        args = paged_case(torch, B, C, ctx, dt, pool_dt, seed + i, dev)
+    cases = ([c + (12,) for c in paged_cases(torch)]
+             + [c + (6,) for c in paged_shard_cases(torch)])
+    for i, (name, B, C, ctx, dt, pool_dt, tol, H) in enumerate(cases):
+        args = paged_case(torch, B, C, ctx, dt, pool_dt, seed + i, dev, H)
         out = paged_prefill_attention(*args)
         again = paged_prefill_attention(*args)
         ref = paged_prefill_attention_plain(*args)
@@ -710,7 +761,7 @@ def phase1_paged(torch, F, dev, seed):
         rate = paged_flop_rate(torch, dt, pool_dt)
         b_ms, b_by = bound(nbytes, flops, rate)
         row = dict(
-            case=name, B=B, C=C, dtype=str(dt), pool=str(pool_dt),
+            case=name, B=B, C=C, H=H, dtype=str(dt), pool=str(pool_dt),
             max_abs_err=max_abs, max_rel_err=max_rel, tol=tol,
             kernels_per_call=per_call,
             plan=paged_plan(B, C, args[0].shape[2], args[3].shape[1],
@@ -760,52 +811,62 @@ def phase1_dequant(torch, dev, seed):
     # 768 x 2304, the width of a fused qkv product, beside the port's own
     shapes = [(M, K, N) for M in (1, 8, 64, 128) for K, N in pairs] + [
         (40, K, N) for K, N in ((768, 2304),) + pairs]
-    for mode in ("int8", "fp8"):
-        for M, K, N in shapes:
-            w_q, s = quantize_dense_kernel(
-                torch.randn(K, N, generator=g) * 0.02, mode)
-            x = torch.randn(M, K, generator=g)
-            w_q, s, x = w_q.to(dev), s.to(dev), x.to(dev)
-            out = dequant_matmul(x, w_q, s)
-            again = dequant_matmul(x, w_q, s)
-            ref = dequant_matmul_plain(x, w_q, s)
-            torch.cuda.synchronize()
-            err = (out - ref).abs()
-            max_abs = err.max().item()
-            max_rel = (err / ref.abs().clamp(min=1e-3)).max().item()
-            check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4),
-                  f"dequant_gemm {mode} {M}x{K}x{N}: max abs err "
-                  f"{max_abs}")
-            check(torch.equal(out, again), f"dequant_gemm {mode} "
-                  f"{M}x{K}x{N}: a rerun changed the bits")
-            per_call = kernels_per_call(
-                lambda: dequant_matmul(x, w_q, s))
-            check(per_call == 1, f"dequant_gemm {mode} {M}x{K}x{N}: "
-                  f"{per_call} CUDA kernels a call, not 1")
-            w = w_q.float() * s[None]
-            nbytes = 4 * M * K + w_q.numel() * w_q.element_size() \
-                + 4 * N + 4 * M * N
-            b_ms, b_by = bound(nbytes, 2 * M * K * N)
-            row = dict(
-                case=f"{mode} M={M} K={K} N={N}", mode=mode, M=M, K=K,
-                N=N, max_abs_err=max_abs, max_rel_err=max_rel,
-                tol=1e-4, kernels_per_call=per_call,
-                regime="streaming" if M <= M0 else "tiled",
-                plan=dequant_plan(M, K, N),
-                ms=time_ms(lambda: dequant_matmul(x, w_q, s)),
-                plain_ms=time_ms(lambda: dequant_matmul_plain(x, w_q,
-                                                              s)),
-                library_ms=time_ms(lambda: torch.matmul(x, w)),
-                bytes=nbytes, flops=2 * M * K * N, bound_ms=b_ms,
-                bound_by=b_by)
-            rows.append(row)
-            print(f"[B15 dequant_gemm] {row['case']} ({row['regime']}, "
-                  f"rows/splits/stages {row['plan']}, {per_call} "
-                  f"kernel a call): max_abs_err "
-                  f"{max_abs:.3g} max_rel_err {max_rel:.3g} | ms "
-                  f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-                  f"library_ms {row['library_ms']:.4f} bound_ms "
-                  f"{b_ms:.4f} ({b_by})", flush=True)
+    # a model shard's weights at model axis 2 (the serving mesh): the
+    # column shards (768, 384) and (768, 1536), the row shards (384, 768)
+    # and (1536, 768), at decode (8 lanes, 4 a batch shard) and a prefill
+    # chunk
+    shard_shapes = [(M, K, N) for M in (4, 8, 128)
+                    for K, N in ((768, 384), (768, 1536), (384, 768),
+                                 (1536, 768))]
+    for mode, M, K, N in ([(m, *sh) for m in ("int8", "fp8")
+                           for sh in shapes]
+                          + [("int8", *sh) for sh in shard_shapes]):
+        w_q, s = quantize_dense_kernel(
+            torch.randn(K, N, generator=g) * 0.02, mode)
+        x = torch.randn(M, K, generator=g)
+        w_q, s, x = w_q.to(dev), s.to(dev), x.to(dev)
+        out = dequant_matmul(x, w_q, s)
+        again = dequant_matmul(x, w_q, s)
+        ref = dequant_matmul_plain(x, w_q, s)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        max_abs = err.max().item()
+        max_rel = (err / ref.abs().clamp(min=1e-3)).max().item()
+        check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4),
+              f"dequant_gemm {mode} {M}x{K}x{N}: max abs err "
+              f"{max_abs}")
+        check(torch.equal(out, again), f"dequant_gemm {mode} "
+              f"{M}x{K}x{N}: a rerun changed the bits")
+        per_call = kernels_per_call(
+            lambda: dequant_matmul(x, w_q, s))
+        check(per_call == 1, f"dequant_gemm {mode} {M}x{K}x{N}: "
+              f"{per_call} CUDA kernels a call, not 1")
+        w = w_q.float() * s[None]
+        nbytes = 4 * M * K + w_q.numel() * w_q.element_size() \
+            + 4 * N + 4 * M * N
+        b_ms, b_by = bound(nbytes, 2 * M * K * N)
+        row = dict(
+            case=f"{mode} M={M} K={K} N={N}"
+            + (" (shard)" if (M, K, N) in shard_shapes else ""),
+            mode=mode, M=M, K=K,
+            N=N, max_abs_err=max_abs, max_rel_err=max_rel,
+            tol=1e-4, kernels_per_call=per_call,
+            regime="streaming" if M <= M0 else "tiled",
+            plan=dequant_plan(M, K, N),
+            ms=time_ms(lambda: dequant_matmul(x, w_q, s)),
+            plain_ms=time_ms(lambda: dequant_matmul_plain(x, w_q,
+                                                          s)),
+            library_ms=time_ms(lambda: torch.matmul(x, w)),
+            bytes=nbytes, flops=2 * M * K * N, bound_ms=b_ms,
+            bound_by=b_by)
+        rows.append(row)
+        print(f"[B15 dequant_gemm] {row['case']} ({row['regime']}, "
+              f"rows/splits/stages {row['plan']}, {per_call} "
+              f"kernel a call): max_abs_err "
+              f"{max_abs:.3g} max_rel_err {max_rel:.3g} | ms "
+              f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+              f"library_ms {row['library_ms']:.4f} bound_ms "
+              f"{b_ms:.4f} ({b_by})", flush=True)
     return rows
 
 
@@ -4734,7 +4795,80 @@ def phase1_kv_quant(torch, dev, seed):
               f"version on the card and on the CPU | ms {row['ms']:.4f} "
               f"plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} "
               f"({b_by})", flush=True)
+    rows.append(kvq_head_offset_row(torch, dev, seed + len(rows)))
     return rows
+
+
+def kvq_head_offset_row(torch, dev, seed, h0=6):
+    """A model shard's write: heads 6-11 of GPT-2 small's 12 (model axis
+    2) at head offset 6 into a 6-head int8 pool, at the decode shape. Its
+    bytes and scales must equal its plain version's (card and CPU) and the
+    unsharded 12-head pool's head slice after the unsharded write of the
+    same rows: the rounding noise is keyed by the global head."""
+    from apex_tpu_torch.ops.kv_quant import (kv_quant_write,
+                                             kv_quant_write_plain)
+    from apex_tpu_torch.serving import KVCache
+
+    name = f"decode B 8, fp32 rows, int8 pool, heads {h0}-11 of 12"
+    full, coords, k, v = kvq_case(torch, 8, 1, torch.float32, "int8", seed,
+                                  dev)
+    kv_quant_write(full.k, full.v, full.k_scale, full.v_scale, 3, coords, k,
+                   v)
+    ks, vs = k[:, :, h0:].contiguous(), v[:, :, h0:].contiguous()
+
+    def pool(device):
+        return KVCache.create(12, 512, 16, 12 - h0, 64, quantization="int8",
+                              device=device)
+
+    shard, plain, cpu = pool(dev), pool(dev), pool(torch.device("cpu"))
+    cpu_coords = tuple(c.cpu() for c in coords)
+
+    def run(c=shard):
+        kv_quant_write(c.k, c.v, c.k_scale, c.v_scale, 3, coords, ks, vs,
+                       head_offset=h0)
+
+    def run_plain(c=plain):
+        kv_quant_write_plain(c.k, c.v, c.k_scale, c.v_scale, 3, coords, ks,
+                             vs, head_offset=h0)
+
+    run()
+    run_plain()
+    kv_quant_write_plain(cpu.k, cpu.v, cpu.k_scale, cpu.v_scale, 3,
+                         cpu_coords, ks.cpu(), vs.cpu(), head_offset=h0)
+    torch.cuda.synchronize()
+    for a, b, c, f in ((shard.k, plain.k, cpu.k, full.k[..., h0:, :]),
+                       (shard.v, plain.v, cpu.v, full.v[..., h0:, :]),
+                       (shard.k_scale, plain.k_scale, cpu.k_scale,
+                        full.k_scale[..., h0:]),
+                       (shard.v_scale, plain.v_scale, cpu.v_scale,
+                        full.v_scale[..., h0:])):
+        if a.dtype != torch.float32:
+            a, b, c, f = (t.view(torch.uint8) for t in (a, b, c, f))
+        check(torch.equal(a, b), f"kv_quant_write {name}: "
+              f"{(a != b).sum().item()} elements differ from its plain "
+              f"version")
+        check(torch.equal(a.cpu(), c), f"kv_quant_write {name}: the card "
+              f"and the CPU round differently")
+        check(torch.equal(a, f), f"kv_quant_write {name}: "
+              f"{(a != f).sum().item()} elements differ from the unsharded "
+              f"pool's head slice")
+    per_call = kernels_per_call(run)
+    check(per_call == 1, f"kv_quant_write {name}: {per_call} CUDA kernels "
+          f"a call, not 1")
+    n, H = 8, 12 - h0
+    elems = 2 * n * H * 64
+    nbytes = elems * 4 + elems + 2 * n * H * 4 + 5 * n * 8
+    b_ms, b_by = bound(nbytes, 4 * elems, int_ops=philox_ops(elems))
+    row = dict(case=name, B=8, S=1, H=H, head_offset=h0,
+               dtype=str(torch.float32), pool="int8", max_abs_err=0.0,
+               kernels_per_call=per_call, ms=time_ms(run),
+               plain_ms=time_ms(run_plain, graph=False), library_ms=None,
+               bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+    print(f"[kv_quant_write] {name}: bytes identical to the plain version "
+          f"(card, CPU) and to the unsharded pool's heads {h0}-11 | ms "
+          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} bound_ms "
+          f"{b_ms:.5f} ({b_by})", flush=True)
+    return row
 
 
 # -- phase 12: quantized KV pools, then tenancy and overload ------------------
@@ -5227,6 +5361,32 @@ def route_logits(torch, model, context, config, dev):
     return whole, step
 
 
+def tie_measure(torch, lw, ls, sp, seed, arrival, j, dev):
+    """Whether token ``j`` of the request that arrived ``arrival``-th is a
+    near-tie under two routes' logits ``lw`` and ``ls``: greedy, the top-2
+    gap of both under 1e-5 of their largest magnitude; sampled, its
+    uniform within 1e-5 of a CDF boundary of either route's filtered
+    distribution. Returns ``(measure, tie, logits_absmax)``."""
+    from apex_tpu_torch.serving.sampling import (_filtered_sorted_logits,
+                                                 token_generator, uniforms)
+
+    amax = max(lw.abs().max().item(), ls.abs().max().item())
+    if sp.temperature <= 0:
+        gaps = [(lambda t: (t[0] - t[1]).item())(torch.topk(x, 2).values)
+                for x in (lw, ls)]
+        return max(gaps) / amax, max(gaps) < 1e-5 * amax, amax
+    u = uniforms([token_generator(seed, arrival, j)]).item()
+    margins = []
+    for x in (lw, ls):
+        filt, _, _ = _filtered_sorted_logits(
+            x[None], torch.tensor([sp.temperature], device=dev),
+            torch.tensor([sp.top_k], device=dev),
+            torch.tensor([sp.top_p], device=dev))
+        cdf = torch.cumsum(torch.softmax(filt, -1), -1)[0]
+        margins.append(((cdf - u * cdf[-1]).abs().min() / cdf[-1]).item())
+    return min(margins), min(margins) < 1e-5, amax
+
+
 def restore_divergences(torch, model, config, reqs, ref, got, label, ties,
                         dev):
     """Hold a restored run's tokens to the uninterrupted run's. The
@@ -5237,9 +5397,6 @@ def restore_divergences(torch, model, config, reqs, ref, got, label, ties,
     rule); sampled, the request's uniform within 1e-5 of a CDF boundary of
     either route's filtered distribution. At most one in ``ties`` (one
     list for phase 13a, one an arm in phase 14a)."""
-    from apex_tpu_torch.serving.sampling import (_filtered_sorted_logits,
-                                                 token_generator, uniforms)
-
     for arrival, r in enumerate(reqs):
         a, b = list(ref[r.uid]), list(got[r.uid])
         if a == b:
@@ -5249,24 +5406,9 @@ def restore_divergences(torch, model, config, reqs, ref, got, label, ties,
         j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
         lw, ls = route_logits(torch, model, list(r.prompt) + a[:j], config,
                               dev)
-        amax = max(lw.abs().max().item(), ls.abs().max().item())
         sp = r.sampling
-        if sp.temperature <= 0:
-            gaps = [(lambda t: (t[0] - t[1]).item())(torch.topk(x, 2).values)
-                    for x in (lw, ls)]
-            measure, tie = max(gaps) / amax, max(gaps) < 1e-5 * amax
-        else:
-            u = uniforms([token_generator(config.seed, arrival, j)]).item()
-            margins = []
-            for x in (lw, ls):
-                filt, _, _ = _filtered_sorted_logits(
-                    x[None], torch.tensor([sp.temperature], device=dev),
-                    torch.tensor([sp.top_k], device=dev),
-                    torch.tensor([sp.top_p], device=dev))
-                cdf = torch.cumsum(torch.softmax(filt, -1), -1)[0]
-                margins.append(((cdf - u * cdf[-1]).abs().min()
-                                / cdf[-1]).item())
-            measure, tie = min(margins), min(margins) < 1e-5
+        measure, tie, amax = tie_measure(torch, lw, ls, sp, config.seed,
+                                         arrival, j, dev)
         rec = dict(arm=label, uid=r.uid, position=j, ref=a[j], got=b[j],
                    sampled=sp.temperature > 0, measure=measure,
                    logits_absmax=amax)
@@ -6070,6 +6212,611 @@ def phase14(torch, dev, seed, card):
     return rec
 
 
+# -- phase 15: the serving mesh on one card, then migration -------------------
+
+MESH_SHAPES = ((1, 1), (1, 2), (2, 1), (2, 2))
+
+
+def mesh_engine(model, config, dev, **kw):
+    """An engine at ``config.mesh_shape`` with every shard on ``dev``."""
+    from apex_tpu_torch.serving import InferenceEngine, build_mesh
+
+    B, M = config.mesh_shape
+    return InferenceEngine(model, config, device=dev, mesh=build_mesh(
+        (B, M), [dev] * (B * M)), **kw)
+
+
+def split_weight_bytes(eng):
+    """Device bytes of one model shard's split linears (the whole model's
+    linears, shared with it, at model axis 1)."""
+    return sum(t.numel() * t.element_size()
+               for blk in eng._model_shards[0][0].blocks
+               for lin in blk.values() if hasattr(lin, "kernel")
+               for t in (lin.kernel, lin.bias, lin.scale) if t is not None)
+
+
+def serve_mesh(torch, model, config, reqs, dev, label, card):
+    """Phase 2's two-wave drive through one engine at
+    ``config.mesh_shape``, every shard on ``dev``: the launch counters set
+    to 0 just before and read just after. Each forward of a batch group
+    (the collective log's count) must launch exactly 12 B14 a model shard,
+    12 ``kv_quant_write`` on a quantized pool, 72 B15 on int8 weights, and
+    sum 24 partials at model axis 2 (none at 1); nothing is routed to a
+    plain version. Prefill and decode are timed on the host clock around
+    synchronized work."""
+    from apex_tpu_torch import _build
+
+    B, M = config.mesh_shape
+    eng = mesh_engine(model, config, dev)
+    spent = {"prefill": 0.0, "decode": 0.0}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            sync(torch, dev)
+            spent[name] += time.perf_counter() - t
+            return r
+        return wrapper
+
+    eng._prefill_tick = timed("prefill", eng._prefill_tick)
+    eng._dispatch_decode = timed("decode", eng._dispatch_decode)
+    eng._drain_decode = timed("decode", eng._drain_decode)
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    feed_two_waves(eng, reqs)
+    out = eng.run(return_status=True)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    s = eng.stats()
+    L = model.cfg.num_layers
+    for r in reqs:
+        res = out.get(r.uid)
+        check(res is not None and res.status == "finished"
+              and len(res.tokens) == r.max_new_tokens,
+              f"{label}: request {r.uid} did not finish its budget")
+        check(all(0 <= t < model.cfg.vocab_size for t in res.tokens),
+              f"{label}: request {r.uid} emitted an out-of-vocab token")
+    check(eng.allocator.num_used == 0, f"{label}: blocks leaked")
+    eng.check_allocator_integrity()
+    check_no_route(launches, label)
+    log = eng._collectives
+    fwd = sum(log.forwards.values())
+    want = {"paged_read": L * M * fwd,
+            "kv_quant_write": L * M * fwd if config.kv_quantization else 0,
+            "dequant_gemm": (6 * L * M * fwd if config.weight_quantization
+                             else 0)}
+    for k, n in want.items():
+        check(launches[k] == n, f"{label}: {launches[k]} {k} launches for "
+              f"{fwd} group forwards at model axis {M}, expected {n}")
+    sums = sum(t["ops"] for t in log.totals.values())
+    check(sums == (2 * L * fwd if M > 1 else 0),
+          f"{label}: {sums} all-reduce for {fwd} group forwards")
+    audit = eng.audit_collectives()
+    rec = dict(
+        label=label, card=card, mesh=[B, M], wall_s=wall,
+        prefill_tokens=s["num_prefill_tokens"], prefill_s=spent["prefill"],
+        prefill_tokens_per_s=s["num_prefill_tokens"] / spent["prefill"],
+        decode_tokens=s["num_tokens_decoded"], decode_s=spent["decode"],
+        decode_tokens_per_s=s["num_tokens_decoded"] / spent["decode"],
+        group_forwards=fwd, forwards=dict(log.forwards),
+        all_reduce_per_forward=sums / fwd,
+        all_reduce_bytes={p: t["bytes"] for p, t in log.totals.items()},
+        layer_norm_fwd_per_forward=launches["layer_norm_fwd"] / fwd,
+        audit={p: st["all-reduce"]["ops"] for p, st in audit.items()},
+        peak_memory_bytes=(torch.cuda.max_memory_allocated()
+                           if dev.type == "cuda" else 0),
+        pool_bytes_per_shard=s["kv_pool_bytes"] // (B * M),
+        split_weight_bytes_per_shard=split_weight_bytes(eng),
+        launches=launches)
+    print(f"[phase 15a {label}] {card}: wall {wall:.3f} s | prefill "
+          f"{rec['prefill_tokens_per_s']:.1f} tok/s | decode "
+          f"{rec['decode_tokens_per_s']:.1f} tok/s | {fwd} group forwards, "
+          f"{rec['all_reduce_per_forward']:g} all-reduce and "
+          f"{rec['layer_norm_fwd_per_forward']:g} B2 a forward | peak "
+          f"{rec['peak_memory_bytes'] / 2**20:.1f} MiB, pool "
+          f"{rec['pool_bytes_per_shard'] / 2**20:.1f} MiB and split weights "
+          f"{rec['split_weight_bytes_per_shard'] / 2**20:.1f} MiB a shard | "
+          f"launches {launches}", flush=True)
+    return rec, {u: r.tokens for u, r in out.items()}, eng
+
+
+def feed_two_waves(eng, reqs):
+    """Phase 2's drive: six requests, 12 ticks, then the rest."""
+    for r in reqs[:6]:
+        eng.add_request(r)
+    for _ in range(12):
+        eng.step()
+    for r in reqs[6:]:
+        eng.add_request(r)
+
+
+def prefill_chunk_slot(eng):
+    """The slot whose prefill chunk the engine's next (or just run)
+    prefill forward computes, the chunk's first position, and whether
+    the chunk completes the slot's prompt."""
+    _, i = min((s.admit_seq, i) for i, s in enumerate(eng.slots)
+               if s is not None and not s.started)
+    s = eng.slots[i]
+    L, C = s.prefill_len, eng.config.chunk
+    start = s.prefill_pos if s.prefill_pos < L else max(0, L - C)
+    return s, start, min(start + C, L) == L
+
+
+def tap_logits(eng, found):
+    """Record the engine's own logits rows that choose the tokens
+    ``found`` is keyed by: ``found[(uid, index)]`` (a list) gets the
+    decode forward's row of the request's lane at the step where its
+    token count reaches ``index``, or (token 0) the prefill chunk's row at
+    the prompt's last position. The tap reads logits the engine computed
+    anyway and changes nothing."""
+    Lp = eng._lanes_per_shard
+    state = {"gen": {}, "step": {}}
+    decode, forward = eng._decode_program, eng._group_forward
+
+    def decode_tap(active):
+        state["gen"] = {i: len(eng.slots[i].generated) for i in active}
+        state["step"] = {}
+        return decode(active)
+
+    def forward_tap(program, group, *args):
+        logits = forward(program, group, *args)
+        if program == "decode":
+            j = state["step"].get(group, 0)
+            state["step"][group] = j + 1
+            for i, g0 in state["gen"].items():
+                key = (eng.slots[i].request.uid, g0 + j)
+                if i // Lp == group and key in found:
+                    found[key].append(
+                        logits[i - group * Lp, 0].float().cpu())
+        else:
+            s, start, last = prefill_chunk_slot(eng)
+            key = (s.request.uid, 0)
+            if key in found and not s.entry.generated and last:
+                found[key].append(
+                    logits[0, s.prefill_len - 1 - start].float().cpu())
+        return logits
+
+    eng._decode_program = decode_tap
+    eng._group_forward = forward_tap
+
+
+def capture_prompt_kv(eng, store):
+    """Record each request's prompt K/V as its pool holds it once its last
+    prefill chunk has run: ``store[uid]`` gets ``{"k", "v"}`` ``[L, P, H,
+    D]`` and, on a quantized pool, ``{"k_scale", "v_scale"}`` ``[L, P, H]``
+    on the host, every head gathered (the pool's layout-free payloads),
+    ``P`` the prompt's length. A prompt's K/V depend on nothing the
+    request emits, so two engines' captures compare whatever their
+    tokens do. Blocking reads: for checks, not for timed runs."""
+    import torch
+
+    forward, bs = eng._group_forward, eng.config.block_size
+
+    def capture(program, group, *args):
+        logits = forward(program, group, *args)
+        if program == "prefill":
+            s, _, last = prefill_chunk_slot(eng)
+            uid, P = s.request.uid, len(s.request.prompt)
+            if last and not s.entry.generated and uid not in store:
+                pays = [eng._pools.block_payload(b)
+                        for b in s.blocks[:-(-P // bs)]]
+                store[uid] = {k: torch.cat([p[k] for p in pays],
+                                           dim=1)[:, :P]
+                              for k in pays[0]}
+        return logits
+
+    eng._group_forward = capture
+
+
+def pool_flips(torch, ref, got):
+    """How two engines' captured prompt K/V (:func:`capture_prompt_kv`) of
+    the same requests differ on a quantized pool, layer by layer: the
+    largest step between their quantized values, the share of values
+    that differ (a stochastic rounding flipped by a last-bit difference
+    before it, or moved by an earlier layer's flips), and the largest
+    relative difference of their scales."""
+    check(set(ref) == set(got), f"pool captures of {sorted(ref)} and "
+          f"{sorted(got)}")
+    step = flips = scale = 0
+    n = 0
+    for uid in ref:
+        for key in ("k", "v"):
+            a = ref[uid][key].view(torch.int8).to(torch.int16)
+            d = (a - got[uid][key].view(torch.int8).to(torch.int16)).abs()
+            step = torch.maximum(torch.as_tensor(step),
+                                 d.flatten(1).max(1).values)
+            flips = flips + (d > 0).flatten(1).sum(1)
+            n += d[0].numel()
+        for key in ("k_scale", "v_scale"):
+            a, b = ref[uid][key], got[uid][key]
+            rel = ((a - b).abs() / a.abs().clamp(min=1e-30)).flatten(1)
+            scale = torch.maximum(torch.as_tensor(scale), rel.max(1).values)
+    share = (flips.double() / n).tolist()
+    return dict(requests=len(ref), max_step_by_layer=step.tolist(),
+                flip_share_by_layer=share,
+                scale_rel_by_layer=scale.tolist(),
+                max_step=int(step.max()), flip_share_max=max(share),
+                scale_rel_max=float(scale.max()))
+
+
+def decision_gap(torch, lw, ls, sp, seed, arrival, j, a, b, dev):
+    """Whether token ``j``'s choice (``a`` in one run, ``b`` in the other)
+    is explained by the difference of two engines' own logits rows ``lw``,
+    ``ls`` at it. The two tokens' order can swap when their logits are
+    within twice the rows' largest difference in each row (greedy: the
+    top two; sampled: two tokens at one rank of the sorted, temperature-
+    scaled logits); a sampled draw can also cross a CDF boundary when the
+    request's uniform lies within twice the total variation distance of
+    the two rows' filtered distributions of a boundary in each. Returns
+    ``(measure, bound, tie, logits_diff)``: the larger of the pair's gaps
+    (or the draw's margins) and its bound."""
+    from apex_tpu_torch.serving.sampling import (_filtered_sorted_logits,
+                                                 token_generator, uniforms)
+
+    diff = (lw - ls).abs().max().item()
+    t = sp.temperature if sp.temperature > 0 else 1.0
+    pair = max(abs(x[a] - x[b]).item() for x in (lw, ls)) / t
+    if pair <= 2 * diff / t or sp.temperature <= 0:
+        return pair, 2 * diff / t, pair <= 2 * diff / t, diff
+    u = uniforms([token_generator(seed, arrival, j)]).item()
+    margins, probs = [], []
+    for x in (lw, ls):
+        filt, order, _ = _filtered_sorted_logits(
+            x[None].to(dev), torch.tensor([sp.temperature], device=dev),
+            torch.tensor([sp.top_k], device=dev),
+            torch.tensor([sp.top_p], device=dev))
+        p = torch.softmax(filt, -1)[0]
+        cdf = torch.cumsum(p, -1)
+        margins.append(((cdf - u * cdf[-1]).abs().min() / cdf[-1]).item())
+        probs.append(torch.zeros_like(p).scatter_(0, order[0], p).cpu())
+    tv = 0.5 * (probs[0] - probs[1]).abs().sum().item()
+    return max(margins), 2 * tv, max(margins) <= 2 * tv, diff
+
+
+# phase 15a's limits, each from the readings of tools/mesh_ties.py
+# (PERF.md §6): two runs' logits rows at a divergent token differ by at most
+# TIE_LOGITS_TOL; a run has at most MESH_TIES_MAX near-ties on fp32
+# weights and INT8_MESH_TIES_MAX on the int8 arm; past layer 0 two int8
+# pools' prompt K/V differ by at most INT8_MAX_STEP steps, in at most
+# INT8_FLIP_SHARE_MAX of a layer's values, their scales by at most
+# INT8_SCALE_REL_MAX (layer 0's are equal: the same chunk products)
+# (seeds 0-5 on the H100: rows up to 6.5e-4 apart; no fp32 near-tie; 4,
+# 3, 1, 1, 0, 3 on the int8 arm, all sampled; steps up to 2, shares up to
+# 0.0043, scales up to 0.0052; the count and step their largest, the
+# share and scale 10x theirs)
+TIE_LOGITS_TOL = 1e-3
+MESH_TIES_MAX = 1
+INT8_MESH_TIES_MAX = 4
+INT8_MAX_STEP = 2
+INT8_FLIP_SHARE_MAX = 0.043
+INT8_SCALE_REL_MAX = 0.052
+
+
+def mesh_divergences(torch, rerun_ref, rerun, reqs, ref, got, label, ties,
+                     dev, seed, most=MESH_TIES_MAX, pools=None):
+    """Hold one run's tokens to another's where the two sum the same
+    products in other orders (row-parallel partials, other GEMM shapes
+    and key splits; on an int8 pool a last-bit difference can flip a
+    stochastic rounding). A divergence passes only as a near-tie at its
+    first token: both runs are repeated once (they are deterministic)
+    with :func:`tap_logits` on every divergence, each pair of the two
+    engines' own logits rows must reproduce the two tokens, differ by at
+    most ``TIE_LOGITS_TOL`` and explain the choice (:func:`decision_gap`);
+    at most ``most`` in ``ties`` (None: not bounded, for measuring). With
+    ``pools`` (a dict; int8 pools) both runs are repeated in any case,
+    with :func:`capture_prompt_kv`, and ``pools`` gets
+    :func:`pool_flips` of the two: layer 0's K/V and scales must be
+    equal (each prompt chunk's layer-0 products are the same columns of
+    the same products at every shape), and with ``most`` set the other
+    layers are held to the ``INT8_*`` limits. ``rerun_ref(found, store)``
+    and ``rerun(found, store)``
+    repeat a run with the tap (and the capture into ``store``, a dict, or
+    None)."""
+    from apex_tpu_torch.serving.sampling import (sample_with_uniforms,
+                                                 token_generator, uniforms)
+
+    first = {}
+    for arrival, r in enumerate(reqs):
+        a, b = list(ref[r.uid]), list(got[r.uid])
+        if a != b:
+            check(len(a) == len(b), f"{label}: {r.uid} emitted {len(b)} "
+                  f"tokens against {len(a)}")
+            first[r.uid] = (arrival, next(
+                i for i, (x, y) in enumerate(zip(a, b)) if x != y))
+    if not first and pools is None:
+        return
+    rows, kv = [], []
+    for fn in (rerun_ref, rerun):
+        found = {(uid, j): [] for uid, (_, j) in first.items()}
+        store = None if pools is None else {}
+        fn(found, store)
+        for key, hits in found.items():
+            check(len(hits) == 1, f"{label}: the tap found {len(hits)} "
+                  f"rows for {key}")
+        rows.append({key: hits[0] for key, hits in found.items()})
+        kv.append(store)
+    if pools is not None:
+        pools.update(pool_flips(torch, *kv))
+        print(f"[int8 pools] {label}: {pools}", flush=True)
+        check(pools["requests"] == len(reqs), f"{label}: captured the "
+              f"prompts of {pools['requests']} requests")
+        check(pools["max_step_by_layer"][0] == 0
+              and pools["scale_rel_by_layer"][0] == 0,
+              f"{label}: the int8 pools' layer 0 differs ({pools})")
+        if most is not None:
+            for key, limit in (("max_step", INT8_MAX_STEP),
+                               ("flip_share_max", INT8_FLIP_SHARE_MAX),
+                               ("scale_rel_max", INT8_SCALE_REL_MAX)):
+                check(pools[key] <= limit, f"{label}: the int8 pools' "
+                      f"{key} {pools[key]:.3g}, at most {limit}")
+    for r in reqs:
+        if r.uid not in first:
+            continue
+        arrival, j = first[r.uid]
+        a, b = ref[r.uid][j], got[r.uid][j]
+        lw, ls = rows[0][(r.uid, j)], rows[1][(r.uid, j)]
+        # the rows must be the ones that chose the tokens
+        sp = r.sampling
+        u = uniforms([token_generator(seed, arrival, j)]).to(dev)
+        for row, tok in ((lw, a), (ls, b)):
+            chosen = int(sample_with_uniforms(
+                row[None].to(dev), u, torch.tensor([sp.temperature],
+                                                   device=dev),
+                torch.tensor([sp.top_k], device=dev),
+                torch.tensor([sp.top_p], device=dev),
+                sp.temperature > 0)[0])
+            check(chosen == tok, f"{label}: the tapped row of {r.uid} "
+                  f"token {j} chooses {chosen}, its run emitted {tok}")
+        measure, bound_, tie, diff = decision_gap(
+            torch, lw, ls, sp, seed, arrival, j, a, b, dev)
+        rec = dict(arm=label, uid=r.uid, position=j, ref=a, got=b,
+                   sampled=sp.temperature > 0, measure=measure,
+                   routes_differ_by=bound_, logits_diff=diff,
+                   tol=TIE_LOGITS_TOL, logits_absmax=lw.abs().max().item())
+        ties.append(rec)
+        print(f"[divergence] {rec}", flush=True)
+        check(tie and diff <= TIE_LOGITS_TOL, f"{label}: request {r.uid} "
+              f"diverges at token {j} and it is not a near-tie ({rec})")
+        check(most is None or len(ties) <= most,
+              f"{label}: {len(ties)} near-ties, at most {most} allowed")
+
+
+def phase15_mesh(torch, dev, seed, card, cfg=None, config=None,
+                 bounded=True):
+    """15a: phase 2's engine and traffic at every mesh shape on one card,
+    fp32 weights, then int8 weights over an int8 pool at (1, 1) and
+    (2, 2): tokens equal to (1, 1)'s of the same weights (a divergence
+    passes only as a near-tie of :func:`mesh_divergences`, at most
+    ``MESH_TIES_MAX`` an fp32 arm and ``INT8_MESH_TIES_MAX`` on the int8
+    arm, whose two pools must differ only by flipped roundings), the
+    exact launch and sum counts of :func:`serve_mesh`. ``bounded=False``
+    lifts the count and pool-share limits, to measure them."""
+    from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from apex_tpu_torch.serving import EngineConfig, Request
+
+    cfg = GPTConfig.gpt2_small() if cfg is None else cfg
+    model = GPTLMHeadModel(cfg, device=dev, seed=seed)
+    reqs = traffic(seed, cfg.vocab_size)
+    if config is None:
+        config = EngineConfig(max_batch=8, block_size=16, num_blocks=512,
+                              max_seq_len=1024, prefill_chunk=128,
+                              decode_steps=8, seed=seed)
+    # warm the allocator and library handles outside the counted runs
+    for shape in ((1, 1), (2, 2)):
+        warm = mesh_engine(model, dataclasses.replace(
+            config, mesh_shape=shape), dev)
+        warm.add_request(Request("warm", reqs[0].prompt[:64],
+                                 max_new_tokens=4))
+        warm.run()
+        del warm
+    arms, ties = {}, {}
+    base = {}
+    def rerun(c):
+        def fn(found, store):
+            eng = mesh_engine(model, c, dev)
+            tap_logits(eng, found)
+            if store is not None:
+                capture_prompt_kv(eng, store)
+            feed_two_waves(eng, reqs)
+            eng.run()
+        return fn
+
+    for label, shape, q in (
+            [(f"fp32 {s}", s, None) for s in MESH_SHAPES]
+            + [(f"int8 weights, int8 pool {s}", s, "int8")
+               for s in ((1, 1), (2, 2))]):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        c = dataclasses.replace(config, mesh_shape=shape,
+                                weight_quantization=q, kv_quantization=q)
+        rec, toks, eng = serve_mesh(torch, model, c, reqs, dev, label, card)
+        del eng
+        if shape == (1, 1):
+            base[q] = (toks, c)
+        else:
+            ties[label] = []
+            most = (INT8_MESH_TIES_MAX if q else MESH_TIES_MAX) \
+                if bounded else None
+            pools = {} if q else None
+            mesh_divergences(torch, rerun(base[q][1]), rerun(c), reqs,
+                             base[q][0], toks, label, ties[label], dev, seed,
+                             most=most, pools=pools)
+            if pools is not None:
+                rec["pools"] = pools
+        rec["near_ties"] = ties.get(label, [])
+        arms[label] = rec
+    return dict(arms=arms)
+
+
+def migrate(torch, model, c12, c11, reqs, dev, at_tick, tap=None):
+    """15b's flow: phase 2's drive into a (1, 2) engine; at tick
+    ``at_tick`` every other live request (by uid; resident and waiting)
+    leaves it as sealed records with the prefix payloads of their full
+    blocks, through JSON, into a (1, 1) engine; both run to the end.
+    ``tap(eng)`` is applied to both engines first. Returns the union of
+    results, the two engines, the wire and the payloads, the moved uids
+    and the export and import ms."""
+    import json as _json
+
+    from apex_tpu_torch.serving.kv_cache import seq_block_hashes
+
+    src, dst = mesh_engine(model, c12, dev), mesh_engine(model, c11, dev)
+    if tap is not None:
+        tap(src)
+        tap(dst)
+    feed_two_waves(src, reqs)
+    while src._num_ticks < at_tick:
+        src.step()
+    live = ([s.request.uid for s in src.slots if s is not None]
+            + [e.request.uid for e in src.waiting])
+    moved = sorted(live)[::2]
+    sync(torch, dev)
+    t = time.perf_counter()
+    records = src.export_requests(moved)
+    # a request the export's drain finished stays with its terminal result
+    moved = [rec["uid"] for rec in records]
+    payloads = {}
+    for rec in records:
+        seq = list(rec["prompt"]) + list(rec["generated"])[:-1]
+        payloads.update(src.export_prefix_payloads(
+            seq_block_hashes(seq, c12.block_size)))
+    sync(torch, dev)
+    export_ms = (time.perf_counter() - t) * 1e3
+    wire = _json.dumps(records)
+    t = time.perf_counter()
+    uploaded = dst.import_prefix_payloads(payloads)
+    dst.import_requests(_json.loads(wire))
+    import_ms = (time.perf_counter() - t) * 1e3
+    out = src.run(return_status=True)
+    out.update(dst.run(return_status=True))
+    sync(torch, dev)
+    return dict(out=out, src=src, dst=dst, wire=wire, payloads=payloads,
+                uploaded=uploaded, moved=moved, live=live,
+                export_ms=export_ms, import_ms=import_ms)
+
+
+def phase15_migration(torch, dev, seed, card, cfg=None, config=None,
+                      at_tick=20):
+    """15b: phase 2's traffic through a (1, 2) engine; at tick ~20 half of
+    the live requests (resident and waiting) leave it as sealed records
+    with their prefix payloads, through JSON, into a (1, 1) engine on the
+    same card (prefix caching and a 1 GiB spill tier on both;
+    :func:`migrate`). The union of the two engines' tokens must be the
+    unmigrated (1, 2) run's (a divergence passes only as a near-tie of
+    :func:`mesh_divergences`, at most one); the target must re-admit
+    uploaded blocks; a record with a flipped byte must be refused, the
+    importer holding nothing of it. Export and import ms and the bytes
+    moved are printed."""
+    import json as _json
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from apex_tpu_torch.serving import EngineConfig
+    from apex_tpu_torch.serving.kv_cache import payload_nbytes
+    from apex_tpu_torch.utils.faults import perturb_json
+    from apex_tpu_torch.utils.integrity import IntegrityError
+
+    cfg = GPTConfig.gpt2_small() if cfg is None else cfg
+    model = GPTLMHeadModel(cfg, device=dev, seed=seed)
+    reqs = traffic(seed, cfg.vocab_size)
+    if config is None:
+        config = EngineConfig(max_batch=8, block_size=16, num_blocks=512,
+                              max_seq_len=1024, prefill_chunk=128,
+                              decode_steps=8, seed=seed)
+    config = dataclasses.replace(config, enable_prefix_caching=True,
+                                 spill_max_bytes=1 << 30)
+    c12 = dataclasses.replace(config, mesh_shape=(1, 2))
+    c11 = dataclasses.replace(config, mesh_shape=(1, 1))
+
+    def unmigrated(found=None, store=None):
+        eng = mesh_engine(model, c12, dev)
+        if found is not None:
+            tap_logits(eng, found)
+        feed_two_waves(eng, reqs)
+        return {u: r.tokens for u, r in eng.run(return_status=True).items()}
+
+    ref = unmigrated()
+    sync(torch, dev)
+    _build.reset_launch_counts()
+    run = migrate(torch, model, c12, c11, reqs, dev, at_tick)
+    launches = dict(_build.launches)
+    out, src, dst = run["out"], run["src"], run["dst"]
+    check_no_route(launches, "15b migration")
+    check(launches["paged_read"] > 0, "15b: B14 never launched")
+    check(set(out) == {r.uid for r in reqs}, "15b: requests lost or "
+          "duplicated by the migration")
+    for r in reqs:
+        check(out[r.uid].status == "finished"
+              and len(out[r.uid].tokens) == r.max_new_tokens,
+              f"15b: {r.uid} did not finish its budget")
+    ds = dst.stats()
+    moved = run["moved"]
+    check(ds["num_migrated_in"] == len(moved)
+          and src.stats()["num_migrated_out"] == len(moved),
+          "15b: migration counters")
+    check(ds["spill_hits"] > 0, "15b: the target re-admitted no uploaded "
+          "block")
+
+    def migrated(found, store):
+        migrate(torch, model, c12, c11, reqs, dev, at_tick,
+                tap=lambda eng: tap_logits(eng, found))
+
+    ties = []
+    mesh_divergences(torch, unmigrated, migrated, reqs, ref,
+                     {u: r.tokens for u, r in out.items()}, "15b migration",
+                     ties, dev, seed)
+    # a record with a flipped byte is refused before anything is taken
+    fresh = mesh_engine(model, dataclasses.replace(c11, num_blocks=16), dev)
+    bad = perturb_json(_json.loads(run["wire"])[0], seed)
+    try:
+        fresh.import_requests([bad])
+        refused = False
+    except IntegrityError:
+        refused = True
+    check(refused and not fresh.has_work
+          and fresh.stats()["num_import_refusals"] == 1,
+          "15b: a corrupted record was not refused")
+    payloads, wire = run["payloads"], run["wire"]
+    nbytes = len(wire) + sum(payload_nbytes(p) for p in payloads.values())
+    rec = dict(card=card, moved=moved, live=len(run["live"]),
+               at_tick=at_tick, export_ms=run["export_ms"],
+               import_ms=run["import_ms"], bytes_moved=nbytes,
+               record_bytes=len(wire), payload_blocks=len(payloads),
+               uploaded=run["uploaded"], spill_hits=ds["spill_hits"],
+               target_prefill_tokens=ds["num_prefill_tokens"],
+               near_ties=ties, launches=launches)
+    print(f"[phase 15b] {card}: moved {len(moved)} of {len(run['live'])} "
+          f"live at tick {at_tick} | export {run['export_ms']:.2f} ms, "
+          f"import {run['import_ms']:.2f} ms, {nbytes} bytes "
+          f"({len(payloads)} blocks, records {len(wire)} bytes) | target "
+          f"spill hits {ds['spill_hits']} | near-ties {len(ties)} | "
+          f"corrupt record refused", flush=True)
+    return rec
+
+
+def phase15(torch, dev, seed, card):
+    rec = dict(mesh=phase15_mesh(torch, dev, seed, card),
+               migration=phase15_migration(torch, dev, seed, card))
+    print(json.dumps({"phase15": dict(
+        card=card,
+        arms={k: {kk: a[kk] for kk in (
+            "mesh", "wall_s", "prefill_tokens_per_s", "decode_tokens_per_s",
+            "group_forwards", "all_reduce_per_forward",
+            "layer_norm_fwd_per_forward", "peak_memory_bytes",
+            "pool_bytes_per_shard", "split_weight_bytes_per_shard",
+            "near_ties", "pools") if kk in a}
+            for k, a in rec["mesh"]["arms"].items()},
+        migration={k: v for k, v in rec["migration"].items()
+                   if k != "launches"})}, default=str), flush=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6084,8 +6831,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
-                    "(10, 11, 12, 13, 14), for iterating on one; prints no "
-                    "kernels or ok line")
+                    "(10, 11, 12, 13, 14, 15), for iterating on one; prints "
+                    "no kernels or ok line")
     args = ap.parse_args(argv)
     if not (ROOT / "apex_tpu_torch" / "csrc").is_dir():
         raise SmokeFailure("apex_tpu_torch is not beside chip_smoke.py: "
@@ -6140,6 +6887,9 @@ def main(argv=None):
         if "14" in only:
             out["phase14"] = timed("phase 14", phase14, torch, dev, seed,
                                    card)
+        if "15" in only:
+            out["phase15"] = timed("phase 15", phase15, torch, dev, seed,
+                                   card)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_only.json").write_text(json.dumps(
@@ -6190,6 +6940,7 @@ def main(argv=None):
     pools = timed("phase 12", phase12, torch, dev, seed, card)
     faults = timed("phase 13", phase13, torch, dev, seed, card)
     tiers = timed("phase 14", phase14, torch, dev, seed, card)
+    mesh = timed("phase 15", phase15, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the training phases 3-5 and 9, B2 and B1 also on the contrib
@@ -6205,6 +6956,9 @@ def main(argv=None):
                 + sum(a["launches"][k]
                       for a in tiers["spill"]["arms"].values())
                 + tiers["observability"]["serving"]["launches"][k]
+                + sum(a["launches"][k]
+                      for a in mesh["mesh"]["arms"].values())
+                + mesh["migration"]["launches"][k]
                 for k in ("paged_read", "dequant_gemm", "kv_quant_write")}
     launches.update({k: sum(t["launches"][k] for t in (train, train128, gpt))
                      for k in ("dropout", "flash_fwd",
@@ -6308,7 +7062,7 @@ def main(argv=None):
         amp_mnist=mnist, fused_optimizers=optimizers, parallel=parallel,
         serving_prefix_spec=serving, model_options=options,
         quantized_pools_tenancy=pools, faults_recovery=faults,
-        spill_observability=tiers, checks=checks,
+        spill_observability=tiers, mesh_migration=mesh, checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -34,9 +34,10 @@ dequant_gemm_module = importlib.import_module(
 H, D, BS, M, N = 4, 64, 16, 8, 40
 
 
-def _paged_inputs(B, C, kv_dtype, seed=0, device="cpu"):
+def _paged_inputs(B, C, kv_dtype, seed=0, device="cpu", heads=H):
     """Ragged lanes (one idle at ctx 0), scrambled tables with
     unallocated entries at N, prefill positions ending at ctx - 1."""
+    H = heads
     rng = np.random.RandomState(seed)
     ctx = rng.randint(C, M * BS + 1, B).astype(np.int32)
     ctx[0] = 0
@@ -133,6 +134,30 @@ def test_paged_read_kernel_matches_plain(cuda_device, B, C, kv_dtype, atol):
     assert _build.launches["paged_read"] == before + 1
     ref = paged_prefill_attention_plain(*args)
     assert out.dtype == args[0].dtype and out.shape == ref.shape
+    assert torch.isfinite(out.float()).all()
+    assert_close(out, ref, atol=atol, rtol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype,atol", [
+    (torch.float32, 1e-4), (torch.bfloat16, 2e-2), (torch.int8, 1e-4),
+    (torch.float8_e4m3fn, 1e-4)])
+@pytest.mark.parametrize("B,C", [(8, 1), (1, 128), (8, 5)])
+def test_paged_read_kernel_at_a_model_shards_heads(cuda_device, B, C,
+                                                   kv_dtype, atol):
+    """B14 at 6 heads (GPT-2 small's 12 over model axis 2: half the grid
+    of the unsharded read) for decode, a 128-row prefill chunk and the
+    verify span: the key split over a cluster and its merge stay exact
+    (the tolerances of the 12-head test)."""
+    args = _paged_inputs(B, C, kv_dtype, seed=C + 6, device=cuda_device,
+                         heads=6)
+    if kv_dtype == torch.bfloat16:
+        args[0] = args[0].to(torch.bfloat16)
+    out = paged_prefill_attention(*args)
+    again = paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = paged_prefill_attention_plain(*args)
     assert torch.isfinite(out.float()).all()
     assert_close(out, ref, atol=atol, rtol=atol)
 
@@ -270,6 +295,30 @@ def test_dequant_gemm_kernel_matches_plain(cuda_device, mode, Mr, K, Nc):
     out = dequant_matmul(x, q, s)
     torch.cuda.synchronize()
     assert _build.launches["dequant_gemm"] == before + 1
+    assert_close(out, dequant_matmul_plain(x, q, s), atol=1e-4, rtol=1e-4)
+
+
+# a model shard's linears at model axis 2 of GPT-2 small: the column
+# shards of the qkv and mlp_in kernels, the row shards of attn_out and
+# mlp_out
+B15_SHARD_KN = [(768, 384), (768, 1536), (384, 768), (1536, 768)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("Mr,K,Nc", [(M, K, N) for M in (1, 4, 8, 40, 128)
+                                     for K, N in B15_SHARD_KN])
+def test_dequant_gemm_kernel_at_shard_shapes(cuda_device, mode, Mr, K, Nc):
+    """B15 at the serving mesh's shard shapes (K 384 may take another
+    split plan than K 768; N 384 half the tiles) against its plain
+    version (atol 1e-4), a rerun bit for bit, one launch a call."""
+    x, q, s = _b15_case(mode, Mr, K, Nc, cuda_device)
+    before = _build.launches["dequant_gemm"]
+    out = dequant_matmul(x, q, s)
+    again = dequant_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert _build.launches["dequant_gemm"] == before + 2
+    assert torch.equal(out, again)
     assert_close(out, dequant_matmul_plain(x, q, s), atol=1e-4, rtol=1e-4)
 
 
@@ -1960,6 +2009,53 @@ def test_kv_quant_write_kernel_matches_plain(cuda_device, B, S, dtype,
         assert torch.equal(b.cpu(), c)
     assert cache.k_scale[1].abs().sum().item() == 0    # layer 1 untouched
     assert cache.k_scale.count_nonzero().item() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S", [(8, 1), (1, 128)])
+def test_kv_quant_write_kernel_at_a_head_offset(cuda_device, B, S, dtype,
+                                                mode):
+    """A model shard's write (heads 6-11 of 12, head offset 6) against
+    its plain version on the card and on the CPU, and against the
+    unsharded 12-head write of the same rows: the same bytes and scales
+    as the unsharded pool's head slice (the noise is keyed by the global
+    head)."""
+    from apex_tpu_torch.serving import KVCache
+
+    full, coords, (k, v) = _kvq_case(B, S, dtype, mode, device=cuda_device)
+    kv_quant_module.kv_quant_write(full.k, full.v, full.k_scale,
+                                   full.v_scale, 1, coords, k, v)
+    ks, vs = k[:, :, 6:].contiguous(), v[:, :, 6:].contiguous()
+    L, Np, bs = full.k.shape[:3]
+
+    def pool(device):
+        return KVCache.create(L, Np, bs, 6, 64, quantization=mode,
+                              device=device)
+
+    shard, plain, cpu = pool(cuda_device), pool(cuda_device), pool("cpu")
+    before = _build.launches["kv_quant_write"]
+    kv_quant_module.kv_quant_write(shard.k, shard.v, shard.k_scale,
+                                   shard.v_scale, 1, coords, ks, vs,
+                                   head_offset=6)
+    assert _build.launches["kv_quant_write"] == before + 1
+    kv_quant_module.kv_quant_write_plain(plain.k, plain.v, plain.k_scale,
+                                         plain.v_scale, 1, coords, ks, vs,
+                                         head_offset=6)
+    kv_quant_module.kv_quant_write_plain(
+        cpu.k, cpu.v, cpu.k_scale, cpu.v_scale, 1,
+        tuple(c.cpu() for c in coords), ks.cpu(), vs.cpu(), head_offset=6)
+    torch.cuda.synchronize()
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a, b, c = (getattr(t, name) for t in (shard, plain, cpu))
+        f = getattr(full, name)[:, :, :, 6:]
+        if a.dtype != torch.float32:
+            a, b, c, f = (t.view(torch.uint8) for t in (a, b, c, f))
+        assert torch.equal(a, b), f"{name}: differs from the plain"
+        assert torch.equal(a.cpu(), c), f"{name}: differs from the CPU"
+        assert torch.equal(a, f), f"{name}: not the unsharded head slice"
+    assert shard.k_scale.count_nonzero().item() > 0
 
 
 @pytest.mark.gpu

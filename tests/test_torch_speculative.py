@@ -208,15 +208,15 @@ def test_speculative_greedy_equals_jax_and_nonspeculative(tiny, greedy_runs,
         dispatches[K] = eng.stats()["num_decode_dispatches"]
     eng = _engine(port, spec_tokens=S)
     shapes = []
+    forward = eng._group_forward
 
-    def spy(module, args):
-        shapes.append(tuple(args[0].shape))
+    def spy(program, group, ids, *args):
+        shapes.append(tuple(ids.shape))
+        return forward(program, group, ids, *args)
 
-    hook = eng.model.register_forward_pre_hook(spy)
-    try:
-        out = _serve(eng, _greedy_reqs(Request))
-    finally:
-        hook.remove()
+    # every serving forward of the engine goes through its group forward
+    eng._group_forward = spy
+    out = _serve(eng, _greedy_reqs(Request))
     assert out == jout == plain[1] == plain[4]
     s = eng.stats()
     for key in SPEC_KEYS:
