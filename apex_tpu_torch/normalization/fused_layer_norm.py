@@ -10,25 +10,27 @@ tree loads by name, and keep the full ``normalized_shape``.
 
 Where a gradient may be taken, the forward is
 :func:`~apex_tpu_torch.ops.layer_norm.fused_layer_norm_affine` (or the
-RMS one): kernel B2 with kernel B1 as the backward. Without autograd, a LayerNorm whose input
-matches its params' dtype keeps the serving forward ``F.layer_norm``
-(one library kernel where the written-out ``layer_norm_reference``
-issues ten); a low-precision input with fp32 params takes the fp32
-reference formula.
+RMS one): kernel B2 with kernel B1 as the backward. An affine LayerNorm
+that is not differentiated (the serving forward's norms, the
+``GPTDrafter``'s; any input dtype, fp32 or matching params) calls B2's
+wrapper :func:`~apex_tpu_torch.ops.layer_norm.layer_norm_forward`
+directly, with no autograd graph: kernel B2 on a CUDA tensor (counted
+under ``layer_norm_fwd``), its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.layer_norm import (
+    _differentiated,
     fused_layer_norm,
     fused_layer_norm_affine,
     fused_rms_norm,
     fused_rms_norm_affine,
+    layer_norm_forward,
 )
 
 
@@ -102,10 +104,10 @@ class FusedLayerNorm(_FusedNorm):
         if not self.elementwise_affine:
             return fused_layer_norm(x2, h, self.eps)
         w, b = self.scale.reshape(h), self.bias.reshape(h)
-        if torch.is_grad_enabled() or x2.dtype != w.dtype:
+        if _differentiated(x2, w, b):
             return fused_layer_norm_affine(x2, w, b, self.eps,
                                            self.memory_efficient)
-        return F.layer_norm(x2, (h,), w, b, self.eps)
+        return layer_norm_forward(x2, w, b, self.eps)
 
 
 class FusedRMSNorm(_FusedNorm):

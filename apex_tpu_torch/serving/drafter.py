@@ -12,8 +12,8 @@ its guesses moves speed, never the tokens.
 - :class:`NgramDrafter`: prompt lookup, no model and no device work.
 - :class:`GPTDrafter`: a small port ``GPTLMHeadModel`` greedy-decoding
   over a fixed right-padded window, one non-cached forward a proposed
-  token (on the card: the flash forward; without autograd its LayerNorms
-  take ``F.layer_norm``, as the serving forward's do).
+  token (on the card: the flash forward, and B2 for its LayerNorms, which
+  run without autograd as the serving forward's do).
 
 An exception raised by ``propose`` propagates out of the engine.
 """

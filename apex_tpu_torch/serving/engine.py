@@ -114,10 +114,9 @@ The replica and migration surface (:meth:`InferenceEngine.pop_results`,
 ``export_prefix_payloads``, ``import_prefix_payloads``, ...) moves live
 requests between engines as sealed, layout-free records that keep their
 arrival index, so a migrated request continues its token stream on any
-engine of the same model and seed, at any mesh shape.
-
-Not in this engine: the fleet's router and its shared prefix tier
-(ROADMAP A.3 item 19b).
+engine of the same model and seed, at any mesh shape. The fleet router
+(:mod:`apex_tpu_torch.serving.fleet`) drives N engines through it, in
+this process or as child processes.
 """
 
 from __future__ import annotations
@@ -191,6 +190,11 @@ _LADDER_TOP = 3
 # while the spec_adapt cap sits at 0, every Nth decode phase runs a
 # 1-token probe, so acceptance is measured again and the cap can climb
 _SPEC_PROBE_EVERY = 16
+# the launch counters of the serving forward's kernels (B14, B15, the
+# quantized KV write, B2) and of its one plain route (B14's), read by
+# stats()["kernel_launches"]: in a child process the only way to see them
+SERVING_KERNELS = ("paged_read", "paged_read_plain", "dequant_gemm",
+                   "kv_quant_write", "layer_norm_fwd")
 # the FaultPlan sites that take only "corrupt" specs: the spill tier's
 # write and read, the periodic checkpoint, and migration records out
 # (export_requests, one fire a record) and in (import_requests). The spill
@@ -1764,8 +1768,7 @@ class InferenceEngine:
             "kv_pool_bytes": self._pools.nbytes,
             # the serving path's kernels (the counters also hold training's)
             "kernel_launches": {k: _build.launches[k]
-                                for k in ("paged_read", "dequant_gemm",
-                                          "kv_quant_write")},
+                                for k in SERVING_KERNELS},
         }
         if deep and self._obs is not None:
             out["observability"] = self._obs.deep_stats()

@@ -1012,6 +1012,131 @@ class HostSpillStore:
         }
 
 
+class SharedPrefixStore(HostSpillStore):
+    """The fleet's shared prefix tier: one byte-bounded, content-addressed
+    store the router owns, fed by the replicas' spill evictions and by
+    prefill handoffs, and probed at placement, so a prefix prefilled on
+    any replica is warm on every one (the JAX ``SharedPrefixStore``'s
+    semantics and counters). Entries keep :class:`HostSpillStore`'s
+    discipline: CPU tensors in the pool's dtype with a put-time checksum
+    re-checked at every read and by :meth:`scrub`, least recently used out
+    past ``max_bytes``. On top of it:
+
+    - refcounted dedupe: a publish of a resident hash adds a reference
+      and a tenant share instead of bytes (``dedupe_hits``); an eviction
+      or a corrupt discard drops the entry with all its references;
+    - fractional attribution: :meth:`tenant_bytes` splits an entry's
+      bytes across its publishing tenants by share;
+    - :meth:`check_integrity` audits refcounts, shares and bytes."""
+
+    def __init__(self, max_bytes: int, verify: bool = True,
+                 corrupt_hook=None, on_corrupt=None):
+        super().__init__(max_bytes, verify=verify,
+                         corrupt_hook=corrupt_hook, on_corrupt=on_corrupt)
+        # per resident hash: its publisher refcount and that count split
+        # by tenant (the shares sum to it)
+        self._refs: Dict[str, int] = {}
+        self._owners: Dict[str, Dict[str, int]] = {}
+        self.dedupe_hits = 0
+
+    def _drop(self, block_hash: str) -> None:
+        super()._drop(block_hash)
+        self._refs.pop(block_hash, None)
+        self._owners.pop(block_hash, None)
+
+    def publish(self, block_hash: str,
+                payload: Optional[Dict[str, torch.Tensor]] = None,
+                tenant: str = DEFAULT_TENANT) -> bool:
+        """Insert by content with refcounted dedupe. A resident hash gains
+        a reference and a share for ``tenant`` (no payload needed: None is
+        "I hold these bytes too") and moves to the most recently used end;
+        a new hash needs its payload and takes :meth:`put`'s path. Returns
+        whether the entry is resident after the call."""
+        if block_hash in self._entries:
+            self.dedupe_hits += 1
+            self._refs[block_hash] += 1
+            shares = self._owners[block_hash]
+            shares[tenant] = shares.get(tenant, 0) + 1
+            self._entries.move_to_end(block_hash)
+            return True
+        if payload is None:
+            return False
+        if self.put(block_hash, payload, tenant=tenant):
+            self._refs[block_hash] = 1
+            self._owners[block_hash] = {tenant: 1}
+            return True
+        return False
+
+    def fetch(self, block_hash: str) -> Optional[Dict[str, torch.Tensor]]:
+        """A copied payload for seeding a replica's spill tier (None on a
+        miss or a checksum mismatch, which discards the entry). A peek
+        like :meth:`export_entry`, but a hit: the entry becomes the most
+        recently used."""
+        payload = self.export_entry(block_hash)
+        if payload is not None:
+            self._entries.move_to_end(block_hash)
+        return payload
+
+    def probe(self, hashes: Sequence[str], start: int = 0) -> int:
+        """Length of the run of resident ``hashes`` from ``start`` (read
+        only)."""
+        n = int(start)
+        while n < len(hashes) and hashes[n] in self._entries:
+            n += 1
+        return n - int(start)
+
+    def tenant_bytes(self) -> Dict[str, float]:
+        """Each tenant's share of the resident bytes: an entry's bytes
+        split across its publishers by share."""
+        out: Dict[str, float] = {}
+        for h, rec in self._entries.items():
+            refs = self._refs.get(h, 1)
+            for t, n in (self._owners.get(h) or {}).items():
+                out[t] = out.get(t, 0.0) + rec["bytes"] * n / refs
+        return {t: round(v, 6) for t, v in out.items()}
+
+    def check_integrity(self) -> None:
+        """Raise ``ValueError`` unless the byte total equals the resident
+        entries' sum within the bound, the refcount and share tables name
+        exactly the resident hashes, and each entry's shares are positive
+        and sum to its refcount (at least 1)."""
+        total = sum(int(rec["bytes"]) for rec in self._entries.values())
+        if total != self.total_bytes:
+            raise ValueError(
+                f"shared tier byte accumulator {self.total_bytes} != "
+                f"sum of resident entries {total}")
+        if self.total_bytes > self.max_bytes:
+            raise ValueError(
+                f"shared tier holds {self.total_bytes} bytes over its "
+                f"budget {self.max_bytes}")
+        for name, table in (("refcount", self._refs),
+                            ("ownership", self._owners)):
+            if set(table) != set(self._entries):
+                stray = set(table) ^ set(self._entries)
+                raise ValueError(
+                    f"shared tier {name} table out of sync with the "
+                    f"resident entries (mismatched hashes: "
+                    f"{sorted(stray)[:3]})")
+        for h, refs in self._refs.items():
+            if refs < 1:
+                raise ValueError(
+                    f"shared entry {h!r} has refcount {refs} < 1")
+            shares = self._owners[h]
+            if any(n < 1 for n in shares.values()):
+                raise ValueError(
+                    f"shared entry {h!r} has a non-positive ownership "
+                    f"share: {shares}")
+            if sum(shares.values()) != refs:
+                raise ValueError(
+                    f"shared entry {h!r} ownership shares {shares} do "
+                    f"not sum to its refcount {refs}")
+
+    def stats(self) -> Dict[str, int]:
+        out = super().stats()
+        out["dedupe_hits"] = int(self.dedupe_hits)
+        return out
+
+
 def device_block_table(host_tables, num_blocks: int,
                        device=None) -> torch.Tensor:
     """Host tables use -1 for unallocated entries; the device convention

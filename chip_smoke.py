@@ -89,9 +89,10 @@ with weights drawn from ``--seed``: 12 requests with prompts of 64-768
 tokens and 64 new tokens each, half greedy and half sampled, added in
 two waves, first on fp weights, then with ``weight_quantization="int8"``.
 Every kernel launch counter is set to 0 just before each run and read
-just after: the runs must have gone through both kernels, and, as in
-phases 3-7, no call may have been routed to a plain version (every
-``*_plain`` counter 0). The card's
+just after: the runs must have gone through both kernels and through B2
+exactly 25 times a forward (every LayerNorm of the serving forward: two a
+block and ``ln_f``), and, as in phases 3-7, no call may have been routed
+to a plain version (every ``*_plain`` counter 0). The card's
 prefill logits are held against the port on the CPU (atol 2e-3), and
 the greedy tokens of one request are compared with the CPU engine's.
 
@@ -232,9 +233,9 @@ requests, each a 32-token phrase repeated 4 times, 64 new tokens, with
 ``spec_tokens`` 4 and the n-gram drafter against the engine without
 speculation, on fp32 and then int8 weights; then a ``GPTDrafter`` (2
 layers at GPT-2 small's width, window 32) on 4 requests of 16 tokens,
-its own launches counted (the flash forward; its LayerNorms run without
-autograd and take ``F.layer_norm``, as the serving forward's do). The
-tokens must be
+its own launches counted (the flash forward, and B2 for its LayerNorms,
+which run without autograd as the serving forward's do). The tokens must
+be
 the non-speculative engine's. A divergence passes only as a near-tie of
 the two routes of B14 (the decode read and the verify's multi-query
 read): the top-2 gap of both routes' logits at the first divergent token
@@ -342,14 +343,52 @@ stochastic rounding now and then, so the int8 (2, 2) arm has its own
 count limit, and both int8 runs are repeated with their prompts' K/V
 read back: the two pools may differ by one step only, in a small share
 of each layer's values (each limit from ``tools/mesh_ties.py``'s
-readings over several seeds). Tokens/s, B2's launches a forward,
-peak memory and each shard's pool and weight bytes are printed. 15b: at
+readings over several seeds). Each group forward launches exactly
+``2 * 12 * M + 1`` B2 (25 at model axis 1, 49 at 2: each model shard's
+two LayerNorms a block, ``ln_f`` once). Tokens/s, peak memory and each
+shard's pool and weight bytes are printed. 15b: at
 tick 20 a (1, 2) engine exports every other live request with its prefix
 payloads, through JSON, into a (1, 1) engine on the same card: the union
 of tokens is the unmigrated run's (the same near-tie rule), the target
 uploads the payloads, a record with a flipped byte is refused; export
 and import ms and the bytes moved are printed. A ``{"phase15": ...}``
 line records it; ``--only 15`` runs it alone.
+
+Phase 16 serves through the fleet router (``serving/fleet.py``) at GPT-2
+small's full width, phase 2's engine with prefix caching, a 1 GiB spill
+tier and a checkpoint every 2 ticks, phase 2's traffic and a constant
+clock. 16a, replicas in this process on this card: a 1-replica fleet
+gives the bare engine's tokens, statuses and schedule counters; 3
+replicas finish every request; a crash fault on replica 1 in tick 15
+fails over with nothing lost and the fault-free run's tokens; the
+cross-check (``sdc_check_interval_ticks``) flags nobody on a clean run,
+whose fleet also moves every request off replica 0 with ``migrate``
+(tick 14) and drains and retires replica 1 (tick 18) and loses nothing,
+and retires replica 1 alone when it carries a corrupt chip; roles
+(prefill, decode, decode) give the 1-replica fleet's tokens with spill
+hits on the decode side. Divergences pass only by phase 13's near-tie
+rule, at most one an arm. Then the shared prefix tier: three 512-token
+system prompts in pairs over 2 affinity-blind replicas whose pools hold
+one request: shared hits, fewer prefill tokens than the tier-off fleet
+and its tokens. 16b, replicas as child processes on this card (the init
+frame says "cuda", the weights' checksum is accepted; a fleet's children
+boot together, while 16a's corrupt-chip and roles arms run; every fleet
+of 16b, in and out of process, first serves
+one short request a replica, so the timed runs find the children warm):
+one child on int8 weights over an int8 pool gives the in-process
+fleet's tokens, statuses and counters; of two, child 1 is SIGKILLed at
+tick 16 and the fleet gives the uninterrupted in-process pair's tokens
+with nothing lost. Every arm launches exactly 12 B14 and 25 B2 a forward
+(72 B15 and 12 ``kv_quant_write`` on int8), in this process or, read
+through each child's ``stats()``, in the children (the parent then
+launches none), and routes nothing to a plain version; every count is
+the timed run's alone (the children's counters are set to 0 through the
+wire just before it, their schedule counters read as deltas). A
+``{"phase16": ...}`` line prints fleet tokens/s for 1 and 3 replicas,
+failover ms and the requests re-homed, migration ms and bytes, child
+boot s, ms a step in and out of process, shared-tier hits and bytes and
+the cross-check's checks and suspects, beside the card's name and power
+limit; ``--only 16`` runs it alone (``--only 2`` phase 2).
 
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
@@ -370,6 +409,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -403,6 +443,26 @@ def check_no_route(launches, label):
     version on the card (every ``*_plain`` counter 0)."""
     routed = {k: v for k, v in launches.items() if k.endswith("_plain") and v}
     check(not routed, f"{label}: calls routed to plain versions {routed}")
+
+
+def check_serving_launches(launches, forwards, L, label, config, M=1):
+    """The serving forward's launches, exactly, for ``forwards`` (group)
+    forwards of an engine at ``config`` with model axis ``M``: a model
+    shard's ``L`` B14 (12), two B2 a block on each model shard and
+    ``ln_f`` once (25 at M 1), ``L`` ``kv_quant_write`` on a quantized
+    pool and ``6 * L`` B15 on int8 weights; nothing routed to a plain
+    version."""
+    want = {"paged_read": L * M * forwards,
+            "layer_norm_fwd": (2 * L * M + 1) * forwards,
+            "kv_quant_write": L * M * forwards if config.kv_quantization
+            else 0,
+            "dequant_gemm": 6 * L * M * forwards
+            if config.weight_quantization else 0}
+    for k, n in want.items():
+        check(launches.get(k, 0) == n, f"{label}: {launches.get(k, 0)} {k} "
+              f"launches for {forwards} forwards at model axis {M}, "
+              f"expected {n}")
+    check_no_route(launches, label)
 
 
 def philox_ops(draws):
@@ -2144,14 +2204,8 @@ def serve(torch, model, config, reqs, label, card, dev):
     check(eng.allocator.num_used == 0, f"{label}: blocks leaked")
     decode_forwards = s["num_decode_dispatches"] * config.decode_steps
     forwards = s["num_prefill_chunks"] + decode_forwards
-    L = model.cfg.num_layers
-    check(launches["paged_read"] >= L * forwards,
-          f"{label}: paged_read launched {launches['paged_read']} times, "
-          f"expected >= {L * forwards}")
-    check_no_route(launches, label)
-    if config.weight_quantization is not None:
-        check(launches["dequant_gemm"] > 0,
-              f"{label}: dequant_gemm never launched")
+    check_serving_launches(launches, forwards, model.cfg.num_layers, label,
+                           config)
     rec = dict(
         label=label, card=card, wall_s=wall,
         prefill_tokens=s["num_prefill_tokens"],
@@ -2164,6 +2218,7 @@ def serve(torch, model, config, reqs, label, card, dev):
         decode_forwards=decode_forwards,
         decode_lanes_per_forward=s["num_tokens_decoded"] / decode_forwards,
         decode_ms_per_forward=spent["decode"] * 1e3 / decode_forwards,
+        layer_norm_fwd_per_forward=launches["layer_norm_fwd"] / forwards,
         generated_tokens_per_s=sum(len(r.tokens) for r in out.values())
         / wall,
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
@@ -4444,11 +4499,13 @@ def phase10_spec(torch, model, config, dev, seed, card, drafter_cfg,
                    config, dev, "phase 10b GPTDrafter", divergences)
     d = drafter.launches
     flash = sum(v for k, v in d.items() if k.startswith("flash_fwd"))
-    # its LayerNorms run without autograd, so they take F.layer_norm as
-    # every serving forward does: the flash forward is its kernel
+    # its LayerNorms run without autograd and take B2, as every serving
+    # forward does: two a block and ln_f a window forward
     check(flash >= drafter_cfg.num_layers * spec["stats"][
-        "num_draft_tokens"], f"phase 10b: the GPTDrafter's forwards "
-          f"launched {d}")
+        "num_draft_tokens"] and d.get("layer_norm_fwd", 0)
+        >= (2 * drafter_cfg.num_layers + 1)
+        * spec["stats"]["num_draft_tokens"],
+        f"phase 10b: the GPTDrafter's forwards launched {d}")
     check_no_route(d, "phase 10b GPTDrafter")
     s = spec["stats"]
     arms["gpt_drafter"] = dict(
@@ -4936,17 +4993,10 @@ def phase12_pools(torch, dev, seed, card):
         # wrappers) must be gone, or its pool counts in this arm's peak
         gc.collect()
         torch.cuda.empty_cache()
+        # serve() holds the launches to the serving forward's rule
         rec, _ = serve(torch, model, c, reqs, label, card, dev)
-        s, launches = rec["stats"], rec["launches"]
-        forwards = s["num_prefill_chunks"] + rec["decode_forwards"]
-        check(launches["paged_read"] == L * forwards,
-              f"{label}: {launches['paged_read']} B14 launches for "
-              f"{forwards} forwards")
-        want = L * forwards if kvq else 0
-        check(launches["kv_quant_write"] == want,
-              f"{label}: {launches['kv_quant_write']} quantized writes, "
-              f"expected {want}")
-        rec["forwards"] = forwards
+        s = rec["stats"]
+        rec["forwards"] = s["num_prefill_chunks"] + rec["decode_forwards"]
         rec["pool_bytes"] = s["kv_pool_bytes"]
         arms[label] = rec
     equal = (arms["fp32 pool, 96 blocks"]["pool_bytes"],
@@ -5388,7 +5438,7 @@ def tie_measure(torch, lw, ls, sp, seed, arrival, j, dev):
 
 
 def restore_divergences(torch, model, config, reqs, ref, got, label, ties,
-                        dev):
+                        dev, arrivals=None):
     """Hold a restored run's tokens to the uninterrupted run's. The
     re-prefill computes the K/V of emitted tokens by the prefill route,
     whose low bits can differ from the decode route's, so a divergence
@@ -5396,8 +5446,11 @@ def restore_divergences(torch, model, config, reqs, ref, got, label, ties,
     both routes' logits under 1e-5 of their largest magnitude (phase 10's
     rule); sampled, the request's uniform within 1e-5 of a CDF boundary of
     either route's filtered distribution. At most one in ``ties`` (one
-    list for phase 13a, one an arm in phase 14a)."""
-    for arrival, r in enumerate(reqs):
+    list for phase 13a, one an arm in phase 14a and 16a). ``arrivals``
+    (uid -> arrival index on its replica, for a fleet) defaults to the
+    order of ``reqs``."""
+    for k, r in enumerate(reqs):
+        arrival = k if arrivals is None else arrivals[r.uid]
         a, b = list(ref[r.uid]), list(got[r.uid])
         if a == b:
             continue
@@ -6283,16 +6336,9 @@ def serve_mesh(torch, model, config, reqs, dev, label, card):
               f"{label}: request {r.uid} emitted an out-of-vocab token")
     check(eng.allocator.num_used == 0, f"{label}: blocks leaked")
     eng.check_allocator_integrity()
-    check_no_route(launches, label)
     log = eng._collectives
     fwd = sum(log.forwards.values())
-    want = {"paged_read": L * M * fwd,
-            "kv_quant_write": L * M * fwd if config.kv_quantization else 0,
-            "dequant_gemm": (6 * L * M * fwd if config.weight_quantization
-                             else 0)}
-    for k, n in want.items():
-        check(launches[k] == n, f"{label}: {launches[k]} {k} launches for "
-              f"{fwd} group forwards at model axis {M}, expected {n}")
+    check_serving_launches(launches, fwd, L, label, config, M)
     sums = sum(t["ops"] for t in log.totals.values())
     check(sums == (2 * L * fwd if M > 1 else 0),
           f"{label}: {sums} all-reduce for {fwd} group forwards")
@@ -6817,6 +6863,676 @@ def phase15(torch, dev, seed, card):
     return rec
 
 
+# -- phase 16: the serving fleet ----------------------------------------------
+
+
+def fleet_config(seed, **kw):
+    """Phase 2's engine with prefix caching, a 1 GiB spill tier and a
+    checkpoint every 2 ticks (the fleet's failover picture)."""
+    from apex_tpu_torch.serving import EngineConfig
+
+    base = dict(max_batch=8, block_size=16, num_blocks=512, max_seq_len=1024,
+                prefill_chunk=128, decode_steps=8, seed=seed,
+                enable_prefix_caching=True, spill_max_bytes=1 << 30,
+                snapshot_interval_ticks=2)
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+# the schedule counters a (1, 1) engine's forwards and tokens come from
+ENGINE_COUNTS = ("num_prefill_chunks", "num_decode_dispatches",
+                 "num_prefill_tokens", "num_tokens_decoded")
+# the entries of a fleet's stats() that are levels, not running counts
+FLEET_GAUGES = ("num_replicas", "replicas_alive", "num_lost_requests",
+                "shared_tier_blocks", "shared_tier_bytes", "queue_depth",
+                "active_slots", "results_pending", "stream_backlog")
+FLEET_KERNELS = ("paged_read", "dequant_gemm", "kv_quant_write",
+                 "layer_norm_fwd")
+
+
+def engine_counts(stats, k, since=None):
+    """``ENGINE_COUNTS`` of a (1, 1) engine's ``stats()``, less those of
+    ``since``, and its ``forwards``: prefill chunks plus ``k`` (the
+    config's ``decode_steps``) a decode dispatch."""
+    c = {n: stats[n] - (since[n] if since else 0) for n in ENGINE_COUNTS}
+    c["forwards"] = c["num_prefill_chunks"] + k * c["num_decode_dispatches"]
+    return c
+
+
+def run_fleet(torch, fleet, reqs, dev, label, model, actions=None,
+              timed=False, finish=True, start=None):
+    """Phase 2's two waves through a fleet (6 requests, 12 ticks, then
+    6 more), ``actions[tick](fleet)`` before that tick's step. Just
+    before, every launch counter is set to 0 (the children's through the
+    wire), and each replica's schedule counters (into ``start``, by
+    replica index) and the fleet's counters are read: the record holds
+    this run's counts alone. With ``timed`` each in-process replica's
+    prefill ticks and decode dispatches and drains are timed on the host
+    clock around synchronized work. Every request must end
+    ``"finished"`` with its budget of in-vocabulary tokens (with
+    ``finish``), and the router must have lost none. Returns the record
+    (``children``: each process replica alive at the end, its launches
+    and forwards), the results and each request's arrival index on its
+    first replica."""
+    from apex_tpu_torch import _build
+
+    k = fleet.engine_config.decode_steps
+    spent = {"prefill": 0.0, "decode": 0.0}
+    arrivals = {}
+    engines = []
+    for rep in fleet.replicas:
+        eng = rep.engine
+        engines.append(eng)
+        add = eng.add_request
+
+        def add_request(r, add=add):
+            a = add(r)
+            arrivals[r.uid] = int(a)
+            return a
+        eng.add_request = add_request
+        if timed and rep.mode == "in_process":
+            def wrap(name, fn):
+                def wrapper(*a, **kw):
+                    t = time.perf_counter()
+                    out = fn(*a, **kw)
+                    sync(torch, dev)
+                    spent[name] += time.perf_counter() - t
+                    return out
+                return wrapper
+            eng._prefill_tick = wrap("prefill", eng._prefill_tick)
+            eng._dispatch_decode = wrap("decode", eng._dispatch_decode)
+            eng._drain_decode = wrap("decode", eng._drain_decode)
+    start = {} if start is None else start
+    start.update({i: engine_counts(e.stats(), k)
+                  for i, e in enumerate(engines)})
+    before = fleet.stats()
+    # process replicas: their launch counters, their RPCs, the parent's
+    # seconds in them and the child's own seconds in its ticks
+    procs = [e for e in engines if e.mode == "process"]
+    for p in procs:
+        p.reset_launch_counts()
+        p.rpc_calls, p.rpc_s, p.child_step_s = 0, 0.0, 0.0
+    sync(torch, dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    step_s = []
+    for r in reqs[:6]:
+        fleet.add_request(r)
+    tick = 0
+    while tick < 12 or fleet.has_work:
+        if tick == 12:
+            for r in reqs[6:]:
+                fleet.add_request(r)
+        if actions and tick in actions:
+            actions[tick](fleet)
+        t = time.perf_counter()
+        fleet.step()
+        step_s.append(time.perf_counter() - t)
+        tick += 1
+        check(tick < 2000, f"{label}: the fleet did not drain")
+    out = {u: (list(r.tokens), r.status)
+           for u, r in fleet.run(return_status=True).items()}
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    s = fleet.stats()
+    check(s["num_lost_requests"] == 0,
+          f"{label}: {s['num_lost_requests']} requests lost")
+    check(set(out) == {r.uid for r in reqs},
+          f"{label}: {len(out)} of {len(reqs)} requests reached a verdict")
+    if finish:
+        for r in reqs:
+            toks, status = out[r.uid]
+            check(status == "finished" and len(toks) == r.max_new_tokens,
+                  f"{label}: request {r.uid} ended {status} with "
+                  f"{len(toks)} tokens")
+            check(all(0 <= t < model.cfg.vocab_size for t in toks),
+                  f"{label}: request {r.uid} emitted an out-of-vocab token")
+    for rep in fleet.replicas:
+        if rep.alive and rep.engine is not None and rep.mode == "in_process":
+            rep.engine.check_allocator_integrity()
+    local = [engine_counts(e.stats(), k, start[i])
+             for i, e in enumerate(engines) if e.mode == "in_process"]
+    children = []
+    for i, rep in enumerate(fleet.replicas):
+        if rep.mode == "process" and rep.alive and rep.engine is not None:
+            st = rep.engine.stats()
+            children.append(dict(
+                replica=i, launches=st["kernel_launches"],
+                forwards=engine_counts(st, k, start[i])["forwards"]))
+    prefill_tokens = sum(c["num_prefill_tokens"] for c in local)
+    decode_tokens = sum(c["num_tokens_decoded"] for c in local)
+    rec = dict(label=label, wall_s=wall, ticks=tick,
+               ms_per_step=sum(step_s) * 1e3 / max(tick, 1),
+               prefill_tokens=prefill_tokens, decode_tokens=decode_tokens,
+               forwards=sum(c["forwards"] for c in local), launches=launches,
+               children=children,
+               fleet={n: v if n in FLEET_GAUGES else v - before[n]
+                      for n, v in s.items()
+                      if n not in ("replicas", "tenants")},
+               replicas=s["replicas"])
+    if procs:
+        rpc_s = sum(p.rpc_s for p in procs)
+        child_s = sum(p.child_step_s for p in procs)
+        rec["wire"] = dict(
+            rpcs_per_tick=sum(p.rpc_calls for p in procs) / tick,
+            parent_rpc_ms_per_tick=rpc_s * 1e3 / tick,
+            child_step_ms_per_tick=child_s * 1e3 / tick,
+            wire_ms_per_tick=(rpc_s - child_s) * 1e3 / tick)
+    if timed:
+        rec.update(prefill_s=spent["prefill"], decode_s=spent["decode"],
+                   prefill_tokens_per_s=prefill_tokens
+                   / max(spent["prefill"], 1e-9),
+                   decode_tokens_per_s=decode_tokens
+                   / max(spent["decode"], 1e-9))
+    return rec, out, arrivals
+
+
+def schedule_counters(stats):
+    return {k: stats[k] for k in (
+        "num_prefills", "num_prefill_chunks", "num_prefill_tokens",
+        "num_decode_dispatches", "num_tokens_decoded", "num_preemptions",
+        "prefix_hit_blocks", "num_checkpoints")}
+
+
+def shared_fleet_traffic(seed, vocab, n=12, prompts=3, system=512,
+                         tail=128, new=32):
+    """``n`` greedy requests cycling over ``prompts`` (odd) distinct
+    ``system``-token system prompts, each with its own ``tail`` tokens (at
+    128 a request holds exactly 42 blocks)."""
+    import numpy as np
+
+    from apex_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed + 16)
+    heads = [[int(t) for t in rng.randint(0, vocab, system)]
+             for _ in range(prompts)]
+    return [Request(f"s{i}", heads[i % prompts] + [
+        int(t) for t in rng.randint(0, vocab, tail)], max_new_tokens=new)
+        for i in range(n)]
+
+
+def phase16_fleet(torch, dev, seed, card, model, boot):
+    """16a: the fleet in this process at GPT-2 small's full width with
+    phase 2's traffic (constant clock): a 1-replica fleet against the bare
+    engine; 3 replicas fault-free (the reference of the next arms), with a
+    crash on replica 1, with the cross-check on a clean fleet that also
+    migrates and drains, and with a corrupt chip on replica 1;
+    prefill/decode roles against the 1-replica fleet; and the shared
+    prefix tier on affinity-blind placement against the tier-off fleet.
+    ``boot()`` starts 16b's children before the two arms that report no
+    time (the corrupt chip and the roles)."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.serving import (FleetConfig, FleetRouter,
+                                        InferenceEngine, kv_block_bytes)
+    from apex_tpu_torch.utils.faults import FaultPlan, FaultSpec
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    reqs = traffic(seed, cfg.vocab_size)
+    config = fleet_config(seed)
+    clock = lambda: 0.0  # noqa: E731 - the compared arms' clock
+    arms, ties = {}, {}
+
+    def fleet(n, **fkw):
+        faults = fkw.pop("faults", None)
+        c = fkw.pop("config", config)
+        return FleetRouter(model, c, FleetConfig(num_replicas=n, **fkw),
+                           device=dev, clock=clock, faults=faults)
+
+    def arm(label, fl, **kw):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec, out, arrivals = run_fleet(torch, fl, reqs, dev, label, model,
+                                       **kw)
+        check_serving_launches(rec["launches"], rec["forwards"], L, label,
+                               config)
+        arms[label] = rec
+        print(f"[phase 16a {label}] {card}: wall {rec['wall_s']:.3f} s, "
+              f"{rec['ticks']} ticks, {rec['ms_per_step']:.2f} ms a step | "
+              f"{rec['forwards']} forwards | fleet {brief(rec['fleet'])}",
+              flush=True)
+        return rec, out, arrivals
+
+    def tokens(out):
+        return {u: t for u, (t, _) in out.items()}
+
+    # the bare engine and the 1-replica fleet: same tokens, statuses and
+    # schedule counters
+    sync(torch, dev)
+    bare = InferenceEngine(model, config, device=dev, clock=clock)
+    feed_two_waves(bare, reqs)
+    bare_out = {u: (list(r.tokens), r.status)
+                for u, r in bare.run(return_status=True).items()}
+    one = fleet(1)
+    _, out1, arr1 = arm("1 replica", one, timed=True)
+    check(out1 == bare_out, "phase 16a: the 1-replica fleet's tokens or "
+          "statuses differ from the bare engine's")
+    check(schedule_counters(one.replicas[0].engine.stats())
+          == schedule_counters(bare.stats()),
+          f"phase 16a: the 1-replica fleet's schedule counters "
+          f"{schedule_counters(one.replicas[0].engine.stats())} differ from "
+          f"the bare engine's {schedule_counters(bare.stats())}")
+    del bare, one
+
+    # three replicas: the fault-free reference
+    _, out3, arr3 = arm("3 replicas", fleet(3), timed=True)
+
+    # a crash at replica 1's decode dispatch 12, in tick 15 (the second
+    # wave was placed before tick 13; scheduling does not depend on the
+    # weights, so a tiny model at GPT-2's vocabulary, which sets the
+    # prompt lengths traffic() draws, gives the same ticks): failover
+    crash = [None, FaultPlan([FaultSpec(site="decode", kind="crash",
+                                        at=(12,))]), None]
+    fl = fleet(3, faults=crash)
+    rec, out, _ = arm("3 replicas, crash on 1", fl)
+    s = rec["fleet"]
+    check(s["num_failovers"] == 1 and s["num_replicas_down"] == 1
+          and not fl.replicas[1].alive,
+          f"phase 16a crash: the crash did not fail replica 1 over ({s})")
+    ties["crash"] = []
+    restore_divergences(torch, model, config, reqs, tokens(out3),
+                        tokens(out), "phase 16a crash", ties["crash"], dev,
+                        arrivals=arr3)
+    del fl
+
+    # the cross-check on a clean fleet, which also migrates everything off
+    # replica 0 at tick 14 and drains and retires replica 1 at tick 18
+    # (both after the second wave was placed; a replay swept up by either
+    # keeps its verdict, a request moved with history leaves the pool)
+    moved = {}
+
+    def do_migrate(f):
+        src = f.replicas[0].engine
+        export = src.export_prefix_payloads
+        nbytes = [0]
+
+        def counted(hashes):
+            got = export(hashes)
+            nbytes[0] += sum(t.numel() * t.element_size()
+                             for p in got.values() for t in p.values()
+                             if hasattr(t, "numel"))
+            return got
+        src.export_prefix_payloads = counted
+        sync(torch, dev)
+        t = time.perf_counter()
+        moved["requests"] = f.migrate(None, 0)
+        sync(torch, dev)
+        moved["ms"] = (time.perf_counter() - t) * 1e3
+        moved["bytes"] = nbytes[0]
+        src.export_prefix_payloads = export
+
+    def do_drain(f):
+        sync(torch, dev)
+        t = time.perf_counter()
+        moved["drained"] = f.drain_replica(1, retire=True)
+        sync(torch, dev)
+        moved["drain_ms"] = (time.perf_counter() - t) * 1e3
+
+    fl = fleet(3, sdc_check_interval_ticks=2)
+    label = "3 replicas, cross-check clean, migrate and drain"
+    rec, out, _ = arm(label, fl, actions={14: do_migrate, 18: do_drain})
+    rec.update(migration=dict(moved))
+    check(rec["fleet"]["num_sdc_checks"] > 0
+          and rec["fleet"]["num_sdc_suspects"] == 0,
+          f"phase 16a: a clean fleet's cross-check flagged a suspect "
+          f"({rec['fleet']})")
+    check(moved.get("requests", 0) > 0 and fl.replicas[1].error == "retired",
+          f"phase 16a: migrate/drain moved {moved}")
+    # the replays load the verifiers, so the second wave lands elsewhere
+    # and takes other arrival indices: only greedy tokens compare
+    ties["sdc clean, migrate"] = []
+    restore_divergences(torch, model, config,
+                        [r for r in reqs if r.sampling.temperature == 0],
+                        tokens(out3), tokens(out),
+                        "phase 16a cross-check clean, migrate and drain",
+                        ties["sdc clean, migrate"], dev, arrivals=arr3)
+    print(f"[phase 16a migrate] {card}: {moved['requests']} requests in "
+          f"{moved['ms']:.2f} ms with {moved['bytes']} payload bytes; the "
+          f"drain moved {moved['drained']} in {moved['drain_ms']:.2f} ms",
+          flush=True)
+    del fl
+    boot()
+    corrupt = [None, FaultPlan([FaultSpec(site="decode", kind="corrupt",
+                                          every=2)], seed=6), None]
+    fl = fleet(3, sdc_check_interval_ticks=1, faults=corrupt)
+    rec, out, _ = arm("3 replicas, corrupt chip on 1", fl, finish=False)
+    check(rec["fleet"]["num_sdc_suspects"] >= 1
+          and not fl.replicas[1].alive
+          and fl.replicas[1].error == "sdc divergence"
+          and fl.replicas[0].alive and fl.replicas[2].alive,
+          f"phase 16a: the cross-check did not retire replica 1 alone "
+          f"({rec['replicas']})")
+    del fl
+
+    # prefill/decode roles: every request enters through the one prefill
+    # specialist, so its arrival index is the 1-replica fleet's
+    fl = fleet(3, replica_roles=("prefill", "decode", "decode"))
+    rec, out, _ = arm("roles prefill/decode/decode", fl)
+    spill_hits = sum(row.get("spill_hits", 0) for row in
+                     (r.engine.stats() for r in fl.replicas[1:]))
+    rec["decode_spill_hits"] = spill_hits
+    check(rec["fleet"]["num_handoffs"] > 0 and spill_hits > 0,
+          f"phase 16a roles: {rec['fleet']['num_handoffs']} handoffs, "
+          f"{spill_hits} spill hits on the decode specialists")
+    ties["roles"] = []
+    restore_divergences(torch, model, config, reqs, tokens(out1),
+                        tokens(out), "phase 16a roles", ties["roles"], dev,
+                        arrivals=arr1)
+    del fl
+
+    # the shared prefix tier: affinity-blind placement over pools of 42
+    # blocks, one request's worth, so admitting the next request evicts
+    # (and spills) all of the last one's; pairs drained between; three
+    # 512-token system prompts, so the two replicas do not split them by
+    # parity
+    shared_reqs = shared_fleet_traffic(seed, cfg.vocab_size)
+    block = kv_block_bytes(L, config.block_size, cfg.num_heads,
+                           cfg.hidden_size // cfg.num_heads,
+                           dtype=config.kv_dtype)
+    small = fleet_config(seed, num_blocks=42, spill_max_bytes=128 * block)
+    shared = {}
+    for label, fkw in (("tier off", {}),
+                       ("tier on", dict(shared_prefix_bytes=160 * block))):
+        gc.collect()
+        fl = fleet(2, config=small, affinity_weight=0.0, **fkw)
+        sync(torch, dev)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for k in range(0, len(shared_reqs), 2):
+            for r in shared_reqs[k:k + 2]:
+                fl.add_request(r)
+            while fl.has_work:
+                fl.step()
+        out = {u: (list(r.tokens), r.status)
+               for u, r in fl.run(return_status=True).items()}
+        sync(torch, dev)
+        launches = dict(_build.launches)
+        st = [r.engine.stats() for r in fl.replicas]
+        counts = [engine_counts(x, small.decode_steps) for x in st]
+        fs = fl.stats()
+        forwards = sum(c["forwards"] for c in counts)
+        check_serving_launches(launches, forwards, L,
+                               f"phase 16a shared {label}", small)
+        check(fs["num_lost_requests"] == 0
+              and all(v[1] == "finished" for v in out.values()),
+              f"phase 16a shared {label}: {out}")
+        shared[label] = dict(
+            wall_s=time.perf_counter() - t0, forwards=forwards,
+            prefill_tokens=sum(c["num_prefill_tokens"] for c in counts),
+            spill_hits=sum(x["spill_hits"] for x in st),
+            shared_tier_hits=fs["shared_tier_hits"],
+            shared_tier_bytes=fs["shared_tier_bytes"],
+            shared_publishes=fs["num_shared_publishes"],
+            shared_dedupe=fs["num_shared_dedupe"], launches=launches,
+            out=out)
+        del fl
+    on, off = shared["tier on"], shared["tier off"]
+    check(on["shared_tier_hits"] > 0
+          and on["prefill_tokens"] < off["prefill_tokens"],
+          f"phase 16a shared tier: {on['shared_tier_hits']} hits, prefill "
+          f"tokens {on['prefill_tokens']} vs {off['prefill_tokens']} off")
+    check(on["out"] == off["out"], "phase 16a shared tier: the tier's "
+          "uploads changed the tokens of the tier-off fleet")
+    print(f"[phase 16a shared tier] {card}: {on['shared_tier_hits']} "
+          f"shared-hit blocks, {on['shared_publishes']} publishes, "
+          f"{on['shared_tier_bytes']} bytes resident | prefill tokens "
+          f"{on['prefill_tokens']} vs {off['prefill_tokens']} tier off | "
+          f"wall {on['wall_s']:.3f} vs {off['wall_s']:.3f} s", flush=True)
+    for rec in shared.values():
+        rec.pop("out")
+    return dict(arms=arms, shared=shared, ties=ties,
+                launches={k: sum(a["launches"].get(k, 0)
+                                 for a in arms.values())
+                          + sum(a["launches"].get(k, 0)
+                                for a in shared.values())
+                          for k in FLEET_KERNELS})
+
+
+def process_fleet(model, config, n, dev, seed):
+    """A fleet of ``n`` child replicas of ``model`` at ``config`` on
+    ``dev`` (constant clocks; the children boot together), and the
+    parent's seconds to the last hello."""
+    from apex_tpu_torch.serving import (FleetConfig, FleetRouter,
+                                        gpt_model_spec)
+
+    t = time.perf_counter()
+    fl = FleetRouter(
+        model, config, FleetConfig(num_replicas=n, replica_mode="process",
+                                   rpc_timeout_s=600.0),
+        device=dev, clock=lambda: 0.0,
+        model_spec=gpt_model_spec(model.cfg, init_seed=seed),
+        child_clock={"kind": "constant", "t": 0.0})
+    return fl, time.perf_counter() - t
+
+
+def phase16_process(torch, dev, seed, card, model, booting):
+    """16b: replicas as child processes on this card (the init frame says
+    "cuda"; ``booting`` holds the fleets that 16a started booting): a
+    child on int8 weights over an int8 pool against the in-process
+    replica, bit for bit; two children, one SIGKILLed mid-run, against
+    the uninterrupted in-process pair. The children's launch counters,
+    set to 0 through the wire just before each run and read through
+    ``stats()`` after it, must show 12 B14 and 25 B2 a forward (72 B15
+    and 12 quantized writes on int8) and nothing routed; so must the
+    in-process references' own."""
+    import os
+
+    from apex_tpu_torch.serving import FleetConfig, FleetRouter, Request
+
+    L = model.cfg.num_layers
+    reqs = traffic(seed, model.cfg.vocab_size)
+    config = fleet_config(seed)
+    c8 = fleet_config(seed, weight_quantization="int8",
+                      kv_quantization="int8")
+    arms, boots, totals = {}, [], {k: 0 for k in FLEET_KERNELS}
+
+    def warm(fl):
+        # one short request a replica, in and out of process alike (the
+        # same arrival indices after it): a child's first forwards pay its
+        # library handles and allocator, which the timed run must not
+        for i in range(len(fl.replicas)):
+            fl.add_request(Request(f"warm{i}", reqs[0].prompt[:64],
+                                   max_new_tokens=4))
+        fl.run()
+        return fl
+
+    def in_process(n, c):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return warm(FleetRouter(model, c, FleetConfig(num_replicas=n),
+                                device=dev, clock=lambda: 0.0))
+
+    def ready(name):
+        fl, wall = booting.pop(name).result()
+        try:
+            boots.append(dict(children=len(fl.replicas), wall_s=wall,
+                              child_hello_s=[r.engine.boot_s
+                                             for r in fl.replicas],
+                              devices=[r.engine.device
+                                       for r in fl.replicas]))
+            for r in fl.replicas:
+                check(r.engine.device.startswith(dev.type),
+                      f"phase 16b: a child serves on {r.engine.device}")
+            return warm(fl)
+        except BaseException:
+            fl.close()
+            raise
+
+    def note(label, rec, c):
+        kids = rec["children"]
+        if kids:
+            # the parent serves nothing: every launch is a child's
+            check(not any(rec["launches"].get(k, 0) for k in FLEET_KERNELS),
+                  f"phase 16b {label}: the parent launched {rec['launches']}")
+        for kid in kids or [dict(replica="in process",
+                                 launches=rec["launches"],
+                                 forwards=rec["forwards"])]:
+            check_serving_launches(kid["launches"], kid["forwards"], L,
+                                   f"phase 16b {label}, {kid['replica']}", c)
+            for k in FLEET_KERNELS:
+                totals[k] += kid["launches"].get(k, 0)
+        arms[label] = rec
+        print(f"[phase 16b {label}] {card}: wall {rec['wall_s']:.3f} s, "
+              f"{rec['ms_per_step']:.2f} ms a step | children "
+              f"{kids} | fleet {brief(rec['fleet'])}", flush=True)
+
+    # one child against one in-process replica, bit for bit, on int8
+    # weights over an int8 pool (the checksum covers the quantized weights
+    # and the mode)
+    ref_fl = in_process(1, c8)
+    ref, ref_out, _ = run_fleet(torch, ref_fl, reqs, dev,
+                                "in-process 1 int8", model)
+    ref_counters = schedule_counters(ref_fl.replicas[0].engine.stats())
+    note("in-process 1 int8", ref, c8)
+    del ref_fl
+    fl = ready("int8")
+    try:
+        rec, out, _ = run_fleet(torch, fl, reqs, dev, "process 1 int8",
+                                model)
+        counters = schedule_counters(fl.replicas[0].engine.stats())
+    finally:
+        fl.close()
+    check(out == ref_out, "phase 16b: the 1-process-replica fleet's tokens "
+          "or statuses differ from the in-process fleet's")
+    check(counters == ref_counters, f"phase 16b: the child's schedule "
+          f"counters {counters} differ from the in-process replica's "
+          f"{ref_counters}")
+    note("process 1 int8", rec, c8)
+    rec["rpc_ms_per_step_over_in_process"] = (rec["ms_per_step"]
+                                              - ref["ms_per_step"])
+
+    # two children, child 1 SIGKILLed at tick 16 (after the checkpoint of
+    # tick 14, which saw every request) against the uninterrupted
+    # in-process pair
+    ref2_fl = in_process(2, config)
+    ref2, ref2_out, arr2 = run_fleet(torch, ref2_fl, reqs, dev,
+                                     "in-process 2", model)
+    note("in-process 2", ref2, config)
+    del ref2_fl
+    fl = ready("pair")
+    victim, start = {}, {}
+
+    def kill(f):
+        idx = 1
+        check(idx in f.owners().values(),
+              "phase 16b: the child to kill owns no request at tick 16")
+        rep = f.replicas[idx]
+        s = rep.engine.stats()
+        victim.update(replica=idx, pid=rep.engine.pid,
+                      launches=s["kernel_launches"],
+                      forwards=engine_counts(s, config.decode_steps,
+                                             start[idx])["forwards"])
+        owned = sum(1 for o in f.owners().values() if o == idx)
+        sync(torch, dev)
+        t = time.perf_counter()
+        f.kill_replica(idx)
+        victim["failover_ms"] = (time.perf_counter() - t) * 1e3
+        victim["rehomed"] = owned
+
+    try:
+        rec, out, _ = run_fleet(torch, fl, reqs, dev, "process 2, SIGKILL",
+                                model, actions={16: kill}, start=start)
+    finally:
+        fl.close()
+    check(rec["fleet"]["num_failovers"] == 1
+          and rec["fleet"]["num_lost_requests"] == 0,
+          f"phase 16b SIGKILL: {rec['fleet']}")
+    try:
+        os.waitpid(victim["pid"], os.WNOHANG)
+        reaped = False
+    except ChildProcessError:
+        reaped = True
+    check(reaped, "phase 16b: the killed child was not reaped")
+    ties = []
+    restore_divergences(torch, model, config, reqs,
+                        {u: t for u, (t, _) in ref2_out.items()},
+                        {u: t for u, (t, _) in out.items()},
+                        "phase 16b SIGKILL", ties, dev, arrivals=arr2)
+    rec["near_ties"] = ties
+    rec["children"].append({k: victim[k] for k in
+                            ("replica", "launches", "forwards")})
+    rec["victim"] = {k: v for k, v in victim.items() if k != "launches"}
+    note("process 2, SIGKILL", rec, config)
+    return dict(arms=arms, boots=boots, launches=totals)
+
+
+def brief(stats):
+    """The nonzero numeric counters of a fleet's ``stats()``."""
+    return {k: v for k, v in stats.items()
+            if isinstance(v, (int, float)) and v}
+
+
+def phase16(torch, dev, seed, card, cfg=None):
+    from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+
+    cfg = GPTConfig.gpt2_small() if cfg is None else cfg
+    model = GPTLMHeadModel(cfg, device=dev, seed=seed)
+    pool = ThreadPoolExecutor(max_workers=2)
+    booting = {}
+
+    def boot():
+        # 16b's fleets: the parent's part of a boot (the weights'
+        # checksum, the spawn, the wait for the hellos) runs in this
+        # process's threads, the children's in their own processes
+        booting["int8"] = pool.submit(
+            process_fleet, model, fleet_config(
+                seed, weight_quantization="int8", kv_quantization="int8"),
+            1, dev, seed)
+        booting["pair"] = pool.submit(process_fleet, model,
+                                      fleet_config(seed), 2, dev, seed)
+    try:
+        rec = dict(fleet=phase16_fleet(torch, dev, seed, card, model, boot))
+        rec["process"] = phase16_process(torch, dev, seed, card, model,
+                                         booting)
+    finally:
+        # a fleet booted for an arm that a failure never reached
+        pool.shutdown(wait=True)
+        for f in booting.values():
+            if f.exception() is None:
+                f.result()[0].close()
+    a, p = rec["fleet"]["arms"], rec["process"]["arms"]
+    one, three = a["1 replica"], a["3 replicas"]
+    kill = p["process 2, SIGKILL"]
+    clean = "3 replicas, cross-check clean, migrate and drain"
+    summary = dict(
+        card=card,
+        tokens_per_s={n: dict(prefill=r["prefill_tokens_per_s"],
+                              decode=r["decode_tokens_per_s"])
+                      for n, r in (("1 replica", one),
+                                   ("3 replicas", three))},
+        failover=dict(ms=kill["victim"]["failover_ms"],
+                      rehomed=kill["victim"]["rehomed"]),
+        migration=a[clean]["migration"],
+        # each process fleet's children boot together, during 16a's
+        # corrupt-chip and roles arms: the parent's wall to the last
+        # hello, by the fleet's children, and each child's own time from
+        # its first line to its hello (imports excluded)
+        fleet_boot_s={b["children"]: b["wall_s"]
+                      for b in rec["process"]["boots"]},
+        child_hello_s=[b["child_hello_s"] for b in rec["process"]["boots"]],
+        rpc_ms_per_step=dict(process=p["process 1 int8"]["ms_per_step"],
+                             in_process=p["in-process 1 int8"]["ms_per_step"],
+                             **p["process 1 int8"]["wire"]),
+        shared={k: {kk: v[kk] for kk in (
+            "shared_tier_hits", "shared_tier_bytes", "shared_publishes",
+            "prefill_tokens", "wall_s")}
+            for k, v in rec["fleet"]["shared"].items()},
+        sdc={k: dict(checks=a[k]["fleet"]["num_sdc_checks"],
+                     suspects=a[k]["fleet"]["num_sdc_suspects"])
+             for k in (clean, "3 replicas, corrupt chip on 1")},
+        near_ties=dict(rec["fleet"]["ties"],
+                       sigkill=kill["near_ties"]))
+    print(json.dumps({"phase16": summary}, default=str), flush=True)
+    rec["summary"] = summary
+    rec["launches"] = {k: rec["fleet"]["launches"][k]
+                       + rec["process"]["launches"][k]
+                       for k in FLEET_KERNELS}
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6831,8 +7547,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
-                    "(10, 11, 12, 13, 14, 15), for iterating on one; prints "
-                    "no kernels or ok line")
+                    "(2, 10, 11, 12, 13, 14, 15, 16), for iterating on one; "
+                    "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (ROOT / "apex_tpu_torch" / "csrc").is_dir():
         raise SmokeFailure("apex_tpu_torch is not beside chip_smoke.py: "
@@ -6870,6 +7586,8 @@ def main(argv=None):
     if args.only is not None:
         only = set(args.only.split(","))
         out = {}
+        if "2" in only:
+            out["phase2"] = timed("phase 2", phase2, torch, dev, seed, card)
         if "10" in only:
             out["phase10"] = timed("phase 10", phase10, torch, dev, seed,
                                    card)
@@ -6889,6 +7607,9 @@ def main(argv=None):
                                    card)
         if "15" in only:
             out["phase15"] = timed("phase 15", phase15, torch, dev, seed,
+                                   card)
+        if "16" in only:
+            out["phase16"] = timed("phase 16", phase16, torch, dev, seed,
                                    card)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
@@ -6941,6 +7662,7 @@ def main(argv=None):
     faults = timed("phase 13", phase13, torch, dev, seed, card)
     tiers = timed("phase 14", phase14, torch, dev, seed, card)
     mesh = timed("phase 15", phase15, torch, dev, seed, card)
+    fleet = timed("phase 16", phase16, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the training phases 3-5 and 9, B2 and B1 also on the contrib
@@ -6959,6 +7681,7 @@ def main(argv=None):
                 + sum(a["launches"][k]
                       for a in mesh["mesh"]["arms"].values())
                 + mesh["migration"]["launches"][k]
+                + fleet["launches"][k]
                 for k in ("paged_read", "dequant_gemm", "kv_quant_write")}
     launches.update({k: sum(t["launches"][k] for t in (train, train128, gpt))
                      for k in ("dropout", "flash_fwd",
@@ -6975,6 +7698,23 @@ def main(argv=None):
             + sum(a.get(k, 0) for a in norm_bench["launches"].values())
             + openfold["launches"].get(k, 0)
             + sum(r["launches"].get(k, 0) for r in wide.values()))
+    # B2 also runs every serving forward's LayerNorms: phases 2, 10 and
+    # 12-16 (the fleet's children included)
+    launches["layer_norm_fwd"] += (
+        sum(r["launches"]["layer_norm_fwd"] for r in runs.values())
+        + serving["prefix"]["runs"]["on"]["launches"]["layer_norm_fwd"]
+        + sum(a["launches"]["layer_norm_fwd"]
+              for a in pools["pools"]["arms"].values())
+        + pools["tenancy"]["launches"]["layer_norm_fwd"]
+        + sum(a["launches"]["layer_norm_fwd"]
+              for a in faults["serving"]["arms"].values())
+        + sum(a["launches"]["layer_norm_fwd"]
+              for a in tiers["spill"]["arms"].values())
+        + tiers["observability"]["serving"]["launches"]["layer_norm_fwd"]
+        + sum(a["launches"]["layer_norm_fwd"]
+              for a in mesh["mesh"]["arms"].values())
+        + mesh["migration"]["launches"]["layer_norm_fwd"]
+        + fleet["launches"]["layer_norm_fwd"])
     launches["softmax_fwd"] += openfold["launches"].get("softmax_fwd", 0)
     launches["softmax_bwd"] += openfold["launches"].get("softmax_bwd", 0)
     for k, v in parallel["configs4"]["arms"]["ddp"]["launches"].items():
@@ -7062,7 +7802,8 @@ def main(argv=None):
         amp_mnist=mnist, fused_optimizers=optimizers, parallel=parallel,
         serving_prefix_spec=serving, model_options=options,
         quantized_pools_tenancy=pools, faults_recovery=faults,
-        spill_observability=tiers, mesh_migration=mesh, checks=checks,
+        spill_observability=tiers, mesh_migration=mesh, fleet=fleet,
+        checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -1099,8 +1099,9 @@ def test_layer_norm_fwd_kernel_takes_unaligned_rows(cuda_device, dtype, H):
 def test_differentiated_norms_run_b2_and_b1(cuda_device):
     """By the launch counters: a differentiated FusedLayerNorm or
     FusedRMSNorm runs B2 forward and B1 backward, and its output is the
-    reference formula's within one bf16 ulp; an fp32 call under
-    ``no_grad`` takes the serving forward and no kernel."""
+    reference formula's within one bf16 ulp; an fp32 or bf16 call under
+    ``no_grad`` (fp32 params) takes the serving route: one B2 launch and
+    no B1."""
     ln = FusedLayerNorm(1024)
     rms = FusedRMSNorm(1024)
     assert ln.scale.device.type == rms.scale.device.type == "cuda"
@@ -1120,10 +1121,45 @@ def test_differentiated_norms_run_b2_and_b1(cuda_device):
             ref = _plain_forward(x, mod.scale, getattr(mod, "bias", None),
                                  mod.eps, is_rms)
         assert_within_bf16_ulp(y, ref)
-    before = _build.launches["layer_norm_fwd"]
+    for xs in (x.float(), x):
+        before = dict(_build.launches)
+        with torch.no_grad():
+            ln(xs)
+        assert (_build.launches["layer_norm_fwd"]
+                == before["layer_norm_fwd"] + 1)
+        assert _build.launches["layer_norm_bwd"] == before["layer_norm_bwd"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 128])
+@pytest.mark.parametrize("dtype,param_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_serving_layer_norm_runs_b2(cuda_device, rows, dtype, param_dtype):
+    """The serving route (no autograd; params of the input's dtype, or
+    fp32 params under a bf16 input as a bf16 GPT keeps them):
+    FusedLayerNorm at GPT-2 small's width, at a decode batch and a
+    prefill chunk, launches B2 once a call and nothing routed, and
+    matches B2's plain version (fp32 within 1e-5, bf16 within one bf16
+    ulp)."""
+    H = 768
+    gen = torch.Generator().manual_seed(rows)
+    ln = FusedLayerNorm(H, param_dtype=param_dtype)
     with torch.no_grad():
-        ln(x.float())
-    assert _build.launches["layer_norm_fwd"] == before
+        ln.scale.copy_(torch.rand(H, generator=gen) + 0.5)
+        ln.bias.copy_(torch.randn(H, generator=gen) * 0.1)
+    x = (torch.randn(1, rows, H, generator=gen) * 2 + 0.5).to(dtype)
+    x = x.to(cuda_device)
+    for _ in range(2):
+        before = dict(_build.launches)
+        with torch.no_grad():
+            y = ln(x)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in _build.launches.items()
+                 if v != before[k]}
+        assert delta == {"layer_norm_fwd": 1}
+        _check_b2(y, layer_norm_forward_plain(x, ln.scale, ln.bias, 1e-5),
+                  dtype)
 
 
 @pytest.mark.gpu

@@ -20,6 +20,7 @@ from apex_tpu_torch.ops.layer_norm import (
     fused_layer_norm_affine,
     layer_norm_backward,
     layer_norm_backward_plain,
+    layer_norm_forward_plain,
 )
 from torch_parity import assert_close, to_torch
 
@@ -57,6 +58,11 @@ def test_module_matches_jax_module():
     assert_close(out, layer_norm_reference(to_torch(x), to_torch(w),
                                            to_torch(b)),
                  atol=1e-5, rtol=1e-5)
+    for xs in (to_torch(x), to_torch(x).to(torch.bfloat16)):
+        with torch.no_grad():
+            out = ln(xs)
+            want = layer_norm_forward_plain(xs, ln.scale, ln.bias, 1e-5)
+        assert out.dtype == xs.dtype and torch.equal(out, want)
 
 
 # -- the training path: fused_layer_norm_affine and its backward (B1) ------
@@ -125,7 +131,8 @@ def test_backward_plain_matches_jax_bwd_jnp(shape, rms):
 def test_module_takes_the_training_path_only_under_autograd():
     """With autograd on, FusedLayerNorm runs fused_layer_norm_affine (an
     fp32 affine on a bf16 input, output bf16, fp32 param grads); under
-    no_grad it keeps the serving forward."""
+    no_grad it takes B2's wrapper (its plain version on the CPU), for an
+    fp32 input and for a bf16 one under the fp32 params alike."""
     x, w, b = _data((4, 64), seed=3)
     ln = FusedLayerNorm(64, device="cpu")
     with torch.no_grad():
@@ -144,3 +151,8 @@ def test_module_takes_the_training_path_only_under_autograd():
     assert_close(out, layer_norm_reference(to_torch(x), to_torch(w),
                                            to_torch(b)),
                  atol=1e-5, rtol=1e-5)
+    for xs in (to_torch(x), to_torch(x).to(torch.bfloat16)):
+        with torch.no_grad():
+            out = ln(xs)
+            want = layer_norm_forward_plain(xs, ln.scale, ln.bias, 1e-5)
+        assert out.dtype == xs.dtype and torch.equal(out, want)

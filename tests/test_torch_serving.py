@@ -105,8 +105,9 @@ def test_engine_accounting_and_stats(tiny):
     assert s["num_prefill_chunks"] >= s["num_prefills"] + 1
     assert s["num_tokens_decoded"] == sum(
         len(r.tokens) for r in out.values()) - len(PROMPTS)
-    assert set(s["kernel_launches"]) == {"paged_read", "dequant_gemm",
-                                         "kv_quant_write"}
+    assert set(s["kernel_launches"]) == {"paged_read", "paged_read_plain",
+                                         "dequant_gemm", "kv_quant_write",
+                                         "layer_norm_fwd"}
 
 
 def test_eos_stops_early_and_validation(tiny):
