@@ -16,6 +16,26 @@ Dropout seeds are host ints drawn from the ``torch.Generator`` the caller
 passes, all of them before any checkpointed layer runs (see
 :mod:`apex_tpu_torch.models._dropout`).
 
+Under tensor parallelism (``use_tensor_parallel``, with
+:mod:`apex_tpu_torch.transformer.parallel_state` initialized; one process
+a rank) the JAX model's Megatron layout: a per-rank ColumnParallelLinear
+``qkv`` whose shard is ``[q_r | k_r | v_r]``, a RowParallelLinear ``out``,
+a Column/Row MLP, a VocabParallelEmbedding and a vocab-parallel
+``mlm_decoder`` whose shard of the logits feeds
+``pretraining_loss(vocab_parallel=True)``; each rank runs its heads
+(``num_heads / tp``) through the same attention kernels. LayerNorms,
+embeddings' position and type tables, the pooler and the heads' dense
+layers are replicated. With ``sequence_parallel`` the blocks run on this
+rank's shard of the sequence, in the JAX token-major ``(S_local * B, H)``
+rows around the parallel linears (:func:`_sp_enter`, :func:`_sp_exit`);
+attention, and the flash gate, see the full gathered sequence. The
+layers' LayerNorm parameters and RowParallel biases then see one shard
+each and carry ``sequence_parallel = True``, the mark by which the train
+step sums their gradients over the tensor-parallel group (the ``psum``
+JAX's AD inserts). The weights of rank r from ``seed`` are those of the
+model without tensor parallelism from ``seed``, split by
+:func:`split_tp_params`.
+
 ``fused_kernels=False`` runs the reference's stock arm instead: a
 LayerNorm in ``cfg.dtype`` over fp32 params, the composed attention with
 an fp32 softmax whose masked keys take -30000, and dropout drawn by a
@@ -23,8 +43,6 @@ torch generator seeded from the site's seed; on the card it launches
 none of the port's kernels. ``remat_policy="dots"`` checkpoints each
 layer keeping the dense products (``aten.mm``/``aten.addmm``, the JAX
 ``dots_with_no_batch_dims_saveable``) and recomputing everything else.
-
-Not ported yet: tensor and sequence parallelism; it raises.
 """
 
 from __future__ import annotations
@@ -42,13 +60,23 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from apex_tpu_torch.models._dropout import TPDropout, dropout_seeds
+from apex_tpu_torch.models._dropout import TPDropout, dropout_seeds, tp_seed
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.flash_attention import flash_attention_bsh
+from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.functional import (
     AttnMaskType,
     FusedScaleMaskSoftmax,
+)
+from apex_tpu_torch.transformer.tensor_parallel import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+    divide,
+    sequence_parallel_enter,
+    sequence_parallel_exit,
+    vocab_parallel_cross_entropy,
 )
 
 
@@ -98,9 +126,35 @@ def _check_ported(cfg: BertConfig):
     if cfg.remat and cfg.remat_policy not in ("full", "dots"):
         raise ValueError(f"remat_policy must be 'full' or 'dots', got "
                          f"{cfg.remat_policy!r}")
-    if cfg.use_tensor_parallel or cfg.sequence_parallel:
-        raise NotImplementedError("BERT under tensor/sequence parallelism "
-                                  "is not ported yet (ROADMAP A.4 item 20)")
+    if cfg.use_tensor_parallel:
+        parallel_state.get_mesh()    # raises when not initialized, as JAX's
+
+
+def _tp_sp(cfg: BertConfig):
+    """(tensor-parallel size, sequence parallelism on) of ``cfg`` (1 and
+    False without tensor parallelism; the JAX model reads
+    ``sequence_parallel`` only under ``use_tensor_parallel``)."""
+    if not cfg.use_tensor_parallel:
+        return 1, False
+    return (parallel_state.get_tensor_model_parallel_world_size(),
+            cfg.sequence_parallel)
+
+
+def _no_init(tensor, generator=None):
+    """The tensor-parallel layers' initializer inside the model: none,
+    their shards are split from the full model's draw."""
+    return tensor
+
+
+# sequence-parallel layout: (B, S_local, H) <-> (S_local * B, H), token-major
+# so that a first-dim gather stacks the ranks' shards along the sequence
+
+def _sp_enter(x):
+    return x.transpose(0, 1).reshape(-1, x.shape[-1])
+
+
+def _sp_exit(t, batch):
+    return t.view(-1, batch, t.shape[-1]).transpose(0, 1).contiguous()
 
 
 # the products the "dots" policy keeps: those without batch dimensions
@@ -184,33 +238,60 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        # three flat projections, as the JAX module: they feed the
-        # transpose-free flash entry directly
-        self.q = Dense(h, h, cfg.dtype)
-        self.k = Dense(h, h, cfg.dtype)
-        self.v = Dense(h, h, cfg.dtype)
-        self.out = Dense(h, h, cfg.dtype)
-        self.dropout = TPDropout(cfg.attention_dropout, cfg.fused_kernels)
+        tp, sp = _tp_sp(cfg)
+        if cfg.use_tensor_parallel:
+            divide(cfg.num_heads, tp)
+            # Megatron layout: this rank's shard is [q_r | k_r | v_r]
+            self.qkv = ColumnParallelLinear(
+                h, 3 * h, gather_output=False, sequence_parallel_enabled=sp,
+                init_method=_no_init, device="cpu")
+            self.out = RowParallelLinear(
+                h, h, input_is_parallel=True, sequence_parallel_enabled=sp,
+                init_method=_no_init, device="cpu")
+        else:
+            # three flat projections, as the JAX module: they feed the
+            # transpose-free flash entry directly
+            self.q = Dense(h, h, cfg.dtype)
+            self.k = Dense(h, h, cfg.dtype)
+            self.v = Dense(h, h, cfg.dtype)
+            self.out = Dense(h, h, cfg.dtype)
+        # heads are split over the tensor-parallel ranks: per-rank masks
+        self.dropout = TPDropout(cfg.attention_dropout, cfg.fused_kernels,
+                                 tp_varying=cfg.use_tensor_parallel)
 
     def forward(self, x, key_mask, seed=None, deterministic=True):
-        """``key_mask``: (B, S) boolean, True = masked, or None. ``seed``:
-        the attention-probability dropout seed (fused into B4 on the flash
-        path, B3 on the composed path)."""
+        """``x``: (B, S, H), or this rank's (B, S / tp, H) under sequence
+        parallelism. ``key_mask``: (B, S) boolean over the full sequence,
+        True = masked, or None. ``seed``: the attention-probability
+        dropout seed (fused into B4 on the flash path, B3 on the composed
+        path; the tensor-parallel rank folded in)."""
         cfg = self.cfg
-        B, S, h = x.shape
+        B, h = x.shape[0], cfg.hidden_size
         nh = cfg.num_heads
         hd = h // nh
         inv_sqrt = 1.0 / (hd ** 0.5)
-        q, k, v = self.q(x), self.k(x), self.v(x)
+        tp, sp = _tp_sp(cfg)
+        nh, local_h = nh // tp, h // tp
+        if cfg.use_tensor_parallel:
+            qkv_t = self.qkv(_sp_enter(x) if sp else x.reshape(-1, h))
+            qkv = (_sp_exit(qkv_t, B) if sp
+                   else qkv_t.view(B, -1, 3 * local_h))
+            q, k, v = qkv.split(local_h, dim=-1)
+        else:
+            q, k, v = self.q(x), self.k(x), self.v(x)
+        # under sequence parallelism q, k and v hold the full sequence:
+        # the flash gate reads its length, not the shard's
+        S = q.shape[1]
         if (cfg.fused_kernels and cfg.flash_attention
                 and S >= cfg.flash_min_seq):
             drop = 0.0 if deterministic else cfg.attention_dropout
+            seed = tp_seed(seed, cfg.use_tensor_parallel)
             ctx = flash_attention_bsh(q, k, v, key_mask, nh, False, inv_sqrt,
                                       drop, seed if drop > 0.0 else None)
-            return self.out(ctx.to(cfg.dtype)).to(cfg.dtype)
+            return self._project(ctx.to(cfg.dtype), B)
 
         def heads(t):
-            return t.view(B, S, nh, hd).transpose(1, 2)
+            return t.reshape(B, S, nh, hd).transpose(1, 2)
 
         # JAX takes q k^T with fp32 accumulation, scales in fp32 and rounds
         # to cfg.dtype once; the product here rounds to cfg.dtype (q, k are
@@ -222,8 +303,22 @@ class BertSelfAttention(nn.Module):
         probs = self.dropout(_attn_softmax(cfg, scores, mask4d), seed,
                              deterministic)
         ctx = torch.matmul(probs, heads(v))
-        ctx = ctx.transpose(1, 2).reshape(B, S, h)
-        return self.out(ctx).to(cfg.dtype)
+        ctx = ctx.transpose(1, 2).reshape(B, S, local_h)
+        return self._project(ctx, B)
+
+    def _project(self, ctx, B):
+        """The output projection of (B, S, H / tp) ``ctx``: the
+        RowParallelLinear under tensor parallelism (its rows
+        reduce-scattered back to this rank's shard under sequence
+        parallelism)."""
+        cfg = self.cfg
+        if not cfg.use_tensor_parallel:
+            return self.out(ctx).to(cfg.dtype)
+        _, sp = _tp_sp(cfg)
+        if sp:
+            return _sp_exit(self.out(_sp_enter(ctx)), B).to(cfg.dtype)
+        out = self.out(ctx.reshape(-1, ctx.shape[-1]))
+        return out.view(B, -1, cfg.hidden_size).to(cfg.dtype)
 
 
 class BertLayer(nn.Module):
@@ -231,12 +326,32 @@ class BertLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, eps = cfg.hidden_size, cfg.layernorm_eps
+        _, sp = _tp_sp(cfg)
         self.attention = BertSelfAttention(cfg)
         self.attention_ln = norm(cfg, h)
-        self.mlp_in = Dense(h, cfg.intermediate_size, cfg.dtype)
-        self.mlp_out = Dense(cfg.intermediate_size, h, cfg.dtype)
+        if cfg.use_tensor_parallel:
+            self.mlp_in = ColumnParallelLinear(
+                h, cfg.intermediate_size, gather_output=False,
+                sequence_parallel_enabled=sp, init_method=_no_init,
+                device="cpu")
+            self.mlp_out = RowParallelLinear(
+                cfg.intermediate_size, h, input_is_parallel=True,
+                sequence_parallel_enabled=sp, init_method=_no_init,
+                device="cpu")
+        else:
+            self.mlp_in = Dense(h, cfg.intermediate_size, cfg.dtype)
+            self.mlp_out = Dense(cfg.intermediate_size, h, cfg.dtype)
         self.output_ln = norm(cfg, h)
-        self.dropout = TPDropout(cfg.hidden_dropout, cfg.fused_kernels)
+        if sp:
+            # each rank normalizes its own tokens: the gradients are
+            # partial sums the train step adds over the group
+            for ln in (self.attention_ln, self.output_ln):
+                for p in ln.parameters():
+                    p.sequence_parallel = True
+        # sequence-split tokens under sequence parallelism: per-rank
+        # masks; replicated under plain tensor parallelism: one mask
+        self.dropout = TPDropout(cfg.hidden_dropout, cfg.fused_kernels,
+                                 tp_varying=sp)
 
     def forward(self, x, key_mask, seeds=(None, None, None),
                 deterministic=True):
@@ -245,9 +360,21 @@ class BertLayer(nn.Module):
         attn = self.attention(x, key_mask, seeds[0], deterministic)
         attn = self.dropout(attn, seeds[1], deterministic)
         x = self.attention_ln(x + attn)
-        mlp = self.mlp_out(gelu(self.mlp_in(x)))
+        mlp = self._mlp(x)
         mlp = self.dropout(mlp, seeds[2], deterministic)
         return self.output_ln(x + mlp)
+
+    def _mlp(self, x):
+        cfg = self.cfg
+        if not cfg.use_tensor_parallel:
+            return self.mlp_out(gelu(self.mlp_in(x)))
+        _, sp = _tp_sp(cfg)
+        B = x.shape[0]
+        t = _sp_enter(x) if sp else x.reshape(-1, cfg.hidden_size)
+        out = self.mlp_out(gelu(self.mlp_in(t)))
+        out = (_sp_exit(out, B) if sp
+               else out.view(B, -1, cfg.hidden_size))
+        return out.to(cfg.dtype)
 
 
 class Embed(nn.Module):
@@ -269,7 +396,10 @@ class BertEmbeddings(nn.Module):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.word_embeddings = Embed(cfg.vocab_size, h)
+        self.word_embeddings = (
+            VocabParallelEmbedding(cfg.vocab_size, h, init_method=_no_init,
+                                   device="cpu")
+            if cfg.use_tensor_parallel else Embed(cfg.vocab_size, h))
         self.position_embeddings = nn.Parameter(
             torch.empty(cfg.max_position_embeddings, h))
         self.token_type_embeddings = Embed(cfg.type_vocab_size, h)
@@ -324,6 +454,10 @@ class BertModel(nn.Module):
                             deterministic)
         # (B, S) boolean, True = masked (the reference convention)
         key_mask = None if attention_mask is None else attention_mask == 0
+        _, sp = _tp_sp(cfg)
+        if sp:
+            # this rank's shard of the sequence between the blocks
+            x = sequence_parallel_enter(x.transpose(0, 1)).transpose(0, 1)
         remat = cfg.remat and torch.is_grad_enabled()
         kw = {}
         context_fn = remat_context_fn(cfg.remat_policy)
@@ -339,6 +473,8 @@ class BertModel(nn.Module):
                                preserve_rng_state=False, **kw)
             else:
                 x = layer(x, key_mask, layer_seeds, deterministic)
+        if sp:
+            x = sequence_parallel_exit(x.transpose(0, 1)).transpose(0, 1)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return x, pooled
 
@@ -350,9 +486,12 @@ class BertForPreTraining(nn.Module):
 
     Weights are drawn from ``seed`` on the CPU (normal(0.02) for Dense
     kernels and embeddings, zero biases, unit norm scales, as the JAX
-    initializers), so every device starts from the same weights. The model
+    initializers), so every device starts from the same weights. Under
+    tensor parallelism the full model's weights are drawn from ``seed``
+    and this rank keeps its shard (:func:`split_tp_params`). The model
     lives on ``device``: the CUDA card unless the caller asks for the
-    CPU."""
+    CPU. With tensor parallelism, ``mlm_logits`` are this rank's shard of
+    the vocabulary."""
 
     def __init__(self, cfg: BertConfig, device=None, seed: int = 0):
         super().__init__()
@@ -362,17 +501,30 @@ class BertForPreTraining(nn.Module):
         h = cfg.hidden_size
         self.mlm_transform = Dense(h, h, cfg.dtype)
         self.mlm_ln = norm(cfg, h)
-        self.mlm_decoder = Dense(h, cfg.vocab_size, cfg.dtype)
+        self.mlm_decoder = (
+            ColumnParallelLinear(h, cfg.vocab_size, gather_output=False,
+                                 init_method=_no_init, device="cpu")
+            if cfg.use_tensor_parallel
+            else Dense(h, cfg.vocab_size, cfg.dtype))
         self.nsp = Dense(h, 2, cfg.dtype)
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith(".bias"):
-                    p.zero_()
-                elif name.endswith(".scale"):
-                    p.fill_(1.0)
-                else:
-                    p.normal_(0.0, 0.02, generator=gen)
+        if cfg.use_tensor_parallel:
+            plain = BertForPreTraining(_plain_cfg(cfg), device="cpu",
+                                       seed=seed)
+            self.load_state_dict(split_tp_params(
+                plain.state_dict(), cfg,
+                parallel_state.get_tensor_model_parallel_world_size(),
+                parallel_state.get_tensor_model_parallel_rank()))
+            del plain
+        else:
+            gen = torch.Generator().manual_seed(seed)
+            with torch.no_grad():
+                for name, p in self.named_parameters():
+                    if name.endswith(".bias"):
+                        p.zero_()
+                    elif name.endswith(".scale"):
+                        p.fill_(1.0)
+                    else:
+                        p.normal_(0.0, 0.02, generator=gen)
         self.to(device)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
@@ -384,21 +536,33 @@ class BertForPreTraining(nn.Module):
                 -1, -1, x.shape[-1])
             x = torch.gather(x, 1, idx)
         h = self.mlm_ln(gelu(self.mlm_transform(x)))
-        return self.mlm_decoder(h), self.nsp(pooled)
+        if self.cfg.use_tensor_parallel:
+            # this rank's vocabulary shard of the logits
+            mlm = self.mlm_decoder(h.reshape(-1, h.shape[-1]))
+            mlm = mlm.view(*h.shape[:-1], -1)
+        else:
+            mlm = self.mlm_decoder(h)
+        return mlm, self.nsp(pooled)
 
 
 def pretraining_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels,
-                     mlm_weights=None):
+                     mlm_weights=None, vocab_parallel: bool = False):
     """Masked-LM + next-sentence loss in fp32, the MLM term in the
     logsumexp form (no fp32 (B, S, V) log-prob tensor).
-    ``mlm_labels`` holds -1 (ignore) where ``mlm_weights`` is not given."""
+    ``mlm_labels`` holds -1 (ignore) where ``mlm_weights`` is not given.
+    With ``vocab_parallel``, ``mlm_logits`` is this rank's vocabulary
+    shard and the per-token loss is :func:`vocab_parallel_cross_entropy`'s
+    (the same on every tensor-parallel rank)."""
     labels = mlm_labels.clamp(min=0).long()
     if mlm_weights is None:
         mlm_weights = (mlm_labels >= 0).float()
-    xf = mlm_logits.float()
-    lse = torch.logsumexp(xf, dim=-1)
-    picked = torch.gather(xf, -1, labels[..., None])[..., 0]
-    per_token = lse - picked
+    if vocab_parallel:
+        per_token = vocab_parallel_cross_entropy(mlm_logits, labels)
+    else:
+        xf = mlm_logits.float()
+        lse = torch.logsumexp(xf, dim=-1)
+        picked = torch.gather(xf, -1, labels[..., None])[..., 0]
+        per_token = lse - picked
     denom = torch.clamp(mlm_weights.sum(), min=1.0)
     mlm_loss = (per_token * mlm_weights).sum() / denom
     nsp_logp = torch.log_softmax(nsp_logits.float(), dim=-1)
@@ -428,25 +592,92 @@ def _walk(tree, path=()):
             yield path + (key,), val
 
 
-def load_jax_params(params_np, cfg: BertConfig, device=None,
-                    seed: int = 0) -> BertForPreTraining:
-    """Build the port's model from a JAX ``BertForPreTraining`` param tree
-    as numpy arrays (``bert/embeddings/{word_embeddings,
+def _plain_cfg(cfg: BertConfig) -> BertConfig:
+    """``cfg`` without tensor or sequence parallelism."""
+    return dataclasses.replace(cfg, use_tensor_parallel=False,
+                               sequence_parallel=False)
+
+
+# the tensor-parallel layers, by how their weights split:
+# ColumnParallel splits the output rows (and the bias), RowParallel the
+# input columns (its bias is replicated), the embedding the vocabulary rows
+_COLUMN = ("mlp_in", "mlm_decoder")
+_ROW = ("attention.out", "mlp_out")
+
+
+def split_tp_params(state, cfg: BertConfig, tp: int, rank: int) -> dict:
+    """Rank ``rank``'s state of the tensor-parallel model (``tp`` ranks)
+    from the state of the model without tensor parallelism (a
+    ``state_dict``: name -> tensor). The separate ``q``/``k``/``v``
+    become the rank's ``[q_r | k_r | v_r]`` ``qkv``; Column weights and
+    biases split by output, Row weights by input, the word embeddings
+    and the decoder by vocabulary; everything else is copied."""
+    for what, n in (("num_heads", cfg.num_heads),
+                    ("hidden_size", cfg.hidden_size),
+                    ("intermediate_size", cfg.intermediate_size),
+                    ("vocab_size", cfg.vocab_size)):
+        divide(n, tp)
+
+    def part(t, dim):
+        n = t.shape[dim] // tp
+        return t.narrow(dim, rank * n, n).clone()
+
+    out = {}
+    for name, t in state.items():
+        mod, leaf = name.rsplit(".", 1)
+        if mod.endswith("attention.q") or mod.endswith("attention.k"):
+            continue
+        if mod.endswith("attention.v"):
+            base = mod[:-len(".v")]
+            out[f"{base}.qkv.{leaf}"] = torch.cat(
+                [part(state[f"{base}.{x}.{leaf}"], 0) for x in "qkv"])
+        elif mod.endswith("word_embeddings") or mod.endswith(_COLUMN):
+            out[name] = part(t, 0)
+        elif mod.endswith(_ROW):
+            out[name] = part(t, 1) if leaf == "weight" else t.clone()
+        else:
+            out[name] = t.clone()
+    return out
+
+
+def jax_state_dict(params_np, cfg: BertConfig, rank=None) -> dict:
+    """The port's state (name -> tensor) of a JAX ``BertForPreTraining``
+    param tree as numpy arrays (``bert/embeddings/{word_embeddings,
     token_type_embeddings}/embedding``, ``bert/embeddings/
     position_embeddings``, ``.../ln``, ``bert/layer_{i}/attention/
     {q,k,v,out}``, ``attention_ln``, ``mlp_in``, ``mlp_out``,
     ``output_ln``, ``bert/pooler``, ``mlm_transform``, ``mlm_ln``,
-    ``mlm_decoder``, ``nsp``). Every port parameter must be covered."""
+    ``mlm_decoder``, ``nsp``). Under tensor parallelism the tree is the
+    JAX model's per-rank one, every leaf stacked ``[tp, ...]`` as
+    ``shard_map`` returns it with ``P("tensor")`` (``attention/qkv``
+    in place of ``q``/``k``/``v``), and this is rank ``rank``'s state
+    (this process's tensor-parallel rank by default)."""
     tree = params_np.get("params", params_np)
+    if cfg.use_tensor_parallel and rank is None:
+        rank = parallel_state.get_tensor_model_parallel_rank()
+    out = {}
+    for path, arr in _walk(tree):
+        if cfg.use_tensor_parallel:
+            arr = np.asarray(arr)[rank]
+        name, t = _jax_leaf(list(path), arr)
+        out[name] = t
+    return out
+
+
+def load_jax_params(params_np, cfg: BertConfig, device=None,
+                    seed: int = 0, rank=None) -> BertForPreTraining:
+    """Build the port's model from a JAX ``BertForPreTraining`` param tree
+    (:func:`jax_state_dict`; under tensor parallelism, rank ``rank``'s
+    shard of the stacked per-rank tree). Every port parameter must be
+    covered."""
     model = BertForPreTraining(cfg, device="cpu", seed=seed)
     own = dict(model.named_parameters())
     seen = set()
     with torch.no_grad():
-        for path, arr in _walk(tree):
-            name, t = _jax_leaf(list(path), arr)
+        for name, t in jax_state_dict(params_np, cfg, rank).items():
             if name not in own:
                 raise KeyError(f"load_jax_params: no port parameter for "
-                               f"{'/'.join(path)} ({name})")
+                               f"{name}")
             if own[name].shape != t.shape:
                 raise ValueError(f"load_jax_params: {name} is "
                                  f"{tuple(own[name].shape)}, the JAX leaf "

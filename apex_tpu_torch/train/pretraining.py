@@ -74,7 +74,9 @@ def make_pretraining_batch(cfg: BertConfig, batch: int, seq: int,
 def pretraining_loss_fn(model, deterministic: bool = False):
     """``loss_fn(microbatch, generator)`` for ``build_train_step``: the
     model's pretraining loss on one microbatch, its dropout seeds drawn
-    from ``generator``."""
+    from ``generator`` (the vocab-parallel loss under tensor
+    parallelism)."""
+    vocab_parallel = model.cfg.use_tensor_parallel
 
     def loss_fn(mb, generator):
         mlm, nsp = model(mb["input_ids"], mb["token_type_ids"],
@@ -82,7 +84,8 @@ def pretraining_loss_fn(model, deterministic: bool = False):
                          masked_positions=mb["masked_positions"],
                          generator=generator)
         return pretraining_loss(mlm, nsp, mb["mlm_labels"],
-                                mb["nsp_labels"], mb["mlm_weights"])
+                                mb["nsp_labels"], mb["mlm_weights"],
+                                vocab_parallel=vocab_parallel)
 
     return loss_fn
 

@@ -40,13 +40,36 @@ With ``ddp=DistributedDataParallel(...)`` each rank runs the step on its
 own batch: after the microbatch loop,
 ``ddp.allreduce_accumulated(acc, accum_steps)`` divides the accumulators
 and reduces them across the ranks (one reduction a global step, in place
-of the local division); the overflow check reads the *reduced*
-gradients, so every rank takes the same branch (a rank-local flag would
-let replicas diverge, or hang in the next collective). The loss metric is
-summed over the ranks and divided by the world size, ``aux`` is gathered
-to ``[world, accum_steps, ...]`` and ``grad_norm`` is the reduced
-gradients'. Not ported: ``mesh``, ``batch_spec``, ``param_pspec``,
-``num_heads`` and the flat ``DistributedFused*`` optimizers (each
+of the local division). The loss metric is summed over the DDP's
+process group and divided by its size, ``aux`` is gathered to ``[group
+size, accum_steps, ...]`` and ``grad_norm`` is the reduced gradients'.
+
+Under tensor parallelism (one process a rank, the model's layers holding
+this rank's shards; ``ddp`` over the data-parallel group,
+``parallel_state.get_data_parallel_ranks()``), as the JAX composition
+(``__graft_entry__.dryrun_multichip`` without its pipeline) does:
+
+- once a global step, after the accumulation, the gradients of the
+  parameters marked ``sequence_parallel`` (replicated across the
+  tensor-parallel ranks but used on one sequence shard each: the
+  LayerNorms and RowParallel biases under sequence parallelism) are summed
+  over the tensor-parallel group (:func:`sync_sequence_parallel_grads`):
+  the ``psum`` JAX's AD inserts for an invariant parameter used in a
+  varying region;
+- the overflow flag is max-reduced before the step's one host read (the
+  JAX ``pmax`` over every axis), so a non-finite value in one rank's
+  shard skips the step on every rank (a rank-local flag would let the
+  ranks diverge, or hang at the next collective): over the ranks of an
+  initialized model-parallel layout of more than one rank, as one group
+  made with the layout, so every rank of the layout takes each step. A
+  step outside such a layout reduces nothing: DDP ranks read the flag of
+  gradients their reduction has already made equal, and one rank's own
+  step inside a larger world runs alone.
+
+The optimizer then steps each rank's own parameters, its global norms
+over this rank's shards, as the JAX composition's. Not ported: ``mesh``,
+``batch_spec``, ``param_pspec``, ``num_heads`` (the GSPMD step, ROADMAP
+A.4 item 20e) and the flat ``DistributedFused*`` optimizers (each
 raises), and ``build_reference_loop``.
 """
 
@@ -56,7 +79,6 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from apex_tpu_torch.amp.handle import AmpHandle
@@ -64,6 +86,27 @@ from apex_tpu_torch.amp.scaler import LossScaler, ScalerState
 from apex_tpu_torch.ops.multi_tensor import all_finite, multi_tensor_l2norm
 from apex_tpu_torch.optimizers._base import FusedOptimizer
 from apex_tpu_torch.parallel.distributed import DistributedDataParallel
+from apex_tpu_torch.transformer import parallel_state
+from apex_tpu_torch.utils import collectives
+
+
+def sync_sequence_parallel_grads(params, grads) -> None:
+    """Sum, in place and over the tensor-parallel group, the gradients in
+    ``grads`` of the ``params`` marked ``sequence_parallel`` (one
+    all-reduce over their flat concatenation a dtype). No-op at
+    tensor-parallel size 1 or without marked parameters."""
+    if parallel_state.get_tensor_model_parallel_world_size() == 1:
+        return
+    by_dtype = {}
+    for p, g in zip(params, grads):
+        if getattr(p, "sequence_parallel", False):
+            by_dtype.setdefault(g.dtype, []).append(g)
+    groups = parallel_state.get_tensor_model_parallel_ranks()
+    for gs in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        collectives.psum_groups(flat, groups)
+        torch._foreach_copy_(gs, [f.view_as(g) for f, g in zip(
+            flat.split([g.numel() for g in gs]), gs)])
 
 
 class TrainState(NamedTuple):
@@ -170,18 +213,29 @@ class TrainStep:
         overflow decision, optimizer update, scaler update, metrics.
         Returns ``(new_state, metrics)``."""
         loss = loss_sum / self.accum_steps
+        sync_sequence_parallel_grads(self.params, grads)
         if self.ddp is not None:
             grads = self.ddp.allreduce_accumulated(grads, self.accum_steps)
-            dist.all_reduce(loss)
-            loss = loss / dist.get_world_size()
+            group = self.ddp.process_group
+            collectives.psum_groups(loss, group)
+            loss = loss / collectives.group_size(group)
             if aux is not None:
                 aux = pytree.tree_map(self._gather, aux)
         elif self.accum_steps > 1:
             torch._foreach_div_(grads, float(self.accum_steps))
         lr = (None if self.lr_schedule is None
               else self.lr_schedule(state.step))
-        # the step's one host read
-        skipped = not bool(all_finite(grads))
+        # the step's one host read, of the flag max-reduced over the ranks
+        # of a model-parallel layout (one shard's overflow skips the step
+        # everywhere); DDP ranks need none, their reduced gradients agree
+        found = ~all_finite(grads)
+        mesh = (parallel_state.get_mesh().devices
+                if parallel_state.model_parallel_is_initialized() else None)
+        if mesh is None or mesh.size == 1:
+            skipped = bool(found)
+        else:
+            skipped = collectives.all_reduce_max(
+                found, (tuple(int(r) for r in mesh.ravel()),))
         if not skipped:
             self.optimizer.step(grads=grads, lr=lr)
         new_sst = self.scaler.update(state.scaler_state, skipped)
@@ -200,11 +254,10 @@ class TrainStep:
         return TrainState(state.step + 1, new_sst), metrics
 
     def _gather(self, x):
-        """``[world, ...]``: every rank's ``x`` (on the step's device)."""
-        x = torch.as_tensor(x, device=self.device).contiguous()
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, x)
-        return torch.stack(parts)
+        """``[group size, ...]``: every DDP rank's ``x`` (on the step's
+        device)."""
+        x = torch.as_tensor(x, device=self.device)
+        return collectives.gather_along(x[None], 0, self.ddp.process_group)
 
     def step(self, state: TrainState, batch):
         _check_batch(batch, self.accum_steps)

@@ -1,5 +1,7 @@
-"""Grouped all-reduces over ``torch.distributed`` (counterpart of
-:mod:`apex_tpu.utils.collectives`' ``psum_groups`` and ``group_size``).
+"""Grouped collectives over ``torch.distributed`` (counterpart of
+:mod:`apex_tpu.utils.collectives`' ``psum_groups`` and ``group_size``, and
+of the ``lax`` collectives the tensor-parallel layers run: ``psum``,
+``pmax``, ``all_gather(tiled=True)`` and ``psum_scatter(tiled=True)``).
 
 ``groups`` is the JAX package's ``axis_index_groups``: a list of rank
 lists, the same on every rank, each rank in exactly one of them. Each
@@ -9,6 +11,17 @@ every group, in the same order, also the groups it is not in, or the job
 hangs; :func:`reduction_group` does that. A rank then reduces in its own
 group only.
 
+The gather and the scatter run along dim 0 or the last dim
+(:func:`all_gather`, :func:`reduce_scatter`, both differentiable: the
+backward of a gather is the reduce-scatter of the cotangents and the
+other way round, the transposes JAX's AD takes), and :func:`all_reduce_max`
+max-reduces a flag. Every collective goes through one place, which counts
+it by kind (``collective_stats``) and, while :func:`time_collectives` is
+on, times it on the host clock between two device synchronizations. The
+backend runs each collective as asked: gloo takes CUDA tensors for all of
+them (all-reduce, all-gather and reduce-scatter into a tensor), so nothing
+is staged through host memory by this module.
+
 JAX's ``compat_shard_map``, ``mark_varying`` and ``axis_is_bound`` have no
 counterpart: a torch process holds its own rank's values, and "the axis
 is bound" is ``torch.distributed.is_initialized()``.
@@ -16,6 +29,8 @@ is bound" is ``torch.distributed.is_initialized()``.
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -23,6 +38,45 @@ import torch.distributed as dist
 
 # default process group -> {groups key: (this rank's group, its size)}
 _cache: dict = {}
+
+# calls and host milliseconds per kind of collective, since the last reset
+_KINDS = ("all_reduce", "all_gather", "reduce_scatter")
+collective_stats = {k: {"calls": 0, "ms": 0.0} for k in _KINDS}
+_timing = [False]
+
+
+def reset_collective_stats() -> None:
+    for v in collective_stats.values():
+        v["calls"], v["ms"] = 0, 0.0
+
+
+@contextlib.contextmanager
+def time_collectives():
+    """Within the block each collective is timed: the device is
+    synchronized before and after it (on CUDA), so the time is the
+    collective's alone and the rest of the step loses its overlap."""
+    before, _timing[0] = _timing[0], True
+    try:
+        yield
+    finally:
+        _timing[0] = before
+
+
+def _run(kind: str, fn, device):
+    """Run one collective, counted under ``kind`` (and timed)."""
+    stat = collective_stats[kind]
+    stat["calls"] += 1
+    if not _timing[0]:
+        return fn()
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    stat["ms"] += (time.perf_counter() - t) * 1e3
+    return out
 
 
 def _check_initialized():
@@ -59,8 +113,80 @@ def psum_groups(x: torch.Tensor, groups=None) -> torch.Tensor:
     """Sum ``x`` over this rank's group of ``groups`` (every rank when
     None), in place; returns ``x``."""
     group, _ = reduction_group(groups)
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    _run("all_reduce", lambda: dist.all_reduce(x, op=dist.ReduceOp.SUM,
+                                               group=group), x.device)
     return x
+
+
+def pmax_groups(x: torch.Tensor, groups=None) -> torch.Tensor:
+    """Max-reduce ``x`` over this rank's group, in place; returns ``x``."""
+    group, _ = reduction_group(groups)
+    _run("all_reduce", lambda: dist.all_reduce(x, op=dist.ReduceOp.MAX,
+                                               group=group), x.device)
+    return x
+
+
+def all_reduce_max(flag, groups=None) -> bool:
+    """Whether ``flag`` is true on any rank of this rank's group: the
+    max-reduce of the overflow flag (``lax.pmax(found)``) before the one
+    host read that decides a step. ``flag`` is a bool or a device
+    scalar; the reduction runs on the device of a tensor flag."""
+    t = (flag.detach().reshape(()).to(torch.int32) if torch.is_tensor(flag)
+         else torch.tensor(int(bool(flag)), dtype=torch.int32))
+    return bool(pmax_groups(t.clone(), groups).item())
+
+
+def _dim(x: torch.Tensor, dim: int) -> int:
+    d = dim % x.dim()
+    if d not in (0, x.dim() - 1):
+        raise ValueError(f"collectives run along dim 0 or the last dim, "
+                         f"not {dim}")
+    return d
+
+
+# the single-tensor collectives' names since torch 2.12, else the older ones
+_all_gather_single = getattr(dist, "all_gather_single", None) or getattr(
+    dist, "all_gather_into_tensor")
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or (
+    getattr(dist, "reduce_scatter_tensor"))
+
+
+def gather_along(x: torch.Tensor, dim: int, groups=None) -> torch.Tensor:
+    """Every rank's ``x`` of this rank's group concatenated along ``dim``
+    (0 or the last) in group order: ``all_gather(tiled=True)``. Not
+    differentiated."""
+    group, size = reduction_group(groups)
+    d = _dim(x, dim)
+    if size == 1:
+        return x
+    src = x.contiguous()
+    out = torch.empty((size * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _run("all_gather", lambda: _all_gather_single(out, src, group=group),
+         x.device)
+    if d == 0:
+        return out
+    return torch.cat(out.chunk(size, dim=0), dim=d)
+
+
+def scatter_sum_along(x: torch.Tensor, dim: int,
+                      groups=None) -> torch.Tensor:
+    """The sum over this rank's group of ``x``, of which this rank keeps
+    its chunk along ``dim`` (0 or the last): ``psum_scatter(tiled=True)``.
+    Not differentiated."""
+    group, size = reduction_group(groups)
+    d = _dim(x, dim)
+    if size == 1:
+        return x
+    if x.shape[d] % size:
+        raise ValueError(f"dim {d} of size {x.shape[d]} does not split "
+                         f"over {size} ranks")
+    src = x.contiguous() if d == 0 else torch.cat(x.chunk(size, dim=d))
+    out = torch.empty((src.shape[0] // size,) + tuple(src.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _run("reduce_scatter",
+         lambda: _reduce_scatter_single(out, src, group=group), x.device)
+    return out
 
 
 def group_size(groups=None) -> int:
@@ -86,3 +212,39 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, groups=None) -> torch.Tensor:
     """:func:`psum_groups` that autograd differentiates (a new tensor)."""
     return _AllReduceSum.apply(x, groups)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, groups):
+        ctx.dim, ctx.groups = dim, groups
+        return gather_along(x, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_sum_along(g, ctx.dim, ctx.groups), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, groups):
+        ctx.dim, ctx.groups = dim, groups
+        return scatter_sum_along(x, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_along(g, ctx.dim, ctx.groups), None, None
+
+
+def all_gather(x: torch.Tensor, dim: int = 0, groups=None) -> torch.Tensor:
+    """:func:`gather_along` that autograd differentiates: the backward
+    reduce-scatters the cotangent along ``dim`` (the transpose of
+    ``all_gather(tiled=True)``)."""
+    return _AllGather.apply(x, dim, groups)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int = 0,
+                   groups=None) -> torch.Tensor:
+    """:func:`scatter_sum_along` that autograd differentiates: the
+    backward all-gathers the cotangent along ``dim``."""
+    return _ReduceScatter.apply(x, dim, groups)

@@ -390,6 +390,33 @@ boot s, ms a step in and out of process, shared-tier hits and bytes and
 the cross-check's checks and suspects, beside the card's name and power
 limit; ``--only 16`` runs it alone (``--only 2`` phase 2).
 
+Phase 17, Megatron tensor and sequence parallelism: ranks are spawned
+processes on this one card over gloo (NCCL takes one rank a card), tensor
+parallelism 2. In a world of 2: 17a, gloo's all-gather and
+reduce-scatter along dim 0 and the last dim and its sum and max
+all-reduces on bf16 and fp32 CUDA tensors, exactly, and the six mappings
+and the sequence-parallel entry and exit, forward and backward, against
+the same sums in one process; 17b, TP 2 against the model without tensor
+parallelism at BERT-large width (2 layers, fp32, dropout 0, the TP
+weights the other's split), S 512 and S 128, sequence parallelism off and
+on: loss within 1e-4, each rank's gradients within 1e-3 of their norm;
+17c, BERT-large at full depth, TP 2 with sequence parallelism, bf16,
+remat, amp O2, FusedLAMB and DDP over the data-parallel group through
+``build_train_step``: 3 global steps of 4 sequences at S 512 (B1-B5), then
+2 of 2 x 8 at S 128 (B1-B3, B6, B8), each rank launching per microbatch
+exactly phase 3's and phase 4's counts, no plain route, finite losses,
+bit-equal on both ranks at every step (FusedLAMB's global norm is over
+the rank's own shards, so the replicated parameters' fp32 masters drift
+apart by rounding-level amounts; they and the bf16 copies the forward
+reads are compared across the ranks and recorded); step ms, samples/s,
+peak memory and the collectives a step
+with their ms, per rank (gloo ranks sharing one card: not a TP
+throughput). In a world
+of 4, 17d: BERT tiny at TP 2 x DP 2, DDP over the data-parallel groups:
+the replicas of a group end bit-equal, and the run is the world-2 run on
+the whole batch. A ``{"phase17": ...}`` line records it; ``--only 17``
+runs it alone.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -2319,7 +2346,10 @@ def phase2(torch, dev, seed, card):
 # and again in the 24 layers' recompute (48); hidden dropout at 49 sites
 # run forward, again in the recompute (48) and replayed in the backward;
 # attention forward per layer and again in its recompute; one attention
-# backward per layer
+# backward per layer. Phase 17c holds each rank of BERT-large at TP 2 +
+# SP to the same counts: a rank runs every LayerNorm, dropout site and
+# attention call of the model, on its heads (flash) or its tokens (the
+# blocks' LayerNorms and hidden dropout)
 STEP_LAUNCHES = {"layer_norm_fwd": 50 + 48, "layer_norm_bwd": 50,
                  "dropout": 49 + 48 + 49, "flash_fwd": 24 + 24,
                  "flash_bwd": 24}
@@ -2482,7 +2512,8 @@ def phase3(torch, dev, seed, card, steps=5, warmup=2):
 # softmax forward per layer and again in its recompute, its backward per
 # layer; no flash kernel. The boolean (B, 1, 1, S) key mask is read in the
 # softmax kernels (the JAX pre-fold's route: counted as B6, not as the 4-D
-# mask's B7), so no where pass over the scores precedes B6 or follows B8
+# mask's B7), so no where pass over the scores precedes B6 or follows B8.
+# Phase 17c holds each rank at TP 2 + SP to the same counts a microbatch
 MICROBATCH_LAUNCHES = {"layer_norm_fwd": 50 + 48, "layer_norm_bwd": 50,
                        "dropout": 73 + 72 + 73, "softmax_fwd": 24 + 24,
                        "softmax_bwd": 24,
@@ -7533,6 +7564,530 @@ def phase16(torch, dev, seed, card, cfg=None):
     return rec
 
 
+# -- phase 17: tensor and sequence parallelism (ranks on one card, gloo) ----
+
+# 17c's shapes: BERT-large at TP 2 with sequence parallelism, one global
+# step a batch of TP_B512 sequences at S 512, TP_STEPS_512 steps; then
+# TP_STEPS_128 steps of TP_ACCUM_128 microbatches of TP_B128 at S 128
+TP_B512, TP_STEPS_512 = 4, 3
+TP_B128, TP_ACCUM_128, TP_STEPS_128 = 8, 2, 2
+# 17d: BERT tiny at TP 2 x DP 2, this many rows a data-parallel rank
+TP_TINY = dict(B=2, S=64, accum=2, steps=2)
+
+
+def tp_collectives(torch, dev, rank, world):
+    """Phase 17a on one rank: gloo on ``cuda:0`` tensors. All-gather and
+    reduce-scatter along dim 0 and the last dim, the sum and max
+    all-reduces, in bf16 and fp32, exactly; the flag max-reduce; the six
+    mappings and the sequence-parallel entry and exit, forward and
+    backward, against the same sums done in this process."""
+    from apex_tpu_torch.transformer import tensor_parallel as tpl
+    from apex_tpu_torch.utils import collectives as c
+
+    held = {}
+    for dt in (torch.float32, torch.bfloat16):
+        base = [torch.arange(24, dtype=dt, device=dev).view(4, 6) + 8 * r
+                for r in range(world)]
+        x, total = base[rank], sum(base)
+        tag = str(dt).split(".")[-1]
+        held[f"all_gather dim 0 {tag}"] = torch.equal(
+            c.gather_along(x, 0), torch.cat(base, 0))
+        held[f"all_gather last dim {tag}"] = torch.equal(
+            c.gather_along(x, -1), torch.cat(base, -1))
+        held[f"reduce_scatter dim 0 {tag}"] = torch.equal(
+            c.scatter_sum_along(x, 0), total.chunk(world, 0)[rank])
+        held[f"reduce_scatter last dim {tag}"] = torch.equal(
+            c.scatter_sum_along(x, -1), total.chunk(world, -1)[rank])
+        held[f"all_reduce sum {tag}"] = torch.equal(
+            c.psum_groups(x.clone()), total)
+        held[f"all_reduce max {tag}"] = torch.equal(
+            c.pmax_groups(x.clone()), base[-1])
+    held["flag max-reduce"] = c.all_reduce_max(
+        torch.tensor(rank == world - 1, device=dev)) is True
+    g = torch.Generator().manual_seed(0)
+    full = torch.randn(8, 6, generator=g).to(dev)
+    seq = torch.randn(8, 6, generator=g).to(dev)
+    w = [torch.randn(6, 6, generator=g).to(dev) for _ in range(world)]
+    wsum = sum(w)
+
+    def grad(y, x, scale=1.0):
+        return torch.autograd.grad((y * scale).sum(), [x])[0]
+
+    x = full.clone().requires_grad_()
+    y = tpl.reduce_from_tensor_model_parallel_region(
+        tpl.copy_to_tensor_model_parallel_region(x) @ w[rank])
+    held["copy_to + reduce_from"] = bool(
+        torch.allclose(y, full @ wsum, atol=1e-5)
+        and torch.allclose(grad(y, x), wsum.sum(1).expand_as(x), atol=1e-5))
+    x = full.clone().requires_grad_()
+    y = tpl.scatter_to_tensor_model_parallel_region(x)
+    gx = grad(y, x, rank + 1.0)
+    want = torch.cat([torch.full((8, 6 // world), r + 1.0, device=dev)
+                      for r in range(world)], 1)
+    held["scatter_to"] = torch.equal(y, full.chunk(world, 1)[rank]) and \
+        torch.equal(gx, want)
+    xs = full.chunk(world, 1)[rank].clone().requires_grad_()
+    y = tpl.gather_from_tensor_model_parallel_region(xs)
+    held["gather_from"] = torch.equal(y, full) and torch.equal(
+        grad(y, xs, 3.0), torch.full_like(xs, 3.0))
+    xs = seq.chunk(world, 0)[rank].clone().requires_grad_()
+    y = tpl.gather_along_first_dim(xs)
+    held["gather_along_first_dim"] = torch.equal(y, seq) and torch.equal(
+        grad(y, xs, rank + 1.0),
+        torch.full_like(xs, float(sum(range(1, world + 1)))))
+    xs = seq.clone().requires_grad_()
+    y = tpl.reduce_scatter_along_first_dim(xs)
+    held["reduce_scatter_along_first_dim"] = bool(torch.allclose(
+        y, (world * seq).chunk(world, 0)[rank])) and torch.equal(
+        grad(y, xs), torch.ones_like(xs))
+    xs = seq.clone().requires_grad_()
+    y = tpl.sequence_parallel_enter(xs)
+    held["sequence_parallel_enter"] = torch.equal(
+        y, seq.chunk(world, 0)[rank]) and torch.equal(
+        grad(y, xs), torch.ones_like(xs))
+    xs = seq.chunk(world, 0)[rank].clone().requires_grad_()
+    y = tpl.sequence_parallel_exit(xs)
+    held["sequence_parallel_exit"] = torch.equal(y, seq) and torch.equal(
+        grad(y, xs, 2.0), torch.full_like(xs, 2.0))
+    failed = sorted(k for k, ok in held.items() if not ok)
+    check(not failed, f"phase 17a rank {rank}: not exact: {failed}")
+    return dict(held=sorted(held))
+
+
+def tp_vs_tp1(torch, dev, seed, rank, world, cfg_kw, B=2, tol=1e-4):
+    """Phase 17b on one rank: BERT-large width (H 1024, 16 heads,
+    intermediate 4096, vocabulary 30,522), 2 layers, fp32, dropout 0, at
+    TP ``world`` against the model without tensor parallelism, both from
+    ``seed`` (the TP weights are the other's split, bit for bit), at S 512
+    and S 128, sequence parallelism off and on: the loss within ``tol``
+    relative, and this rank's gradients (the sequence-parallel ones summed
+    over the group) within 10 ``tol`` of their norm against the other
+    model's gradients split alike (a gradient 0 to rounding, as the key
+    bias's, against 1e-3 of the largest norm)."""
+    from apex_tpu_torch.models import BertConfig, BertForPreTraining
+    from apex_tpu_torch.models.bert import split_tp_params
+    from apex_tpu_torch.train import (
+        make_pretraining_batch,
+        pretraining_loss_fn,
+    )
+    from apex_tpu_torch.train.step import sync_sequence_parallel_grads
+
+    kw = dict(dict(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0,
+                   remat=False), **cfg_kw)
+    one = BertForPreTraining(BertConfig(**kw), device=dev, seed=seed)
+    n1, p1 = zip(*one.named_parameters())
+    rows = []
+    for sp in (False, True):
+        cfg = BertConfig(use_tensor_parallel=True, sequence_parallel=sp, **kw)
+        model = BertForPreTraining(cfg, device=dev, seed=seed)
+        names, params = zip(*model.named_parameters())
+        for S in (512, 128):
+            batch = make_pretraining_batch(cfg, B, S, seed=seed, device=dev)
+            batch["attention_mask"][1, S // 2:] = 0
+            loss = pretraining_loss_fn(model, True)(batch, None)
+            grads = list(torch.autograd.grad(loss, list(params)))
+            sync_sequence_parallel_grads(list(params), grads)
+            loss1 = pretraining_loss_fn(one, True)(batch, None)
+            split = split_tp_params(dict(zip(n1, torch.autograd.grad(
+                loss1, list(p1)))), cfg, world, rank)
+            top = max(g.norm().item() for g in split.values())
+            worst, where = 0.0, None
+            for n, g in zip(names, grads):
+                e = split[n].to(g.dtype)
+                err = ((g - e).norm() / max(e.norm().item(),
+                                            1e-3 * top)).item()
+                if err > worst:
+                    worst, where = err, n
+            loss_err = abs(loss.item() - loss1.item()) / abs(loss1.item())
+            check(loss_err <= tol and worst <= 10 * tol,
+                  f"phase 17b rank {rank} S {S} sp {sp}: loss {loss.item()}"
+                  f" vs {loss1.item()}, worst gradient {worst:.3g} of its "
+                  f"norm ({where})")
+            rows.append(dict(S=S, sp=sp, loss=loss.item(),
+                             loss_tp1=loss1.item(), loss_rel_err=loss_err,
+                             worst_grad_of_norm=worst, worst_at=where))
+            del grads, split
+        del model, params
+    del one, p1
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_train(torch, dev, seed, rank, world, card, cfg_kw, expect):
+    """Phase 17c on one rank: BERT-large at full depth (24 layers), TP
+    ``world`` with sequence parallelism, bf16, remat, amp O2, FusedLAMB
+    (lr 1e-4, weight decay 0.01), DDP over the data-parallel group,
+    through ``build_train_step``: ``TP_STEPS_512`` global steps of
+    ``TP_B512`` sequences at S 512, then ``TP_STEPS_128`` of
+    ``TP_ACCUM_128`` x ``TP_B128`` at S 128. Each arm's launches are
+    counted from 0 just before it and read just after; one more step a
+    length times the collectives (a device synchronization before and
+    after each). ``expect``: each length's launches a microbatch. After
+    each arm, the fp32 masters of the replicated parameters (all but the
+    tensor-parallel layers' shards), flat, for the ranks' comparison."""
+    import math
+
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.models import BertConfig, BertForPreTraining
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.train import (
+        build_train_step,
+        make_pretraining_batch,
+        pretraining_loss_fn,
+    )
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        ColumnParallelLinear,
+        RowParallelLinear,
+        VocabParallelEmbedding,
+    )
+    from apex_tpu_torch.utils import collectives
+
+    cfg = BertConfig(**dict(dict(dtype=torch.bfloat16, remat=True,
+                                 use_tensor_parallel=True,
+                                 sequence_parallel=True), **cfg_kw))
+    t0 = time.perf_counter()
+    model = BertForPreTraining(cfg, device=dev, seed=seed)
+    opt = FusedLAMB(model.parameters(), lr=1e-4, weight_decay=0.01)
+    model, opt, handle = amp.initialize(model, opt, opt_level="O2",
+                                        verbosity=0, device=dev)
+    ddp = DistributedDataParallel(process_group=ps.get_data_parallel_ranks())
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    split = {id(m.weight) for m in model.modules() if isinstance(
+        m, (ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding))}
+    split |= {id(m.bias) for m in model.modules()
+              if isinstance(m, ColumnParallelLinear)}
+    replicated = [p for p in model.parameters() if id(p) not in split]
+    arms = {}
+    for S, B, accum, steps in ((512, TP_B512, 1, TP_STEPS_512),
+                               (128, TP_B128, TP_ACCUM_128, TP_STEPS_128)):
+        per_mb = expect[S]
+        ts = build_train_step(pretraining_loss_fn(model), opt, amp=handle,
+                              ddp=ddp, accum_steps=accum,
+                              with_grad_norm=True, seed=seed + S)
+        batch = make_pretraining_batch(cfg, B, S, seed=seed, device=dev,
+                                       accum_steps=accum)
+        state = ts.init()
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        collectives.reset_collective_stats()
+        _build.reset_launch_counts()
+        times, losses, norms, skipped = [], [], [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            state, m = ts(state, batch)
+            losses.append(m["loss"].item())
+            if cuda:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            norms.append(m["grad_norm"].item())
+            skipped.append(m["skipped"])
+        launches = dict(_build.launches)
+        calls = {k: v["calls"] / steps
+                 for k, v in collectives.collective_stats.items()}
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        collectives.reset_collective_stats()
+        with collectives.time_collectives():
+            state, _ = ts(state, batch)
+        coll_ms = {k: v["ms"] for k, v in
+                   collectives.collective_stats.items()}
+        check(all(math.isfinite(x) for x in losses),
+              f"phase 17c rank {rank} S {S}: non-finite loss {losses}")
+        for k, v in per_mb.items():
+            check(launches[k] == v * accum * steps,
+                  f"phase 17c rank {rank} S {S}: {k} launched "
+                  f"{launches[k]} times in {steps} global steps of {accum}, "
+                  f"expected {v} a microbatch")
+        check_no_route(launches, f"phase 17c rank {rank} S {S}")
+        ms = sorted(t * 1e3 for t in times)
+        med = ms[len(ms) // 2]
+        arms[S] = dict(batch=B, accum_steps=accum, steps=steps,
+                       step_ms=ms, step_ms_median=med,
+                       samples_per_s=B * accum * 1e3 / med,
+                       peak_memory_bytes=peak, losses=losses,
+                       grad_norms=norms, skipped=skipped,
+                       launches=launches,
+                       collectives_per_step=calls,
+                       collective_ms_one_step=coll_ms,
+                       replicated_masters=torch.cat([
+                           opt.state[p]["master"].flatten()
+                           for p in replicated]).cpu(),
+                       replicated_copies=torch.cat([
+                           p.detach().float().flatten()
+                           for p in replicated]).cpu())
+        del ts, batch
+    del model, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(card=card, n_params_rank=n_params, setup_s=setup_s,
+                arms=arms)
+
+
+def tp_tiny(torch, dev, seed, rank, world, dp_rank, dp):
+    """Phase 17d's run on one rank: BERT tiny (2 layers, H 64), TP 2, fp32,
+    dropout 0, FusedLAMB through ``build_train_step`` with DDP over the
+    data-parallel group, ``TP_TINY["steps"]`` global steps of
+    ``TP_TINY["accum"]`` microbatches of 2 x ``TP_TINY["B"]`` rows (every
+    masked position weighted 1, so each half has the whole batch's
+    denominator), this rank on its data-parallel half at ``dp`` 2, on all
+    of them at ``dp`` 1. Returns the losses and the parameters before and
+    after."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import BertConfig, BertForPreTraining
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.train import (
+        build_train_step,
+        make_pretraining_batch,
+        pretraining_loss_fn,
+    )
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    B, S, accum = TP_TINY["B"], TP_TINY["S"], TP_TINY["accum"]
+    cfg = BertConfig.tiny(use_tensor_parallel=True, sequence_parallel=True,
+                          hidden_dropout=0.0, attention_dropout=0.0)
+    model = BertForPreTraining(cfg, device=dev, seed=seed)
+    opt = FusedLAMB(model.parameters(), lr=1e-3, weight_decay=0.01)
+    model, opt, handle = amp.initialize(model, opt, opt_level="O0",
+                                        verbosity=0, device=dev)
+    ddp = DistributedDataParallel(process_group=ps.get_data_parallel_ranks())
+    ts = build_train_step(pretraining_loss_fn(model, True), opt, amp=handle,
+                          ddp=ddp, accum_steps=accum)
+    before = {n: p.detach().float().cpu().clone()
+              for n, p in model.named_parameters()}
+    state, losses = ts.init(), []
+    rows = slice(dp_rank * B, (dp_rank + 1) * B) if dp > 1 else slice(None)
+    for s in range(TP_TINY["steps"]):
+        full = make_pretraining_batch(cfg, 2 * B, S, seed=seed + s,
+                                      device=dev, accum_steps=accum)
+        full["mlm_weights"][:] = 1.0
+        state, m = ts(state, {k: v[:, rows] for k, v in full.items()})
+        losses.append(m["loss"].item())
+    return dict(losses=losses, before=before,
+                params={n: p.detach().float().cpu()
+                        for n, p in model.named_parameters()})
+
+
+def phase17_worker(rank, world, init_file, seed, card, parts, opts, queue):
+    """One rank of phase 17: gloo on ``cuda:0`` beside the other ranks
+    (``opts["device"]``), tensor-parallel size 2, running ``parts`` in
+    order."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        from apex_tpu_torch.parallel import init_process_group
+        from apex_tpu_torch.transformer import parallel_state as ps
+
+        init_process_group(f"file://{init_file}", world, rank,
+                           backend="gloo")
+        dev = torch.device(opts["device"])
+        if dev.type == "cuda":
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+        ps.initialize_model_parallel(2)
+        dp_rank, dp = ps.get_data_parallel_rank(), \
+            ps.get_data_parallel_world_size()
+        out = {}
+        for part in parts:
+            t = time.perf_counter()
+            if part == "17a":
+                out[part] = tp_collectives(torch, dev, rank, world)
+            elif part == "17b":
+                out[part] = tp_vs_tp1(torch, dev, seed, rank, world,
+                                      opts["cfg_kw"])
+            elif part == "17c":
+                out[part] = tp_train(torch, dev, seed, rank, world, card,
+                                     opts["cfg_kw"], opts["expect"])
+            else:                       # 17d, at this world's layout
+                out[part] = tp_tiny(torch, dev, seed, rank, world, dp_rank,
+                                    dp)
+            out[part + "_s"] = time.perf_counter() - t
+        queue.put((rank, "ok", map_tensors(lambda t: t.numpy(), out)))
+    except Exception:           # reported to the parent, which fails
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_world_start(world, seed, card, parts, opts):
+    """Spawn ``world`` ranks on the card running ``parts``; returns the
+    handle :func:`tp_world_collect` and :func:`tp_world_stop` take."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    tmp = tempfile.TemporaryDirectory()
+    init_file = str(Path(tmp.name) / "rendezvous")
+    procs = [ctx.Process(target=phase17_worker,
+                         args=(r, world, init_file, seed, card, parts, opts,
+                               q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return world, procs, q, tmp
+
+
+def tp_world_collect(torch, handle, timeout_s):
+    """Each rank's results (a failed rank fails the phase)."""
+    import queue as queue_mod
+
+    world, _, q, _ = handle
+    got = {}
+    try:
+        for _ in range(world):
+            rank, status, out = q.get(timeout=timeout_s)
+            check(status == "ok", f"phase 17 rank {rank} of {world} "
+                  f"failed:\n{out}")
+            got[rank] = map_tensors(torch.from_numpy, out)
+    except queue_mod.Empty:
+        raise SmokeFailure(f"phase 17: no result from world {world} in "
+                           f"{timeout_s} s")
+    return [got[r] for r in range(world)]
+
+
+def tp_world_stop(handle):
+    _, procs, _, tmp = handle
+    for p in procs:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=10)
+    tmp.cleanup()
+
+
+def phase17(torch, dev, seed, card, timeout_s=600, cfg_kw=None,
+            expect=None):
+    """Phase 17: Megatron tensor and sequence parallelism, ranks as
+    spawned processes on the one card over gloo (NCCL takes one rank a
+    card). World 2 (TP 2): 17a the collectives and mappings, 17b TP 2
+    against TP 1 at BERT-large width, 17c BERT-large at full depth through
+    ``build_train_step``, and 17d's reference (TP 2 on the whole batch).
+    World 4 (TP 2 x DP 2): 17d, BERT tiny with DDP over the data-parallel
+    groups. Checks: 17a exact; 17b within its tolerances; 17c finite
+    losses, each kernel's launches a step what the model implies on every
+    rank, no plain route, the ranks' losses bit-equal at every step (each
+    rank's FusedLAMB clips by its global norm over its own shards, so the
+    replicated fp32 masters drift apart by rounding-level amounts, as in
+    the JAX composition; the bf16 copies that the forward reads, and how
+    many of their elements differ, are recorded beside the masters: a
+    loss that differs says a copy crossed a bf16 rounding boundary on one
+    rank only, or the ranks computed apart); 17d the data-parallel
+    replicas bit-equal, and the
+    world-4 run the world-2 run on the whole batch: losses within 1e-5
+    relative, parameters within 1e-5 of the largest step on 99.9% of
+    elements (LAMB's first steps are nearly sign(g): a rounding-level
+    gradient may step the other way). ``cfg_kw`` and ``expect`` (each
+    length's launches a microbatch) are for a rehearsal at a smaller
+    configuration."""
+    opts = dict(device=str(dev), cfg_kw=cfg_kw or {},
+                expect=expect or {512: STEP_LAUNCHES,
+                                  128: MICROBATCH_LAUNCHES})
+    # the two worlds run at once (17d's is tiny)
+    worlds = [tp_world_start(2, seed, card, ("17a", "17b", "17c", "17d"),
+                             opts),
+              tp_world_start(4, seed, card, ("17d",), opts)]
+    try:
+        two, four = (tp_world_collect(torch, h, timeout_s) for h in worlds)
+    finally:
+        for h in worlds:
+            tp_world_stop(h)
+    c = [r["17c"] for r in two]
+    equal_losses, masters_differ, copies_differ = {}, {}, {}
+    for S in (512, 128):
+        for key, out in (("replicated_masters", masters_differ),
+                         ("replicated_copies", copies_differ)):
+            m0, m1 = (r["arms"][S].pop(key).float() for r in c)
+            out[S] = dict(elements=int((m0 != m1).sum().item()),
+                          of=m0.numel(),
+                          max_abs=(m0 - m1).abs().max().item())
+        a0, a1 = c[0]["arms"][S], c[1]["arms"][S]
+        equal_losses[S] = [l0 == l1 for l0, l1 in zip(a0["losses"],
+                                                      a1["losses"])]
+        check(all(equal_losses[S]),
+              f"phase 17c S {S}: the ranks' losses differ at steps "
+              f"{[i for i, e in enumerate(equal_losses[S]) if not e]} "
+              f"({a0['losses']} vs {a1['losses']}); replicated bf16 "
+              f"copies differ on {copies_differ[S]}")
+    # 17d: replicas of one data-parallel group end bit-equal; the world-4
+    # run is the world-2 run on the whole batch
+    d4 = [r["17d"] for r in four]
+    for r in (2, 3):
+        check(all(torch.equal(t, d4[r - 2]["params"][n])
+                  for n, t in d4[r]["params"].items()),
+              f"phase 17d: rank {r} differs from its data-parallel replica")
+    diffs, steps = [], []
+    for t in range(2):
+        ref, got = two[t]["17d"], d4[t]
+        for n, p in ref["params"].items():
+            diffs.append((got["params"][n] - p).abs().flatten())
+            steps.append((p - ref["before"][n]).abs().flatten())
+    diffs, steps = torch.cat(diffs), torch.cat(steps)
+    within = (diffs <= 1e-5 * steps.max()).float().mean().item()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+        d4[0]["losses"], two[0]["17d"]["losses"]))
+    check(loss_err <= 1e-5 and within >= 0.999,
+          f"phase 17d: TP 2 x DP 2 vs TP 2 on the whole batch: losses "
+          f"{d4[0]['losses']} vs {two[0]['17d']['losses']}, parameters "
+          f"within 1e-5 of the largest step on {within:.4f} of elements")
+    rows17b = [r["17b"] for r in two]
+    print(f"[phase 17a/b] {card}: gloo on cuda:0, "
+          f"{len(two[0]['17a']['held'])} collectives and mappings exact | "
+          f"TP 2 vs TP 1 at BERT-large width, 2 layers, fp32: worst loss "
+          f"{max(r['loss_rel_err'] for rows in rows17b for r in rows):.3g} "
+          f"relative, worst gradient "
+          f"{max(r['worst_grad_of_norm'] for rows in rows17b for r in rows):.3g}"
+          f" of its norm", flush=True)
+    rec = dict(card=card, collectives=two[0]["17a"]["held"],
+               tp_vs_tp1=[r["17b"] for r in two],
+               train=c, equal_losses=equal_losses,
+               replicated_masters_differ=masters_differ,
+               replicated_copies_differ=copies_differ,
+               tp_dp=dict(losses=d4[0]["losses"], ref=two[0]["17d"]["losses"],
+                          share_within=within, loss_rel_err=loss_err),
+               part_s={f"rank{r} {k}": v for r, res in enumerate(two)
+                       for k, v in res.items() if k.endswith("_s")})
+    for rank, cr in enumerate(c):
+        for S, a in cr["arms"].items():
+            print(f"[phase 17c rank {rank} S {S}] {card}: BERT-large TP 2 + "
+                  f"SP, gloo ranks on one card, not a TP throughput | "
+                  f"{cr['n_params_rank']} params on this rank | step ms "
+                  f"{', '.join(f'{x:.1f}' for x in a['step_ms'])} | "
+                  f"{a['samples_per_s']:.2f} samples/s | peak memory "
+                  f"{a['peak_memory_bytes'] / 2**30:.2f} GiB | losses "
+                  f"{a['losses']} | grad norms {a['grad_norms']} | "
+                  f"collectives a step {a['collectives_per_step']}, ms of "
+                  f"one step {a['collective_ms_one_step']}", flush=True)
+    b = max(r["worst_grad_of_norm"] for rows in rows17b for r in rows)
+    print(json.dumps({"phase17": dict(
+        card=card, collectives_exact=len(rec["collectives"]),
+        tp2_vs_tp1_worst_grad_of_norm=b,
+        tp2_vs_tp1_worst_loss=max(r["loss_rel_err"]
+                                  for rows in rec["tp_vs_tp1"]
+                                  for r in rows),
+        train={S: dict(step_ms_median=[cr["arms"][S]["step_ms_median"]
+                                       for cr in c],
+                       samples_per_s=[cr["arms"][S]["samples_per_s"]
+                                      for cr in c],
+                       losses_equal=equal_losses[S],
+                       replicated_masters_differ=masters_differ[S],
+                       replicated_copies_differ=copies_differ[S])
+               for S in (512, 128)},
+        tp_dp=rec["tp_dp"])}, default=str), flush=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -7547,7 +8102,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
-                    "(2, 10, 11, 12, 13, 14, 15, 16), for iterating on one; "
+                    "(2, 10, 11, 12, 13, 14, 15, 16, 17), for iterating on "
+                    "one; "
                     "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (ROOT / "apex_tpu_torch" / "csrc").is_dir():
@@ -7611,6 +8167,9 @@ def main(argv=None):
         if "16" in only:
             out["phase16"] = timed("phase 16", phase16, torch, dev, seed,
                                    card)
+        if "17" in only:
+            out["phase17"] = timed("phase 17", phase17, torch, dev, seed,
+                                   card)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_only.json").write_text(json.dumps(
@@ -7663,6 +8222,7 @@ def main(argv=None):
     tiers = timed("phase 14", phase14, torch, dev, seed, card)
     mesh = timed("phase 15", phase15, torch, dev, seed, card)
     fleet = timed("phase 16", phase16, torch, dev, seed, card)
+    tensor_parallel = timed("phase 17", phase17, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the training phases 3-5 and 9, B2 and B1 also on the contrib
@@ -7728,6 +8288,13 @@ def main(argv=None):
         for k, v in arm["launches"].items():
             if k in launches:
                 launches[k] += v
+    # phase 17c: every rank's launches, at S 512 (B1-B5) and S 128 (B1-B3,
+    # B6, B8)
+    for rank_rec in tensor_parallel["train"]:
+        for arm in rank_rec["arms"].values():
+            for k, v in arm["launches"].items():
+                if k in launches:
+                    launches[k] += v
     kernels = [
         kernel_entry("paged_read", "apex_tpu_torch/csrc/paged_read.cu",
                      "apex_tpu/ops/paged_attention_pallas.py:106",
@@ -7803,7 +8370,7 @@ def main(argv=None):
         serving_prefix_spec=serving, model_options=options,
         quantized_pools_tenancy=pools, faults_recovery=faults,
         spill_observability=tiers, mesh_migration=mesh, fleet=fleet,
-        checks=checks,
+        tensor_parallel=tensor_parallel, checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

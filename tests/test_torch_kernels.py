@@ -2107,3 +2107,17 @@ def test_kv_quant_write_launches_with_no_valid_row(cuda_device):
     torch.cuda.synchronize()
     assert _build.launches["kv_quant_write"] == before + 1
     assert cache.k.count_nonzero().item() == 0
+
+
+@pytest.mark.gpu
+def test_gloo_collectives_and_mappings_on_cuda(cuda_device, tmp_path):
+    """Two ranks over gloo on ``cuda:0`` (NCCL takes one rank a card):
+    all-gather and reduce-scatter along dim 0 and the last dim, the sum
+    and max all-reduces in bf16 and fp32, exactly; the flag max-reduce;
+    the tensor-parallel mappings' forward and backward against the same
+    sums done in one process."""
+    import torch_dist as td
+
+    held = td.value(td.run_worlds({2: [("gloo", "torch_tp_cases:gloo_cuda",
+                                        {})]}, tmp_path)[2], "gloo")
+    assert all(len(h) == 20 for h in held)

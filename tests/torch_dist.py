@@ -1,6 +1,7 @@
-"""Spawned gloo worlds for the port's data-parallel parity tests
+"""Spawned gloo worlds for the port's multi-rank parity tests
 (``tests/test_torch_parallel.py``, ``tests/test_torch_resnet.py``,
-``tests/test_torch_train_faults.py``).
+``tests/test_torch_train_faults.py``, and the tensor-parallel ones, whose
+cases live in ``tests/torch_tp_cases.py``).
 
 :func:`run_worlds` starts ``world`` processes (``spawn``) for each world
 asked for, each joining its world's gloo process group through the
@@ -8,10 +9,10 @@ port's ``init_process_group`` with a ``file://`` rendezvous, runs every
 job of its world's list in order (the same order on every rank, so their
 collectives pair up) and returns each job's per-rank results to the test
 process: ``{world: {key: [rank 0's, ...]}}``, each an ``("ok", value)``
-or an ``("error", traceback)`` pair. The
-workers import neither JAX nor a test module: the cases live here and
-take their inputs from the numpy generators below, which the test
-process calls too for the JAX side.
+or an ``("error", traceback)`` pair. A job names a case of this module,
+or ``"module:function"`` of another helper module. The workers import
+neither JAX nor a test module: the cases take their inputs from numpy
+generators, which the test process calls too for the JAX side.
 """
 
 from __future__ import annotations
@@ -427,6 +428,17 @@ def ddp_checkpoint(rank, world, ckpt_dir):
 
 # -- the world ------------------------------------------------------------
 
+def _case(name):
+    """A case of this module, or ``"module:function"`` of another test
+    helper module (imported in the worker, which runs from ``tests/``)."""
+    if ":" not in name:
+        return CASES[name]
+    import importlib
+
+    mod, fn = name.split(":")
+    return getattr(importlib.import_module(mod), fn)
+
+
 def _worker(rank, world, init_file, jobs, queue):
     torch.set_num_threads(1)
     import torch.distributed as dist
@@ -438,7 +450,7 @@ def _worker(rank, world, init_file, jobs, queue):
     try:
         for key, name, kw in jobs:
             try:
-                results[key] = ("ok", CASES[name](rank, world, **kw))
+                results[key] = ("ok", _case(name)(rank, world, **kw))
             except Exception:   # reported per job to the test process
                 results[key] = ("error", traceback.format_exc())
     finally:
