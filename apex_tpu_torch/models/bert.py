@@ -650,11 +650,17 @@ def jax_state_dict(params_np, cfg: BertConfig, rank=None) -> dict:
     ``mlm_decoder``, ``nsp``). Under tensor parallelism the tree is the
     JAX model's per-rank one, every leaf stacked ``[tp, ...]`` as
     ``shard_map`` returns it with ``P("tensor")`` (``attention/qkv``
-    in place of ``q``/``k``/``v``), and this is rank ``rank``'s state
-    (this process's tensor-parallel rank by default)."""
+    in place of ``q``/``k``/``v``), or ``[pp * tp, ...]`` with
+    ``P(("pipeline", "tensor"))`` as the JAX multi-chip dry run stacks
+    its per-(stage, tensor rank) parameters, and this is entry ``rank``'s
+    state: by default this process's, its pipeline rank times the
+    tensor-parallel size plus its tensor-parallel rank (the tensor rank
+    alone without a pipeline)."""
     tree = params_np.get("params", params_np)
     if cfg.use_tensor_parallel and rank is None:
-        rank = parallel_state.get_tensor_model_parallel_rank()
+        rank = (parallel_state.get_pipeline_model_parallel_rank()
+                * parallel_state.get_tensor_model_parallel_world_size()
+                + parallel_state.get_tensor_model_parallel_rank())
     out = {}
     for path, arr in _walk(tree):
         if cfg.use_tensor_parallel:

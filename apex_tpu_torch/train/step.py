@@ -197,6 +197,15 @@ class TrainStep:
                                     self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
+        self._add_unscaled(acc, grads, sst)
+        return loss.detach().float(), aux
+
+    def _add_unscaled(self, acc, grads, sst: ScalerState) -> None:
+        """Unscale ``grads`` (of the scaled loss, one per parameter, in
+        place) in their own dtype and add them into the fp32
+        accumulators. The pipeline step of
+        :mod:`apex_tpu_torch.transformer.testing.commons` calls this and
+        :meth:`_apply` with the gradients its schedule returns."""
         # 1 / scale in fp32, applied in fp32 and rounded to each dtype
         inv = float(np.float32(1.0) / np.float32(sst.loss_scale))
         if inv != 1.0:
@@ -206,7 +215,6 @@ class TrainStep:
             for group in by_dtype.values():
                 torch._foreach_mul_(group, inv)
         torch._foreach_add_(acc, grads)
-        return loss.detach().float(), aux
 
     def _apply(self, state: TrainState, grads, loss_sum, aux):
         """Average (in place) and, with DDP, reduce across the ranks;

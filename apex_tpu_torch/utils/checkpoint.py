@@ -24,7 +24,18 @@ sentinel (written before markers existed) keeps every step loadable.
 optimizer, ``optimizer.state_dict()`` (moments, fp32 masters, step
 counts) and the state of the step's dropout generator, so a resumed run
 is bit-identical to the uninterrupted one. Under an initialized process
-group rank 0 writes, every rank waits at a barrier, and every rank loads.
+group without a model-parallel layout (data parallelism alone: the ranks
+hold equal states) rank 0 writes, every rank waits at a barrier, and every
+rank loads. Under a model-parallel layout
+(:mod:`apex_tpu_torch.transformer.parallel_state` with an axis above 1)
+every rank holds its own shards, so every rank writes its own payload,
+``step_NNNNNNNNN/rank_NNNNN.pt`` (its position in the layout's grid), and
+loads its own; the layout's first rank writes the marker after a barrier
+that follows every rank's write, and the marker's fingerprint records the
+layout's shape (:func:`state_mesh_shape`). A load refuses a checkpoint of
+another layout, a per-rank checkpoint without a layout and a rank-0
+checkpoint under one: a rank's payload holds its shards, not the global
+arrays the JAX package saves, so it cannot be resharded or loaded whole.
 """
 
 from __future__ import annotations
@@ -79,10 +90,22 @@ def read_marker(directory: str, step: int) -> Optional[dict]:
         return json.load(f)
 
 
-def state_mesh_shape(state) -> Optional[list]:
-    """The mesh fingerprint of a state: None until the port's state is
-    sharded over a mesh (ROADMAP A.4 item 20)."""
-    return None
+def state_mesh_shape(state=None) -> Optional[list]:
+    """The mesh fingerprint of the process's training state:
+    ``[[axis, size], ...]`` of the initialized model-parallel layout in
+    ``parallel_state.AXES`` order, or None without one (none initialized,
+    or every axis of size 1). JSON-shaped, so it round-trips through the
+    marker unchanged. A port state holds no mesh of its own (its shards
+    live in the model's layers), so ``state`` is not read: the layout is
+    the process's."""
+    from apex_tpu_torch.transformer import parallel_state
+
+    if not parallel_state.model_parallel_is_initialized():
+        return None
+    shape = parallel_state.get_mesh().shape
+    if all(n == 1 for n in shape.values()):
+        return None
+    return [[axis, int(shape[axis])] for axis in parallel_state.AXES]
 
 
 def save_checkpoint(directory: str, step: int,
@@ -90,24 +113,42 @@ def save_checkpoint(directory: str, step: int,
     """Save the named trees (None values dropped) as one checkpoint under
     ``directory/step_NNNNNNNNN``, overwriting that step; returns its
     path. ``fingerprint`` (a small JSON-able dict) rides in the marker."""
-    root = os.path.abspath(os.fspath(directory))
     path = checkpoint_path(directory, step)
-    marker = _marker_path(directory, step)
+    _begin_save(directory, step)
+    payload = {k: v for k, v in trees.items() if v is not None}
+    payload["_step"] = step
+    _write_payload(path, _PAYLOAD, payload)
+    _write_marker(directory, step, payload.keys(), fingerprint=fingerprint)
+    return path
+
+
+def _begin_save(directory: str, step: int) -> None:
+    """What a save does before its payload: the directory and its
+    sentinel, and the step's old marker removed (an overwrite torn
+    halfway reads as torn)."""
+    root = os.path.abspath(os.fspath(directory))
     os.makedirs(root, exist_ok=True)
     era = os.path.join(root, _ERA_SENTINEL)
     if not os.path.exists(era):
         with open(era, "w") as f:
             f.write("markers govern this directory\n")
+    marker = _marker_path(directory, step)
     if os.path.exists(marker):
         os.remove(marker)
-    payload = {k: v for k, v in trees.items() if v is not None}
-    payload["_step"] = step
+    os.makedirs(checkpoint_path(directory, step), exist_ok=True)
+
+
+def _write_payload(path: str, name: str, payload) -> None:
+    """``payload`` to ``path/name`` through a temp file and
+    ``os.replace``."""
     os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, _PAYLOAD + ".tmp")
+    tmp = os.path.join(path, name + ".tmp")
     torch.save(payload, tmp)
-    os.replace(tmp, os.path.join(path, _PAYLOAD))
-    _write_marker(directory, step, payload.keys(), fingerprint=fingerprint)
-    return path
+    os.replace(tmp, os.path.join(path, name))
+
+
+def _rank_payload(position: int) -> str:
+    return f"rank_{position:05d}.pt"
 
 
 def _directory_is_marker_governed(directory: str) -> bool:
@@ -136,11 +177,9 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def load_checkpoint(directory: str, step: Optional[int] = None):
-    """The saved trees of ``step`` (None: the latest complete one), with
-    ``"_step"``, on the CPU. Loaded with ``weights_only=True`` where the
-    payload allows it (tensors, numbers, containers), else in full. A
-    named step whose marker is missing raises ``FileNotFoundError``."""
+def _complete_step(directory: str, step: Optional[int]) -> int:
+    """``step``, or the latest complete one for None; a named step whose
+    marker is missing raises ``FileNotFoundError``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -152,7 +191,20 @@ def load_checkpoint(directory: str, step: Optional[int] = None):
             f"checkpoint step {step} under {directory!r} has no commit "
             f"marker — the save did not finish (torn checkpoint); "
             f"resume from latest_step() instead")
-    path = os.path.join(checkpoint_path(directory, step), _PAYLOAD)
+    return step
+
+
+def load_checkpoint(directory: str, step: Optional[int] = None):
+    """The saved trees of ``step`` (None: the latest complete one), with
+    ``"_step"``, on the CPU. Loaded with ``weights_only=True`` where the
+    payload allows it (tensors, numbers, containers), else in full. A
+    named step whose marker is missing raises ``FileNotFoundError``."""
+    step = _complete_step(directory, step)
+    return _load_payload(os.path.join(checkpoint_path(directory, step),
+                                      _PAYLOAD))
+
+
+def _load_payload(path: str):
     try:
         return torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError:
@@ -171,24 +223,57 @@ def _distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def _layout_rank():
+    """``(position, ranks)`` of this process in the model-parallel layout:
+    its index in the grid's flat order and the grid's ranks in that
+    order."""
+    from apex_tpu_torch.transformer import parallel_state
+
+    ranks = tuple(int(r) for r in parallel_state.get_mesh().devices.ravel())
+    rank = dist.get_rank() if _distributed() else ranks[0]
+    return ranks.index(rank), ranks
+
+
+def _layout_barrier(ranks) -> None:
+    if _distributed() and len(ranks) > 1:
+        from apex_tpu_torch.utils.collectives import reduction_group
+
+        dist.barrier(group=reduction_group((ranks,))[0])
+
+
 def save_train_state(directory: str, state, train_step) -> str:
     """Checkpoint ``state`` (a ``TrainState``) with ``train_step``'s
     parameters, optimizer state and generator under
-    ``directory/step_{state.step}``; returns the path."""
+    ``directory/step_{state.step}``; returns the path. Under a
+    model-parallel layout every rank of it must call this: each writes
+    its own payload, and the marker follows the last of them."""
     opt = train_step.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
     step = int(state.step)
     path = checkpoint_path(directory, step)
-    if not _distributed() or dist.get_rank() == 0:
-        save_checkpoint(
-            directory, step,
-            train_state={"step": step,
-                         "scaler_state": dict(state.scaler_state._asdict())},
-            params=[p.detach().to("cpu", copy=True) for p in params],
-            optimizer=_cpu_copy(opt.state_dict()),
-            generator=train_step.generator.get_state())
-    if _distributed():
-        dist.barrier()
+    trees = dict(
+        train_state={"step": step,
+                     "scaler_state": dict(state.scaler_state._asdict())},
+        params=[p.detach().to("cpu", copy=True) for p in params],
+        optimizer=_cpu_copy(opt.state_dict()),
+        generator=train_step.generator.get_state())
+    shape = state_mesh_shape(state)
+    if shape is None:
+        if not _distributed() or dist.get_rank() == 0:
+            save_checkpoint(directory, step, **trees)
+        if _distributed():
+            dist.barrier()
+        return path
+    position, ranks = _layout_rank()
+    if position == 0:
+        _begin_save(directory, step)
+    _layout_barrier(ranks)              # the old marker is gone
+    _write_payload(path, _rank_payload(position), dict(trees, _step=step))
+    _layout_barrier(ranks)              # every rank's payload is in place
+    if position == 0:
+        _write_marker(directory, step, list(trees) + ["_step"],
+                      fingerprint={"mesh_shape": shape})
+    _layout_barrier(ranks)              # the marker is visible to all
     return path
 
 
@@ -197,11 +282,30 @@ def load_train_state(directory: str, train_step, step: Optional[int] = None):
     complete step) into ``train_step`` in place: the parameters through
     ``copy_``, then ``optimizer.load_state_dict`` (which keeps fp32
     masters fp32), then the generator's state. Returns ``(state,
-    step)``."""
+    step)``. Under a model-parallel layout each rank reads its own
+    payload; a checkpoint saved under another layout (or under none, or
+    per rank when no layout is up now) raises ``ValueError`` naming both
+    mesh shapes."""
     from apex_tpu_torch.amp.scaler import ScalerState
     from apex_tpu_torch.train.step import TrainState
 
-    ck = load_checkpoint(directory, step)
+    step = _complete_step(directory, step)
+    marker = read_marker(os.path.abspath(os.fspath(directory)), step) or {}
+    saved = (marker.get("fingerprint") or {}).get("mesh_shape")
+    want = state_mesh_shape()
+    if saved != want:
+        why = ("each rank's payload holds its own shards, which load onto "
+               "the same layout only" if saved is not None else
+               "rank 0's payload holds its own shards only")
+        raise ValueError(
+            f"checkpoint step {step} under {directory!r} was saved from a "
+            f"mesh of shape {saved} but this process's model-parallel "
+            f"layout is {want}: refusing the load ({why})")
+    if saved is None:
+        ck = load_checkpoint(directory, step)
+    else:
+        ck = _load_payload(os.path.join(checkpoint_path(directory, step),
+                                        _rank_payload(_layout_rank()[0])))
     opt = train_step.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
     saved = ck["params"]

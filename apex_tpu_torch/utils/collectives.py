@@ -20,7 +20,15 @@ it by kind (``collective_stats``) and, while :func:`time_collectives` is
 on, times it on the host clock between two device synchronizations. The
 backend runs each collective as asked: gloo takes CUDA tensors for all of
 them (all-reduce, all-gather and reduce-scatter into a tensor), so nothing
-is staged through host memory by this module.
+is staged through host memory by this module's collectives.
+
+Point-to-point transfers (:func:`exchange`, the pipeline's sends and
+receives) are counted and timed the same way, under ``send`` and
+``recv``, with the bytes each moved. gloo's ``send`` and ``recv`` hand the
+tensor's data pointer to its transport as host memory, so a CUDA tensor
+over gloo is staged through a host buffer, explicitly: a copy to the host
+before the send and from it after the receive, counted under
+``p2p_staged`` (calls and bytes). NCCL takes the device tensor.
 
 JAX's ``compat_shard_map``, ``mark_varying`` and ``axis_is_bound`` have no
 counterpart: a torch process holds its own rank's values, and "the axis
@@ -39,15 +47,21 @@ import torch.distributed as dist
 # default process group -> {groups key: (this rank's group, its size)}
 _cache: dict = {}
 
-# calls and host milliseconds per kind of collective, since the last reset
+# calls and host milliseconds per kind of collective, since the last reset;
+# the point-to-point kinds count bytes too (p2p_staged: the host copies of
+# CUDA tensors over gloo, whose time is the transfers')
 _KINDS = ("all_reduce", "all_gather", "reduce_scatter")
 collective_stats = {k: {"calls": 0, "ms": 0.0} for k in _KINDS}
+collective_stats.update({k: {"calls": 0, "ms": 0.0, "bytes": 0}
+                         for k in ("send", "recv", "p2p_staged")})
 _timing = [False]
 
 
 def reset_collective_stats() -> None:
     for v in collective_stats.values():
-        v["calls"], v["ms"] = 0, 0.0
+        v.update(calls=0, ms=0.0)
+        if "bytes" in v:
+            v["bytes"] = 0
 
 
 @contextlib.contextmanager
@@ -62,12 +76,14 @@ def time_collectives():
         _timing[0] = before
 
 
-def _run(kind: str, fn, device):
-    """Run one collective, counted under ``kind`` (and timed)."""
-    stat = collective_stats[kind]
-    stat["calls"] += 1
-    if not _timing[0]:
-        return fn()
+def timing() -> bool:
+    """Whether :func:`time_collectives` is on."""
+    return _timing[0]
+
+
+def timed_ms(fn, device):
+    """``(fn(), host ms)`` between two device synchronizations (on CUDA):
+    how the collectives are timed, for other work of a timed step."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(device)
@@ -75,7 +91,26 @@ def _run(kind: str, fn, device):
     out = fn()
     if cuda:
         torch.cuda.synchronize(device)
-    stat["ms"] += (time.perf_counter() - t) * 1e3
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _run(kind: str, fn, device, calls=None):
+    """Run one collective, counted under ``kind`` (and timed); ``calls``
+    (``{kind: (calls, bytes)}``) counts a batch of point-to-point
+    operations instead, its time shared by bytes."""
+    calls = calls or {kind: (1, 0)}
+    for k, (n, nbytes) in calls.items():
+        collective_stats[k]["calls"] += n
+        if nbytes:
+            collective_stats[k]["bytes"] += nbytes
+    if not _timing[0]:
+        return fn()
+    out, ms = timed_ms(fn, device)
+    timed = {k: b for k, (_, b) in calls.items() if k != "p2p_staged"}
+    total = sum(timed.values()) or 1
+    for k, nbytes in timed.items():
+        collective_stats[k]["ms"] += ms * (nbytes / total if len(timed) > 1
+                                           else 1.0)
     return out
 
 
@@ -187,6 +222,56 @@ def scatter_sum_along(x: torch.Tensor, dim: int,
     _run("reduce_scatter",
          lambda: _reduce_scatter_single(out, src, group=group), x.device)
     return out
+
+
+def exchange(sends=(), recvs=(), group=None) -> None:
+    """One batch of point-to-point transfers: ``sends`` and ``recvs`` are
+    ``(tensor, peer, tag)`` triples, ``peer`` a global rank of ``group``
+    (a process group; None: the default one). Every operation is posted
+    before any is waited on (``batch_isend_irecv``), so two ranks that
+    send to each other in one batch never block on each other; the
+    receives are filled in place. The order of several transfers between
+    one pair of ranks in one direction must agree on both sides, as must
+    their tags. Counted under ``send`` and ``recv`` with their bytes; a
+    CUDA tensor over gloo goes through a host buffer (``p2p_staged``)."""
+    _check_initialized()
+    sends, recvs = list(sends), list(recvs)
+    if not sends and not recvs:
+        return
+    device = (sends or recvs)[0][0].device
+    backend = dist.get_backend(group)
+    staged = device.type == "cuda" and backend == "gloo"
+
+    def host(t):
+        return t.detach().to("cpu") if staged else t.detach()
+
+    send_bufs = [host(t).contiguous() for t, _, _ in sends]
+    recv_bufs = [(torch.empty(t.shape, dtype=t.dtype) if staged else t)
+                 for t, _, _ in recvs]
+    ops = ([dist.P2POp(dist.isend, b, peer, group, tag)
+            for b, (_, peer, tag) in zip(send_bufs, sends)]
+           + [dist.P2POp(dist.irecv, b, peer, group, tag)
+              for b, (_, peer, tag) in zip(recv_bufs, recvs)])
+
+    def run():
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if staged:
+            for (t, _, _), b in zip(recvs, recv_bufs):
+                t.copy_(b)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t, _, _ in ts)
+
+    calls = {}
+    if sends:
+        calls["send"] = (len(sends), nbytes(sends))
+    if recvs:
+        calls["recv"] = (len(recvs), nbytes(recvs))
+    if staged:
+        calls["p2p_staged"] = (len(sends) + len(recvs),
+                               nbytes(sends) + nbytes(recvs))
+    _run("send", run, device, calls)
 
 
 def group_size(groups=None) -> int:

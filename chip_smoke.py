@@ -417,6 +417,30 @@ the replicas of a group end bit-equal, and the run is the world-2 run on
 the whole batch. A ``{"phase17": ...}`` line records it; ``--only 17``
 runs it alone.
 
+Phase 18, pipeline parallelism: 4 ranks as spawned processes on this
+card over gloo, whose point-to-point transfers of CUDA tensors go
+through host buffers (counted). 18a, the ring helpers and the paired
+exchanges on bf16 and fp32 ``cuda:0`` tensors at 4 stages and at 2 (two
+groups of 2 ranks), exactly, ``pack_carry`` round trips on the card and
+``measure_pipeline_ticks``; 18b, at TP 2 x PP 2, BERT-large width (4
+layers, fp32, dropout 0, sequence parallelism, 4 microbatches of 2 at S
+512): 1F1B's loss and each rank's gradients against TP 2 without a
+pipeline (loss within 1e-4, gradients within 1e-3 of their norm), the
+interleaved schedule (2 chunks of one layer a rank) alike, and C13: a
+state saved per rank after a step, loaded into other weights, takes the
+next step bitwise as the uninterrupted run on every rank, and a TP 4
+load refuses; 18c, BERT-large at 24 layers (12 a stage), TP 2 with
+sequence parallelism x PP 2 through the 3-D step (``transformer/
+testing/commons.build_pipeline_bert_step``), bf16, the layers' remat,
+amp O2, FusedLAMB, dropout 0.1: 3 steps of 4 microbatches of 2 at S 512
+and a timed one, finite losses equal on all four ranks at every step,
+each stage's launches a microbatch as ``pp_stage_launches`` derives them,
+no plain route; step ms, samples/s (time-shared ranks: not a pipeline
+throughput), peak memory, transfers and collectives a step with their
+ms, and the measured bubble beside the recorded ticks' and
+``tick_accounting``'s. A ``{"phase18": ...}`` line records it;
+``--only 18`` runs it alone.
+
 fp32 products stay fp32: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False.
 
@@ -7920,9 +7944,10 @@ def phase17_worker(rank, world, init_file, seed, card, parts, opts, queue):
             dist.destroy_process_group()
 
 
-def tp_world_start(world, seed, card, parts, opts):
-    """Spawn ``world`` ranks on the card running ``parts``; returns the
-    handle :func:`tp_world_collect` and :func:`tp_world_stop` take."""
+def tp_world_start(world, seed, card, parts, opts, worker=None):
+    """Spawn ``world`` ranks on the card running ``parts`` (in
+    ``worker``, phase 17's by default); returns the handle
+    :func:`tp_world_collect` and :func:`tp_world_stop` take."""
     import multiprocessing
     import tempfile
 
@@ -7930,7 +7955,7 @@ def tp_world_start(world, seed, card, parts, opts):
     q = ctx.Queue()
     tmp = tempfile.TemporaryDirectory()
     init_file = str(Path(tmp.name) / "rendezvous")
-    procs = [ctx.Process(target=phase17_worker,
+    procs = [ctx.Process(target=worker or phase17_worker,
                          args=(r, world, init_file, seed, card, parts, opts,
                                q))
              for r in range(world)]
@@ -7939,7 +7964,7 @@ def tp_world_start(world, seed, card, parts, opts):
     return world, procs, q, tmp
 
 
-def tp_world_collect(torch, handle, timeout_s):
+def tp_world_collect(torch, handle, timeout_s, label="phase 17"):
     """Each rank's results (a failed rank fails the phase)."""
     import queue as queue_mod
 
@@ -7948,11 +7973,11 @@ def tp_world_collect(torch, handle, timeout_s):
     try:
         for _ in range(world):
             rank, status, out = q.get(timeout=timeout_s)
-            check(status == "ok", f"phase 17 rank {rank} of {world} "
+            check(status == "ok", f"{label} rank {rank} of {world} "
                   f"failed:\n{out}")
             got[rank] = map_tensors(torch.from_numpy, out)
     except queue_mod.Empty:
-        raise SmokeFailure(f"phase 17: no result from world {world} in "
+        raise SmokeFailure(f"{label}: no result from world {world} in "
                            f"{timeout_s} s")
     return [got[r] for r in range(world)]
 
@@ -8088,6 +8113,497 @@ def phase17(torch, dev, seed, card, timeout_s=600, cfg_kw=None,
     return rec
 
 
+# -- phase 18: pipeline parallelism (ranks on one card, gloo) -------------------
+
+# 18b: BERT-large width, PP_LAYERS layers, fp32, dropout 0, S PP_S, PP_M
+# microbatches of PP_MB sequences; 18c: BERT-large at full depth, the same
+# microbatches, PP_STEPS global steps and one timed step
+PP_LAYERS, PP_S, PP_MB, PP_M, PP_STEPS = 4, 512, 2, 4, 3
+
+
+def pp_stage_launches(layers, first):
+    """Launches a microbatch on one stage of 18c: its layers remat
+    themselves (the schedule does not), so a layer runs its 2 LayerNorms
+    (B2), 2 hidden dropout sites (B3) and its attention (B4) forward and
+    again in its recompute, then the LayerNorms' and dropouts' backward
+    (B1, B3) and one attention backward (B5); the first stage adds the
+    embeddings' LayerNorm and dropout site (forward and backward, not
+    recomputed); the last stage's decoder and loss launch none."""
+    e = 1 if first else 0
+    return {"layer_norm_fwd": e + 4 * layers, "layer_norm_bwd": e + 2 * layers,
+            "dropout": 2 * e + 6 * layers, "flash_fwd": 2 * layers,
+            "flash_bwd": layers}
+
+
+def pp_batch(torch, dev, seed, vocab, S):
+    """``{"ids", "labels"}``, each ``(PP_M, PP_MB, S)``: random token ids
+    and random labels over every position (the dry run's loss)."""
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.randint(0, vocab, (PP_M, PP_MB, S), generator=g).to(dev)
+            for k in ("ids", "labels")}
+
+
+def pp_layout(tp, pp):
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    ps.destroy_model_parallel()
+    ps.initialize_model_parallel(tp, pp)
+    return ps
+
+
+def pp_p2p(torch, dev, rank, world):
+    """Phase 18a on one rank: the ring helpers and the paired exchanges on
+    ``cuda:0`` bf16 and fp32 tensors, at 4 stages and at 2 (two groups of
+    2 ranks), each result exactly the neighbour's value; ``pack_carry``
+    round trips on the card exact; ``measure_pipeline_ticks`` at 4
+    stages."""
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        p2p_communication as p2p,
+    )
+    from apex_tpu_torch.transformer.pipeline_parallel.efficiency import (
+        measure_pipeline_ticks,
+    )
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+        CarryStruct,
+        pack_carry,
+        unpack_carry,
+    )
+    from apex_tpu_torch.utils import collectives as c
+
+    held = {}
+    c.reset_collective_stats()
+    for pp in (world, 2):
+        ps = pp_layout(1, pp)
+        s = ps.get_pipeline_model_parallel_rank()
+        prev, nxt = (s - 1) % pp, (s + 1) % pp
+        for dt in (torch.float32, torch.bfloat16):
+            def val(t, sign=1):
+                return (torch.arange(24, dtype=dt, device=dev).view(4, 6)
+                        + sign * 8 * t)
+            x, g = val(s), val(s, -1)
+            tag = f"pp {pp} {str(dt).split('.')[-1]}"
+            held[f"send_forward {tag}"] = torch.equal(p2p.send_forward(x),
+                                                      val(prev))
+            held[f"send_backward {tag}"] = torch.equal(p2p.send_backward(x),
+                                                       val(nxt))
+            held[f"recv_forward {tag}"] = torch.equal(p2p.recv_forward(x),
+                                                      val(prev))
+            held[f"recv_backward {tag}"] = torch.equal(p2p.recv_backward(x),
+                                                       val(nxt))
+            a, b = p2p.send_forward_recv_backward(x, g)
+            held[f"send_forward_recv_backward {tag}"] = (
+                torch.equal(a, val(prev)) and torch.equal(b, val(nxt, -1)))
+            b, a = p2p.send_backward_recv_forward(g, x)
+            held[f"send_backward_recv_forward {tag}"] = (
+                torch.equal(b, val(nxt, -1)) and torch.equal(a, val(prev)))
+            held[f"on the card {tag}"] = a.device == dev
+    stats = {k: dict(v) for k, v in c.collective_stats.items()
+             if k in ("send", "recv", "p2p_staged")}
+    gen = torch.Generator().manual_seed(rank)
+    ids = torch.randint(-5, 2 ** 30, (4, 3), generator=gen,
+                        dtype=torch.int32).to(dev)
+    xs = torch.randn(5, generator=gen).to(dev)
+    f13, i13 = (CarryStruct((13,), torch.float32),
+                CarryStruct((13,), torch.int32))
+    held["pack_carry int32 through float32"] = torch.equal(
+        unpack_carry(pack_carry(ids, f13), (4, 3), torch.int32), ids)
+    held["pack_carry int32 through int32"] = torch.equal(
+        unpack_carry(pack_carry(ids, i13), (4, 3), torch.int32), ids)
+    held["pack_carry float32 through int32"] = torch.equal(
+        unpack_carry(pack_carry(xs, i13), (5,), torch.float32), xs)
+    held["pack_carry bf16 through float32"] = torch.equal(
+        unpack_carry(pack_carry(xs.bfloat16(), f13), (5,), torch.bfloat16),
+        xs.bfloat16())
+    failed = sorted(k for k, ok in held.items() if not ok)
+    check(not failed, f"phase 18a rank {rank}: not exact: {failed}")
+    pp_layout(1, world)
+    ticks = measure_pipeline_ticks((2, 8), device=dev)
+    return dict(held=sorted(held), p2p=stats, measured_ticks=ticks)
+
+
+def pp_named_grads(step, chunks, batch):
+    """``(loss, {model name: gradient})`` of one ``loss_and_grads`` run."""
+    loss, grads = step.loss_and_grads(batch)
+    names = {id(p): c.global_name(n) for c in chunks
+             for n, p in c.named_parameters()}
+    return loss.item(), {names[id(p)]: g for p, g in zip(step.ts.params,
+                                                          grads)}
+
+
+def pp_build(torch, dev, seed, cfg, chunks_n=1, **kw):
+    """This rank's chunks of a ``cfg.num_layers`` BERT from ``seed`` and a
+    3-D step over them (FusedLAMB, lr 1e-4, weight decay 0.01)."""
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer.testing.commons import (
+        build_pipeline_bert_step,
+        pipeline_bert_chunks,
+    )
+
+    chunks = pipeline_bert_chunks(cfg, cfg.num_layers, chunks_n, device=dev,
+                                  seed=seed)
+    opt = FusedLAMB([p for c in chunks for p in c.parameters()], lr=1e-4,
+                    weight_decay=0.01)
+    return chunks, build_pipeline_bert_step(chunks, opt, seed=seed, **kw)
+
+
+def pp_vs_tp(torch, dev, seed, rank, world, cfg_kw, S, ckpt_dir, tol=1e-4):
+    """Phase 18b on one rank: BERT-large width, ``PP_LAYERS`` layers, fp32,
+    dropout 0, sequence parallelism on, ``PP_M`` microbatches of ``PP_MB``
+    at S ``S``. The loss and this rank's gradients (raw: the
+    sequence-parallel parts unsummed, alike in both) at TP 2 x PP 2 (1F1B)
+    against TP 2 without a pipeline (the 4 ranks as 2 data-parallel
+    copies, each rank its tensor shard of every layer, the microbatches
+    accumulated): loss within ``tol`` relative, gradients within 10 ``tol``
+    of their norm (a gradient 0 to rounding against 1e-3 of the largest);
+    the interleaved schedule (2 chunks of one layer a rank) alike, its
+    loss against 1F1B's and its gradients against TP 2's (its layers on a
+    rank are not 1F1B's). Then C13: a step (LossScaler, DDP over the data-parallel
+    group), a save of every rank's state, a second step; other weights
+    loaded from the save take the second step bitwise alike; a load under
+    a TP 4 layout refuses."""
+    from apex_tpu_torch.amp.scaler import LossScaler
+    from apex_tpu_torch.models import BertConfig
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.utils import checkpoint as ck
+
+    kw = dict(dict(num_layers=PP_LAYERS, hidden_dropout=0.0,
+                   attention_dropout=0.0, remat=False,
+                   use_tensor_parallel=True, sequence_parallel=True), **cfg_kw)
+    cfg = BertConfig(**kw)
+    batch = pp_batch(torch, dev, seed, cfg.vocab_size, S)
+
+    def grads(tp, pp, chunks_n):
+        pp_layout(tp, pp)
+        chunks, step = pp_build(torch, dev, seed, cfg, chunks_n)
+        out = pp_named_grads(step, chunks, batch)
+        del chunks, step
+        return out
+
+    runs = {"1f1b": grads(2, 2, 1), "interleaved": grads(2, 2, 2),
+            "tp2": grads(2, 1, 1)}
+    rows = {}
+    # the interleaved run holds other layers than 1F1B's on a rank (global
+    # stages r and 2 + r): its gradients are held against TP 2's, which
+    # hold every layer, and its loss against 1F1B's
+    for name, ref in (("1f1b", "tp2"), ("interleaved", "1f1b")):
+        loss, got = runs[name]
+        loss1, want = runs[ref][0], runs["tp2"][1]
+        top = max(want[n].norm().item() for n in got)
+        worst, where = 0.0, None
+        for n, g in got.items():
+            err = ((g - want[n]).norm() / max(want[n].norm().item(),
+                                              1e-3 * top)).item()
+            if err > worst:
+                worst, where = err, n
+        loss_err = abs(loss - loss1) / abs(loss1)
+        check(loss_err <= tol and worst <= 10 * tol,
+              f"phase 18b rank {rank} {name}: loss {loss} vs {loss1}, "
+              f"worst gradient {worst:.3g} of its norm ({where})")
+        rows[name] = dict(loss=loss, loss_ref=loss1, loss_ref_of=ref,
+                          loss_rel_err=loss_err,
+                          worst_grad_of_norm=worst, worst_at=where,
+                          tensors=len(got))
+    del runs
+    # C13 on the card
+    ps = pp_layout(2, 2)
+
+    def stepper(s):
+        chunks, step = pp_build(
+            torch, dev, s, cfg, amp=LossScaler(),
+            ddp=DistributedDataParallel(
+                process_group=ps.get_data_parallel_ranks()))
+        return chunks, step
+
+    batch2 = pp_batch(torch, dev, seed + 1, cfg.vocab_size, S)
+    chunks, step = stepper(seed)
+    state, _ = step(step.init(), batch)
+    t = time.perf_counter()
+    ck.save_train_state(ckpt_dir, state, step.ts)
+    save_s = time.perf_counter() - t
+    state, m = step(state, batch2)
+    want = [p.detach().clone() for p in step.ts.params]
+    loss2 = m["loss"].item()
+    del chunks, step
+    chunks, step = stepper(seed + 1)                  # other weights
+    t = time.perf_counter()
+    state2, at = ck.load_train_state(ckpt_dir, step.ts)
+    load_s = time.perf_counter() - t
+    state2, m2 = step(state2, batch2)
+    bitwise = (at == 1 and m2["loss"].item() == loss2
+               and all(torch.equal(p, w) for p, w in zip(step.ts.params,
+                                                          want)))
+    check(bitwise, f"phase 18b rank {rank}: the resumed step 2 is not the "
+          f"uninterrupted one (loss {m2['loss'].item()} vs {loss2})")
+    del chunks, step, want
+    pp_layout(4, 1)
+    try:
+        ck.load_train_state(ckpt_dir, None)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "mesh" in refused,
+          f"phase 18b rank {rank}: a TP 4 load was not refused ({refused})")
+    pp_layout(2, 2)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(rows=rows, resume_bitwise=bitwise, resumed_loss=loss2,
+                save_s=save_s, load_s=load_s, tp4_refusal=refused)
+
+
+def pp_train(torch, dev, seed, rank, world, card, cfg_kw, S, expect=None):
+    """Phase 18c on one rank: BERT-large at full depth (24 layers, 12 a
+    stage), TP 2 with sequence parallelism x PP 2 (1F1B), bf16, the
+    layers' own remat, amp O2, FusedLAMB (lr 1e-4, weight decay 0.01),
+    dropout 0.1, DDP over the data-parallel group, through the 3-D step:
+    ``PP_STEPS`` global steps of ``PP_M`` microbatches of ``PP_MB`` at S
+    ``S``, launches counted from 0 just before and read just after; one
+    more step times the collectives, the transfers and each schedule op
+    (a device synchronization around each). ``expect``: this stage's
+    launches a microbatch (:func:`pp_stage_launches` by default)."""
+    import math
+
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.models import BertConfig
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+        last_schedule_record,
+    )
+    from apex_tpu_torch.transformer.testing.commons import (
+        build_pipeline_bert_step,
+        pipeline_bert_chunks,
+    )
+    from apex_tpu_torch.utils import collectives
+
+    ps = pp_layout(2, 2)
+    stage = ps.get_pipeline_model_parallel_rank()
+    cfg = BertConfig(**dict(dict(dtype=torch.bfloat16, remat=True,
+                                 use_tensor_parallel=True,
+                                 sequence_parallel=True), **cfg_kw))
+    layers = cfg.num_layers // ps.get_pipeline_model_parallel_world_size()
+    expect = expect or pp_stage_launches(layers, stage == 0)
+    t0 = time.perf_counter()
+    (chunk,) = pipeline_bert_chunks(cfg, cfg.num_layers, device=dev,
+                                    seed=seed)
+    opt = FusedLAMB(chunk.parameters(), lr=1e-4, weight_decay=0.01)
+    chunk, opt, handle = amp.initialize(chunk, opt, opt_level="O2",
+                                        verbosity=0, device=dev)
+    step = build_pipeline_bert_step(
+        [chunk], opt, amp=handle, seed=seed, with_grad_norm=True,
+        ddp=DistributedDataParallel(
+            process_group=ps.get_data_parallel_ranks()))
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in chunk.parameters())
+    batch = pp_batch(torch, dev, seed, cfg.vocab_size, S)
+    cuda = dev.type == "cuda"
+    state = step.init()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    collectives.reset_collective_stats()
+    _build.reset_launch_counts()
+    times, losses, norms, skipped = [], [], [], []
+    for _ in range(PP_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        if cuda:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        norms.append(m["grad_norm"].item())
+        skipped.append(m["skipped"])
+    launches = dict(_build.launches)
+    calls = {k: {f: v[f] / PP_STEPS for f in ("calls", "bytes") if f in v}
+             for k, v in collectives.collective_stats.items()}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    collectives.reset_collective_stats()
+    t = time.perf_counter()
+    with collectives.time_collectives():
+        state, m = step(state, batch)
+        if cuda:
+            torch.cuda.synchronize()
+    timed_ms = (time.perf_counter() - t) * 1e3
+    losses_timed = m["loss"].item()
+    coll_ms = {k: v["ms"] for k, v in collectives.collective_stats.items()}
+    record = last_schedule_record()
+    busy = sum(op[3] for op in record if op[0] in ("F", "B"))
+    check(all(math.isfinite(x) for x in losses + [losses_timed]),
+          f"phase 18c rank {rank}: non-finite loss {losses}")
+    for k, v in expect.items():
+        check(launches[k] == v * PP_M * PP_STEPS,
+              f"phase 18c rank {rank} (stage {stage}): {k} launched "
+              f"{launches[k]} times in {PP_STEPS} steps of {PP_M} "
+              f"microbatches, expected {v} a microbatch")
+    check_no_route(launches, f"phase 18c rank {rank}")
+    ms = sorted(x * 1e3 for x in times)
+    med = ms[len(ms) // 2]
+    del step, chunk, opt
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(card=card, stage=stage,
+                tp_rank=ps.get_tensor_model_parallel_rank(),
+                n_params_rank=n_params, setup_s=setup_s, step_ms=ms,
+                step_ms_median=med,
+                samples_per_s=PP_M * PP_MB * ps.get_data_parallel_world_size()
+                * 1e3 / med,
+                peak_memory_bytes=peak, losses=losses + [losses_timed],
+                grad_norms=norms, skipped=skipped, launches=launches,
+                launches_per_microbatch={k: launches[k] / (PP_M * PP_STEPS)
+                                         for k in expect},
+                transfers_per_step=calls, timed_step_ms=timed_ms,
+                collective_ms_one_step=coll_ms, schedule_busy_ms=busy,
+                measured_bubble=1.0 - busy / timed_ms,
+                record=[op[:3] for op in record])
+
+
+def phase18_worker(rank, world, init_file, seed, card, parts, opts, queue):
+    """One rank of phase 18: gloo on ``cuda:0`` beside the other ranks
+    (``opts["device"]``), running ``parts`` in order, each laying the world
+    out as it needs."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        from apex_tpu_torch.parallel import init_process_group
+
+        init_process_group(f"file://{init_file}", world, rank,
+                           backend="gloo")
+        dev = torch.device(opts["device"])
+        if dev.type == "cuda":
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+        out = {}
+        for part in parts:
+            t = time.perf_counter()
+            if part == "18a":
+                out[part] = pp_p2p(torch, dev, rank, world)
+            elif part == "18b":
+                out[part] = pp_vs_tp(torch, dev, seed, rank, world,
+                                     opts["cfg_kw"], opts["S"],
+                                     opts["ckpt_dir"])
+            else:
+                out[part] = pp_train(torch, dev, seed, rank, world, card,
+                                     opts["train_kw"], opts["S"],
+                                     opts["expect"])
+            out[part + "_s"] = time.perf_counter() - t
+        queue.put((rank, "ok", map_tensors(lambda t: t.numpy(), out)))
+    except Exception:           # reported to the parent, which fails
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase18(torch, dev, seed, card, timeout_s=900, cfg_kw=None,
+            train_kw=None, S=PP_S, expect=None):
+    """Phase 18: pipeline parallelism, 4 ranks as spawned processes on the
+    one card over gloo. 18a the ring helpers and paired exchanges exact on
+    ``cuda:0`` (4 stages, and 2 groups of 2), ``pack_carry`` exact on the
+    card, ``measure_pipeline_ticks``; 18b TP 2 x PP 2 against TP 2 at
+    BERT-large width (4 layers, fp32, dropout 0), the interleaved schedule
+    against 1F1B, and C13 (per-rank checkpoints: a resumed step bitwise
+    the uninterrupted one on every rank, a TP 4 load refused); 18c
+    BERT-large at 24 layers, TP 2 + SP x PP 2 through the 3-D step: finite
+    losses equal on all four ranks at every step, each stage's launches a
+    microbatch as :func:`pp_stage_launches` derives them, no plain route;
+    per rank step ms, samples/s (ranks time-share one card over gloo: not
+    a pipeline throughput), peak memory, transfers and collectives a step
+    with their ms, and the measured bubble beside the recorded ticks' and
+    ``tick_accounting``'s. ``cfg_kw``, ``train_kw``, ``S`` and ``expect``
+    are for a rehearsal at a smaller configuration."""
+    import shutil
+    import tempfile
+
+    from apex_tpu_torch.transformer.pipeline_parallel.efficiency import (
+        schedule_ticks,
+        tick_accounting,
+    )
+
+    ckpt = tempfile.mkdtemp(prefix="phase18_ckpt_")
+    opts = dict(device=str(dev), cfg_kw=cfg_kw or {},
+                train_kw=train_kw or {}, S=S, expect=expect, ckpt_dir=ckpt)
+    handle = tp_world_start(4, seed, card, ("18a", "18b", "18c"), opts,
+                            worker=phase18_worker)
+    try:
+        ranks = tp_world_collect(torch, handle, timeout_s, label="phase 18")
+    finally:
+        tp_world_stop(handle)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    c = [r["18c"] for r in ranks]
+    steps = len(c[0]["losses"])
+    equal = [len({r["losses"][i] for r in c}) == 1 for i in range(steps)]
+    check(all(equal), f"phase 18c: the ranks' losses differ at steps "
+          f"{[i for i, e in enumerate(equal) if not e]}: "
+          f"{[r['losses'] for r in c]}")
+    # the schedule's recorded ticks: the pipeline group of tensor rank 0
+    group = sorted((r for r in c if r["tp_rank"] == 0),
+                   key=lambda r: r["stage"])
+    ticks = schedule_ticks([r["record"] for r in group])
+    accounting = tick_accounting(len(group), PP_M)
+    check(abs(ticks["bubble_fraction"] - accounting["bubble_fraction"])
+          < 1e-9, f"phase 18c: recorded bubble {ticks} against "
+          f"{accounting}")
+    for r in c:
+        r.pop("record")
+    b = [r["18b"] for r in ranks]
+    a = ranks[0]["18a"]
+    held = {k: (v["loss_rel_err"], v["worst_grad_of_norm"])
+            for k, v in b[0]["rows"].items()}
+    print(f"[phase 18a/b] {card}: gloo on cuda:0, {len(a['held'])} "
+          f"transfers and carries exact (p2p {a['p2p']}) | measured ticks "
+          f"slope/stage {a['measured_ticks']['slope_over_stage_cost']:.3g} | "
+          f"TP 2 x PP 2 vs TP 2, 4 layers fp32: {held} "
+          f"| C13 resume bitwise on all 4 ranks, save "
+          f"{max(x['save_s'] for x in b):.2f} s, load "
+          f"{max(x['load_s'] for x in b):.2f} s, TP 4 load refused",
+          flush=True)
+    for r in c:
+        moved = {k: v for k, v in r["transfers_per_step"].items()
+                 if v.get("calls")}
+        timed = {k: round(v, 1) for k, v in
+                 r["collective_ms_one_step"].items() if v}
+        print(f"[phase 18c rank {r['stage'] * 2 + r['tp_rank']}] {card}: "
+              f"BERT-large TP 2 + SP x PP 2, stage {r['stage']}; ranks "
+              f"time-share one card over gloo; not a pipeline throughput | "
+              f"{r['n_params_rank']} params | step ms "
+              f"{', '.join(f'{x:.1f}' for x in r['step_ms'])} | "
+              f"{r['samples_per_s']:.2f} samples/s | peak memory "
+              f"{r['peak_memory_bytes'] / 2**30:.2f} GiB | losses "
+              f"{r['losses']} | launches a microbatch "
+              f"{r['launches_per_microbatch']} | transfers a step {moved} "
+              f"| ms of one timed step {r['timed_step_ms']:.1f}: {timed}, "
+              f"schedule ops {r['schedule_busy_ms']:.1f} | measured bubble "
+              f"{r['measured_bubble']:.3f} (recorded ticks "
+              f"{ticks['bubble_fraction']:.3f}, tick_accounting(2, {PP_M}) "
+              f"{accounting['bubble_fraction']:.3f})", flush=True)
+    rec = dict(card=card, p2p=[r["18a"] for r in ranks], tp_vs_pp=b,
+               train=c, losses_equal=equal, recorded_ticks=ticks,
+               tick_accounting=accounting,
+               part_s={f"rank{i} {k}": v for i, res in enumerate(ranks)
+                       for k, v in res.items() if k.endswith("_s")})
+    print(json.dumps({"phase18": dict(
+        card=card, p2p_exact=len(a["held"]),
+        tp_vs_pp={k: dict(loss_rel_err=max(x["rows"][k]["loss_rel_err"]
+                                           for x in b),
+                          worst_grad_of_norm=max(
+                              x["rows"][k]["worst_grad_of_norm"] for x in b))
+                  for k in b[0]["rows"]},
+        resume_bitwise=all(x["resume_bitwise"] for x in b),
+        train=dict(step_ms_median=[r["step_ms_median"] for r in c],
+                   samples_per_s=[r["samples_per_s"] for r in c],
+                   peak_memory_bytes=[r["peak_memory_bytes"] for r in c],
+                   measured_bubble=[r["measured_bubble"] for r in c],
+                   losses_equal=equal),
+        recorded_bubble=ticks["bubble_fraction"],
+        tick_accounting_bubble=accounting["bubble_fraction"])},
+        default=str), flush=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, rows, main, launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -8102,7 +8618,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
-                    "(2, 10, 11, 12, 13, 14, 15, 16, 17), for iterating on "
+                    "(2, 10, 11, 12, 13, 14, 15, 16, 17, 18), for iterating "
+                    "on "
                     "one; "
                     "prints no kernels or ok line")
     args = ap.parse_args(argv)
@@ -8170,6 +8687,9 @@ def main(argv=None):
         if "17" in only:
             out["phase17"] = timed("phase 17", phase17, torch, dev, seed,
                                    card)
+        if "18" in only:
+            out["phase18"] = timed("phase 18", phase18, torch, dev, seed,
+                                   card)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_only.json").write_text(json.dumps(
@@ -8223,6 +8743,7 @@ def main(argv=None):
     mesh = timed("phase 15", phase15, torch, dev, seed, card)
     fleet = timed("phase 16", phase16, torch, dev, seed, card)
     tensor_parallel = timed("phase 17", phase17, torch, dev, seed, card)
+    pipeline = timed("phase 18", phase18, torch, dev, seed, card)
 
     # each kernel's launches on the main paths that run it (B1 and B3 run
     # in the training phases 3-5 and 9, B2 and B1 also on the contrib
@@ -8295,6 +8816,11 @@ def main(argv=None):
             for k, v in arm["launches"].items():
                 if k in launches:
                     launches[k] += v
+    # phase 18c: every rank's launches (B1-B5), each stage its own
+    for rank_rec in pipeline["train"]:
+        for k, v in rank_rec["launches"].items():
+            if k in launches:
+                launches[k] += v
     kernels = [
         kernel_entry("paged_read", "apex_tpu_torch/csrc/paged_read.cu",
                      "apex_tpu/ops/paged_attention_pallas.py:106",
@@ -8370,7 +8896,8 @@ def main(argv=None):
         serving_prefix_spec=serving, model_options=options,
         quantized_pools_tenancy=pools, faults_recovery=faults,
         spill_observability=tiers, mesh_migration=mesh, fleet=fleet,
-        tensor_parallel=tensor_parallel, checks=checks,
+        tensor_parallel=tensor_parallel, pipeline_parallel=pipeline,
+        checks=checks,
         phase_s=phase_s, kernels=kernels), indent=1))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -2121,3 +2121,22 @@ def test_gloo_collectives_and_mappings_on_cuda(cuda_device, tmp_path):
     held = td.value(td.run_worlds({2: [("gloo", "torch_tp_cases:gloo_cuda",
                                         {})]}, tmp_path)[2], "gloo")
     assert all(len(h) == 20 for h in held)
+
+
+@pytest.mark.gpu
+def test_pipeline_transfers_on_cuda(cuda_device, tmp_path):
+    """Four ranks over gloo on ``cuda:0`` (phase 18a): the ring helpers
+    and the paired exchanges on bf16 and fp32 tensors at 4 stages and at
+    2 (two groups of 2 ranks), each result exactly the neighbour's, every
+    transfer staged through the host and counted; ``pack_carry`` round
+    trips exact on the card."""
+    import torch_dist as td
+
+    ranks = td.value(td.run_worlds({4: [("p2p", "torch_pp_cases:p2p_cuda",
+                                         {})]}, tmp_path)[4], "p2p")
+    for r in ranks:
+        assert len(r["held"]) == 32
+        # 8 sends and 8 receives a dtype and layout (the paired helpers
+        # send two each), 2 dtypes, 2 layouts
+        assert r["p2p"]["send"]["calls"] == r["p2p"]["recv"]["calls"] == 32
+        assert r["p2p"]["p2p_staged"]["calls"] == 64
